@@ -1,0 +1,171 @@
+"""Padded inverted-list storage (counterpart of ``repro.core.lists``).
+
+Layout, byte for byte the reference's:
+  codes: (nlist, cap, M//2) uint8   nibble-packed PQ codes, zero-padded,
+                                    low nibble = even sub-space
+  ids:   (nlist, cap)       int32   global vector ids, -1 = padding
+  sizes: (nlist,)           int32   true occupancy per list (<= cap)
+  attrs: (nlist, cap)       int32   optional per-row attribute, -1 = padding
+
+Filter bitmaps are packed ``(nlist, W) u8`` with ``W = ceil(cap / 8)``;
+bit ``j`` of word ``w`` is slot ``w*8 + j`` (LSB-first), 1 = the row passes.
+
+A store may carry leading shard dimensions (``(S, nlist, cap)`` ids); the
+``nlist``/``cap`` properties read the trailing two dimensions so they hold
+for such stacked stores too.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class ListStore(NamedTuple):
+    codes: torch.Tensor   # (..., nlist, cap, M//2) uint8
+    ids: torch.Tensor     # (..., nlist, cap) int32, -1 = padding
+    sizes: torch.Tensor   # (..., nlist) int32
+    attrs: torch.Tensor | None = None
+
+    @property
+    def nlist(self) -> int:
+        return self.ids.shape[-2]
+
+    @property
+    def cap(self) -> int:
+        return self.ids.shape[-1]
+
+    def gather_ids(self, probe_ids: torch.Tensor) -> torch.Tensor:
+        """ids of the probed lists: probe_ids (..., P) -> (..., P, cap) i32;
+        a negative probe yields a fully padded (-1) list."""
+        got = self.ids[torch.clamp_min(probe_ids, 0).long()]
+        return torch.where((probe_ids >= 0)[..., None], got, -1)
+
+    def probed_sizes(self, probe_ids: torch.Tensor) -> torch.Tensor:
+        """True occupancy of each probed list (0 for invalid probes)."""
+        got = self.sizes[torch.clamp_min(probe_ids, 0).long()]
+        return torch.where(probe_ids >= 0, got, 0)
+
+
+def base_norms(base: torch.Tensor) -> torch.Tensor:
+    """Per-row squared norms ``‖x‖²`` (N, D) -> (N,) f32: the same row-wise
+    multiply + sum the re-rank distance uses for ``‖q‖²``."""
+    return torch.sum(base * base, dim=-1)
+
+
+def filter_words(cap: int) -> int:
+    """Words per list of a packed filter bitmap: W = ceil(cap / 8)."""
+    return -(-int(cap) // 8)
+
+
+_BIT = 1 << np.arange(8)
+
+
+def pack_filter_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Per-slot bool mask (..., cap) -> packed bitmap (..., W) u8
+    (LSB-first; bits past ``cap`` in the last word are 0)."""
+    cap = mask.shape[-1]
+    m = mask.to(torch.int32)
+    pad = (-cap) % 8
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    m = m.reshape(*mask.shape[:-1], -1, 8)
+    weights = torch.as_tensor(_BIT, dtype=torch.int32, device=mask.device)
+    return torch.sum(m * weights, dim=-1).to(torch.uint8)
+
+
+def unpack_filter_mask(bits: torch.Tensor, cap: int) -> torch.Tensor:
+    """Inverse of ``pack_filter_mask``: (..., W) u8 -> (..., cap) bool."""
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    u = (bits.to(torch.int32)[..., None] >> shifts) & 1
+    return u.reshape(*bits.shape[:-1], -1)[..., :cap].to(torch.bool)
+
+
+def filter_pass_sizes(store: ListStore, filter_bits: torch.Tensor
+                      ) -> torch.Tensor:
+    """Rows per list that pass the filter: (nlist, W) u8 -> (nlist,) i32.
+    Bits at slots past ``sizes`` never count."""
+    cap = store.cap
+    m = unpack_filter_mask(filter_bits, cap)
+    slot = torch.arange(cap, dtype=torch.int32, device=m.device)
+    inside = slot < store.sizes[..., None]
+    return torch.sum(m & inside, dim=-1, dtype=torch.int32)
+
+
+def build_lists(assign: np.ndarray, packed_codes: np.ndarray, *, nlist: int,
+                cap: int | None = None, ids: np.ndarray | None = None,
+                attrs: np.ndarray | None = None,
+                device: torch.device | str = "cpu") -> ListStore:
+    """Bucket packed codes into padded lists (host-side numpy, offline).
+
+    Same result as the reference's row-by-row loop, vectorised: a stable
+    argsort by list puts each list's rows in their original order, a row's
+    slot is its rank inside its list, and rows ranked past ``cap`` are
+    dropped (reflected in ``sizes``).
+    """
+    assign = np.asarray(assign, np.int64)
+    packed = np.asarray(packed_codes, np.uint8)
+    n, mh = packed.shape
+    gids = (np.arange(n, dtype=np.int32) if ids is None
+            else np.asarray(ids, np.int32))
+    counts = np.bincount(assign, minlength=nlist)
+    cap_ = int(cap or max(1, counts.max(initial=0)))
+    order = np.argsort(assign, kind="stable")
+    lists = assign[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(n) - starts[lists]
+    keep = rank < cap_
+    li, si, src = lists[keep], rank[keep], order[keep]
+    list_codes = np.zeros((nlist, cap_, mh), np.uint8)
+    list_ids = np.full((nlist, cap_), -1, np.int32)
+    list_codes[li, si] = packed[src]
+    list_ids[li, si] = gids[src]
+    list_attrs = None
+    if attrs is not None:
+        list_attrs = np.full((nlist, cap_), -1, np.int32)
+        list_attrs[li, si] = np.asarray(attrs, np.int32)[src]
+    return store_from_arrays(
+        {"codes": list_codes, "ids": list_ids,
+         "sizes": np.minimum(counts, cap_).astype(np.int32),
+         **({} if list_attrs is None else {"attrs": list_attrs})},
+        device=device)
+
+
+def grow_cap(store: ListStore, new_cap: int) -> ListStore:
+    """Pad every list with spare slots: cap -> ``new_cap`` (ids -1, codes 0,
+    attrs -1); sizes are untouched, so scans see the same rows."""
+    pad = new_cap - store.cap
+    if pad < 0:
+        raise ValueError(f"grow_cap: new_cap {new_cap} < current cap "
+                         f"{store.cap}")
+    if pad == 0:
+        return store
+    fpad = torch.nn.functional.pad
+    return ListStore(
+        codes=fpad(store.codes, (0, 0, 0, pad)),
+        ids=fpad(store.ids, (0, pad), value=-1),
+        sizes=store.sizes,
+        attrs=None if store.attrs is None else fpad(store.attrs, (0, pad),
+                                                    value=-1))
+
+
+def store_arrays(store: ListStore) -> dict[str, np.ndarray]:
+    """The store as plain host arrays (the interchange format of
+    ``repro.core.lists.store_arrays``); ``attrs`` is absent when unused."""
+    out = {"codes": store.codes.cpu().numpy(),
+           "ids": store.ids.cpu().numpy(),
+           "sizes": store.sizes.cpu().numpy()}
+    if store.attrs is not None:
+        out["attrs"] = store.attrs.cpu().numpy()
+    return out
+
+
+def store_from_arrays(arrays: dict[str, np.ndarray], *,
+                      device: torch.device | str = "cpu") -> ListStore:
+    """Inverse of ``store_arrays``, onto ``device``."""
+    def t(key, dtype):
+        return torch.from_numpy(np.array(arrays[key], dtype)).to(device)
+    return ListStore(codes=t("codes", np.uint8), ids=t("ids", np.int32),
+                     sizes=t("sizes", np.int32),
+                     attrs=t("attrs", np.int32) if "attrs" in arrays else None)

@@ -1,0 +1,307 @@
+"""Batched search engine: coarse -> 4-bit fast-scan -> exact re-rank
+(counterpart of ``repro.engine.engine``).
+
+The serving query path, as pure functions of (coarse, index, tensors):
+
+  1. ``coarse_probes``: flat coarse quantizer, the nprobe nearest lists;
+  2. ``scan_candidates``: residual u8 LUTs per (query, probe), then the
+     stream-scan kernel (K1) over the lists in place with fused per-tile
+     top-kc and the optional filter bitmap;
+  3. ``rerank.finalize_candidates``: the top r·k candidates re-ranked
+     exactly by the stream re-rank kernel (K2), then the final top-k;
+  4. ``make_stats``: the per-query ``QueryStats`` counters.
+
+``SearchEngine.search`` composes them eagerly. PyTorch has no counterpart
+of the reference's fused ``jax.jit`` program; ``search_jit`` keeps the
+reference's name and runs the same eager pipeline (CUDA-graph capture per
+shape bucket is ROADMAP work).
+
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+namespaces, the margin probe policy and early exit (anytime search),
+mutation (upsert/delete/compact, tombstoned stores), HNSW/tree coarse.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import coarse as coarse_mod
+from repro_torch.core import ivf as ivf_mod
+from repro_torch.core import lists as lists_mod
+from repro_torch.core.lists import filter_pass_sizes, filter_words
+from repro_torch.device import resolve_device
+from repro_torch.engine import rerank as rerank_mod
+from repro_torch.kernels import ops as ops_mod
+
+PROBE_POLICIES = ("fixed",)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to repro_torch (ROADMAP Queue 1 item "
+        f"{item})")
+
+
+class EngineConfig(NamedTuple):
+    """Static search-time knobs; the reference's fields.
+
+    ``scan_impl`` and ``rerank_impl`` default to ``'stream'``, where the
+    reference defaults to ``'ref'`` / ``'gathered'``: the stream kernels are
+    the only impls the port has, and the serving path the reference
+    recommends.
+    """
+
+    nprobe: int = 8
+    rerank_mult: int = 0
+    scan_impl: str = "stream"
+    ef: int = 64
+    rerank_impl: str = "stream"
+    probe_policy: str = "fixed"
+    margin_tau: float = float("inf")
+    early_exit: bool = False
+
+
+_EF_DEFAULT = EngineConfig._field_defaults["ef"]
+
+
+class QueryStats(NamedTuple):
+    """Per-query work counters, each (Q,) int32."""
+
+    lists_probed: torch.Tensor   # valid probes issued
+    codes_scanned: torch.Tensor  # true occupancy of scanned lists
+    reranked: torch.Tensor       # candidates refined exactly
+    rows_filtered: torch.Tensor  # probed rows the filter excluded
+    rows_tombstoned: torch.Tensor  # zeros: mutation is not ported
+    lists_pruned: torch.Tensor   # zeros: the margin policy is not ported
+    tiles_skipped: torch.Tensor  # zeros: early exit is not ported
+
+
+class SearchResult(NamedTuple):
+    dists: torch.Tensor  # (Q, k) f32 ascending
+    ids: torch.Tensor    # (Q, k) i32 global ids, -1 = no candidate
+    stats: QueryStats
+
+
+def validate_config(config: EngineConfig, *, coarse_kind: str,
+                    has_base: bool) -> None:
+    """Reject nonsense or not-yet-ported knobs at construction time."""
+    if config.nprobe < 1:
+        raise ValueError(f"EngineConfig.nprobe must be >= 1, got {config.nprobe}")
+    if config.rerank_mult < 0:
+        raise ValueError(
+            f"EngineConfig.rerank_mult must be >= 0, got {config.rerank_mult}")
+    ops_mod.check_impl("scan", config.scan_impl)
+    ops_mod.check_impl("rerank", config.rerank_impl)
+    if config.probe_policy == "margin":
+        raise _not_ported("probe_policy='margin'", 8)
+    if config.probe_policy not in PROBE_POLICIES:
+        raise ValueError(
+            f"EngineConfig.probe_policy {config.probe_policy!r} unknown")
+    if config.margin_tau is None or not config.margin_tau >= 0:
+        raise ValueError(
+            f"EngineConfig.margin_tau must be >= 0, got {config.margin_tau}")
+    if config.early_exit:
+        raise _not_ported("early_exit", 8)
+    if config.ef < 1:
+        raise ValueError(f"EngineConfig.ef must be >= 1, got {config.ef}")
+    if config.ef != _EF_DEFAULT and coarse_kind != "hnsw":
+        raise ValueError(
+            f"EngineConfig.ef={config.ef} is set but coarse={coarse_kind!r}; "
+            "ef is the HNSW beam width")
+    if config.rerank_mult > 0 and not has_base:
+        raise ValueError(
+            f"EngineConfig.rerank_mult={config.rerank_mult} requires the raw "
+            "base vectors for exact re-rank, but the engine holds none")
+
+
+def coarse_probes(coarse: coarse_mod.FlatCoarse, q: torch.Tensor, *,
+                  nprobe: int) -> torch.Tensor:
+    """Stage 1: the nprobe nearest lists, (Q, nprobe) i32. (The reference
+    also returns its margin policy's lists-pruned counter; under the only
+    ported policy, 'fixed', that is zeros, which ``make_stats`` fills.)"""
+    return coarse.search(q, nprobe)[1]
+
+
+def scan_candidates(index: ivf_mod.IVFIndex, q: torch.Tensor,
+                    probes: torch.Tensor, *, scan_impl: str, keep: int,
+                    filter_bits: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2: the stream scan over the lists in place, flattened to one
+    candidate pool per query: (dists (Q, C) f32, ids (Q, C) i32, -1 = pad).
+    ``keep`` is the candidate budget the final selection takes (r*k, or k
+    without re-rank). (The reference also returns early exit's
+    tiles-skipped counter; without early exit that is zeros, which
+    ``make_stats`` fills.)"""
+    ops_mod.check_impl("scan", scan_impl)
+    return ivf_mod.scan_probes_stream(index, q, probes, keep=keep,
+                                      filter_bits=filter_bits)
+
+
+def _probe_sum(probes: torch.Tensor, per_list: torch.Tensor) -> torch.Tensor:
+    """Sum a (nlist,) per-list counter over each query's valid probes."""
+    got = per_list[torch.clamp_min(probes, 0).long()]
+    return torch.sum(torch.where(probes >= 0, got, 0), dim=1,
+                     dtype=torch.int32)
+
+
+def count_rows_filtered(index: ivf_mod.IVFIndex, probes: torch.Tensor,
+                        filter_bits: torch.Tensor | None) -> torch.Tensor:
+    """(Q,) i32: probed rows the filter excluded; zero without a filter."""
+    if filter_bits is None:
+        return torch.zeros((probes.shape[0],), dtype=torch.int32,
+                           device=probes.device)
+    excluded = index.lists.sizes - filter_pass_sizes(index.lists, filter_bits)
+    return _probe_sum(probes, excluded)
+
+
+def make_stats(index: ivf_mod.IVFIndex, probes: torch.Tensor,
+               reranked: torch.Tensor,
+               filter_bits: torch.Tensor | None = None) -> QueryStats:
+    """Work counters from the probe set and the re-rank stage's counter."""
+    zeros = torch.zeros((probes.shape[0],), dtype=torch.int32,
+                        device=probes.device)
+    return QueryStats(
+        lists_probed=torch.sum(probes >= 0, dim=1, dtype=torch.int32),
+        codes_scanned=torch.sum(index.lists.probed_sizes(probes), dim=1,
+                                dtype=torch.int32),
+        reranked=reranked,
+        rows_filtered=count_rows_filtered(index, probes, filter_bits),
+        rows_tombstoned=zeros, lists_pruned=zeros, tiles_skipped=zeros)
+
+
+def _pipeline(coarse, index: ivf_mod.IVFIndex, base: torch.Tensor | None,
+              norms: torch.Tensor | None, q: torch.Tensor,
+              filter_bits: torch.Tensor | None, *, k: int, nprobe: int,
+              r: int, scan_impl: str, rerank_impl: str) -> SearchResult:
+    """The whole query path as one function (stages 1-4 + stats)."""
+    probes = coarse_probes(coarse, q, nprobe=nprobe)
+    flat_d, flat_ids = scan_candidates(
+        index, q, probes, scan_impl=scan_impl, keep=(r * k) if r else k,
+        filter_bits=filter_bits)
+    vals, out_ids, reranked = rerank_mod.finalize_candidates(
+        flat_d, flat_ids, base, q, k, r, norms=norms, rerank_impl=rerank_impl)
+    return SearchResult(dists=vals, ids=out_ids,
+                        stats=make_stats(index, probes, reranked, filter_bits))
+
+
+class SearchEngine:
+    """IVF + 4-bit fast-scan + exact re-rank behind one ``search(queries, k)``.
+
+    The engine lives on the device of its index. ``base`` (the raw float
+    vectors) is optional; without it re-rank requests are rejected.
+    """
+
+    def __init__(self, index: ivf_mod.IVFIndex, *,
+                 base: torch.Tensor | None = None,
+                 coarse: str | coarse_mod.FlatCoarse = "flat",
+                 config: EngineConfig | None = None,
+                 namespaces=None, base_norms: torch.Tensor | None = None):
+        """``base_norms`` takes precomputed ``‖x‖²`` of the base rows (a
+        carried-over index brings its own); they are derived when absent."""
+        if namespaces is not None:
+            raise _not_ported("namespaces", 5)
+        lists = index.lists
+        live = torch.sum(lists.ids >= 0, dim=-1, dtype=torch.int32)
+        if bool(torch.any(live != lists.sizes)):
+            raise _not_ported("a store holding tombstones (mutation)", 7)
+        self.device = index.centroids.device
+        self.index = index
+        self.base = None if base is None else base.to(self.device)
+        if self.base is None:
+            self.base_norms = None
+        elif base_norms is None:
+            self.base_norms = lists_mod.base_norms(self.base)
+        else:
+            self.base_norms = base_norms.to(self.device)
+        self.config = config or EngineConfig()
+        if isinstance(coarse, coarse_mod.FlatCoarse):
+            self.coarse = coarse
+        elif coarse == "flat":
+            self.coarse = coarse_mod.build_flat(index.centroids)
+        else:
+            raise _not_ported(f"coarse={coarse!r}", 10)
+        self.coarse_kind = "flat"
+        validate_config(self.config, coarse_kind=self.coarse_kind,
+                        has_base=base is not None)
+
+    @classmethod
+    def build(cls, train_x, base_x, *, m: int, nlist: int,
+              coarse: str = "flat", config: EngineConfig | None = None,
+              cap: int | None = None, coarse_iters: int = 20,
+              pq_iters: int = 25, keep_base: bool = True, seed: int = 0,
+              device: str | torch.device | None = None) -> "SearchEngine":
+        """Train + bucket + wrap: raw vectors (numpy or tensors) to a live
+        engine on ``device`` (None = the CUDA card; raises without one).
+        k-means draws from a ``torch.Generator`` seeded with ``seed``."""
+        dev = resolve_device(device)
+        train = torch.as_tensor(train_x, dtype=torch.float32, device=dev)
+        base = torch.as_tensor(base_x, dtype=torch.float32, device=dev)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            index = ivf_mod.build_ivf(train, base, m=m, nlist=nlist, cap=cap,
+                                      coarse_iters=coarse_iters,
+                                      pq_iters=pq_iters, generator=gen)
+        return cls(index, base=base if keep_base else None, coarse=coarse,
+                   config=config)
+
+    def _resolve(self, queries, nprobe, rerank_mult, filter_bits, namespaces,
+                 margin_tau):
+        if namespaces is not None:
+            raise _not_ported("namespaces", 5)
+        if margin_tau is not None:
+            raise _not_ported("margin_tau (the margin probe policy)", 8)
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        q = (q[None] if q.ndim == 1 else q).contiguous()
+        nprobe = self.config.nprobe if nprobe is None else nprobe
+        r = self.config.rerank_mult if rerank_mult is None else rerank_mult
+        if r and self.base is None:
+            raise ValueError("exact re-rank requested but engine holds no "
+                             "base vectors (build with keep_base=True)")
+        if filter_bits is not None:
+            lists = self.index.lists
+            nlist, cap = lists.nlist, lists.cap
+            filter_bits = torch.as_tensor(filter_bits, device=self.device)
+            if (filter_bits.ndim != 2 or filter_bits.shape[0] != nlist
+                    or filter_bits.shape[1] * 8 < cap):
+                raise ValueError(
+                    f"filter_bits must be (nlist={nlist}, "
+                    f"W>=ceil(cap/8)={filter_words(cap)}) packed u8, got "
+                    f"shape {tuple(filter_bits.shape)}")
+            filter_bits = filter_bits[:, :filter_words(cap)].to(
+                torch.uint8).contiguous()
+        return q, nprobe, r, filter_bits
+
+    def search(self, queries, k: int = 10, *, nprobe: int | None = None,
+               rerank_mult: int | None = None, filter_bits=None,
+               namespaces=None, margin_tau=None) -> SearchResult:
+        """Batched ANN search. queries: (Q, D) or (D,), moved to the
+        engine's device. ``rerank_mult`` overrides the config (0 = pure
+        fast-scan); ``filter_bits`` is an optional (nlist, W) packed
+        per-row bitmap (bit 1 = the row may appear in results)."""
+        q, nprobe, r, fb = self._resolve(queries, nprobe, rerank_mult,
+                                         filter_bits, namespaces, margin_tau)
+        with torch.no_grad():
+            return _pipeline(self.coarse, self.index, self.base,
+                             self.base_norms, q, fb, k=k, nprobe=nprobe, r=r,
+                             scan_impl=self.config.scan_impl,
+                             rerank_impl=self.config.rerank_impl)
+
+    def search_jit(self, queries, k: int = 10, *, nprobe: int | None = None,
+                   rerank_mult: int | None = None, filter_bits=None,
+                   namespaces=None, margin_tau=None) -> SearchResult:
+        """The reference's serving entry point, under its name. PyTorch runs
+        eagerly, so this is the same pipeline as ``search`` (no compiled
+        program); CUDA-graph capture per shape bucket is ROADMAP work."""
+        return self.search(queries, k, nprobe=nprobe, rerank_mult=rerank_mult,
+                           filter_bits=filter_bits, namespaces=namespaces,
+                           margin_tau=margin_tau)
+
+    def upsert(self, *args, **kwargs):
+        raise _not_ported("SearchEngine.upsert (mutation)", 7)
+
+    def delete(self, *args, **kwargs):
+        raise _not_ported("SearchEngine.delete (mutation)", 7)
+
+    def compact(self, *args, **kwargs):
+        raise _not_ported("SearchEngine.compact (mutation)", 7)

@@ -1,0 +1,128 @@
+"""Build and bind the port's CUDA kernels.
+
+``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` (all sources
+at once, one process each) and links them into one shared library with a
+plain C interface, which ``ctypes`` loads. Pointers and the stream pass as
+``c_void_p``. The build runs at first use, never at import, into
+``build/repro_torch_kernels/`` at the repo root (``REPRO_TORCH_BUILD_DIR``
+overrides it), keyed by a hash of the sources and flags, so a later call in
+the same checkout reuses it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fastscan_stream_topk.cu", "rerank_stream_topk.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+# per-kernel registers, shared memory and spills, kept in the build log
+PTXAS_FLAGS = ("-Xptxas", "-v")
+_REPO = Path(__file__).resolve().parents[3]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""          # nvcc output of the build this process ran or found
+build_seconds = 0.0     # wall time of that build (0 when it was cached)
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "repro_fastscan_stream_topk": [_VP] * 5 + [_I] * 6 + [_VP] * 3,
+    "repro_rerank_stream_topk": [_VP] * 4 + [_I] * 6 + [_VP] * 3,
+}
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               _REPO / "build" / "repro_torch_kernels"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "kernels/csrc at first use on a machine with the "
+                           "CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> None:
+    global build_log, build_seconds
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = tmp / (name + ".o")
+            objs.append(str(obj))
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", str(CSRC / name),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== nvcc {name}\n{text}")
+            if proc.returncode:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                               str(tmp / "lib.so"), *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== nvcc -shared\n{link.stdout}{link.stderr}")
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        build_log = "\n".join(logs)
+        out.with_suffix(".log").write_text(build_log)
+        os.replace(tmp / "lib.so", out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call in a checkout) and load the kernels' library."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            out = build_dir() / f"librepro_torch_kernels-{_digest()}.so"
+            if not out.exists():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                _compile(out)
+            elif not build_log and out.with_suffix(".log").exists():
+                build_log = out.with_suffix(".log").read_text()
+            lib = ctypes.CDLL(str(out))
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err:
+        msg = load_library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
