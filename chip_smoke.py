@@ -4,14 +4,26 @@
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--nt 100000] [--nlist 1024]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card at the
-shapes the serving path gives it, then serves a SIFT1M-shaped index
-(N x 128 f32 base, M=16 4-bit PQ, flat coarse over nlist lists) through
-``SearchEngine.build`` and ``search_jit`` at the serving buckets
-Q in {1, 8, 32, 128}, with k=10, nprobe=8, rerank_mult=4, plus one batch
-with a filter bitmap. It checks that both kernels ran on that path, that
-one Q=32 batch equals the port's own pipeline on CPU copies of the same
-index (the plain versions), and prints recall against exact ground truth.
+holds each kernel (K1-K6) against its plain PyTorch version on the card at
+the shapes the serving paths give it, then serves a SIFT1M-shaped index
+(N x 128 f32 base, M=16 4-bit PQ, flat coarse over nlist lists) built by
+``SearchEngine.build``, through ``search_jit`` at the serving buckets
+Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
+
+  1. the stream path: k=10, nprobe=8, rerank_mult=4, the stream scan (K1)
+     and the stream re-rank (K2);
+  2. the anytime, autotuned path (docs/anytime.md's configuration):
+     nprobe=32, probe_policy='margin', margin_tau=0.4, early_exit=True,
+     scan_impl='auto', rerank_mult=4, rerank_impl='auto'; it prints the
+     autotune verdicts, forces 'select' (K5), 'mxu' (K6) and 'stream' with
+     early exit (K4) in further batches and calls ``SearchEngine.scan`` on
+     a stream engine (K3), checks that early exit and margin_tau=inf are
+     lossless (bitwise).
+
+For each path it checks that the path's kernels ran, that one Q=32 batch
+(plain and filtered) equals the port's own pipeline on CPU copies of the
+same index (the plain versions), and prints recall against exact ground
+truth, batch latencies and a profiler breakdown.
 
 Prints the card's name and power limit, timings, a ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -36,6 +48,8 @@ BATCHES_PER_BUCKET = 3
 K, NPROBE, RERANK_MULT, M = 10, 8, 4, 16
 K2_RTOL = 1e-6                # of ||q||^2 + ||x||^2 (see k2_phase)
 PIPELINE_RTOL = 1e-5          # card vs host f32 pipeline
+AT_NPROBE, AT_TAU = 32, 0.4   # the anytime path's nprobe and margin width
+AT_QMAX = 128                 # K3-K6 phases run at G = AT_QMAX * AT_NPROBE
 
 
 def log(*parts) -> None:
@@ -293,8 +307,7 @@ def slice_phase(torch, args, engine, ds, build_s):
                            device=lists.ids.device) & (lists.ids >= 0)
     fbits = pack_filter_mask(mask)
     torch.cuda.reset_peak_memory_stats()
-    fk.launches = 0
-    rk.launches = 0
+    zero_counts()
     lat: dict[int, list[float]] = {qq: [] for qq in BUCKETS}
     kept = {}
     rec_ids, rec_gt = [], []
@@ -384,6 +397,389 @@ def slice_phase(torch, args, engine, ds, build_s):
     return launches
 
 
+def kernel_modules():
+    """Every kernel module of the port, by the name of its kernel."""
+    from repro_torch.kernels import fastscan_kernel as fk
+    from repro_torch.kernels import mxu_kernel as mk
+    from repro_torch.kernels import rerank_kernel as rk
+    from repro_torch.kernels import select_kernel as sk
+    from repro_torch.kernels import stream_grouped_kernel as sgk
+    from repro_torch.kernels import stream_prune_kernel as spk
+    return {"fastscan_stream_topk": fk, "rerank_stream_topk": rk,
+            "fastscan_stream_grouped": sgk,
+            "fastscan_stream_topk_prune": spk,
+            "fastscan_select_grouped": sk,
+            "fastscan_onehot_mma_grouped": mk}
+
+
+def zero_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def bound_ms(nbytes: int, ops_count: int) -> tuple[float, str]:
+    """The least time for the work: bytes at the memory rate against int
+    operations at the CUDA-core rate, the larger of the two."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops_count / CUDA_CORE_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def assert_same(got, want, what: str) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not bool((a == b).all()) or a.shape != b.shape:
+            raise AssertionError(f"{what}: kernel != plain in output {i} "
+                                 f"({int((a != b).sum())} entries)")
+
+
+def time_kernel(torch, kernel, plain, dev_name: str, nbytes: int,
+                ops_count: int, what: str, **entry) -> dict:
+    """Profiler and event time of ``kernel``, the plain version's time and
+    the bound; the kernel's entry of the kernels line (launches are filled
+    in by the path that drives it)."""
+    ms_events = event_ms(torch, kernel, 20)
+    ms_dev = device_ms(torch, kernel, dev_name, 10)
+    plain_ms = event_ms(torch, plain, 3, warmup=1)
+    bound, by = bound_ms(nbytes, ops_count)
+    log(f"{what} time: device {ms_dev} ms, events {ms_events:.5f} ms, plain "
+        f"{plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
+        f"{ops_count} int ops)")
+    return dict(entry, route="cuda", max_abs_err=0.0,
+                ms=ms_dev if ms_dev is not None else ms_events,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
+    """K3 over an nlist-list store in place, K5 and K6 over the gathered
+    copy the engine builds from it, at the anytime path's largest bucket:
+    G = 128 x 32 groups, ~5% -1 probes."""
+    from repro_torch.kernels import mxu_kernel as mk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import select_kernel as sk
+    from repro_torch.kernels import stream_grouped_kernel as sgk
+    from repro_torch.kernels.fastscan_kernel import TILE_N
+    dev = torch.device("cuda")
+    g, mh = AT_QMAX * AT_NPROBE, M // 2
+    rng = np.random.default_rng(args.seed + 4)
+    store = torch.as_tensor(rng.integers(0, 256, (nlist, cap, mh), np.uint8),
+                            device=dev)
+    table = torch.as_tensor(rng.integers(0, 256, (g, M, 16), np.uint8),
+                            device=dev)
+    probes_np = rng.integers(0, nlist, g).astype(np.int32)
+    probes_np[rng.random(g) < 0.05] = -1
+    probes = torch.as_tensor(probes_np, device=dev)
+    valid = probes_np >= 0
+    out = []
+
+    tile = ops._stream_tile(cap)
+
+    def k3():
+        return sgk.fastscan_stream_grouped(table, store, probes, tile_n=tile)
+
+    def k3_plain():
+        return sgk.fastscan_stream_grouped_plain(table, store, probes,
+                                                 tile_n=tile)
+
+    assert_same((k3(),), (k3_plain(),), "K3")
+    distinct = np.unique(probes_np[valid]).size
+    log(f"K3 fastscan_stream_grouped: G={g} nlist={nlist} cap={cap} M={M} "
+        f"tile={tile} invalid_probes={int((~valid).sum())}: kernel == plain "
+        "bit for bit")
+    out.append(time_kernel(
+        torch, k3, k3_plain, "stream_grouped_kernel",
+        distinct * cap * mh + g * M * 16 + g * 4 + g * cap * 4,
+        int(valid.sum()) * cap * M * 2, "K3",
+        name="fastscan_stream_grouped",
+        source="src/repro_torch/kernels/csrc/fastscan_stream_grouped.cu",
+        replaces="src/repro/kernels/fastscan_kernel.py:440"))
+
+    # the gathered copy ListStore.gather makes (zeros for a -1 probe)
+    gtile = ops._auto_tile(cap, TILE_N)
+    gathered = ops._pad_to(torch.where(
+        probes[:, None, None] >= 0, store[probes.clamp_min(0).long()], 0),
+        1, gtile).contiguous()
+    n_p = gathered.shape[1]
+
+    def plain():
+        return sk.fastscan_grouped_plain(table, gathered, tile_n=gtile)
+
+    for name, fn, dev_name, src, line, what in (
+            ("fastscan_select_grouped", sk.fastscan_select_tree_grouped,
+             "select_grouped_kernel", "fastscan_select_grouped.cu", 167,
+             "K5"),
+            ("fastscan_onehot_mma_grouped", mk.fastscan_onehot_mxu_grouped,
+             "onehot_mma_grouped_kernel", "fastscan_onehot_mma_grouped.cu",
+             267, "K6")):
+        def kernel(fn=fn):
+            return fn(table, gathered, tile_n=gtile)
+
+        assert_same((kernel(),), (plain(),), what)
+        log(f"{what} {name}: G={g} N={n_p} M={M} tile={gtile} over the "
+            "gathered copy: kernel == plain bit for bit")
+        out.append(time_kernel(
+            torch, kernel, plain, dev_name,
+            g * n_p * mh + g * M * 16 + g * n_p * 4, g * n_p * M * 2, what,
+            name=name, source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/fastscan_kernel.py:{line}"))
+    return out
+
+
+def k4_phase(torch, args, cap: int, nlist: int) -> dict:
+    """K4 at the anytime path's largest bucket (128 queries x 32 probes),
+    ~50% filter, ~5% -1 probes, and half of each query's groups' biases
+    shifted far (as tests/test_anytime.py::_skewed_index does) so that
+    pruning fires."""
+    from repro_torch.core.lists import filter_words
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_prune_kernel as spk
+    dev = torch.device("cuda")
+    g, mh = AT_QMAX * AT_NPROBE, M // 2
+    tile = ops._stream_tile(cap)
+    kc = min(RERANK_MULT * K, tile)
+    n_tiles = cap // tile
+    rng = np.random.default_rng(args.seed + 5)
+    w = filter_words(cap)
+    codes = torch.as_tensor(rng.integers(0, 256, (nlist, cap, mh), np.uint8),
+                            device=dev)
+    table = torch.as_tensor(rng.integers(0, 256, (g, M, 16), np.uint8),
+                            device=dev)
+    sizes_np = rng.integers(0, cap + 1, nlist).astype(np.int32)
+    probes_np = rng.integers(0, nlist, g).astype(np.int32)
+    probes_np[rng.random(g) < 0.05] = -1
+    bits_np = rng.integers(0, 256, (nlist, w), np.uint8)      # ~50% pass
+    scales_np = rng.uniform(0.5, 2.0, g).astype(np.float32)
+    biases_np = rng.uniform(0.0, 50.0, g).astype(np.float32)
+    biases_np.reshape(AT_QMAX, AT_NPROBE)[:, AT_NPROBE // 2:] += 1e4
+    sizes, probes, bits, scales, biases = (
+        torch.as_tensor(a, device=dev)
+        for a in (sizes_np, probes_np, bits_np, scales_np, biases_np))
+    acc_min = torch.sum(torch.amin(table, dim=-1), dim=-1, dtype=torch.int32)
+    bounds = scales * acc_min.float() + biases
+    args_ = (table, codes, probes, sizes, bounds, scales, biases)
+    kw = dict(kc=kc, tile_n=tile, groups_per_query=AT_NPROBE,
+              filter_bits=bits)
+
+    def kernel():
+        return spk.fastscan_stream_topk_prune(*args_, **kw)
+
+    def plain():
+        return spk.fastscan_stream_topk_prune_plain(*args_, **kw)
+
+    got = kernel()
+    assert_same(got, plain(), "K4")
+    skipped = got[2].cpu().numpy().astype(bool)
+    if not skipped.any():
+        raise AssertionError("K4: the skewed construction pruned no tile")
+    # bound: only what this run scanned -- the live rows (occupied, passing
+    # the filter) of each distinct (list, tile) it scanned, read once, with
+    # their bitmap bytes; every LUT and per-group scalar; the outputs
+    scanned = (probes_np >= 0)[:, None] & ~skipped
+    passing = np.unpackbits(bits_np, axis=1, bitorder="little")[:, :cap]
+    live = passing & (np.arange(cap)[None, :] < sizes_np[:, None])
+    live_tile = live.reshape(nlist, n_tiles, tile).sum(-1)     # (nlist, T)
+    gi, ti = np.nonzero(scanned)
+    pairs = np.unique(probes_np[gi] * n_tiles + ti)
+    nbytes = (int(live_tile.reshape(-1)[pairs].sum()) * mh
+              + pairs.size * (tile // 8 + 4) + g * M * 16 + g * 16
+              + g * n_tiles * (kc * 8 + 4))
+    ops_count = int(live_tile[probes_np[gi], ti].sum()) * M * 2
+    log(f"K4 fastscan_stream_topk_prune: G={g} ({AT_QMAX} queries x "
+        f"{AT_NPROBE} probes) nlist={nlist} cap={cap} tile={tile} kc={kc} "
+        f"filter~50% invalid_probes={int((probes_np < 0).sum())}: kernel == "
+        f"plain bit for bit; skipped {int(skipped.sum())} of "
+        f"{int((probes_np >= 0).sum()) * n_tiles} valid-probe tiles")
+    return time_kernel(
+        torch, kernel, plain, "stream_topk_prune_kernel", nbytes, ops_count,
+        "K4", name="fastscan_stream_topk_prune",
+        source="src/repro_torch/kernels/csrc/fastscan_stream_topk_prune.cu",
+        replaces="src/repro/kernels/fastscan_kernel.py:788")
+
+
+def host_twin_check(torch, engine, config, kept, queries, what: str,
+                    **search_kw) -> None:
+    """The kept Q=32 batches again through the port on CPU copies of the
+    index (the plain versions): ids tie-aware, dists rtol PIPELINE_RTOL,
+    every QueryStats counter exact."""
+    from repro_torch import interop
+    t0 = time.perf_counter()
+    host = interop.engine_from_arrays(interop.arrays_from_engine(engine),
+                                      config=config, device="cpu")
+    for name, (o, fb, res) in kept.items():
+        want = host.search_jit(queries[o:o + 32].cpu(), K,
+                               filter_bits=None if fb is None else fb.cpu(),
+                               **search_kw)
+        wv, wi = want.dists.numpy(), want.ids.numpy()
+        gv, gi = res.dists.cpu().numpy(), res.ids.cpu().numpy()
+        tol = PIPELINE_RTOL * np.abs(wv).max(axis=1)
+        assert_tie_aware(gv, gi, wv, wi, tol, f"{what} card vs host ({name})")
+        for f in want.stats._fields:
+            a = getattr(res.stats, f).cpu().numpy()
+            b = getattr(want.stats, f).numpy()
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what} card vs host ({name}): "
+                                     f"stats.{f} {a.sum()} vs {b.sum()}")
+    log(f"{what}: Q=32 batches (plain and filtered) equal the host pipeline "
+        f"(ids tie-aware, dists rtol {PIPELINE_RTOL}, QueryStats exact) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+
+
+def anytime_phase(torch, args, engine, ds, tuned_file: str) -> dict:
+    """The second path: the anytime, autotuned configuration at every
+    bucket, then batches that force each scan kernel onto the engine path;
+    returns the launch counts of this path."""
+    from repro_torch.core.lists import pack_filter_mask
+    from repro_torch.core.metrics import recall_at_r
+    from repro_torch.engine import EngineConfig, SearchEngine
+    from repro_torch.kernels import ops
+    n = ds.base.shape[0]
+    queries = ds.queries
+    cfg = EngineConfig(nprobe=AT_NPROBE, probe_policy="margin",
+                       margin_tau=AT_TAU, early_exit=True, scan_impl="auto",
+                       rerank_mult=RERANK_MULT, rerank_impl="auto")
+
+    def with_cfg(**kw):
+        return SearchEngine(engine.index, base=engine.base,
+                            base_norms=engine.base_norms,
+                            config=cfg._replace(**kw))
+
+    at = with_cfg()
+    # warm-up of every bucket: resolves the autotune verdicts (not timed)
+    ops.clear_autotune_cache()
+    t0 = time.perf_counter()
+    off = 0
+    for qq in BUCKETS:
+        at.search_jit(queries[off:off + qq], K)
+        off += qq
+    torch.cuda.synchronize()
+    log(f"anytime: config {tuple(cfg)}; warm-up with the autotune sweeps "
+        f"{time.perf_counter() - t0:.2f} s")
+    for key, tuned in sorted(ops.autotune_cache().items(), key=str):
+        times = " ".join(f"{name}={us:.1f}" for name, us in tuned.timings_us)
+        log(f"anytime: autotune {key} -> {tuned.impl}@{tuned.tile_n}; "
+            f"timings_us {times}")
+    lists = engine.index.lists
+    rng = np.random.default_rng(args.seed + 6)
+    mask = torch.as_tensor(rng.random((lists.nlist, lists.cap)) < 0.5,
+                           device=lists.ids.device) & (lists.ids >= 0)
+    fbits = pack_filter_mask(mask)
+
+    zero_counts()
+    lat: dict[int, list[float]] = {qq: [] for qq in BUCKETS}
+    kept, rec_ids, rec_gt = {}, [], []
+    pruned = skipped = 0
+    for _ in range(BATCHES_PER_BUCKET):
+        for qq in BUCKETS:
+            q = queries[off:off + qq]
+            t0 = time.perf_counter()
+            res = at.search_jit(q, K)
+            torch.cuda.synchronize()
+            lat[qq].append((time.perf_counter() - t0) * 1e3)
+            check_result(torch, res, qq, n, f"anytime Q={qq}")
+            pruned += int(res.stats.lists_pruned.sum())
+            skipped += int(res.stats.tiles_skipped.sum())
+            if qq == 32 and "plain" not in kept:
+                kept["plain"] = (off, None, res)
+            if qq == BUCKETS[-1]:
+                rec_ids.append(res.ids)
+                rec_gt.append(ds.gt_ids[off:off + qq])
+            off += qq
+    q32 = queries[off:off + 32]
+    t0 = time.perf_counter()
+    res = at.search_jit(q32, K, filter_bits=fbits)
+    torch.cuda.synchronize()
+    filt_ms = (time.perf_counter() - t0) * 1e3
+    kept["filtered"] = (off, fbits, res)
+    if int(res.stats.rows_filtered.sum()) <= 0:
+        raise AssertionError("anytime: filtered batch excluded no row")
+    # every scan kernel on an engine path, whatever the verdicts were
+    forced = {}
+    for impl in ("select", "mxu", "stream"):
+        r = with_cfg(scan_impl=impl).search_jit(q32, K)
+        check_result(torch, r, 32, n, f"anytime scan_impl={impl}")
+        forced[impl] = r
+    stream_eng = with_cfg(scan_impl="stream")
+    probes = stream_eng.select_probes(q32, AT_NPROBE)
+    dists, ids = stream_eng.scan(q32, probes)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log(f"anytime: kernel launches on the path {launches}")
+    for name in ("fastscan_stream_grouped", "fastscan_stream_topk_prune",
+                 "fastscan_select_grouped", "fastscan_onehot_mma_grouped"):
+        if launches[name] < 1:
+            raise AssertionError(f"anytime: {name} was not launched")
+    if ids.shape != (32, AT_NPROBE * lists.cap):
+        raise AssertionError(f"anytime: SearchEngine.scan pool {ids.shape}")
+    for impl in ("select", "mxu"):
+        a, b = forced[impl], forced["stream"]
+        if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)):
+            raise AssertionError(f"anytime: scan_impl={impl} != stream")
+    log(f"anytime: forced scan_impl select / mxu / stream+early_exit agree "
+        f"bitwise; stream skipped "
+        f"{int(forced['stream'].stats.tiles_skipped.sum())} tiles at Q=32")
+
+    # lossless: early exit against none, and margin_tau=inf against 'fixed'
+    ee = with_cfg(scan_impl="stream", rerank_impl="stream")
+    no_ee = with_cfg(scan_impl="stream", rerank_impl="stream",
+                     early_exit=False)
+    fixed = with_cfg(scan_impl="stream", rerank_impl="stream",
+                     probe_policy="fixed", early_exit=False)
+    lossless_skips = 0
+    for qq in BUCKETS:
+        q = queries[:qq]
+        for tau in (AT_TAU, float("inf")):
+            a = ee.search_jit(q, K, margin_tau=tau)
+            b = no_ee.search_jit(q, K, margin_tau=tau)
+            if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists,
+                                                               b.dists)):
+                raise AssertionError(f"anytime: early exit is lossy at "
+                                     f"Q={qq}, tau={tau}")
+            lossless_skips += int(a.stats.tiles_skipped.sum())
+        c = fixed.search_jit(q, K)
+        if not (torch.equal(a.ids, c.ids) and torch.equal(a.dists, c.dists)
+                and not a.stats.lists_pruned.any()):
+            raise AssertionError(f"anytime: margin_tau=inf != fixed at "
+                                 f"Q={qq}")
+    log(f"anytime: early exit lossless (bitwise, {lossless_skips} tiles "
+        "skipped) and margin_tau=inf bitwise equal to 'fixed' at every "
+        "bucket")
+
+    # the host replays the card's verdicts from a saved autotune file
+    ops.save_autotune_cache(tuned_file)
+    with open(tuned_file) as f:
+        saved = json.load(f)
+    for e in saved["entries"]:
+        e["backend"] = "cpu"
+    with open(tuned_file, "w") as f:
+        json.dump(saved, f)
+    ops.load_autotune_cache(tuned_file)
+    host_twin_check(torch, engine, cfg, kept, queries, "anytime")
+
+    ids = torch.cat(rec_ids)
+    gt = torch.cat(rec_gt)
+    r1 = float(recall_at_r(ids, gt, 1))
+    r10 = float(recall_at_r(ids, gt, 10))
+    log(f"anytime: recall@1 {r1:.4f} recall@10 {r10:.4f} over "
+        f"{ids.shape[0]} queries; lists_pruned {pruned}, tiles_skipped "
+        f"{skipped} over the timed batches")
+    for qq in BUCKETS:
+        v = lat[qq]
+        med = sorted(v)[len(v) // 2]
+        log(f"anytime: Q={qq} batch latency ms (host clock, synchronized): "
+            f"{' '.join(f'{x:.3f}' for x in v)}; QPS at the median "
+            f"{qq / (med / 1e3):.1f}")
+        wall, dev_ms, n_kern, rows = breakdown(
+            torch, lambda: at.search_jit(queries[:qq], K))
+        log(f"anytime: Q={qq} profiled batch: device busy {dev_ms:.4f} ms in "
+            f"{n_kern} device ops = {100 * dev_ms / med:.1f}% of the median "
+            f"unprofiled latency {med:.3f} ms (idle "
+            f"{100 * (1 - dev_ms / med):.1f}%); profiled wall {wall:.3f} ms")
+        for name, ms in rows[:6]:
+            log(f"    {ms:.4f} ms  {name[:90]}")
+    log(f"anytime: Q=32 filtered batch {filt_ms:.3f} ms")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -430,7 +826,9 @@ def main() -> int:
     t0 = time.perf_counter()
     engine = SearchEngine.build(ds.train, ds.base, m=M, nlist=args.nlist,
                                 config=EngineConfig(nprobe=NPROBE,
-                                                    rerank_mult=RERANK_MULT),
+                                                    rerank_mult=RERANK_MULT,
+                                                    scan_impl="stream",
+                                                    rerank_impl="stream"),
                                 seed=args.seed, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -448,17 +846,26 @@ def main() -> int:
         f"{float(sizes.float().mean()):.1f}, built in {build_s:.2f} s")
 
     # 3-4. kernels against their plain versions
-    k1 = k1_phase(torch, args, engine.index.cap, args.nlist)
+    cap = engine.index.cap
+    k1 = k1_phase(torch, args, cap, args.nlist)
     k2 = k2_phase(torch, args, engine.base, engine.base_norms)
+    k3, k5, k6 = grouped_phases(torch, args, cap, args.nlist)
+    k4 = k4_phase(torch, args, cap, args.nlist)
 
-    # 5. the serving path
+    # 5. the stream serving path
     launches = slice_phase(torch, args, engine, ds, build_s)
     k1["launches"] = launches["fastscan_stream_topk"]
     k2["launches"] = launches["rerank_stream_topk"]
+    # 6. the anytime, autotuned serving path
+    tuned_file = os.path.join(root, "build", "chip_smoke_autotune.json")
+    os.makedirs(os.path.dirname(tuned_file), exist_ok=True)
+    launches = anytime_phase(torch, args, engine, ds, tuned_file)
+    for kern in (k3, k4, k5, k6):
+        kern["launches"] = launches[kern["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{key: kern[key] for key in keys}
-                                for kern in (k1, k2)]}))
+                                for kern in (k1, k2, k3, k4, k5, k6)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of the ``repro`` ANN search engine (NVIDIA Hopper).
 
 Mirrors ``src/repro/`` module for module. Plain tensor code is PyTorch; the
-two kernels on the serving query path -- the 4-bit stream scan with fused
-per-tile top-kc (``kernels/fastscan_kernel.py``) and the gather-free exact
-re-rank (``kernels/rerank_kernel.py``) -- are hand-written CUDA C++ for
-``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` at first use.
+kernels of the serving engine -- the 4-bit stream scan with fused per-tile
+top-kc and its early-exit variant, the in-place and the two gathered
+grouped scans, and the gather-free exact re-rank (``kernels/*_kernel.py``)
+-- are hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built
+with ``nvcc`` at first use.
 
 The package imports neither ``jax`` nor ``repro``; it keeps its own copy of
 everything it needs.

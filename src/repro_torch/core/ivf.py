@@ -2,11 +2,10 @@
 ``repro.core.ivf``).
 
 Lists are padded to a fixed ``cap`` (``core.lists.ListStore``); encoding is
-by residual (codes quantize ``x - centroid``). Ported here: the index
-pytree, its build, the per-(query, probe) residual LUTs and the gather-free
-``scan_probes_stream`` over the CUDA stream-scan kernel. The gathered
-``scan_probes`` impls and the early-exit variant are ROADMAP Queue 1
-items 8-9.
+by residual (codes quantize ``x - centroid``). Here: the index, its build,
+the per-(query, probe) residual LUTs, the full-pool ``scan_probes`` (every
+impl of ``kernels.ops.SCAN_IMPLS``), the gather-free reduced-pool
+``scan_probes_stream`` (K1, or K4 with early exit), and ``search_ivf``.
 
 Conventions: queries/centroids/distances float32; packed codes uint8; ids
 and probe ids int32; -1 = no probe / no candidate (distance +inf).
@@ -19,6 +18,7 @@ import torch
 
 from repro_torch.core import fastscan as fs
 from repro_torch.core import pq as pq_mod
+from repro_torch.core import topk as topk_mod
 from repro_torch.core.kmeans import kmeans, pairwise_sqdist
 from repro_torch.core.lists import ListStore, build_lists
 from repro_torch.core.pq import PQCodebook
@@ -84,11 +84,51 @@ def _probe_tables(index: IVFIndex, q: torch.Tensor, probe_ids: torch.Tensor
         bias=qlut.bias.reshape(qq, p, -1))
 
 
+def scan_probes(index: IVFIndex, q: torch.Tensor, probe_ids: torch.Tensor,
+                *, impl: str = "ref") -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized fine scan, full pool: 4-bit ADC over the probed lists.
+
+    q (Q, D); probe_ids (Q, P) (-1 = no probe). Returns (dists (Q, P, cap)
+    f32, ids (Q, P, cap) i32, -1 = padding). ``impl`` is any of
+    ``kernels.ops.SCAN_IMPLS``: 'ref' (plain torch), 'select' (K5), 'mxu'
+    (K6) over a gathered copy of the probed lists, 'stream' (K3) over the
+    store in place, or 'auto' (the autotuner's verdict, which may be
+    'stream'). All equal on every real candidate; an invalid probe's
+    distances are unmasked garbage under any impl (consumers mask on
+    ``ids >= 0``).
+    """
+    from repro_torch.kernels import ops
+
+    qlut = _probe_tables(index, q, probe_ids)          # (Q, P, M, 16)
+    qq, p = probe_ids.shape
+    cap = index.lists.cap
+    m = qlut.table_q8.shape[-2]
+    impl, tile_n = ops.resolve_scan_impl(impl, qq * p, cap, m,
+                                         nlist=index.lists.nlist,
+                                         device=index.lists.codes.device)
+    tables = qlut.table_q8.reshape(qq * p, m, 16)
+    if impl == "stream":
+        # in place: only the ids of the probed lists are gathered
+        acc = ops.fastscan_stream_grouped(
+            tables, index.lists.codes, probe_ids.reshape(-1),
+            tile_n=tile_n).reshape(qq, p, cap)
+        ids = index.lists.gather_ids(probe_ids)
+    else:
+        codes, ids = index.lists.gather(probe_ids)     # (Q,P,cap,Mh), (Q,P,cap)
+        acc = ops.fastscan_grouped(
+            tables, codes.reshape(qq * p, cap, -1), impl=impl,
+            tile_n=tile_n).reshape(qq, p, cap)
+    dists = (qlut.scale[..., None] * acc.float()
+             + torch.sum(qlut.bias, dim=-1)[..., None])
+    return dists, ids
+
+
 def scan_probes_stream(index: IVFIndex, q: torch.Tensor,
                        probe_ids: torch.Tensor, *, keep: int,
                        tile_n: int = 0,
-                       filter_bits: torch.Tensor | None = None
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       filter_bits: torch.Tensor | None = None,
+                       early_exit: bool = False
+                       ) -> tuple[torch.Tensor, ...]:
     """Gather-free fine scan with fused candidate reduction (+ filtering).
 
     The stream kernel reads ``index.lists.codes`` in place and keeps each
@@ -98,25 +138,72 @@ def scan_probes_stream(index: IVFIndex, q: torch.Tensor,
     -1 = absent) with C' = P * n_tiles * kc, in (probe, tile, rank) order,
     so any final selection of <= ``keep`` candidates equals the same
     selection over the full scan.
+
+    ``early_exit`` runs the anytime tile pruning (K4) and returns a third
+    tensor, tiles_skipped (Q,) i32: the valid-probe tiles the bound proved
+    irrelevant. The final selection stays bit-identical; the raw pool does
+    not (pruned tiles come back as absent candidates).
     """
     from repro_torch.kernels import ops
 
     qlut = _probe_tables(index, q, probe_ids)
     qq, p = probe_ids.shape
     bias_sum = torch.sum(qlut.bias, dim=-1)                   # (Q, P)
-    vals, slots = ops.fastscan_stream_topk(
+    out = ops.fastscan_stream_topk(
         qlut.table_q8.reshape(qq * p, *qlut.table_q8.shape[2:]),
         index.lists.codes, probe_ids.reshape(-1), index.lists.sizes,
-        keep=keep, tile_n=tile_n, filter_bits=filter_bits)
+        keep=keep, tile_n=tile_n, filter_bits=filter_bits,
+        early_exit=early_exit, groups_per_query=p,
+        scales=qlut.scale.reshape(-1), biases=bias_sum.reshape(-1))
+    vals, slots = out[0], out[1]
     n_tiles, kc = vals.shape[1], vals.shape[2]
     vals = vals.reshape(qq, p, n_tiles * kc)
     slots = slots.reshape(qq, p, n_tiles * kc)
     valid = slots >= 0
-    # the reference's dequantization expression and operation order
+    # the reference's dequantization expression and operation order (the
+    # one K4 thresholds with)
     dists = qlut.scale[..., None] * vals.float() + bias_sum[..., None]
     dists = torch.where(valid, dists, torch.inf)
     # ids only for the kept candidates
     lids = torch.clamp_min(probe_ids, 0).long()[..., None]
     ids = index.lists.ids[lids, torch.clamp_min(slots, 0).long()]
     ids = torch.where(valid & (probe_ids >= 0)[..., None], ids, -1)
+    if early_exit:
+        tiles_skipped = torch.sum(out[2].reshape(qq, -1), dim=1,
+                                  dtype=torch.int32)
+        return dists.reshape(qq, -1), ids.reshape(qq, -1), tiles_skipped
     return dists.reshape(qq, -1), ids.reshape(qq, -1)
+
+
+def _final_topk(dists: torch.Tensor, ids: torch.Tensor, topk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    qq = dists.shape[0]
+    flat_d = dists.reshape(qq, -1)
+    flat_ids = ids.reshape(qq, -1)
+    vals, pos = topk_mod.masked_topk(flat_d, flat_ids >= 0, topk)
+    return vals, topk_mod.gather_ids(flat_ids, pos)
+
+
+def search_ivf(index: IVFIndex, q: torch.Tensor, *, nprobe: int = 8,
+               topk: int = 10) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF + 4-bit fast-scan search ('ref' scan, no re-rank).
+
+    q (Q, D) or (D,). Returns (dists (Q, topk) f32, ids (Q, topk) i32,
+    -1 padding).
+    """
+    if q.ndim == 1:
+        q = q[None]
+    coarse_d = pairwise_sqdist(q, index.centroids)            # (Q, nlist)
+    _, probe_ids = topk_mod.smallest_k(coarse_d, nprobe)      # (Q, P)
+    return _final_topk(*scan_probes(index, q, probe_ids), topk)
+
+
+def search_ivf_precomputed_probes(index: IVFIndex, q: torch.Tensor,
+                                  probe_ids: torch.Tensor, *, nprobe: int = 8,
+                                  topk: int = 10
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fine stage only: the probes come from an external coarse quantizer
+    (the paper's Table 1 pipeline: HNSW for coarse, fast-scan for fine)."""
+    if q.ndim == 1:
+        q = q[None]
+    return _final_topk(*scan_probes(index, q, probe_ids[:, :nprobe]), topk)

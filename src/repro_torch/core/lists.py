@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class ListStore(NamedTuple):
     codes: torch.Tensor   # (..., nlist, cap, M//2) uint8
@@ -35,6 +37,18 @@ class ListStore(NamedTuple):
     @property
     def cap(self) -> int:
         return self.ids.shape[-1]
+
+    def gather(self, probe_ids: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Probed lists as copies: probe_ids (..., P) -> codes (..., P, cap,
+        M//2) u8 and ids (..., P, cap) i32. A negative probe yields a fully
+        padded list: ids all -1 and codes all zero, so the scan does no work
+        on another list's real codes."""
+        valid = probe_ids >= 0
+        safe = torch.clamp_min(probe_ids, 0).long()
+        codes = torch.where(valid[..., None, None], self.codes[safe], 0)
+        ids = torch.where(valid[..., None], self.ids[safe], -1)
+        return codes, ids
 
     def gather_ids(self, probe_ids: torch.Tensor) -> torch.Tensor:
         """ids of the probed lists: probe_ids (..., P) -> (..., P, cap) i32;
@@ -96,8 +110,9 @@ def filter_pass_sizes(store: ListStore, filter_bits: torch.Tensor
 def build_lists(assign: np.ndarray, packed_codes: np.ndarray, *, nlist: int,
                 cap: int | None = None, ids: np.ndarray | None = None,
                 attrs: np.ndarray | None = None,
-                device: torch.device | str = "cpu") -> ListStore:
-    """Bucket packed codes into padded lists (host-side numpy, offline).
+                device: torch.device | str | None = None) -> ListStore:
+    """Bucket packed codes into padded lists (host-side numpy, offline),
+    onto ``device`` (None = the CUDA card; raises without one).
 
     Same result as the reference's row-by-row loop, vectorised: a stable
     argsort by list puts each list's rows in their original order, a row's
@@ -162,8 +177,11 @@ def store_arrays(store: ListStore) -> dict[str, np.ndarray]:
 
 
 def store_from_arrays(arrays: dict[str, np.ndarray], *,
-                      device: torch.device | str = "cpu") -> ListStore:
-    """Inverse of ``store_arrays``, onto ``device``."""
+                      device: torch.device | str | None = None) -> ListStore:
+    """Inverse of ``store_arrays``, onto ``device`` (None = the CUDA card;
+    raises without one)."""
+    device = resolve_device(device)
+
     def t(key, dtype):
         return torch.from_numpy(np.array(arrays[key], dtype)).to(device)
     return ListStore(codes=t("codes", np.uint8), ids=t("ids", np.int32),

@@ -3,12 +3,17 @@
 
 The serving query path, as pure functions of (coarse, index, tensors):
 
-  1. ``coarse_probes``: flat coarse quantizer, the nprobe nearest lists;
+  1. ``coarse_probes``: flat coarse quantizer, the nprobe nearest lists,
+     pruned per query by the margin policy when it is on (anytime search);
   2. ``scan_candidates``: residual u8 LUTs per (query, probe), then the
-     stream-scan kernel (K1) over the lists in place with fused per-tile
-     top-kc and the optional filter bitmap;
+     scan impl the config names or the autotuner picks: the stream kernel
+     (K1, or K4 with early exit) over the lists in place with fused
+     per-tile top-kc and the optional filter bitmap, or a full-pool scan
+     (``core.ivf.scan_probes``: 'ref', K5 'select', K6 'mxu' over a
+     gathered copy) post-filtered;
   3. ``rerank.finalize_candidates``: the top r·k candidates re-ranked
-     exactly by the stream re-rank kernel (K2), then the final top-k;
+     exactly ('gathered', the stream kernel K2, or 'auto'), then the final
+     top-k;
   4. ``make_stats``: the per-query ``QueryStats`` counters.
 
 ``SearchEngine.search`` composes them eagerly. PyTorch has no counterpart
@@ -17,8 +22,8 @@ reference's name and runs the same eager pipeline (CUDA-graph capture per
 shape bucket is ROADMAP work).
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-namespaces, the margin probe policy and early exit (anytime search),
-mutation (upsert/delete/compact, tombstoned stores), HNSW/tree coarse.
+namespaces, mutation (upsert/delete/compact, tombstoned stores), HNSW/tree
+coarse.
 """
 from __future__ import annotations
 
@@ -29,37 +34,42 @@ import torch
 from repro_torch.core import coarse as coarse_mod
 from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import lists as lists_mod
-from repro_torch.core.lists import filter_pass_sizes, filter_words
+from repro_torch.core import topk as topk_mod
+from repro_torch.core.lists import (filter_pass_sizes, filter_words,
+                                    unpack_filter_mask)
 from repro_torch.device import resolve_device
 from repro_torch.engine import rerank as rerank_mod
 from repro_torch.kernels import ops as ops_mod
+from repro_torch.kernels.ops import RERANK_IMPLS, SCAN_IMPLS
 
-PROBE_POLICIES = ("fixed",)
+PROBE_POLICIES = ("fixed", "margin")
+# valid-probe fraction the autotune sweep assumes under the margin policy:
+# an adaptive workload's 'auto' verdict is timed (and cached) against a
+# probe set with this fill instead of a dense one
+MARGIN_PROBE_FILL = 0.5
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch (ROADMAP Queue 1 item "
         f"{item})")
 
 
 class EngineConfig(NamedTuple):
-    """Static search-time knobs; the reference's fields.
+    """Static search-time knobs; the reference's fields and defaults."""
 
-    ``scan_impl`` and ``rerank_impl`` default to ``'stream'``, where the
-    reference defaults to ``'ref'`` / ``'gathered'``: the stream kernels are
-    the only impls the port has, and the serving path the reference
-    recommends.
-    """
-
-    nprobe: int = 8
-    rerank_mult: int = 0
-    scan_impl: str = "stream"
-    ef: int = 64
-    rerank_impl: str = "stream"
-    probe_policy: str = "fixed"
-    margin_tau: float = float("inf")
-    early_exit: bool = False
+    nprobe: int = 8         # lists scanned per query (the MAX under 'margin')
+    rerank_mult: int = 0    # refine rerank_mult*k candidates exactly; 0 = off
+    scan_impl: str = "ref"  # kernels.ops.SCAN_IMPLS
+    ef: int = 64            # HNSW beam width (hnsw coarse only)
+    rerank_impl: str = "gathered"  # kernels.ops.RERANK_IMPLS
+    probe_policy: str = "fixed"  # 'fixed' | 'margin' (adaptive nprobe: drop
+    #                         probes beyond (1 + tau) x the query's best)
+    margin_tau: float = float("inf")  # 'margin' width; +inf keeps every
+    #                         probe (bit-identical to 'fixed')
+    early_exit: bool = False  # anytime tile pruning in the stream scan
+    #                         (K4); lossless for the final top-k, no-op on
+    #                         the gathered impls
 
 
 _EF_DEFAULT = EngineConfig._field_defaults["ef"]
@@ -73,8 +83,8 @@ class QueryStats(NamedTuple):
     reranked: torch.Tensor       # candidates refined exactly
     rows_filtered: torch.Tensor  # probed rows the filter excluded
     rows_tombstoned: torch.Tensor  # zeros: mutation is not ported
-    lists_pruned: torch.Tensor   # zeros: the margin policy is not ported
-    tiles_skipped: torch.Tensor  # zeros: early exit is not ported
+    lists_pruned: torch.Tensor   # probes the margin policy dropped
+    tiles_skipped: torch.Tensor  # valid-probe tiles early exit skipped
 
 
 class SearchResult(NamedTuple):
@@ -85,24 +95,26 @@ class SearchResult(NamedTuple):
 
 def validate_config(config: EngineConfig, *, coarse_kind: str,
                     has_base: bool) -> None:
-    """Reject nonsense or not-yet-ported knobs at construction time."""
+    """Reject nonsense config/coarse combinations at construction time."""
     if config.nprobe < 1:
         raise ValueError(f"EngineConfig.nprobe must be >= 1, got {config.nprobe}")
     if config.rerank_mult < 0:
         raise ValueError(
             f"EngineConfig.rerank_mult must be >= 0, got {config.rerank_mult}")
-    ops_mod.check_impl("scan", config.scan_impl)
-    ops_mod.check_impl("rerank", config.rerank_impl)
-    if config.probe_policy == "margin":
-        raise _not_ported("probe_policy='margin'", 8)
+    if config.scan_impl not in SCAN_IMPLS:
+        raise ValueError(f"EngineConfig.scan_impl {config.scan_impl!r} unknown; "
+                         f"want one of {SCAN_IMPLS}")
+    if config.rerank_impl not in RERANK_IMPLS:
+        raise ValueError(
+            f"EngineConfig.rerank_impl {config.rerank_impl!r} unknown; "
+            f"want one of {RERANK_IMPLS}")
     if config.probe_policy not in PROBE_POLICIES:
         raise ValueError(
-            f"EngineConfig.probe_policy {config.probe_policy!r} unknown")
-    if config.margin_tau is None or not config.margin_tau >= 0:
+            f"EngineConfig.probe_policy {config.probe_policy!r} unknown; "
+            f"want one of {PROBE_POLICIES}")
+    if config.margin_tau is None or not config.margin_tau >= 0:  # rejects NaN
         raise ValueError(
             f"EngineConfig.margin_tau must be >= 0, got {config.margin_tau}")
-    if config.early_exit:
-        raise _not_ported("early_exit", 8)
     if config.ef < 1:
         raise ValueError(f"EngineConfig.ef must be >= 1, got {config.ef}")
     if config.ef != _EF_DEFAULT and coarse_kind != "hnsw":
@@ -116,26 +128,64 @@ def validate_config(config: EngineConfig, *, coarse_kind: str,
 
 
 def coarse_probes(coarse: coarse_mod.FlatCoarse, q: torch.Tensor, *,
-                  nprobe: int) -> torch.Tensor:
-    """Stage 1: the nprobe nearest lists, (Q, nprobe) i32. (The reference
-    also returns its margin policy's lists-pruned counter; under the only
-    ported policy, 'fixed', that is zeros, which ``make_stats`` fills.)"""
-    return coarse.search(q, nprobe)[1]
+                  nprobe: int, probe_policy: str = "fixed",
+                  margin_tau: torch.Tensor | float | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1: the nprobe nearest lists. Returns (probes (Q, nprobe) i32,
+    -1 = no probe; lists_pruned (Q,) i32). Under ``probe_policy='margin'``
+    a probe survives only while its centroid distance is within
+    ``(1 + margin_tau) x`` the query's best (``core.topk.
+    margin_prune_probes``; scalar or (Q,) tau, None or +inf keeps all)."""
+    vals, probes = coarse.search(q, nprobe)
+    if probe_policy == "margin":
+        tau = torch.inf if margin_tau is None else margin_tau
+        return topk_mod.margin_prune_probes(vals, probes, tau)
+    return probes, torch.zeros((probes.shape[0],), dtype=torch.int32,
+                               device=probes.device)
 
 
 def scan_candidates(index: ivf_mod.IVFIndex, q: torch.Tensor,
-                    probes: torch.Tensor, *, scan_impl: str, keep: int,
-                    filter_bits: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 2: the stream scan over the lists in place, flattened to one
-    candidate pool per query: (dists (Q, C) f32, ids (Q, C) i32, -1 = pad).
-    ``keep`` is the candidate budget the final selection takes (r*k, or k
-    without re-rank). (The reference also returns early exit's
-    tiles-skipped counter; without early exit that is zeros, which
-    ``make_stats`` fills.)"""
-    ops_mod.check_impl("scan", scan_impl)
-    return ivf_mod.scan_probes_stream(index, q, probes, keep=keep,
-                                      filter_bits=filter_bits)
+                    probes: torch.Tensor, *, scan_impl: str,
+                    keep: int | None = None,
+                    filter_bits: torch.Tensor | None = None,
+                    early_exit: bool = False, probe_fill: float = 1.0
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage 2: quantized scan, flattened to one candidate pool per query.
+
+    Returns (dists (Q, C) f32, ids (Q, C) i32 with -1 = pad, tiles_skipped
+    (Q,) i32 -- zeros unless the stream path ran with early exit). ``keep``
+    is the candidate budget the final selection takes (r*k, or k without
+    re-rank): when the resolved impl is 'stream' and ``keep`` is given, the
+    scan runs over the store in place with fused per-tile reduction and
+    ``filter_bits`` applied before it (``core.ivf.scan_probes_stream``).
+    Otherwise the full pool comes from ``core.ivf.scan_probes`` and the
+    filter is applied after, the reference's post-filter oracle; both agree
+    through any final selection of <= keep. ``probe_fill`` is the valid-
+    probe share the 'auto' sweep assumes.
+    """
+    qq = probes.shape[0]
+    if keep is not None:
+        impl, tile_n = ops_mod.resolve_scan_impl(
+            scan_impl, qq * probes.shape[1], index.lists.cap,
+            2 * index.lists.codes.shape[-1], nlist=index.lists.nlist,
+            probe_fill=probe_fill, device=index.lists.codes.device)
+        if impl == "stream":
+            out = ivf_mod.scan_probes_stream(index, q, probes, keep=keep,
+                                             tile_n=tile_n,
+                                             filter_bits=filter_bits,
+                                             early_exit=early_exit)
+            if early_exit:
+                return out
+            return (*out, torch.zeros((qq,), dtype=torch.int32,
+                                      device=q.device))
+    dists, ids = ivf_mod.scan_probes(index, q, probes, impl=scan_impl)
+    if filter_bits is not None:
+        ok = unpack_filter_mask(filter_bits, index.lists.cap)[
+            torch.clamp_min(probes, 0).long()] & (ids >= 0)
+        dists = torch.where(ok, dists, torch.inf)
+        ids = torch.where(ok, ids, -1)
+    return (dists.reshape(qq, -1), ids.reshape(qq, -1),
+            torch.zeros((qq,), dtype=torch.int32, device=q.device))
 
 
 def _probe_sum(probes: torch.Tensor, per_list: torch.Tensor) -> torch.Tensor:
@@ -157,8 +207,11 @@ def count_rows_filtered(index: ivf_mod.IVFIndex, probes: torch.Tensor,
 
 def make_stats(index: ivf_mod.IVFIndex, probes: torch.Tensor,
                reranked: torch.Tensor,
-               filter_bits: torch.Tensor | None = None) -> QueryStats:
-    """Work counters from the probe set and the re-rank stage's counter."""
+               filter_bits: torch.Tensor | None = None,
+               lists_pruned: torch.Tensor | None = None,
+               tiles_skipped: torch.Tensor | None = None) -> QueryStats:
+    """Work counters from the probe set and the stages' counters; a None
+    anytime counter (hand composition) records zeros."""
     zeros = torch.zeros((probes.shape[0],), dtype=torch.int32,
                         device=probes.device)
     return QueryStats(
@@ -167,22 +220,31 @@ def make_stats(index: ivf_mod.IVFIndex, probes: torch.Tensor,
                                 dtype=torch.int32),
         reranked=reranked,
         rows_filtered=count_rows_filtered(index, probes, filter_bits),
-        rows_tombstoned=zeros, lists_pruned=zeros, tiles_skipped=zeros)
+        rows_tombstoned=zeros,
+        lists_pruned=zeros if lists_pruned is None else lists_pruned,
+        tiles_skipped=zeros if tiles_skipped is None else tiles_skipped)
 
 
 def _pipeline(coarse, index: ivf_mod.IVFIndex, base: torch.Tensor | None,
               norms: torch.Tensor | None, q: torch.Tensor,
-              filter_bits: torch.Tensor | None, *, k: int, nprobe: int,
-              r: int, scan_impl: str, rerank_impl: str) -> SearchResult:
+              filter_bits: torch.Tensor | None,
+              margin_tau: torch.Tensor | None = None, *, k: int, nprobe: int,
+              r: int, scan_impl: str, rerank_impl: str,
+              probe_policy: str = "fixed", early_exit: bool = False
+              ) -> SearchResult:
     """The whole query path as one function (stages 1-4 + stats)."""
-    probes = coarse_probes(coarse, q, nprobe=nprobe)
-    flat_d, flat_ids = scan_candidates(
+    probes, lists_pruned = coarse_probes(coarse, q, nprobe=nprobe,
+                                         probe_policy=probe_policy,
+                                         margin_tau=margin_tau)
+    flat_d, flat_ids, tiles_skipped = scan_candidates(
         index, q, probes, scan_impl=scan_impl, keep=(r * k) if r else k,
-        filter_bits=filter_bits)
+        filter_bits=filter_bits, early_exit=early_exit,
+        probe_fill=(MARGIN_PROBE_FILL if probe_policy == "margin" else 1.0))
     vals, out_ids, reranked = rerank_mod.finalize_candidates(
         flat_d, flat_ids, base, q, k, r, norms=norms, rerank_impl=rerank_impl)
     return SearchResult(dists=vals, ids=out_ids,
-                        stats=make_stats(index, probes, reranked, filter_bits))
+                        stats=make_stats(index, probes, reranked, filter_bits,
+                                         lists_pruned, tiles_skipped))
 
 
 class SearchEngine:
@@ -200,11 +262,11 @@ class SearchEngine:
         """``base_norms`` takes precomputed ``‖x‖²`` of the base rows (a
         carried-over index brings its own); they are derived when absent."""
         if namespaces is not None:
-            raise _not_ported("namespaces", 5)
+            raise _not_ported("namespaces", "5b")
         lists = index.lists
         live = torch.sum(lists.ids >= 0, dim=-1, dtype=torch.int32)
         if bool(torch.any(live != lists.sizes)):
-            raise _not_ported("a store holding tombstones (mutation)", 7)
+            raise _not_ported("a store holding tombstones (mutation)", "7")
         self.device = index.centroids.device
         self.index = index
         self.base = None if base is None else base.to(self.device)
@@ -220,7 +282,7 @@ class SearchEngine:
         elif coarse == "flat":
             self.coarse = coarse_mod.build_flat(index.centroids)
         else:
-            raise _not_ported(f"coarse={coarse!r}", 10)
+            raise _not_ported(f"coarse={coarse!r}", "10")
         self.coarse_kind = "flat"
         validate_config(self.config, coarse_kind=self.coarse_kind,
                         has_base=base is not None)
@@ -245,16 +307,53 @@ class SearchEngine:
         return cls(index, base=base if keep_base else None, coarse=coarse,
                    config=config)
 
+    def _queries(self, queries) -> torch.Tensor:
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return (q[None] if q.ndim == 1 else q).contiguous()
+
+    def select_probes(self, q, nprobe: int) -> torch.Tensor:
+        """Stage 1 alone: up to nprobe lists per query (-1 = none), under
+        the config's probe policy (the pruned counter is dropped; call
+        ``coarse_probes`` to see it)."""
+        probes, _ = coarse_probes(
+            self.coarse, self._queries(q), nprobe=nprobe,
+            probe_policy=self.config.probe_policy,
+            margin_tau=self.config.margin_tau)
+        return probes
+
+    def scan(self, q, probe_ids: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stage 2 alone: the full candidate pool per query, (dists (Q, C)
+        f32, ids (Q, C) i32) with C = P * cap, by the config's scan impl
+        (``core.ivf.scan_probes``)."""
+        dists, ids, _ = scan_candidates(
+            self.index, self._queries(q),
+            torch.as_tensor(probe_ids, dtype=torch.int32, device=self.device),
+            scan_impl=self.config.scan_impl)
+        return dists, ids
+
     def _resolve(self, queries, nprobe, rerank_mult, filter_bits, namespaces,
                  margin_tau):
         if namespaces is not None:
-            raise _not_ported("namespaces", 5)
-        if margin_tau is not None:
-            raise _not_ported("margin_tau (the margin probe policy)", 8)
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        q = (q[None] if q.ndim == 1 else q).contiguous()
+            raise _not_ported("namespaces", "5b")
+        q = self._queries(queries)
         nprobe = self.config.nprobe if nprobe is None else nprobe
         r = self.config.rerank_mult if rerank_mult is None else rerank_mult
+        if margin_tau is not None and self.config.probe_policy != "margin":
+            raise ValueError(
+                "margin_tau override given but probe_policy is "
+                f"{self.config.probe_policy!r}; build the engine with "
+                "EngineConfig(probe_policy='margin')")
+        tau = None
+        if self.config.probe_policy == "margin":
+            tau = torch.as_tensor(
+                self.config.margin_tau if margin_tau is None else margin_tau,
+                dtype=torch.float32, device=self.device)
+            if tau.ndim not in (0, 1) or (tau.ndim == 1
+                                          and tau.shape != (q.shape[0],)):
+                raise ValueError(
+                    f"margin_tau must be a scalar or ({q.shape[0]},) per-"
+                    f"query widths, got shape {tuple(tau.shape)}")
         if r and self.base is None:
             raise ValueError("exact re-rank requested but engine holds no "
                              "base vectors (build with keep_base=True)")
@@ -270,7 +369,7 @@ class SearchEngine:
                     f"shape {tuple(filter_bits.shape)}")
             filter_bits = filter_bits[:, :filter_words(cap)].to(
                 torch.uint8).contiguous()
-        return q, nprobe, r, filter_bits
+        return q, nprobe, r, filter_bits, tau
 
     def search(self, queries, k: int = 10, *, nprobe: int | None = None,
                rerank_mult: int | None = None, filter_bits=None,
@@ -278,14 +377,20 @@ class SearchEngine:
         """Batched ANN search. queries: (Q, D) or (D,), moved to the
         engine's device. ``rerank_mult`` overrides the config (0 = pure
         fast-scan); ``filter_bits`` is an optional (nlist, W) packed
-        per-row bitmap (bit 1 = the row may appear in results)."""
-        q, nprobe, r, fb = self._resolve(queries, nprobe, rerank_mult,
-                                         filter_bits, namespaces, margin_tau)
+        per-row bitmap (bit 1 = the row may appear in results);
+        ``margin_tau`` (scalar or (Q,)) overrides the config's margin width
+        for this request, only under ``probe_policy='margin'``."""
+        q, nprobe, r, fb, tau = self._resolve(queries, nprobe, rerank_mult,
+                                              filter_bits, namespaces,
+                                              margin_tau)
+        cfg = self.config
         with torch.no_grad():
             return _pipeline(self.coarse, self.index, self.base,
-                             self.base_norms, q, fb, k=k, nprobe=nprobe, r=r,
-                             scan_impl=self.config.scan_impl,
-                             rerank_impl=self.config.rerank_impl)
+                             self.base_norms, q, fb, tau, k=k, nprobe=nprobe,
+                             r=r, scan_impl=cfg.scan_impl,
+                             rerank_impl=cfg.rerank_impl,
+                             probe_policy=cfg.probe_policy,
+                             early_exit=cfg.early_exit)
 
     def search_jit(self, queries, k: int = 10, *, nprobe: int | None = None,
                    rerank_mult: int | None = None, filter_bits=None,
@@ -298,10 +403,10 @@ class SearchEngine:
                            margin_tau=margin_tau)
 
     def upsert(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.upsert (mutation)", 7)
+        raise _not_ported("SearchEngine.upsert (mutation)", "7")
 
     def delete(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.delete (mutation)", 7)
+        raise _not_ported("SearchEngine.delete (mutation)", "7")
 
     def compact(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.compact (mutation)", 7)
+        raise _not_ported("SearchEngine.compact (mutation)", "7")

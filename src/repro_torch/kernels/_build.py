@@ -20,8 +20,16 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fastscan_stream_topk.cu", "rerank_stream_topk.cu")
+SOURCES = ("fastscan_stream_topk.cu", "rerank_stream_topk.cu",
+           "fastscan_stream_grouped.cu", "fastscan_stream_topk_prune.cu",
+           "fastscan_select_grouped.cu", "fastscan_onehot_mma_grouped.cu")
+# included by the sources: part of the build key
+HEADERS = ("fastscan_common.cuh",)
+# dynamic shared memory one block can get on Hopper
+SMEM_LIMIT = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # per-kernel registers, shared memory and spills, kept in the build log
@@ -37,6 +45,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_fastscan_stream_topk": [_VP] * 5 + [_I] * 6 + [_VP] * 3,
     "repro_rerank_stream_topk": [_VP] * 4 + [_I] * 6 + [_VP] * 3,
+    "repro_fastscan_stream_grouped": [_VP] * 3 + [_I] * 4 + [_VP] * 2,
+    "repro_fastscan_stream_topk_prune": [_VP] * 8 + [_I] * 7 + [_VP] * 4,
+    "repro_fastscan_select_grouped": [_VP] * 2 + [_I] * 4 + [_VP] * 2,
+    "repro_fastscan_onehot_mma_grouped": [_VP] * 2 + [_I] * 4 + [_VP] * 2,
 }
 
 
@@ -58,7 +70,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -119,6 +131,20 @@ def load_library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def check_args(args: dict, device: torch.device) -> None:
+    """Raise ``ValueError`` unless every ``name: (tensor, dtype, ndim)`` of
+    ``args`` has that dtype and rank, is contiguous and lies on
+    ``device`` -- what a kernel's plain C interface takes."""
+    for name, (t, dtype, ndim) in args.items():
+        if t.dtype != dtype or t.ndim != ndim:
+            raise ValueError(f"{name}: want {ndim}-D {dtype}, got "
+                             f"{t.ndim}-D {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, want {device}")
 
 
 def check(err: int, what: str) -> None:

@@ -28,27 +28,16 @@
 //     whose ascending order IS the reference's lowest-slot-wins order; the
 //     tile's keys (padded to a power of two with UINT64_MAX) are sorted by
 //     a shared-memory bitonic sort and the first kc are emitted.
+// The row sum, the key and the sort live in fastscan_common.cuh, shared
+// with K3, K4 and K5.
 // The tile may be any size whose keys fit the block's shared memory; the
 // host wrapper raises on a larger one.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fastscan_common.cuh"
 
 namespace {
 
-constexpr int32_t kAccSentinel = 0x7fffffff;
+using repro_cuda::kAccSentinel;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int sum_word(uint32_t word, const uint8_t* lut,
-                                        int byte0) {
-  int acc = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t b = (word >> (8 * i)) & 0xffu;
-    const int sub = 2 * (byte0 + i);
-    acc += lut[sub * 16 + (b & 15u)] + lut[(sub + 1) * 16 + (b >> 4)];
-  }
-  return acc;
-}
 
 __global__ void __launch_bounds__(kThreads) stream_topk_kernel(
     const uint8_t* __restrict__ table,   // (G, M, 16)
@@ -91,48 +80,14 @@ __global__ void __launch_bounds__(kThreads) stream_topk_kernel(
       bool live = slot < size;
       if (live && fb) live = (fb[slot >> 3] >> (slot & 7)) & 1;
       if (live) {
-        const uint8_t* row = list + static_cast<size_t>(slot) * mh;
-        int acc = 0;
-        if (vec == 8) {
-          for (int j = 0; j < mh; j += 8) {
-            const uint2 v = *reinterpret_cast<const uint2*>(row + j);
-            acc += sum_word(v.x, lut, j) + sum_word(v.y, lut, j + 4);
-          }
-        } else if (vec == 4) {
-          for (int j = 0; j < mh; j += 4)
-            acc += sum_word(*reinterpret_cast<const uint32_t*>(row + j), lut, j);
-        } else {
-          for (int j = 0; j < mh; ++j) {
-            const uint32_t b = row[j];
-            acc += lut[(2 * j) * 16 + (b & 15u)] + lut[(2 * j + 1) * 16 + (b >> 4)];
-          }
-        }
-        val = acc;
+        val = repro_cuda::row_sum(list + static_cast<size_t>(slot) * mh, lut,
+                                  mh, vec);
       }
-      key = (static_cast<unsigned long long>(static_cast<uint32_t>(val)) << 32)
-            | static_cast<uint32_t>(slot);
+      key = repro_cuda::slot_key(val, slot);
     }
     keys[r] = key;
   }
-  __syncthreads();
-
-  // bitonic sort of the pow2 keys, ascending
-  for (int k2 = 2; k2 <= pow2; k2 <<= 1) {
-    for (int j = k2 >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < pow2; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = keys[i], b = keys[ixj];
-          const bool up = (i & k2) == 0;
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  repro_cuda::bitonic_sort(keys, pow2);
 
   for (int i = threadIdx.x; i < kc; i += blockDim.x) {
     const unsigned long long key = keys[i];
@@ -141,12 +96,6 @@ __global__ void __launch_bounds__(kThreads) stream_topk_kernel(
     out_slots[out0 + i] =
         val == kAccSentinel ? -1 : static_cast<int32_t>(key & 0xffffffffu);
   }
-}
-
-int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
 }
 
 }  // namespace
@@ -161,12 +110,9 @@ extern "C" int repro_fastscan_stream_topk(
     const void* sizes, const void* fbits, int g, int m, int cap, int w,
     int tile_n, int kc, void* out_vals, void* out_slots, void* stream) {
   const int n_tiles = cap / tile_n;
-  const int pow2 = next_pow2(tile_n);
+  const int pow2 = repro_cuda::next_pow2(tile_n);
   const size_t smem = static_cast<size_t>(pow2) * 8 + static_cast<size_t>(m) * 16;
-  const int mh = m / 2;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(codes);
-  const int vec = (mh % 8 == 0 && addr % 8 == 0) ? 8
-                  : (mh % 4 == 0 && addr % 4 == 0) ? 4 : 1;
+  const int vec = repro_cuda::load_width(codes, m / 2);
   cudaError_t err = cudaFuncSetAttribute(
       stream_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -19,14 +19,14 @@ import torch
 
 from repro_torch.core.lists import unpack_filter_mask
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as ref_mod
 
 # Larger than any reachable ADC sum (<= 128 sub-spaces * 255); marks padded,
 # filtered-out and invalid-probe slots inside the selection.
 ACC_SENTINEL = 2**31 - 1
 # default cap tile (the reference's TILE_N)
 TILE_N = 1024
-# dynamic shared memory one block can get on Hopper
-SMEM_LIMIT = 232448
+SMEM_LIMIT = _build.SMEM_LIMIT
 
 launches = 0
 
@@ -48,15 +48,7 @@ def _check(table_q8, list_codes, probe_ids, sizes, filter_bits, kc, tile_n):
             "sizes": (sizes, torch.int32, 1)}
     if filter_bits is not None:
         args["filter_bits"] = (filter_bits, torch.uint8, 2)
-    for name, (t, dtype, ndim) in args.items():
-        if t.dtype != dtype or t.ndim != ndim:
-            raise ValueError(f"{name}: want {ndim}-D {dtype}, got "
-                             f"{t.ndim}-D {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != table_q8.device:
-            raise ValueError(f"{name} is on {t.device}, table_q8 on "
-                             f"{table_q8.device}")
+    _build.check_args(args, table_q8.device)
     g, m, k = table_q8.shape
     nlist, cap, mh = list_codes.shape
     if k != 16 or 2 * mh != m:
@@ -88,16 +80,12 @@ def fastscan_stream_topk_plain(table_q8, list_codes, probe_ids, sizes, *,
     puts equal values in slot order, which is what repeated first-occurrence
     argmin extraction yields.
     """
-    g, m, _ = table_q8.shape
-    nlist, cap, mh = list_codes.shape
+    g = table_q8.shape[0]
+    cap = list_codes.shape[1]
     n_tiles = cap // tile_n
     dev = table_q8.device
     lid = torch.clamp_min(probe_ids, 0).long()
-    codes = list_codes[lid].long()                              # (G, cap, M/2)
-    nib = torch.stack([codes & 15, codes >> 4], dim=-1).reshape(g, cap, m)
-    idx = nib + 16 * torch.arange(m, device=dev)                # flat LUT index
-    acc = torch.gather(table_q8.reshape(g, m * 16), 1, idx.reshape(g, -1))
-    acc = acc.reshape(g, cap, m).sum(dim=-1, dtype=torch.int32)
+    acc = ref_mod.fastscan_grouped_ref(table_q8, list_codes[lid])  # (G, cap)
     slot = torch.arange(cap, device=dev)
     live = (slot < sizes[lid][:, None]) & (probe_ids >= 0)[:, None]
     if filter_bits is not None:

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 
 # default candidate-chunk size (the reference's TILE_R)
 TILE_R = 64
-SMEM_LIMIT = 232448
+SMEM_LIMIT = _build.SMEM_LIMIT
 
 launches = 0
 
@@ -52,17 +52,10 @@ def norms_gemm_dists(qv: torch.Tensor, vecs: torch.Tensor, xn: torch.Tensor
 
 
 def _check(base, q, cand_ids, xn, k, tile_r):
-    args = {"base": (base, torch.float32, 2), "q": (q, torch.float32, 2),
-            "cand_ids": (cand_ids, torch.int32, 2),
-            "xn": (xn, torch.float32, 2)}
-    for name, (t, dtype, ndim) in args.items():
-        if t.dtype != dtype or t.ndim != ndim:
-            raise ValueError(f"{name}: want {ndim}-D {dtype}, got "
-                             f"{t.ndim}-D {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != base.device:
-            raise ValueError(f"{name} is on {t.device}, base on {base.device}")
+    _build.check_args({"base": (base, torch.float32, 2),
+                       "q": (q, torch.float32, 2),
+                       "cand_ids": (cand_ids, torch.int32, 2),
+                       "xn": (xn, torch.float32, 2)}, base.device)
     n, d = base.shape
     qq, rp = cand_ids.shape
     if q.shape != (qq, d) or xn.shape != (qq, rp):

@@ -140,7 +140,7 @@ def test_build_lists_layout_matches_reference(cap):
     want = jlists.store_arrays(jlists.build_lists(
         assign, packed, nlist=7, cap=cap, ids=ids, attrs=attrs))
     got = tlists.store_arrays(tlists.build_lists(
-        assign, packed, nlist=7, cap=cap, ids=ids, attrs=attrs))
+        assign, packed, nlist=7, cap=cap, ids=ids, attrs=attrs, device="cpu"))
     assert sorted(got) == sorted(want)
     for key in want:
         assert got[key].dtype == want[key].dtype, key
@@ -150,7 +150,8 @@ def test_build_lists_layout_matches_reference(cap):
 def test_filter_pass_sizes_and_probe_helpers_match_reference():
     assign, packed, ids, attrs = _random_assign(5)
     jstore = jlists.build_lists(assign, packed, nlist=7, attrs=attrs)
-    tstore = tlists.store_from_arrays(jlists.store_arrays(jstore))
+    tstore = tlists.store_from_arrays(jlists.store_arrays(jstore),
+                                      device="cpu")
     rng = np.random.default_rng(6)
     mask = rng.random((7, tstore.cap)) < 0.5
     bits = np.asarray(jlists.pack_filter_mask(jnp.asarray(mask)))
@@ -176,18 +177,20 @@ def test_grow_cap_matches_reference(new_cap):
                                 attrs=attrs)
     want = jlists.store_arrays(jlists.grow_cap(jstore, new_cap))
     got = tlists.store_arrays(tlists.grow_cap(
-        tlists.store_from_arrays(jlists.store_arrays(jstore)), new_cap))
+        tlists.store_from_arrays(jlists.store_arrays(jstore), device="cpu"),
+        new_cap))
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     with pytest.raises(ValueError, match="grow_cap"):
-        tlists.grow_cap(tlists.store_from_arrays(want), new_cap - 1)
+        tlists.grow_cap(tlists.store_from_arrays(want, device="cpu"),
+                        new_cap - 1)
 
 
 def test_list_store_shape_properties_hold_for_stacked_stores():
     """nlist/cap read the trailing dims, so a shard-stacked (S, nlist, cap)
     store reports the per-shard list count and capacity."""
     assign, packed, _, _ = _random_assign(7)
-    one = tlists.build_lists(assign, packed, nlist=7, cap=50)
+    one = tlists.build_lists(assign, packed, nlist=7, cap=50, device="cpu")
     stacked = tlists.ListStore(*(torch.stack([t, t, t]) for t in one[:3]))
     assert stacked.ids.shape == (3, 7, 50)
     assert (stacked.nlist, stacked.cap) == (one.nlist, one.cap) == (7, 50)

@@ -19,7 +19,12 @@ from repro_torch.data.vectors import make_sift_like
 from repro_torch.engine import EngineConfig, SearchEngine
 from repro_torch.kernels import _build
 from repro_torch.kernels import fastscan_kernel as fk
+from repro_torch.kernels import mxu_kernel as mk
+from repro_torch.kernels import ops
 from repro_torch.kernels import rerank_kernel as rk
+from repro_torch.kernels import select_kernel as sk
+from repro_torch.kernels import stream_grouped_kernel as sgk
+from repro_torch.kernels import stream_prune_kernel as spk
 
 pytestmark = pytest.mark.cuda
 
@@ -137,7 +142,9 @@ def test_card_engine_equals_host_engine(dev):
     ds = make_sift_like(n=20_000, nt=5_000, nq=32, d=32, ncl=16, seed=4,
                         device=dev)
     card = SearchEngine.build(ds.train, ds.base, m=8, nlist=64,
-                              config=EngineConfig(nprobe=8, rerank_mult=4),
+                              config=EngineConfig(nprobe=8, rerank_mult=4,
+                                                  scan_impl="stream",
+                                                  rerank_impl="stream"),
                               seed=0, device=dev)
     host = interop.engine_from_arrays(interop.arrays_from_engine(card),
                                       config=card.config, device="cpu")
@@ -158,3 +165,116 @@ def test_card_engine_equals_host_engine(dev):
         assert bool((same | near).all())
         for a, b in zip(got.stats, want.stats):
             assert torch.equal(a.cpu(), b)
+
+
+# (g, cap or N, mh, tile): odd M/2, M=2, tile 8, the serving shape, and M=128
+GROUPED_CASES = [(3, 64, 4, 32), (8, 96, 3, 32), (5, 40, 1, 8),
+                 (512, 4096, 8, 1024), (64, 1024, 8, 128), (2, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("case", range(len(GROUPED_CASES)))
+def test_k3_k5_k6_kernels_equal_plain(dev, case):
+    g, n, mh, tile = GROUPED_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    table = torch.as_tensor(rng.integers(0, 256, (g, 2 * mh, 16), np.uint8),
+                            device=dev)
+    codes = torch.as_tensor(rng.integers(0, 256, (g, n, mh), np.uint8),
+                            device=dev)
+    want = sk.fastscan_grouped_plain(table, codes, tile_n=tile)
+    for mod, fn in ((sk, sk.fastscan_select_tree_grouped),
+                    (mk, mk.fastscan_onehot_mxu_grouped)):
+        n0 = mod.launches
+        got = fn(table, codes, tile_n=tile)
+        torch.cuda.synchronize()
+        assert mod.launches == n0 + 1
+        assert torch.equal(got, want), fn.__name__
+    # K3 over a store of nlist = g // 2 + 1 lists, with -1 probes
+    nlist = g // 2 + 1
+    probes = rng.integers(0, nlist, g).astype(np.int32)
+    probes[rng.random(g) < 0.1] = -1
+    probes = torch.as_tensor(probes, device=dev)
+    store = codes[:nlist].contiguous()
+    n0 = sgk.launches
+    got = sgk.fastscan_stream_grouped(table, store, probes, tile_n=tile)
+    torch.cuda.synchronize()
+    assert sgk.launches == n0 + 1
+    assert torch.equal(got, sgk.fastscan_stream_grouped_plain(
+        table, store, probes, tile_n=tile))
+
+
+# (q, p, nlist, cap, mh, tile, keep, filter fill, skew)
+PRUNE_CASES = [(3, 4, 6, 64, 4, 16, 8, None, True),
+               (2, 8, 8, 64, 4, 16, 4, 0.5, True),
+               (4, 3, 5, 100, 3, 100, 9, None, False),
+               (128, 32, 1024, 4096, 8, 1024, 40, 0.5, True),
+               (1, 32, 1024, 4096, 8, 1024, 40, None, True)]
+
+
+@pytest.mark.parametrize("case", range(len(PRUNE_CASES)))
+def test_k4_kernel_equals_plain(dev, case):
+    q, p, nlist, cap, mh, tile, keep, fill, skew = PRUNE_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    g = q * p
+    table, codes, probes, sizes, bits = _k1_inputs(
+        300 + case, dev, g=g, nlist=nlist, cap=cap, mh=mh, fill=fill,
+        invalid=0.05)
+    scales = rng.uniform(0.5, 2.0, g).astype(np.float32)
+    biases = rng.uniform(0.0, 50.0, g).astype(np.float32)
+    if skew:
+        biases.reshape(q, p)[:, p // 2:] += np.float32(1e4)
+    scales, biases = (torch.as_tensor(a, device=dev) for a in (scales, biases))
+    acc_min = torch.sum(torch.amin(table, dim=-1), dim=-1, dtype=torch.int32)
+    bounds = scales * acc_min.float() + biases
+    n0 = spk.launches
+    got = spk.fastscan_stream_topk_prune(
+        table, codes, probes, sizes, bounds, scales, biases, kc=keep,
+        tile_n=tile, groups_per_query=p, filter_bits=bits)
+    torch.cuda.synchronize()
+    assert spk.launches == n0 + 1
+    want = spk.fastscan_stream_topk_prune_plain(
+        table, codes, probes, sizes, bounds, scales, biases, kc=keep,
+        tile_n=tile, groups_per_query=p, filter_bits=bits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if skew:
+        assert int(got[2].sum()) > 0
+
+
+def test_anytime_card_engine_equals_host_engine(dev):
+    ds = make_sift_like(n=20_000, nt=5_000, nq=32, d=32, ncl=16, seed=4,
+                        device=dev)
+    cfg = EngineConfig(nprobe=16, probe_policy="margin", margin_tau=0.4,
+                       early_exit=True, scan_impl="stream", rerank_mult=4,
+                       rerank_impl="auto")
+    card = SearchEngine.build(ds.train, ds.base, m=8, nlist=64, config=cfg,
+                              seed=0, device=dev)
+    host = interop.engine_from_arrays(interop.arrays_from_engine(card),
+                                      config=cfg._replace(rerank_impl="stream"),
+                                      device="cpu")
+    n0 = spk.launches
+    try:
+        for tau in (0.0, 0.4, float("inf")):
+            got = card.search_jit(ds.queries, 10, margin_tau=tau)
+            want = host.search_jit(ds.queries.cpu(), 10, margin_tau=tau)
+            torch.testing.assert_close(got.dists.cpu(), want.dists, rtol=1e-5,
+                                       atol=0)
+            same = got.ids.cpu() == want.ids
+            near = torch.isclose(got.dists.cpu(), want.dists, rtol=1e-5)
+            assert bool((same | near).all())
+            for a, b in zip(got.stats, want.stats):
+                assert torch.equal(a.cpu(), b)
+    finally:
+        ops.clear_autotune_cache()
+    assert spk.launches > n0
+    # the gathered impls on the card: K5 and K6 on the engine path
+    for impl, mod in (("select", sk), ("mxu", mk)):
+        eng = SearchEngine(card.index, base=card.base,
+                           base_norms=card.base_norms,
+                           config=cfg._replace(scan_impl=impl,
+                                               rerank_impl="gathered"))
+        n0 = mod.launches
+        got = eng.search_jit(ds.queries, 10, margin_tau=0.4)
+        want = host.search_jit(ds.queries.cpu(), 10, margin_tau=0.4)
+        assert mod.launches > n0
+        torch.testing.assert_close(got.dists.cpu(), want.dists, rtol=1e-5,
+                                   atol=0)

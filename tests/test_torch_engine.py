@@ -75,9 +75,9 @@ def arrays(jengine):
 
 @pytest.fixture(scope="module")
 def tengine(arrays):
-    return interop.engine_from_arrays(arrays,
-                                      config=EngineConfig(nprobe=NPROBE),
-                                      device="cpu")
+    return interop.engine_from_arrays(
+        arrays, config=EngineConfig(nprobe=NPROBE, scan_impl="stream",
+                                    rerank_impl="stream"), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -160,7 +160,10 @@ def test_port_build_recall_is_close_to_reference(ds, jengine):
         ref.search(jnp.asarray(q), 10, rerank_mult=4).ids, jnp.asarray(gt),
         10))
     port = SearchEngine.build(np.asarray(ds.train), np.asarray(ds.base), m=8,
-                              nlist=16, config=EngineConfig(nprobe=NPROBE),
+                              nlist=16,
+                              config=EngineConfig(nprobe=NPROBE,
+                                                  scan_impl="stream",
+                                                  rerank_impl="stream"),
                               seed=0, device="cpu")
     assert port.index.lists.codes.shape[1:] == (port.index.cap, 4)
     got = float(tmetrics.recall_at_r(port.search(q, 10, rerank_mult=4).ids,
@@ -188,15 +191,11 @@ def test_not_yet_ported_features_raise(tengine, arrays, ds):
     q = np.asarray(ds.queries)[:2]
     with pytest.raises(NotImplementedError, match="namespaces"):
         tengine.search_jit(q, 10, namespaces=np.zeros(2, np.int32))
-    with pytest.raises(NotImplementedError, match="margin"):
-        tengine.search(q, 10, margin_tau=0.5)
-    for cfg in (EngineConfig(probe_policy="margin"),
-                EngineConfig(early_exit=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            SearchEngine(tengine.index, base=tengine.base, config=cfg)
-    for cfg in (EngineConfig(scan_impl="ref"),
-                EngineConfig(rerank_impl="gathered")):
-        with pytest.raises(ValueError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="namespaces"):
+        SearchEngine(tengine.index, namespaces=np.ones((1, 16), bool))
+    for cfg in (EngineConfig(scan_impl="simd"),
+                EngineConfig(rerank_impl="exact")):
+        with pytest.raises(ValueError, match="unknown"):
             SearchEngine(tengine.index, config=cfg)
     with pytest.raises(NotImplementedError, match="item 10"):
         SearchEngine(tengine.index, coarse="hnsw")

@@ -254,15 +254,33 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
 
 
 def test_registries_hold_only_the_ported_impls():
-    assert tops.SCAN_IMPLS == ("stream",) and tops.RERANK_IMPLS == ("stream",)
-    for kind, impl in (("scan", "ref"), ("scan", "auto"),
-                       ("rerank", "gathered")):
-        with pytest.raises(ValueError, match="Queue 1 item 9"):
-            tops.check_impl(kind, impl)
+    """Every impl of the reference is ported: the registries are equal."""
+    for name in ("GROUPED_IMPLS", "IMPLS", "SCAN_IMPLS", "RERANK_CONCRETE",
+                 "RERANK_IMPLS"):
+        assert getattr(tops, name) == getattr(jops, name), name
+    from repro_torch.engine import engine as teng
+    assert teng.SCAN_IMPLS is tops.SCAN_IMPLS
+    assert teng.RERANK_IMPLS is tops.RERANK_IMPLS
+    for impl in ("simd", "gathered"):
+        with pytest.raises(ValueError, match="unknown grouped impl"):
+            tops.resolve_scan_impl(impl, 2, 32, 4, device="cpu")
+    with pytest.raises(ValueError, match="unknown rerank impl"):
+        tops.resolve_rerank_dispatch("ref", 2, 8, 4, 2, 10, device="cpu")
 
 
 def test_build_key_covers_every_source():
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == sorted(
         _build.SOURCES)
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == sorted(
+        _build.HEADERS)
+    assert len(_build.SOURCES) == 6
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build._digest()) == 16
+    # every launcher the wrappers call has a ctypes signature
+    for src in _build.SOURCES:
+        text = (_build.CSRC / src).read_text()
+        for fn in _build._SIGNATURES:
+            if f'int {fn}(' in text:
+                break
+        else:
+            raise AssertionError(f"{src} exports no bound launcher")
