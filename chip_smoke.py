@@ -550,19 +550,15 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
     return out
 
 
-def k4_phase(torch, args, cap: int, nlist: int) -> dict:
-    """K4 at the anytime path's largest bucket (128 queries x 32 probes),
-    ~50% filter, ~5% -1 probes, and half of each query's groups' biases
-    shifted far (as tests/test_anytime.py::_skewed_index does) so that
-    pruning fires."""
+def k4_inputs(torch, args, cap: int, nlist: int, qq: int):
+    """K4's operands for qq queries x AT_NPROBE probes: ~50% filter, ~5% -1
+    probes, and half of each query's groups' biases shifted far (as
+    tests/test_anytime.py::_skewed_index does) so that pruning fires."""
     from repro_torch.core.lists import filter_words
     from repro_torch.kernels import ops
-    from repro_torch.kernels import stream_prune_kernel as spk
     dev = torch.device("cuda")
-    g, mh = AT_QMAX * AT_NPROBE, M // 2
+    g, mh = qq * AT_NPROBE, M // 2
     tile = ops._stream_tile(cap)
-    kc = min(RERANK_MULT * K, tile)
-    n_tiles = cap // tile
     rng = np.random.default_rng(args.seed + 5)
     w = filter_words(cap)
     codes = torch.as_tensor(rng.integers(0, 256, (nlist, cap, mh), np.uint8),
@@ -575,50 +571,75 @@ def k4_phase(torch, args, cap: int, nlist: int) -> dict:
     bits_np = rng.integers(0, 256, (nlist, w), np.uint8)      # ~50% pass
     scales_np = rng.uniform(0.5, 2.0, g).astype(np.float32)
     biases_np = rng.uniform(0.0, 50.0, g).astype(np.float32)
-    biases_np.reshape(AT_QMAX, AT_NPROBE)[:, AT_NPROBE // 2:] += 1e4
+    biases_np.reshape(qq, AT_NPROBE)[:, AT_NPROBE // 2:] += 1e4
     sizes, probes, bits, scales, biases = (
         torch.as_tensor(a, device=dev)
         for a in (sizes_np, probes_np, bits_np, scales_np, biases_np))
     acc_min = torch.sum(torch.amin(table, dim=-1), dim=-1, dtype=torch.int32)
     bounds = scales * acc_min.float() + biases
-    args_ = (table, codes, probes, sizes, bounds, scales, biases)
-    kw = dict(kc=kc, tile_n=tile, groups_per_query=AT_NPROBE,
-              filter_bits=bits)
+    kw = dict(kc=min(RERANK_MULT * K, tile), tile_n=tile,
+              groups_per_query=AT_NPROBE, filter_bits=bits)
+    host = dict(sizes=sizes_np, probes=probes_np, bits=bits_np)
+    return (table, codes, probes, sizes, bounds, scales, biases), kw, host
 
-    def kernel():
-        return spk.fastscan_stream_topk_prune(*args_, **kw)
 
-    def plain():
-        return spk.fastscan_stream_topk_prune_plain(*args_, **kw)
+def k4_phase(torch, args, cap: int, nlist: int) -> dict:
+    """K4 at the anytime path's largest bucket (128 queries x 32 probes),
+    timed and held bit for bit against its plain version; then the same
+    construction at one query (G = 32, one CTA), held and timed too."""
+    from repro_torch.kernels import stream_prune_kernel as spk
+    out = None
+    for qq in (AT_QMAX, 1):
+        args_, kw, host = k4_inputs(torch, args, cap, nlist, qq)
 
-    got = kernel()
-    assert_same(got, plain(), "K4")
-    skipped = got[2].cpu().numpy().astype(bool)
-    if not skipped.any():
-        raise AssertionError("K4: the skewed construction pruned no tile")
-    # bound: only what this run scanned -- the live rows (occupied, passing
-    # the filter) of each distinct (list, tile) it scanned, read once, with
-    # their bitmap bytes; every LUT and per-group scalar; the outputs
-    scanned = (probes_np >= 0)[:, None] & ~skipped
-    passing = np.unpackbits(bits_np, axis=1, bitorder="little")[:, :cap]
-    live = passing & (np.arange(cap)[None, :] < sizes_np[:, None])
-    live_tile = live.reshape(nlist, n_tiles, tile).sum(-1)     # (nlist, T)
-    gi, ti = np.nonzero(scanned)
-    pairs = np.unique(probes_np[gi] * n_tiles + ti)
-    nbytes = (int(live_tile.reshape(-1)[pairs].sum()) * mh
-              + pairs.size * (tile // 8 + 4) + g * M * 16 + g * 16
-              + g * n_tiles * (kc * 8 + 4))
-    ops_count = int(live_tile[probes_np[gi], ti].sum()) * M * 2
-    log(f"K4 fastscan_stream_topk_prune: G={g} ({AT_QMAX} queries x "
-        f"{AT_NPROBE} probes) nlist={nlist} cap={cap} tile={tile} kc={kc} "
-        f"filter~50% invalid_probes={int((probes_np < 0).sum())}: kernel == "
-        f"plain bit for bit; skipped {int(skipped.sum())} of "
-        f"{int((probes_np >= 0).sum()) * n_tiles} valid-probe tiles")
-    return time_kernel(
-        torch, kernel, plain, "stream_topk_prune_kernel", nbytes, ops_count,
-        "K4", name="fastscan_stream_topk_prune",
-        source="src/repro_torch/kernels/csrc/fastscan_stream_topk_prune.cu",
-        replaces="src/repro/kernels/fastscan_kernel.py:788")
+        def kernel():
+            return spk.fastscan_stream_topk_prune(*args_, **kw)
+
+        def plain():
+            return spk.fastscan_stream_topk_prune_plain(*args_, **kw)
+
+        got = kernel()
+        assert_same(got, plain(), f"K4 G={qq * AT_NPROBE}")
+        skipped = got[2].cpu().numpy().astype(bool)
+        if not skipped.any():
+            raise AssertionError("K4: the skewed construction pruned no tile")
+        g, tile, kc = qq * AT_NPROBE, kw["tile_n"], kw["kc"]
+        n_tiles, mh = cap // tile, M // 2
+        probes_np, sizes_np = host["probes"], host["sizes"]
+        valid_tiles = int((probes_np >= 0).sum()) * n_tiles
+        log(f"K4 fastscan_stream_topk_prune: G={g} ({qq} queries x "
+            f"{AT_NPROBE} probes) nlist={nlist} cap={cap} tile={tile} "
+            f"kc={kc} filter~50% invalid_probes={int((probes_np < 0).sum())}:"
+            f" kernel == plain bit for bit; skipped {int(skipped.sum())} of "
+            f"{valid_tiles} valid-probe tiles")
+        if qq == 1:
+            ms_dev = device_ms(torch, kernel, "stream_topk_prune_kernel", 20)
+            ms_ev = event_ms(torch, kernel, 20)
+            log(f"K4 at G={g} (one query, one CTA): device {ms_dev} ms, "
+                f"events {ms_ev:.5f} ms, "
+                f"{valid_tiles - int(skipped.sum())} tiles scanned")
+            continue
+        # bound: only what this run scanned -- the live rows (occupied,
+        # passing the filter) of each distinct (list, tile) it scanned, read
+        # once, with their bitmap bytes; every LUT and per-group scalar; the
+        # outputs
+        scanned = (probes_np >= 0)[:, None] & ~skipped
+        passing = np.unpackbits(host["bits"], axis=1,
+                                bitorder="little")[:, :cap]
+        live = passing & (np.arange(cap)[None, :] < sizes_np[:, None])
+        live_tile = live.reshape(nlist, n_tiles, tile).sum(-1)   # (nlist, T)
+        gi, ti = np.nonzero(scanned)
+        pairs = np.unique(probes_np[gi] * n_tiles + ti)
+        nbytes = (int(live_tile.reshape(-1)[pairs].sum()) * mh
+                  + pairs.size * (tile // 8 + 4) + g * M * 16 + g * 16
+                  + g * n_tiles * (kc * 8 + 4))
+        ops_count = int(live_tile[probes_np[gi], ti].sum()) * M * 2
+        out = time_kernel(
+            torch, kernel, plain, "stream_topk_prune_kernel", nbytes,
+            ops_count, "K4", name="fastscan_stream_topk_prune",
+            source="src/repro_torch/kernels/csrc/fastscan_stream_topk_prune.cu",
+            replaces="src/repro/kernels/fastscan_kernel.py:788")
+    return out
 
 
 def host_twin_check(torch, engine, config, kept, queries, what: str,
@@ -796,6 +817,15 @@ def anytime_phase(torch, args, engine, ds, tuned_file: str) -> dict:
             f"{qq / (med / 1e3):.1f}")
         wall, dev_ms, n_kern, rows = breakdown(
             torch, lambda: at.search_jit(queries[:qq], K))
+        # the work behind the profiled batch: on a stream verdict, K4's
+        # scanned steps are the probed lists' tiles less those skipped
+        st = at.search_jit(queries[:qq], K).stats
+        n_tiles = lists.cap // ops._stream_tile(lists.cap)
+        log(f"anytime: Q={qq} profiled query set: lists_probed "
+            f"{int(st.lists_probed.sum())}, lists_pruned "
+            f"{int(st.lists_pruned.sum())}, tiles_skipped "
+            f"{int(st.tiles_skipped.sum())}; stream steps scanned "
+            f"{int(st.lists_probed.sum()) * n_tiles - int(st.tiles_skipped.sum())}")
         log(f"anytime: Q={qq} profiled batch: device busy {dev_ms:.4f} ms in "
             f"{n_kern} device ops = {100 * dev_ms / med:.1f}% of the median "
             f"unprofiled latency {med:.3f} ms (idle "

@@ -55,11 +55,13 @@ _SIGNATURES = {
     "repro_fastscan_onehot_mma_flat": [_VP] * 2 + [_I] * 3 + [_VP] * 2,
     "repro_fastscan_blockmin": [_VP] * 2 + [_I] * 4 + [_VP] * 3,
 }
-# each kernel's shared memory a CTA needs at M sub-spaces, as its source
-# computes it (the one place the CTA shape lives)
-SMEM_FNS = ("repro_fastscan_select_flat_smem",
-            "repro_fastscan_onehot_mma_flat_smem",
-            "repro_fastscan_blockmin_smem")
+# each kernel's shared memory a CTA needs, as its source computes it (the
+# one place the CTA shape lives), by its int arguments: M for K7a-K7c,
+# (tile_n, kc, M) for K4
+SMEM_FNS = {"repro_fastscan_select_flat_smem": 1,
+            "repro_fastscan_onehot_mma_flat_smem": 1,
+            "repro_fastscan_blockmin_smem": 1,
+            "repro_fastscan_stream_topk_prune_smem": 3}
 
 
 def build_dir() -> Path:
@@ -137,8 +139,8 @@ def load_library() -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            for fn in SMEM_FNS:
-                getattr(lib, fn).argtypes = [_I]
+            for fn, nargs in SMEM_FNS.items():
+                getattr(lib, fn).argtypes = [_I] * nargs
                 getattr(lib, fn).restype = ctypes.c_longlong
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -160,13 +162,15 @@ def check_args(args: dict, device: torch.device) -> None:
             raise ValueError(f"{name} is on {t.device}, want {device}")
 
 
-def check_smem(fn: str, m: int) -> None:
+def check_smem(fn: str, *args: int, what: str = "") -> None:
     """Raise ``ValueError`` when a CTA of the kernel whose source exports
-    ``fn`` needs more shared memory at M=``m`` than a block can get."""
-    need = getattr(load_library(), fn)(m)
+    ``fn`` needs more shared memory at ``args`` (M, or K4's (tile_n, kc,
+    M)) than a block can get."""
+    need = getattr(load_library(), fn)(*args)
     if need > SMEM_LIMIT:
-        raise ValueError(f"M={m} needs {need} B of shared memory, more than "
-                         f"the {SMEM_LIMIT} B a block can get")
+        raise ValueError(f"{what or f'M={args[0]}'} needs {need} B of shared "
+                         f"memory, more than the {SMEM_LIMIT} B a block can "
+                         "get")
 
 
 def check(err: int, what: str) -> None:

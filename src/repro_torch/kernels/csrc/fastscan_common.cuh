@@ -1,8 +1,8 @@
 // Device code shared by the fast-scan kernels (K1, K3-K5, K7a-K7c): the
 // shared-memory LUT row sum of one packed code row, the register LUT read
-// by byte permutes (K5, K7a), the block-wide staging copy into shared
-// memory (K7a-K7c), and the block-wide bitonic sort used for the per-tile
-// top-kc selections.
+// by byte permutes (K5), the block-wide staging copy into shared memory
+// (K7a-K7c), and the block-wide bitonic sort of K1's per-tile top-kc
+// selection.
 #pragma once
 
 #include <cuda_runtime.h>

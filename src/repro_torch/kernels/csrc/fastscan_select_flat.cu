@@ -8,41 +8,164 @@
 // for (Q, M, 16) u8 tables and (N, M/2) u8 nibble-packed codes, any Q and
 // N (the reference pads N to its tile; rows past N are masked here).
 //
-// The look-up is K5's: each thread holds one query's 16-entry u8 LUT rows
-// in registers as four 32-bit words a sub-space and reads a 4-bit code with
-// two byte permutes and a select (lookup / select_row in
-// fastscan_common.cuh), templated on M/2 in {1, 2, 3, 4, 6, 8, 12, 16}; any
-// other M reads the LUT from shared memory (row_sum), which computes the
-// same sums.
+// Bound on the H100: memory in principle -- the (Q, N) i32 output is ~98%
+// of the bytes (512 MB at Q=128, N=1M, M=16, against 8 MB of codes) -- but
+// a look-up done one row at a time costs ~6 integer instructions (byte
+// extract, nibble mask, two byte permutes, a bit-3 select, a mask and an
+// add), so such a scan is bound by its integer instructions instead.
 //
-// Bound on the H100: memory. The (Q, N) i32 output is ~98% of the bytes
-// (512 MB at Q=128, N=1M, M=16, against 8 MB of codes). Unlike K5, every
-// query scans the same codes, so a CTA stages one tile of code rows in
-// shared memory once and walks kQueries queries over it; each query's
-// sums go out as one coalesced store per warp (consecutive threads,
-// consecutive rows).
-//
-// Design (first version): one CTA per (row tile of kTileRows, kQueries
-// queries); the CTA's LUTs and code tile are copied into shared memory
-// with 16-byte loads; per query each thread loads the LUT into registers
-// and sums its rows.
+// Design: one byte permute looks up FOUR rows of one sub-space, as the
+// paper's vqtbl1q_u8 looks up 16 codes at once.
+//   - A sub-space's 16 u8 entries are four words: entries 0-7 in {w1:w0},
+//     8-15 in {w3:w2}. A 16-bit selector holds four rows' low 3 code bits,
+//     one nibble each (bit 3 of a selector nibble would replicate the sign
+//     in prmt's default mode, so it stays 0): prmt(w0, w1, sel) and
+//     prmt(w2, w3, sel) give four entries each, and a byte mask made of
+//     the four codes' bit 3 picks between them with one lop3.
+//   - The four entries are split into even and odd rows (two prmt) and
+//     added to two accumulators of 16-bit lanes; the register path takes
+//     M <= 32, so a sum is at most 8,160 and no carry crosses lanes. Each
+//     row is widened to i32 once, at the end: 7 instructions per four
+//     look-ups.
+//   - A thread owns four consecutive rows. It loads their codes once and
+//     builds the selector and mask of each sub-space once per tile, in
+//     registers (no other thread reads them), then walks the CTA's
+//     kQueries queries over them, each query's LUT read from shared memory
+//     as one broadcast 16-byte load per sub-space.
+//   - Each thread stores its four sums as one 16-byte int4, consecutive
+//     threads on consecutive rows, so the output stays coalesced (scalar
+//     stores where N is not a multiple of 4 or at the last rows).
+// The register path is templated on M/2 in {1, 2, 3, 4, 6, 8, 12, 16}; any
+// other M stages the code tile in shared memory and reads the LUT there
+// (row_sum in fastscan_common.cuh), which computes the same sums.
 #include "fastscan_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 1024;  // code rows a CTA stages
-constexpr int kQueries = 16;     // queries a CTA walks over its tile
+constexpr int kTileRows = 4 * kThreads;  // code rows a CTA scans
+constexpr int kQueries = 16;             // queries a CTA walks over its tile
 
-// Shared memory one CTA needs: its queries' (M, 16) LUTs and its code tile.
-size_t smem_bytes(int m) {
-  return static_cast<size_t>(kQueries) * m * 16 +
-         static_cast<size_t>(kTileRows) * (m / 2);
+bool register_path(int mh) {
+  switch (mh) {
+    case 1: case 2: case 3: case 4: case 6: case 8: case 12: case 16:
+      return true;
+    default:
+      return false;
+  }
 }
 
-// MH > 0: LUT in registers; MH == 0: any M, LUT read from shared memory.
+// Shared memory one CTA needs: its queries' (M, 16) LUTs, and on the
+// shared-memory path its code tile.
+size_t smem_bytes(int m) {
+  return static_cast<size_t>(kQueries) * m * 16 +
+         (register_path(m / 2) ? 0 : static_cast<size_t>(kTileRows) * (m / 2));
+}
+
+// Byte b of a thread's code words (four rows of MH bytes, row-major).
+template <int MH>
+__device__ __forceinline__ uint32_t code_byte(const uint32_t (&cw)[MH], int b) {
+  return (cw[b >> 2] >> (8 * (b & 3))) & 0xffu;
+}
+
+// Four consecutive rows per thread; vec (16, 4 or 1): the widest load the
+// codes pointer's alignment allows.
 template <int MH>
 __global__ void __launch_bounds__(kThreads) select_flat_kernel(
+    const uint8_t* __restrict__ table,  // (Q, M, 16)
+    const uint8_t* __restrict__ codes,  // (N, M/2)
+    int q, int n, int n_tiles, int vec,
+    int32_t* __restrict__ out) {        // (Q, N)
+  constexpr int M = 2 * MH;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int t = blockIdx.x % n_tiles;
+  const int q0 = (blockIdx.x / n_tiles) * kQueries;
+  const int nq = min(kQueries, q - q0);
+  repro_cuda::stage_bytes(smem, table + static_cast<size_t>(q0) * M * 16,
+                          static_cast<size_t>(nq) * M * 16);
+  __syncthreads();
+  const long long row = static_cast<long long>(t) * kTileRows +
+                        4 * static_cast<long long>(threadIdx.x);
+  const int rows = static_cast<int>(min(4LL, n - row));
+  if (rows <= 0) return;
+
+  // the four rows' codes: 4*MH contiguous bytes = MH words
+  uint32_t cw[MH];
+  const uint8_t* src = codes + row * MH;
+  if (rows == 4 && MH % 4 == 0 && vec == 16) {
+#pragma unroll
+    for (int i = 0; i < MH / 4; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      cw[4 * i] = v.x;
+      cw[4 * i + 1] = v.y;
+      cw[4 * i + 2] = v.z;
+      cw[4 * i + 3] = v.w;
+    }
+  } else if (rows == 4 && vec >= 4) {  // 4*MH bytes from a 4-aligned row
+#pragma unroll
+    for (int i = 0; i < MH; ++i)
+      cw[i] = __ldg(reinterpret_cast<const uint32_t*>(src) + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MH; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (4 * i + b < rows * MH)
+          word |= static_cast<uint32_t>(__ldg(src + 4 * i + b)) << (8 * b);
+      cw[i] = word;
+    }
+  }
+  // per sub-space: the selector (low 3 bits of the four rows' codes, one
+  // nibble each) and the byte mask of their bit 3
+  uint32_t sel[M], msk[M];
+#pragma unroll
+  for (int j = 0; j < MH; ++j) {
+    // x: byte j of rows 0..3, one byte each
+    const uint32_t x = code_byte<MH>(cw, j) | code_byte<MH>(cw, MH + j) << 8 |
+                       code_byte<MH>(cw, 2 * MH + j) << 16 |
+                       code_byte<MH>(cw, 3 * MH + j) << 24;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // sub-space 2j: low nibbles; 2j+1: high
+      const uint32_t c = (h ? x >> 4 : x) & 0x0f0f0f0fu;
+      const uint32_t lo3 = c & 0x07070707u;
+      // nibbles of bytes 0, 1 into bits 0-7, of bytes 2, 3 into 16-23
+      sel[2 * j + h] = __byte_perm(lo3 | (lo3 >> 4), 0, 0x4420);
+      msk[2 * j + h] = ((c >> 3) & 0x01010101u) * 0xffu;
+    }
+  }
+
+  const bool vec_out = (n & 3) == 0 && rows == 4;
+  for (int qi = 0; qi < nq; ++qi) {
+    const uint4* lut = reinterpret_cast<const uint4*>(smem) + qi * M;
+    uint32_t even = 0, odd = 0;  // rows 0, 2 and rows 1, 3 in 16-bit lanes
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      const uint4 w = lut[s];
+      const uint32_t lo = __byte_perm(w.x, w.y, sel[s]);
+      const uint32_t hi = __byte_perm(w.z, w.w, sel[s]);
+      const uint32_t e = (lo & ~msk[s]) | (hi & msk[s]);
+      even += __byte_perm(e, 0, 0x4240);
+      odd += __byte_perm(e, 0, 0x4341);
+    }
+    int32_t* dst = out + static_cast<size_t>(q0 + qi) * n + row;
+    const int4 sums = make_int4(static_cast<int>(even & 0xffffu),
+                                static_cast<int>(odd & 0xffffu),
+                                static_cast<int>(even >> 16),
+                                static_cast<int>(odd >> 16));
+    if (vec_out) {
+      *reinterpret_cast<int4*>(dst) = sums;
+    } else {
+      dst[0] = sums.x;
+      if (rows > 1) dst[1] = sums.y;
+      if (rows > 2) dst[2] = sums.z;
+      if (rows > 3) dst[3] = sums.w;
+    }
+  }
+}
+
+// Any M: the code tile staged in shared memory, the LUT read there.
+__global__ void __launch_bounds__(kThreads) select_flat_smem_kernel(
     const uint8_t* __restrict__ table,  // (Q, M, 16)
     const uint8_t* __restrict__ codes,  // (N, M/2)
     int q, int m, int n, int n_tiles,
@@ -55,7 +178,8 @@ __global__ void __launch_bounds__(kThreads) select_flat_kernel(
   const int q0 = (blockIdx.x / n_tiles) * kQueries;
   const int nq = min(kQueries, q - q0);
   const size_t row0 = static_cast<size_t>(t) * kTileRows;
-  const int rows = min(kTileRows, n - t * kTileRows);
+  const int rows = static_cast<int>(min(static_cast<long long>(kTileRows),
+                                        static_cast<long long>(n) - row0));
   repro_cuda::stage_bytes(luts, table + static_cast<size_t>(q0) * m * 16,
                           static_cast<size_t>(nq) * m * 16);
   repro_cuda::stage_bytes(tile, codes + row0 * mh,
@@ -66,40 +190,54 @@ __global__ void __launch_bounds__(kThreads) select_flat_kernel(
   for (int qi = 0; qi < nq; ++qi) {
     const uint8_t* lut_bytes = luts + static_cast<size_t>(qi) * m * 16;
     int32_t* dst = out + static_cast<size_t>(q0 + qi) * n + row0;
-    if constexpr (MH > 0) {
-      uint32_t lut[2 * MH][4];
-#pragma unroll
-      for (int s = 0; s < 2 * MH; ++s) {
-        const uint4 w = reinterpret_cast<const uint4*>(lut_bytes)[s];
-        lut[s][0] = w.x;
-        lut[s][1] = w.y;
-        lut[s][2] = w.z;
-        lut[s][3] = w.w;
-      }
-      for (int r = threadIdx.x; r < rows; r += kThreads)
-        dst[r] = repro_cuda::select_row<MH>(tile + r * MH, lut, vec);
-    } else {
-      for (int r = threadIdx.x; r < rows; r += kThreads)
-        dst[r] = repro_cuda::row_sum(tile + static_cast<size_t>(r) * mh,
-                                     lut_bytes, mh, vec);
-    }
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      dst[r] = repro_cuda::row_sum(tile + static_cast<size_t>(r) * mh,
+                                   lut_bytes, mh, vec);
   }
 }
 
-template <int MH>
-cudaError_t launch(const uint8_t* table, const uint8_t* codes, int q, int m,
-                   int n, int32_t* out, cudaStream_t stream) {
-  const int n_tiles = (n + kTileRows - 1) / kTileRows;
-  const long long blocks =
+// Grid and shared memory of one launch; false when the grid is too large.
+bool shape(int q, int m, int n, int& n_tiles, unsigned& blocks, size_t& smem) {
+  n_tiles = (n + kTileRows - 1) / kTileRows;
+  const long long b =
       static_cast<long long>(n_tiles) * ((q + kQueries - 1) / kQueries);
-  if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
-  const size_t smem = smem_bytes(m);
+  blocks = static_cast<unsigned>(b);
+  smem = smem_bytes(m);
+  return b < (1LL << 31);
+}
+
+template <int MH>
+cudaError_t launch(const uint8_t* table, const uint8_t* codes, int q, int n,
+                   int32_t* out, cudaStream_t stream) {
+  int n_tiles;
+  unsigned blocks;
+  size_t smem;
+  if (!shape(q, 2 * MH, n, n_tiles, blocks, smem))
+    return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       select_flat_kernel<MH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  select_flat_kernel<MH><<<static_cast<unsigned>(blocks), kThreads, smem,
-                           stream>>>(table, codes, q, m, n, n_tiles, out);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(codes);
+  const int vec = (a & 15) == 0 ? 16 : (a & 3) == 0 ? 4 : 1;
+  select_flat_kernel<MH><<<blocks, kThreads, smem, stream>>>(
+      table, codes, q, n, n_tiles, vec, out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_smem(const uint8_t* table, const uint8_t* codes, int q,
+                        int m, int n, int32_t* out, cudaStream_t stream) {
+  int n_tiles;
+  unsigned blocks;
+  size_t smem;
+  if (!shape(q, m, n, n_tiles, blocks, smem))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      select_flat_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  select_flat_smem_kernel<<<blocks, kThreads, smem, stream>>>(
+      table, codes, q, m, n, n_tiles, out);
   return cudaGetLastError();
 }
 
@@ -121,15 +259,15 @@ extern "C" int repro_fastscan_select_flat(const void* table, const void* codes,
   auto* s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (m / 2) {
-    case 1: err = launch<1>(t, c, q, m, n, o, s); break;
-    case 2: err = launch<2>(t, c, q, m, n, o, s); break;
-    case 3: err = launch<3>(t, c, q, m, n, o, s); break;
-    case 4: err = launch<4>(t, c, q, m, n, o, s); break;
-    case 6: err = launch<6>(t, c, q, m, n, o, s); break;
-    case 8: err = launch<8>(t, c, q, m, n, o, s); break;
-    case 12: err = launch<12>(t, c, q, m, n, o, s); break;
-    case 16: err = launch<16>(t, c, q, m, n, o, s); break;
-    default: err = launch<0>(t, c, q, m, n, o, s); break;
+    case 1: err = launch<1>(t, c, q, n, o, s); break;
+    case 2: err = launch<2>(t, c, q, n, o, s); break;
+    case 3: err = launch<3>(t, c, q, n, o, s); break;
+    case 4: err = launch<4>(t, c, q, n, o, s); break;
+    case 6: err = launch<6>(t, c, q, n, o, s); break;
+    case 8: err = launch<8>(t, c, q, n, o, s); break;
+    case 12: err = launch<12>(t, c, q, n, o, s); break;
+    case 16: err = launch<16>(t, c, q, n, o, s); break;
+    default: err = launch_smem(t, c, q, m, n, o, s); break;
   }
   return static_cast<int>(err);
 }

@@ -23,7 +23,7 @@
 //
 // Design (first version): one CTA per (group, tile), one row per thread
 // per pass. The register LUT read (lookup, select_row) lives in
-// fastscan_common.cuh, shared with the flat scan K7a.
+// fastscan_common.cuh.
 #include "fastscan_common.cuh"
 
 namespace {

@@ -3,13 +3,13 @@
 
 Replaces the TPU kernel ``repro/kernels/fastscan_kernel.py::
 fastscan_select_tree`` (Pallas body ``_select_tree_kernel``); the CUDA
-source is ``csrc/fastscan_select_flat.cu``. Each thread holds one query's
-u8 LUT in registers and reads a code with two byte permutes and a select
-(K5's look-up), and a CTA walks several queries over one code tile staged
-in shared memory. It is the flat index's ``impl='select'`` path
-(``ops.fastscan_distances``, ``core.fastscan.compute_distances`` /
-``search``). Bound by memory on the H100: the (Q, N) i32 output is ~98% of
-the bytes.
+source is ``csrc/fastscan_select_flat.cu``. One byte-permute pair looks up
+four rows of a sub-space at once (the paper's one shuffle for many codes):
+each thread builds the selectors and bit-3 masks of its four rows once per
+tile and walks a CTA's 16 queries over them, summing in 16-bit lanes. It is
+the flat index's ``impl='select'`` path (``ops.fastscan_distances``,
+``core.fastscan.compute_distances`` / ``search``). Bound by memory on the
+H100: the (Q, N) i32 output is ~98% of the bytes.
 
 Beside the kernel: ``fastscan_distances_plain``, the same function in
 plain PyTorch (the CPU path and the on-card reference of both K7a and K7b,

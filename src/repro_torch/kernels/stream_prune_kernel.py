@@ -8,7 +8,10 @@ run in flat order with a running top-kc of dequantized distances; a step
 whose group bound is not below the running kc-th best is skipped: it reads
 nothing, emits sentinels and counts in ``skipped``. The reference's result
 depends on that order, so the kernel runs one CTA per query; it is bound by
-memory for the tiles it scans, and by its per-step sorts at small Q.
+memory for the tiles it scans, and in practice by the latency of its serial
+steps: each scanned step selects the tile's top-kc with a histogram (radix)
+select, sorts and merges it by rank, and prefetches the next step's
+operands with TMA bulk copies.
 
 Beside the kernel: ``fastscan_stream_topk_prune_plain``, the same function
 in plain PyTorch (the CPU path and the on-card reference), and
@@ -24,10 +27,40 @@ from repro_torch.kernels import fastscan_kernel as fk
 launches = 0
 
 
+# the kernel's CTA shape and plan (csrc/fastscan_stream_topk_prune.cu)
+_THREADS, _MAX_DIGIT_BITS, _SCRATCH = 1024, 13, 48
+
+
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _layout_bytes(tile_n: int, kc: int, m: int, stages: int,
+                  digit_bits: int) -> int:
+    stage = _a16(m * 16)
+    if stages == 2:
+        stage += _a16(tile_n * (m // 2)) + _a16(tile_n // 8 + 2)
+    return (_SCRATCH + -(-tile_n // _THREADS) * (_THREADS // 32) * 4
+            + _a16(tile_n * 4)
+            + _a16((1 << digit_bits) * 4) + _a16(kc * 8) + _a16(kc * 4)
+            + _a16(kc * 8) + stages * stage)
+
+
 def smem_bytes(tile_n: int, kc: int, m: int) -> int:
-    """Shared memory one CTA needs (mirrors the launcher in the .cu): the
-    tile's 64-bit keys, the merge buffer, the running top-kc, the LUT."""
-    return fk._pow2(tile_n) * 8 + (fk._pow2(2 * kc) + kc) * 4 + m * 16
+    """Shared memory one CTA needs (mirrors the plan in the .cu, which
+    exports it as ``repro_fastscan_stream_topk_prune_smem``): the tile's
+    sums, the radix select's histogram, the survivors' keys and distances,
+    two running top-kc buffers, and two prefetch stages of (LUT, code rows,
+    filter bytes) -- or, where those do not fit, one LUT stage, or none, at
+    the widest histogram that fits."""
+    dmax = min((m * 255).bit_length(), _MAX_DIGIT_BITS)
+    need = _layout_bytes(tile_n, kc, m, 2, dmax)
+    for stages in (1, 0):
+        for d in range(dmax, 0, -1):
+            if need <= _build.SMEM_LIMIT:
+                return need
+            need = _layout_bytes(tile_n, kc, m, stages, d)
+    return need
 
 
 def _check(table_q8, list_codes, probe_ids, sizes, bounds, scales, biases,
@@ -125,6 +158,8 @@ def fastscan_stream_topk_prune(table_q8: torch.Tensor,
     skipped = torch.empty((g, n_tiles), dtype=torch.int32, device=dev)
     if g * n_tiles == 0:
         return vals, slots, skipped
+    _build.check_smem("repro_fastscan_stream_topk_prune_smem", tile_n, kc, m,
+                      what=f"tile_n={tile_n}, kc={kc}, M={m}")
     lib = _build.load_library()
     w = 0 if filter_bits is None else filter_bits.shape[1]
     with torch.cuda.device(dev):

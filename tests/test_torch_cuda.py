@@ -207,22 +207,47 @@ def test_k3_k5_k6_kernels_equal_plain(dev, case):
         table, store, probes, tile_n=tile))
 
 
-# (q, p, nlist, cap, mh, tile, keep, filter fill, skew)
-PRUNE_CASES = [(3, 4, 6, 64, 4, 16, 8, None, True),
-               (2, 8, 8, 64, 4, 16, 4, 0.5, True),
-               (4, 3, 5, 100, 3, 100, 9, None, False),
-               (128, 32, 1024, 4096, 8, 1024, 40, 0.5, True),
-               (1, 32, 1024, 4096, 8, 1024, 40, None, True)]
+# (q, p, nlist, cap, mh, tile, keep, filter fill, skew, LUT): the LUT is
+# random u8, {0, 1} (hundreds of rows tie at the kc-th value) or all 255
+# (every row in the top histogram bin). Every case probes a list with no
+# row and one with fewer than kc live rows. The selection's edges: kc ==
+# tile_n and kc = 200 (above 64: the block-wide sort and merge), M/2 in
+# {4, 8, 16} (one radix pass) and 32 (two), a 16384-row tile (one LUT
+# stage, codes read in place) and M = 14518 (no stage: the LUT read in
+# place).
+PRUNE_CASES = [(3, 4, 6, 64, 4, 16, 8, None, True, "rand"),
+               (2, 8, 8, 64, 4, 16, 4, 0.5, True, "rand"),
+               (4, 3, 5, 100, 3, 100, 9, None, False, "rand"),
+               (128, 32, 1024, 4096, 8, 1024, 40, 0.5, True, "rand"),
+               (1, 32, 1024, 4096, 8, 1024, 40, None, True, "rand"),
+               (3, 8, 6, 1024, 8, 1024, 40, None, True, "01"),
+               (2, 8, 6, 2048, 8, 1024, 40, 0.5, False, "01"),
+               (3, 4, 6, 1024, 8, 1024, 40, None, True, "255"),
+               (2, 4, 4, 256, 4, 256, 256, None, False, "rand"),
+               (2, 4, 4, 2048, 8, 1024, 200, 0.5, True, "rand"),
+               (2, 4, 4, 2048, 8, 1024, 200, None, False, "01"),
+               (2, 6, 6, 512, 16, 256, 40, None, False, "rand"),
+               (2, 8, 6, 256, 32, 256, 40, None, True, "rand"),
+               (2, 4, 4, 1024, 4, 1024, 64, None, False, "rand"),
+               (1, 2, 2, 16384, 8, 16384, 40, None, False, "rand"),
+               (1, 2, 2, 16, 7259, 8, 4, None, False, "rand")]
 
 
 @pytest.mark.parametrize("case", range(len(PRUNE_CASES)))
 def test_k4_kernel_equals_plain(dev, case):
-    q, p, nlist, cap, mh, tile, keep, fill, skew = PRUNE_CASES[case]
+    q, p, nlist, cap, mh, tile, keep, fill, skew, lut = PRUNE_CASES[case]
     rng = np.random.default_rng(200 + case)
     g = q * p
     table, codes, probes, sizes, bits = _k1_inputs(
         300 + case, dev, g=g, nlist=nlist, cap=cap, mh=mh, fill=fill,
         invalid=0.05)
+    if lut == "01":
+        table = table & 1
+    elif lut == "255":
+        table.fill_(255)
+    # list 0 holds no row, list 1 fewer than kc live rows; both are probed
+    sizes[0], sizes[1] = 0, keep // 2
+    probes[0], probes[min(1, g - 1)] = 0, 1
     scales = rng.uniform(0.5, 2.0, g).astype(np.float32)
     biases = rng.uniform(0.0, 50.0, g).astype(np.float32)
     if skew:
@@ -243,6 +268,21 @@ def test_k4_kernel_equals_plain(dev, case):
         assert torch.equal(a, b)
     if skew:
         assert int(got[2].sum()) > 0
+
+
+def test_k4_smem_mirror_equals_the_kernels_export(dev):
+    """The Python mirror the CPU wrappers and the autotune sweep reject
+    tiles with computes what the .cu exports, over the tile grid."""
+    lib = _build.load_library()
+    fn = lib.repro_fastscan_stream_topk_prune_smem
+    for tile in (1, 8, 16, 31, 64, 100, 256, 1000, 1024, 2048, 4096, 8192,
+                 16384):
+        for kc in {1, 4, 32, 33, 40, 64, 65, 200, tile // 2 or 1, tile}:
+            if kc > tile:
+                continue
+            for m in (2, 6, 16, 32, 64, 128, 1024, 14518):
+                assert fn(tile, kc, m) == spk.smem_bytes(tile, kc, m), (
+                    tile, kc, m)
 
 
 def test_anytime_card_engine_equals_host_engine(dev):
@@ -286,17 +326,24 @@ def test_anytime_card_engine_equals_host_engine(dev):
 
 
 # (q, n, mh, lut values): every register-LUT M/2 and the shared-memory one
-# (M/2 = 5, 64), Q and N off the CTA tiles, a {0, 1} LUT (ties), the
-# serving width at a million rows
+# (M/2 = 5, 32, 64), Q and N off the CTA tiles (N = 1, 3, 4097: no
+# multiple of 4), a {0, 1} LUT (ties), an all-255 LUT at M = 32 (8,160 in
+# each 16-bit lane), the serving width at a million rows
 FLAT_CASES = [(1, 33, 1, 256), (3, 100, 2, 256), (17, 1500, 3, 256),
               (16, 1024, 4, 256), (5, 2047, 5, 2), (33, 3000, 6, 256),
               (8, 4096, 8, 2), (20, 999, 12, 256), (32, 5000, 16, 256),
-              (2, 700, 64, 256), (128, 1_000_448, 8, 256)]
+              (2, 700, 64, 256), (128, 1_000_448, 8, 256),
+              (2, 1, 4, 256), (3, 3, 8, 256), (17, 4097, 8, 256),
+              (5, 4097, 1, 256), (4, 1001, 32, 256), (19, 4097, 16, 255),
+              (3, 4097, 6, 255)]
 
 
 def _flat_inputs(seed, dev, q, n, mh, levels):
+    """levels 255: every LUT entry 255; else entries in [0, levels)."""
     rng = np.random.default_rng(seed)
     table = rng.integers(0, levels, (q, 2 * mh, 16), np.uint8)
+    if levels == 255:
+        table[:] = 255
     codes = rng.integers(0, 256, (n, mh), np.uint8)
     return (torch.as_tensor(table, device=dev),
             torch.as_tensor(codes, device=dev))
@@ -380,8 +427,9 @@ def test_k7_wrappers_check_shared_memory_before_launch(dev):
         bk.fastscan_blockmin(table, codes, tile_n=8)
     assert (sfk.launches, mfk.launches, bk.launches) == n0
     lib = _build.load_library()
-    for fn in _build.SMEM_FNS:
-        assert 0 < getattr(lib, fn)(16) <= _build.SMEM_LIMIT
+    for fn, nargs in _build.SMEM_FNS.items():
+        args = (16,) if nargs == 1 else (1024, 40, 16)
+        assert 0 < getattr(lib, fn)(*args) <= _build.SMEM_LIMIT
 
 
 def test_flat_search_card_equals_host(dev):

@@ -104,6 +104,20 @@ def test_extreme_values_at_m128_stay_exact():
         np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
+@pytest.mark.parametrize("n", [3, 4097])
+def test_select_all_255_at_m32_equals_reference(n):
+    """All-255 LUTs at M=32, the widest M that K7a's register path takes on
+    the card: 8,160 per row, held by its 16-bit lanes; N no multiple of 4."""
+    q, m = 3, 32
+    table = np.full((q, m, 16), 255, np.uint8)
+    codes = np.random.default_rng(n).integers(0, 256, (n, m // 2), np.uint8)
+    want = jops.fastscan_distances(jnp.asarray(table), jnp.asarray(codes),
+                                   impl="select", interpret=True)
+    got = tsfk.fastscan_select_tree(_t(table), _t(codes))
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    assert int(got.min()) == int(got.max()) == 255 * m
+
+
 # (q, n, m, block, LUT levels): the reference's own cases, a {0, 1} LUT
 # (ties everywhere: the first occurrence must win), block 100 on N=1500
 # (a block that is no multiple of 8), ragged N

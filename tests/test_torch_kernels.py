@@ -7,6 +7,8 @@ within rtol 1e-5 with tie-aware ids on random data (the two frameworks sum
 the dot products in different orders). ``tests/test_torch_cuda.py`` holds
 the CUDA kernels themselves to the plain versions on the card.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -286,5 +288,6 @@ def test_build_key_covers_every_source():
             raise AssertionError(f"{src} exports no bound launcher")
     # each shared-memory need the wrappers check is exported by a source
     text = "".join((_build.CSRC / src).read_text() for src in _build.SOURCES)
-    for fn in _build.SMEM_FNS:
-        assert f"long long {fn}(int m)" in text, fn
+    for fn, nargs in _build.SMEM_FNS.items():
+        sig = rf"long long {fn}\(" + r"int \w+,\s*" * (nargs - 1) + r"int m\)"
+        assert re.search(sig, text), fn

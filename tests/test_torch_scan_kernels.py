@@ -263,6 +263,19 @@ def test_k4_twin_at_kernel_level_and_ties():
         np.testing.assert_array_equal(a.numpy(), _np(b))
 
 
+@pytest.mark.parametrize("fill", [None, 0.5])
+def test_k4_ties_at_the_kc_cut_equal_reference(fill):
+    """A {0, 1} LUT: most sums tie, so many rows share the kc-th value
+    across the cut and the lowest slots must win, as the reference's sort
+    keeps them; skewed biases make tiles skip. vals, slots and skipped bit
+    for bit."""
+    args = _ee_inputs(41, nlist=6, cap=64, mh=4, q=3, p=6,
+                      occupancy="ragged", skew=True, fill=fill)
+    table = args[0] & 1
+    _, _, skipped = _ee_both(table, *args[1:], keep=8, tile=32, p=6)
+    assert skipped.sum() > 0
+
+
 def test_disarmed_early_exit_is_k1_with_zero_skips():
     args = _ee_inputs(31, nlist=4, cap=64, mh=2, q=2, p=3, occupancy="full",
                       skew=True)
