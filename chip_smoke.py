@@ -68,10 +68,35 @@ PIPELINE_RTOL = 1e-5          # card vs host f32 pipeline
 AT_NPROBE, AT_TAU = 32, 0.4   # the anytime path's nprobe and margin width
 AT_QMAX = 128                 # K3-K6 phases run at G = AT_QMAX * AT_NPROBE
 FIG2_GAP = 0.05               # |recall@10 fast-scan - naive PQ| allowed
+# device ms of the redesigned kernels' previous versions at these same
+# shapes (the last chip_smoke.py run before their redesign, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's times; not part of the
+# kernels line
+EARLIER_MS = {"fastscan_stream_topk": 0.182801,
+              "fastscan_onehot_mma_flat": 0.424301}
+# kernels whose ptxas registers and spills are summarised after the build
+PTXAS_SUMMARY = ("stream_topk_kernel", "onehot_mma_flat_kernel")
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_summary(build_log: str, names) -> list[str]:
+    """Registers and spill bytes of each compiled entry function whose
+    (mangled) name holds one of ``names``, from nvcc's -Xptxas -v log."""
+    out, entry, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            if any(name in entry for name in names):
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                out.append(f"{entry}: {regs} registers; {spill}")
+            entry = None
+    return out
 
 
 def device_ms(torch, fn, kernel_name: str, iters: int):
@@ -882,6 +907,31 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/fastscan_kernel.py:{line}"))
     del want
+    # a yardstick, not a port: the card filling the same (Q, N) i32 output
+    out_q = torch.empty((qq, n), dtype=torch.int32, device=dev)
+    fill_ms = event_ms(torch, lambda: out_q.fill_(1), 20)
+    log(f"store floor: torch fill_ of the ({qq}, {n}) i32 output, "
+        f"{qq * n * 4} B: events {fill_ms:.5f} ms")
+    del out_q
+    # the flat path's small buckets: K7b (the 'mxu' default) beside K7a
+    for qs in (1, 8):
+        t_s = table[:qs].contiguous()
+        want_s = sfk.fastscan_distances_plain(t_s, codes)
+        bound, by = bound_ms(qs * M * 16 + n * mh + qs * n * 4,
+                             qs * n * M * 2)
+        for fn, dev_name, what in (
+                (mfk.fastscan_onehot_mxu, "onehot_mma_flat_kernel", "K7b"),
+                (sfk.fastscan_select_tree, "select_flat_kernel", "K7a")):
+            def small(fn=fn):
+                return fn(t_s, codes)
+
+            assert_same((small(),), (want_s,), f"{what} Q={qs}")
+            ms_ev = event_ms(torch, small, 20)
+            ms_dev = device_ms(torch, small, dev_name, 10)
+            log(f"{what} at Q={qs} N={n} M={M}: kernel == plain bit for bit; "
+                f"device {ms_dev} ms, events {ms_ev:.5f} ms, bound "
+                f"{bound:.6f} ms ({by})")
+        del want_s
     block = TILE_N
     codes_ff = ops._pad_to(index.packed_codes, 0, block, value=0xFF
                            ).contiguous()
@@ -1107,6 +1157,8 @@ def main() -> int:
     _build.load_library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
     log(_build.build_log)
+    for line in ptxas_summary(_build.build_log, PTXAS_SUMMARY):
+        log(f"ptxas: {line}")
 
     # set-up: data and the index the slice phase serves (its cap shapes K1)
     t0 = time.perf_counter()
@@ -1176,6 +1228,12 @@ def main() -> int:
     # launches on the path x (ms - bound_ms), the time above the bound
     gap = sorted(((kern["launches"] * (kern["ms"] - kern["bound_ms"]),
                    kern["name"]) for kern in kernels), reverse=True)
+    for kern in kernels:
+        if kern["name"] in EARLIER_MS:
+            log(f"{kern['name']}: {kern['ms']:.6f} ms this run, "
+                f"{EARLIER_MS[kern['name']]:.6f} ms before its redesign, "
+                f"bound {kern['bound_ms']:.6f} ms "
+                f"({kern['bound_by']})")
     log("launches x (ms - bound_ms), largest first: "
         + ", ".join(f"{name} {v:.4f}" for v, name in gap))
     log(json.dumps({"kernels": [{key: kern[key] for key in keys}

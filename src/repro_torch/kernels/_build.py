@@ -57,8 +57,9 @@ _SIGNATURES = {
 }
 # each kernel's shared memory a CTA needs, as its source computes it (the
 # one place the CTA shape lives), by its int arguments: M for K7a-K7c,
-# (tile_n, kc, M) for K4
-SMEM_FNS = {"repro_fastscan_select_flat_smem": 1,
+# (tile_n, kc, M) for K1 and K4
+SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
+            "repro_fastscan_select_flat_smem": 1,
             "repro_fastscan_onehot_mma_flat_smem": 1,
             "repro_fastscan_blockmin_smem": 1,
             "repro_fastscan_stream_topk_prune_smem": 3}
@@ -164,8 +165,8 @@ def check_args(args: dict, device: torch.device) -> None:
 
 def check_smem(fn: str, *args: int, what: str = "") -> None:
     """Raise ``ValueError`` when a CTA of the kernel whose source exports
-    ``fn`` needs more shared memory at ``args`` (M, or K4's (tile_n, kc,
-    M)) than a block can get."""
+    ``fn`` needs more shared memory at ``args`` (M, or K1's and K4's
+    (tile_n, kc, M)) than a block can get."""
     need = getattr(load_library(), fn)(*args)
     if need > SMEM_LIMIT:
         raise ValueError(f"{what or f'M={args[0]}'} needs {need} B of shared "

@@ -1,8 +1,8 @@
 // Device code shared by the fast-scan kernels (K1, K3-K5, K7a-K7c): the
 // shared-memory LUT row sum of one packed code row, the register LUT read
-// by byte permutes (K5), the block-wide staging copy into shared memory
-// (K7a-K7c), and the block-wide bitonic sort of K1's per-tile top-kc
-// selection.
+// by byte permutes (K5), the four-rows-per-permute look-up (K1, K7a), the
+// block-wide staging copy into shared memory (K7a-K7c), and the 64-bit
+// (value, slot) selection key.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +107,109 @@ __device__ __forceinline__ int select_row(const uint8_t* row,
   return acc;
 }
 
+// ---- four rows per byte permute (K1, K7a) ------------------------------
+// A sub-space's 16 u8 entries are four words: entries 0-7 in {w1:w0}, 8-15
+// in {w3:w2}. A 16-bit selector holds four rows' low 3 code bits, one
+// nibble each (bit 3 of a selector nibble would replicate the sign in
+// prmt's default mode, so it stays 0): prmt(w0, w1, sel) and prmt(w2, w3,
+// sel) give four entries each, and a byte mask made of the four codes' bit
+// 3 picks between them with one lop3. The four entries are split into even
+// and odd rows (two prmt) and added to two accumulators of 16-bit lanes;
+// at M <= 32 a sum is at most 8,160, so no carry crosses lanes.
+
+// Byte b of four consecutive rows' codes (MH bytes each, row-major).
+template <int MH>
+__device__ __forceinline__ uint32_t code_byte(const uint32_t (&cw)[MH],
+                                              int b) {
+  return (cw[b >> 2] >> (8 * (b & 3))) & 0xffu;
+}
+
+// The codes of `rows` (1..4) consecutive rows from src, zero past them, as
+// MH words; vec (16, 4 or 1) is the widest load src's alignment allows.
+template <int MH>
+__device__ __forceinline__ void load_rows4(const uint8_t* src, int rows,
+                                           int vec, uint32_t (&cw)[MH]) {
+  if (rows == 4 && MH % 4 == 0 && vec == 16) {
+#pragma unroll
+    for (int i = 0; i < MH / 4; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      cw[4 * i] = v.x;
+      cw[4 * i + 1] = v.y;
+      cw[4 * i + 2] = v.z;
+      cw[4 * i + 3] = v.w;
+    }
+  } else if (rows == 4 && vec >= 4) {  // 4*MH bytes from a 4-aligned row
+#pragma unroll
+    for (int i = 0; i < MH; ++i)
+      cw[i] = __ldg(reinterpret_cast<const uint32_t*>(src) + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MH; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (4 * i + b < rows * MH)
+          word |= static_cast<uint32_t>(__ldg(src + 4 * i + b)) << (8 * b);
+      cw[i] = word;
+    }
+  }
+}
+
+// Per sub-space: the selector (low 3 bits of the four rows' codes, one
+// nibble each) and the byte mask of their bit 3.
+template <int MH>
+__device__ __forceinline__ void selectors4(const uint32_t (&cw)[MH],
+                                           uint32_t (&sel)[2 * MH],
+                                           uint32_t (&msk)[2 * MH]) {
+#pragma unroll
+  for (int j = 0; j < MH; ++j) {
+    // x: byte j of rows 0..3, one byte each
+    const uint32_t x = code_byte<MH>(cw, j) | code_byte<MH>(cw, MH + j) << 8 |
+                       code_byte<MH>(cw, 2 * MH + j) << 16 |
+                       code_byte<MH>(cw, 3 * MH + j) << 24;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // sub-space 2j: low nibbles; 2j+1: high
+      const uint32_t c = (h ? x >> 4 : x) & 0x0f0f0f0fu;
+      const uint32_t lo3 = c & 0x07070707u;
+      // nibbles of bytes 0, 1 into bits 0-7, of bytes 2, 3 into 16-23
+      sel[2 * j + h] = __byte_perm(lo3 | (lo3 >> 4), 0, 0x4420);
+      msk[2 * j + h] = ((c >> 3) & 0x01010101u) * 0xffu;
+    }
+  }
+}
+
+// The four rows' sums against one (M, 16) LUT read as M 16-byte words
+// (a broadcast load when every lane reads the same LUT), as int4 of rows
+// 0..3.
+template <int M>
+__device__ __forceinline__ int4 sum_rows4(const uint4* lut,
+                                          const uint32_t (&sel)[M],
+                                          const uint32_t (&msk)[M]) {
+  uint32_t even = 0, odd = 0;  // rows 0, 2 and rows 1, 3 in 16-bit lanes
+#pragma unroll
+  for (int s = 0; s < M; ++s) {
+    const uint4 w = lut[s];
+    const uint32_t lo = __byte_perm(w.x, w.y, sel[s]);
+    const uint32_t hi = __byte_perm(w.z, w.w, sel[s]);
+    const uint32_t e = (lo & ~msk[s]) | (hi & msk[s]);
+    even += __byte_perm(e, 0, 0x4240);
+    odd += __byte_perm(e, 0, 0x4341);
+  }
+  return make_int4(static_cast<int>(even & 0xffffu),
+                   static_cast<int>(odd & 0xffffu),
+                   static_cast<int>(even >> 16), static_cast<int>(odd >> 16));
+}
+
+// True for the M/2 that the four-row look-up is instantiated for.
+__host__ __device__ inline bool four_row_path(int mh) {
+  switch (mh) {
+    case 1: case 2: case 3: case 4: case 6: case 8: case 12: case 16:
+      return true;
+    default:
+      return false;
+  }
+}
+
 // Copy `bytes` bytes of device memory into shared memory with the whole
 // block, 16 bytes a load when both ends are 16-byte aligned; the caller
 // synchronizes before reading.
@@ -125,29 +228,6 @@ __device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src,
     dst[i] = src[i];
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory by the
-// whole block; starts and ends with every thread past a barrier.
-template <typename Key>
-__device__ void bitonic_sort(Key* keys, int n) {
-  __syncthreads();
-  for (int k2 = 2; k2 <= n; k2 <<= 1) {
-    for (int j = k2 >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const Key a = keys[i], b = keys[ixj];
-          const bool up = (i & k2) == 0;
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // The 64-bit selection key of one row: ascending key order is ascending
 // value with the lowest slot first among equal values.
 __device__ __forceinline__ unsigned long long slot_key(int32_t val, int slot) {
@@ -159,12 +239,6 @@ __device__ __forceinline__ unsigned long long slot_key(int32_t val, int slot) {
 inline int load_width(const void* addr, int mh) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(addr);
   return (mh % 8 == 0 && a % 8 == 0) ? 8 : (mh % 4 == 0 && a % 4 == 0) ? 4 : 1;
-}
-
-inline int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
 }
 
 }  // namespace repro_cuda

@@ -1,6 +1,8 @@
-// Device code shared by the flat one-hot tensor-core scans K7b and K7c:
-// the ADC sums of 16 queries over a block of code rows as u8 x u8 -> s32
-// mma.sync.m16n8k32, with the one-hot codes built in registers.
+// Device code of the flat one-hot tensor-core scan K7c (K7b uses only the
+// MMA and the LUT row stride; its own core, with the operands' roles
+// swapped, is in fastscan_onehot_mma_flat.cu): the ADC sums of 16 queries
+// over a block of code rows as u8 x u8 -> s32 mma.sync.m16n8k32, with the
+// one-hot codes built in registers.
 //
 // One k-step is one packed code byte j, i.e. two sub-spaces:
 //   A (16 x 32 u8, row-major): A[i, k] = LUT[q0 + i, 2j + k / 16, k % 16],

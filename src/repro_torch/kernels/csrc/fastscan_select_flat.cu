@@ -16,17 +16,12 @@
 //
 // Design: one byte permute looks up FOUR rows of one sub-space, as the
 // paper's vqtbl1q_u8 looks up 16 codes at once.
-//   - A sub-space's 16 u8 entries are four words: entries 0-7 in {w1:w0},
-//     8-15 in {w3:w2}. A 16-bit selector holds four rows' low 3 code bits,
-//     one nibble each (bit 3 of a selector nibble would replicate the sign
-//     in prmt's default mode, so it stays 0): prmt(w0, w1, sel) and
-//     prmt(w2, w3, sel) give four entries each, and a byte mask made of
-//     the four codes' bit 3 picks between them with one lop3.
-//   - The four entries are split into even and odd rows (two prmt) and
-//     added to two accumulators of 16-bit lanes; the register path takes
-//     M <= 32, so a sum is at most 8,160 and no carry crosses lanes. Each
-//     row is widened to i32 once, at the end: 7 instructions per four
-//     look-ups.
+//   - The look-up (load_rows4, selectors4, sum_rows4 in
+//     fastscan_common.cuh, shared with K1): a 16-bit selector of four
+//     rows' low code bits and a byte mask of their bit 3 feed two prmt and
+//     one lop3; two more prmt split even and odd rows into 16-bit lanes
+//     (the register path takes M <= 32, so a sum is at most 8,160 and no
+//     carry crosses lanes): 7 instructions per four look-ups.
 //   - A thread owns four consecutive rows. It loads their codes once and
 //     builds the selector and mask of each sub-space once per tile, in
 //     registers (no other thread reads them), then walks the CTA's
@@ -46,26 +41,13 @@ constexpr int kThreads = 256;
 constexpr int kTileRows = 4 * kThreads;  // code rows a CTA scans
 constexpr int kQueries = 16;             // queries a CTA walks over its tile
 
-bool register_path(int mh) {
-  switch (mh) {
-    case 1: case 2: case 3: case 4: case 6: case 8: case 12: case 16:
-      return true;
-    default:
-      return false;
-  }
-}
-
 // Shared memory one CTA needs: its queries' (M, 16) LUTs, and on the
 // shared-memory path its code tile.
 size_t smem_bytes(int m) {
   return static_cast<size_t>(kQueries) * m * 16 +
-         (register_path(m / 2) ? 0 : static_cast<size_t>(kTileRows) * (m / 2));
-}
-
-// Byte b of a thread's code words (four rows of MH bytes, row-major).
-template <int MH>
-__device__ __forceinline__ uint32_t code_byte(const uint32_t (&cw)[MH], int b) {
-  return (cw[b >> 2] >> (8 * (b & 3))) & 0xffu;
+         (repro_cuda::four_row_path(m / 2)
+              ? 0
+              : static_cast<size_t>(kTileRows) * (m / 2));
 }
 
 // Four consecutive rows per thread; vec (16, 4 or 1): the widest load the
@@ -89,70 +71,17 @@ __global__ void __launch_bounds__(kThreads) select_flat_kernel(
   const int rows = static_cast<int>(min(4LL, n - row));
   if (rows <= 0) return;
 
-  // the four rows' codes: 4*MH contiguous bytes = MH words
+  // the four rows' codes, then each sub-space's selector and bit-3 mask
   uint32_t cw[MH];
-  const uint8_t* src = codes + row * MH;
-  if (rows == 4 && MH % 4 == 0 && vec == 16) {
-#pragma unroll
-    for (int i = 0; i < MH / 4; ++i) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + i);
-      cw[4 * i] = v.x;
-      cw[4 * i + 1] = v.y;
-      cw[4 * i + 2] = v.z;
-      cw[4 * i + 3] = v.w;
-    }
-  } else if (rows == 4 && vec >= 4) {  // 4*MH bytes from a 4-aligned row
-#pragma unroll
-    for (int i = 0; i < MH; ++i)
-      cw[i] = __ldg(reinterpret_cast<const uint32_t*>(src) + i);
-  } else {
-#pragma unroll
-    for (int i = 0; i < MH; ++i) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (4 * i + b < rows * MH)
-          word |= static_cast<uint32_t>(__ldg(src + 4 * i + b)) << (8 * b);
-      cw[i] = word;
-    }
-  }
-  // per sub-space: the selector (low 3 bits of the four rows' codes, one
-  // nibble each) and the byte mask of their bit 3
+  repro_cuda::load_rows4<MH>(codes + row * MH, rows, vec, cw);
   uint32_t sel[M], msk[M];
-#pragma unroll
-  for (int j = 0; j < MH; ++j) {
-    // x: byte j of rows 0..3, one byte each
-    const uint32_t x = code_byte<MH>(cw, j) | code_byte<MH>(cw, MH + j) << 8 |
-                       code_byte<MH>(cw, 2 * MH + j) << 16 |
-                       code_byte<MH>(cw, 3 * MH + j) << 24;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // sub-space 2j: low nibbles; 2j+1: high
-      const uint32_t c = (h ? x >> 4 : x) & 0x0f0f0f0fu;
-      const uint32_t lo3 = c & 0x07070707u;
-      // nibbles of bytes 0, 1 into bits 0-7, of bytes 2, 3 into 16-23
-      sel[2 * j + h] = __byte_perm(lo3 | (lo3 >> 4), 0, 0x4420);
-      msk[2 * j + h] = ((c >> 3) & 0x01010101u) * 0xffu;
-    }
-  }
+  repro_cuda::selectors4<MH>(cw, sel, msk);
 
   const bool vec_out = (n & 3) == 0 && rows == 4;
   for (int qi = 0; qi < nq; ++qi) {
-    const uint4* lut = reinterpret_cast<const uint4*>(smem) + qi * M;
-    uint32_t even = 0, odd = 0;  // rows 0, 2 and rows 1, 3 in 16-bit lanes
-#pragma unroll
-    for (int s = 0; s < M; ++s) {
-      const uint4 w = lut[s];
-      const uint32_t lo = __byte_perm(w.x, w.y, sel[s]);
-      const uint32_t hi = __byte_perm(w.z, w.w, sel[s]);
-      const uint32_t e = (lo & ~msk[s]) | (hi & msk[s]);
-      even += __byte_perm(e, 0, 0x4240);
-      odd += __byte_perm(e, 0, 0x4341);
-    }
+    const int4 sums = repro_cuda::sum_rows4<M>(
+        reinterpret_cast<const uint4*>(smem) + qi * M, sel, msk);
     int32_t* dst = out + static_cast<size_t>(q0 + qi) * n + row;
-    const int4 sums = make_int4(static_cast<int>(even & 0xffffu),
-                                static_cast<int>(odd & 0xffffu),
-                                static_cast<int>(even >> 16),
-                                static_cast<int>(odd >> 16));
     if (vec_out) {
       *reinterpret_cast<int4*>(dst) = sums;
     } else {

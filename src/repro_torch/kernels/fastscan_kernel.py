@@ -5,9 +5,11 @@ fastscan_stream_topk_grouped`` with ``early_exit=False`` (Pallas body
 ``_stream_topk_kernel``, selection ``_tile_topk``); the CUDA source is
 ``csrc/fastscan_stream_topk.cu``. It is bound by memory on the H100: each
 probed list is read once, M/2 bytes a row, for M table look-ups and adds.
-This first version is simple on purpose -- one CTA per (group, tile), LUT
-in shared memory, a shared-memory bitonic sort of (value, slot) keys -- and
-its measured time stands in PERF.md beside its bound.
+One CTA per (group, tile) looks its rows up four at a time with byte
+permutes, finds the tile's kc-th smallest sum with a shared-memory
+histogram (radix) select, compacts the rows under it in slot order and
+ranks them; no tile is sorted. Its measured time stands in PERF.md beside
+its bound.
 
 Beside the kernel: ``fastscan_stream_topk_plain``, the same function in
 plain PyTorch (the CPU path and the on-card reference), and ``launches``,
@@ -31,14 +33,34 @@ SMEM_LIMIT = _build.SMEM_LIMIT
 launches = 0
 
 
-def _pow2(x: int) -> int:
-    return 1 << max(x - 1, 0).bit_length()
+# the kernel's shared-memory plan (csrc/fastscan_stream_topk.cu)
+_MAX_DIGIT_BITS, _SCRATCH = 12, 48
 
 
-def smem_bytes(tile_n: int, m: int) -> int:
-    """Shared memory one CTA needs: the tile's 64-bit keys (padded to a
-    power of two) plus the group's (M, 16) u8 LUT."""
-    return _pow2(tile_n) * 8 + m * 16
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _layout_bytes(tile_n: int, kc: int, m: int, digit_bits: int,
+                  lut_smem: bool) -> int:
+    return (_SCRATCH + _a16(tile_n * 4) + _a16((1 << digit_bits) * 4)
+            + 2 * _a16(kc * 4) + (_a16(m * 16) if lut_smem else 0))
+
+
+def smem_bytes(tile_n: int, kc: int, m: int) -> int:
+    """Shared memory one CTA needs (mirrors the plan in the .cu, which
+    exports it as ``repro_fastscan_stream_topk_smem``): the tile's sums, the
+    radix select's histogram, the candidates' values and slots, and the
+    group's (M, 16) u8 LUT -- or, where that does not fit, a narrower
+    histogram, then the LUT read in place."""
+    dmax = min((m * 255).bit_length(), _MAX_DIGIT_BITS)
+    need = _layout_bytes(tile_n, kc, m, dmax, True)
+    for lut_smem in (True, False):
+        for d in range(dmax, 0, -1):
+            if need <= SMEM_LIMIT:
+                return need
+            need = _layout_bytes(tile_n, kc, m, d, lut_smem)
+    return need
 
 
 def _check(table_q8, list_codes, probe_ids, sizes, filter_bits, kc, tile_n):
@@ -65,10 +87,10 @@ def _check(table_q8, list_codes, probe_ids, sizes, filter_bits, kc, tile_n):
         raise ValueError(f"tile_n={tile_n} must divide cap={cap}")
     if not 1 <= kc <= tile_n:
         raise ValueError(f"kc={kc} must be in [1, tile_n={tile_n}]")
-    if smem_bytes(tile_n, m) > SMEM_LIMIT:
-        raise ValueError(f"tile_n={tile_n} needs {smem_bytes(tile_n, m)} B of "
-                         f"shared memory, more than the {SMEM_LIMIT} B a "
-                         "block can get")
+    if smem_bytes(tile_n, kc, m) > SMEM_LIMIT:
+        raise ValueError(f"tile_n={tile_n}, kc={kc} need "
+                         f"{smem_bytes(tile_n, kc, m)} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block can get")
 
 
 def fastscan_stream_topk_plain(table_q8, list_codes, probe_ids, sizes, *,
@@ -135,6 +157,8 @@ def fastscan_stream_topk_grouped(table_q8: torch.Tensor,
     slots = torch.empty_like(vals)
     if g * n_tiles == 0:
         return vals, slots
+    _build.check_smem("repro_fastscan_stream_topk_smem", tile_n, kc, m,
+                      what=f"tile_n={tile_n}, kc={kc}, M={m}")
     lib = _build.load_library()
     w = 0 if filter_bits is None else filter_bits.shape[1]
     with torch.cuda.device(dev):

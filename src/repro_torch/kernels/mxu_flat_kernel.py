@@ -4,10 +4,13 @@
 Replaces the TPU kernel ``repro/kernels/fastscan_kernel.py::
 fastscan_onehot_mxu`` (Pallas body ``_onehot_mxu_kernel``); the CUDA
 source is ``csrc/fastscan_onehot_mma_flat.cu``. u8 x u8 -> s32
-``mma.sync.m16n8k32``: A is 16 queries' LUT rows, B the one-hot codes of 8
-rows built in registers (not in shared memory, as K6's were), one k-step
-per packed code byte; exact in s32. It is the flat index's ``impl='mxu'``
-path. Bound by memory on the H100, as K7a.
+``mma.sync.m16n8k32``: A is the one-hot of 16 code rows, built in
+registers once per k-step (one packed code byte) and fed to the MMAs of up
+to 8 query tiles, B is 8 queries' LUT words from shared memory; exact in
+s32. Persistent CTAs walk row chunks with a ``cp.async`` ring, and the
+sums leave through a shared-memory (query, row) tile as 16-byte streaming
+stores. It is the flat index's ``impl='mxu'`` path. Bound by memory on the
+H100, as K7a: the (Q, N) i32 output is ~98% of the bytes.
 
 Beside the kernel: the plain version is K7a's ``fastscan_distances_plain``
 (the two compute one function), and ``launches`` counts kernel launches.

@@ -56,21 +56,41 @@ def _k1_inputs(seed, dev, *, g, nlist, cap, mh, fill, invalid=0.1):
               for a in (table, codes, probes, sizes)), bits)
 
 
-# (g, nlist, cap, mh, tile, kc, filter fill, invalid-probe share)
-K1_CASES = [(1, 3, 64, 4, 64, 5, None, 0.0),
-            (8, 5, 64, 3, 32, 7, 0.5, 0.1),       # odd M/2: byte loads
-            (8, 5, 100, 4, 100, 9, 0.5, 0.1),     # non-power-of-two tile
-            (64, 16, 4096, 8, 1024, 40, 0.5, 0.05),
-            (16, 4, 8192, 8, 8192, 40, None, 0.0),  # one 64 KiB-key tile
-            (4, 2, 64, 8, 16, 16, 1.0, 1.0)]       # every probe invalid
+# (g, nlist, cap, mh, tile, kc, filter fill, invalid-probe share, LUT): the
+# LUT is random u8, {0, 1} (hundreds of rows tie at the kc-th value) or all
+# 255 (every row in one histogram bin). Every case with a valid probe also
+# probes a list with fewer than kc live rows. The selection's edges: kc ==
+# tile_n (16 and 1024), kc > 64, M/2 in {3 (byte loads), 8, 16, 32} and
+# M/2 = 5 (the shared-memory row sum), tiles of 100 and 8192 rows.
+K1_CASES = [(1, 3, 64, 4, 64, 5, None, 0.0, "rand"),
+            (8, 5, 64, 3, 32, 7, 0.5, 0.1, "rand"),     # odd M/2
+            (8, 5, 100, 4, 100, 9, 0.5, 0.1, "rand"),   # non-power-of-two
+            (64, 16, 4096, 8, 1024, 40, 0.5, 0.05, "rand"),
+            (16, 4, 8192, 8, 8192, 40, None, 0.0, "rand"),  # 8192-row tile
+            (4, 2, 64, 8, 16, 16, 1.0, 1.0, "rand"),    # every probe invalid
+            (8, 6, 2048, 8, 1024, 40, None, 0.0, "01"),
+            (8, 6, 2048, 8, 1024, 40, 0.5, 0.05, "01"),
+            (6, 4, 1024, 8, 1024, 40, None, 0.0, "255"),
+            (6, 4, 2048, 8, 1024, 1024, 0.5, 0.0, "rand"),  # kc == tile_n
+            (6, 4, 2048, 8, 1024, 200, None, 0.0, "01"),    # kc > 64
+            (6, 4, 1024, 16, 512, 40, 0.5, 0.0, "rand"),
+            (6, 4, 1024, 32, 256, 40, None, 0.0, "01"),
+            (6, 4, 300, 5, 100, 33, 0.5, 0.0, "rand")]
 
 
 @pytest.mark.parametrize("case", range(len(K1_CASES)))
 def test_k1_kernel_equals_plain(dev, case):
-    g, nlist, cap, mh, tile, kc, fill, invalid = K1_CASES[case]
+    g, nlist, cap, mh, tile, kc, fill, invalid, lut = K1_CASES[case]
     table, codes, probes, sizes, bits = _k1_inputs(
         case, dev, g=g, nlist=nlist, cap=cap, mh=mh, fill=fill,
         invalid=invalid)
+    if lut == "01":
+        table = table & 1
+    elif lut == "255":
+        table.fill_(255)
+    if invalid < 1.0:   # list 1 holds fewer than kc rows, and is probed
+        sizes[1] = kc // 2
+        probes[min(1, g - 1)] = 1
     n0 = fk.launches
     got = fk.fastscan_stream_topk_grouped(table, codes, probes, sizes, kc=kc,
                                           tile_n=tile, filter_bits=bits)
@@ -80,6 +100,21 @@ def test_k1_kernel_equals_plain(dev, case):
                                          tile_n=tile, filter_bits=bits)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_k1_smem_mirror_equals_the_kernels_export(dev):
+    """The Python mirror the CPU wrappers and the autotune sweep reject
+    tiles with computes what K1's .cu exports, over the tile grid."""
+    lib = _build.load_library()
+    fn = lib.repro_fastscan_stream_topk_smem
+    for tile in (1, 8, 16, 31, 64, 100, 256, 1000, 1024, 2048, 4096, 8192,
+                 16384, 20000, 32768, 65536):
+        for kc in {1, 4, 32, 33, 40, 64, 65, 200, tile // 2 or 1, tile}:
+            if kc > tile:
+                continue
+            for m in (2, 6, 16, 32, 64, 128, 1024, 6336, 14518):
+                assert fn(tile, kc, m) == fk.smem_bytes(tile, kc, m), (
+                    tile, kc, m)
 
 
 def _k2_inputs(seed, dev, *, n, d, q, rp, integer):
@@ -328,14 +363,23 @@ def test_anytime_card_engine_equals_host_engine(dev):
 # (q, n, mh, lut values): every register-LUT M/2 and the shared-memory one
 # (M/2 = 5, 32, 64), Q and N off the CTA tiles (N = 1, 3, 4097: no
 # multiple of 4), a {0, 1} LUT (ties), an all-255 LUT at M = 32 (8,160 in
-# each 16-bit lane), the serving width at a million rows
+# each 16-bit lane), the serving width at a million rows. K7b's edges:
+# each (query tiles, row blocks) pair with Q and N one either side of its
+# query block and chunk -- (1, 8): Q <= 8, 1024-row chunks; (2, 4): Q <=
+# 16, 512 rows; (4, 2): Q <= 32, 256 rows; (8, 1): 64 queries, 128 rows --
+# M = 302 (its buffers shrink the pair to (2, 1)), and Q = 128 at N =
+# 1,000,000.
 FLAT_CASES = [(1, 33, 1, 256), (3, 100, 2, 256), (17, 1500, 3, 256),
               (16, 1024, 4, 256), (5, 2047, 5, 2), (33, 3000, 6, 256),
               (8, 4096, 8, 2), (20, 999, 12, 256), (32, 5000, 16, 256),
               (2, 700, 64, 256), (128, 1_000_448, 8, 256),
               (2, 1, 4, 256), (3, 3, 8, 256), (17, 4097, 8, 256),
               (5, 4097, 1, 256), (4, 1001, 32, 256), (19, 4097, 16, 255),
-              (3, 4097, 6, 255)]
+              (3, 4097, 6, 255), (7, 1023, 8, 256), (8, 1025, 4, 2),
+              (9, 511, 8, 256), (16, 513, 8, 256), (17, 255, 8, 256),
+              (32, 257, 8, 256), (33, 127, 8, 256), (63, 129, 8, 256),
+              (65, 255, 8, 256), (9, 1000, 151, 256),
+              (128, 1_000_000, 8, 256)]
 
 
 def _flat_inputs(seed, dev, q, n, mh, levels):

@@ -225,9 +225,27 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="kc"):
         call(table, codes, probes, sizes, kc=40, tile_n=32)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((1, 2**15, 4), dtype=torch.uint8)
+        big = torch.zeros((1, 2**16, 4), dtype=torch.uint8)
         call(table[:1], big, probes[:1].clamp(max=0), sizes[:1], kc=4,
-             tile_n=2**15)
+             tile_n=2**16)
+
+
+def test_k1_smem_plan_accepts_every_tile_the_old_formula_did():
+    """K1's shared-memory plan (sums, histogram, candidates, LUT) refuses no
+    (tile_n, kc, M) that the sort-based plan's 8 * pow2(tile_n) + 16 * M
+    accepted: the autotune sweep and the CPU wrappers rely on it."""
+    def old(tile, m):
+        return (1 << max(tile - 1, 0).bit_length()) * 8 + m * 16
+
+    checked = 0
+    for tile in (1, 3, 16, 100, 1000, 1024, 4096, 8192, 10000, 16384):
+        for kc in {1, 40, 200, tile // 2 or 1, tile}:
+            for m in (2, 6, 16, 32, 128, 1024, 6336, 10432, 14526):
+                if kc <= tile and old(tile, m) <= tfk.SMEM_LIMIT:
+                    checked += 1
+                    assert tfk.smem_bytes(tile, kc, m) <= tfk.SMEM_LIMIT, (
+                        tile, kc, m)
+    assert checked > 300
 
 
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take():

@@ -276,6 +276,34 @@ def test_k4_ties_at_the_kc_cut_equal_reference(fill):
     assert skipped.sum() > 0
 
 
+@pytest.mark.parametrize("fill", [None, 0.5])
+def test_k1_ties_at_the_kc_cut_equal_reference(fill):
+    """K1 (no early exit) on a {0, 1} LUT over 128-row tiles: sums lie in
+    [0, 8], so dozens of rows share the kc-th value and the lowest slots
+    must win the cut, as the reference's sort keeps them. Lists of every
+    occupancy, one with fewer than kc rows. vals and slots bit for bit."""
+    rng = np.random.default_rng(51)
+    g, nlist, cap, mh, tile, kc = 8, 5, 256, 4, 128, 40
+    table = rng.integers(0, 2, (g, 2 * mh, 16), np.uint8)
+    codes = rng.integers(0, 256, (nlist, cap, mh), np.uint8)
+    sizes = np.array([cap, 200, 129, kc // 2, 0], np.int32)
+    probes = np.array([0, 1, 2, 3, 4, -1, 0, 2], np.int32)
+    bits = None if fill is None else _bits(rng, nlist, cap, fill)
+    want = jfk.fastscan_stream_topk_grouped(
+        jnp.asarray(table), jnp.asarray(codes), jnp.asarray(probes),
+        jnp.asarray(sizes), kc=kc, tile_n=tile, interpret=True,
+        filter_bits=None if bits is None
+        else jnp.asarray(bits[np.maximum(probes, 0)]))
+    got = tfk.fastscan_stream_topk_grouped(
+        _t(table), _t(codes), _t(probes), _t(sizes), kc=kc, tile_n=tile,
+        filter_bits=None if bits is None else _t(bits))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    # the cut falls inside a run of equal values
+    vals = got[0].numpy()
+    assert (vals[:, :, -1] == vals[:, :, -2]).any()
+
+
 def test_disarmed_early_exit_is_k1_with_zero_skips():
     args = _ee_inputs(31, nlist=4, cap=64, mh=2, q=2, p=3, occupancy="full",
                       skew=True)
