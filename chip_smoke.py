@@ -37,6 +37,12 @@ function must move at the memory rate and the function's own operations
 (for an ADC scan one look-up and one add per row and sub-space) at the
 card's fastest rate for their type.
 
+Beside the kernels it times two yardsticks, neither a port: a ``fill_`` of
+the flat path's (Q, N) output (the store floor of K7a/K7b) and the card's
+rate of independent u8 ``mma.sync.m16n8k32`` (the instruction of the
+one-hot scans K6, K7b and K7c), against which each one-hot scan's MMA
+count is printed as a time.
+
 Prints the card's name and power limit, timings, a ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero. Needs a CUDA card and the repo's ``src/`` beside it; it
@@ -73,9 +79,12 @@ FIG2_GAP = 0.05               # |recall@10 fast-scan - naive PQ| allowed
 # 80GB HBM3, 700 W), printed beside this run's times; not part of the
 # kernels line
 EARLIER_MS = {"fastscan_stream_topk": 0.182801,
-              "fastscan_onehot_mma_flat": 0.424301}
+              "fastscan_onehot_mma_flat": 0.424301,
+              "fastscan_onehot_mma_grouped": 1.247889,
+              "fastscan_blockmin": 0.425841}
 # kernels whose ptxas registers and spills are summarised after the build
-PTXAS_SUMMARY = ("stream_topk_kernel", "onehot_mma_flat_kernel")
+PTXAS_SUMMARY = ("stream_topk_kernel", "onehot_mma_flat_kernel",
+                 "onehot_mma_grouped_kernel", "blockmin_kernel")
 
 
 def log(*parts) -> None:
@@ -500,6 +509,43 @@ def time_kernel(torch, kernel, plain, dev_name: str, nbytes: int,
                 library_ms=None)
 
 
+def mma_yardstick(torch) -> float:
+    """A yardstick, not a port: the card's rate (MMAs/s) of independent u8
+    ``mma.sync.m16n8k32`` from registers, the instruction of the one-hot
+    scans (``csrc/yardstick/mma_rate.cu``, built here apart from the
+    kernels' library)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    out = _build.build_dir() / "yardstick_mma_rate.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(out), str(_build.CSRC / "yardstick" / "mma_rate.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.repro_mma_rate.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.repro_mma_rate_count.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.repro_mma_rate_count.restype = ctypes.c_longlong
+    ctas = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2048
+    sink = torch.empty(ctas * 256, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = lib.repro_mma_rate(ctas, iters, sink.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mma_rate: CUDA error {err}")
+
+    ms = event_ms(torch, run, 5)
+    rate = lib.repro_mma_rate_count(ctas, iters) / (ms * 1e-3)
+    log(f"yardstick: independent u8 mma.sync.m16n8k32 from registers, "
+        f"{ctas} CTAs x 8 warps x 8 chains: {rate:.6e} MMAs/s = "
+        f"{rate * 16 * 8 * 32 * 2 / 1e12:.2f} TOP/s "
+        f"({100 * rate * 16 * 8 * 32 * 2 / INT_OPS_PER_S:.1f}% of "
+        f"{INT_OPS_PER_S / 1e12:.0f})")
+    return rate
+
+
 def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
     """K3 over an nlist-list store in place, K5 and K6 over the gathered
     copy the engine builds from it, at the anytime path's largest bucket:
@@ -554,13 +600,15 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
     def plain():
         return sk.fastscan_grouped_plain(table, gathered, tile_n=gtile)
 
-    for name, fn, dev_name, src, line, what in (
+    # mmas: the one-hot product's m16n8k32 MMAs, one a (group, 16 rows,
+    # code byte)
+    for name, fn, dev_name, src, line, what, mmas in (
             ("fastscan_select_grouped", sk.fastscan_select_tree_grouped,
              "select_grouped_kernel", "fastscan_select_grouped.cu", 167,
-             "K5"),
+             "K5", None),
             ("fastscan_onehot_mma_grouped", mk.fastscan_onehot_mxu_grouped,
              "onehot_mma_grouped_kernel", "fastscan_onehot_mma_grouped.cu",
-             267, "K6")):
+             267, "K6", g * (n_p // 16) * mh)):
         def kernel(fn=fn):
             return fn(table, gathered, tile_n=gtile)
 
@@ -571,7 +619,8 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
             torch, kernel, plain, dev_name,
             g * n_p * mh + g * M * 16 + g * n_p * 4, g * n_p * M * 2, what,
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/fastscan_kernel.py:{line}"))
+            replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
+            mmas=mmas))
     return out
 
 
@@ -865,8 +914,8 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
     """K7a, K7b and K7c against their plain versions: timed at the flat
     path's largest bucket (Q=128 real query LUTs x the index's N codes,
     M=16; K7c's padded with 0xFF to its 1024-row block as ``ops`` pads
-    them), then untimed
-    through ``ops`` at Q=32 with M=8 and M=32, with a {0, 1} LUT (ties
+    them) and at its smallest two (Q=1 and 8), then untimed through
+    ``ops`` at Q=32 with M=8 and M=32, with a {0, 1} LUT (ties
     everywhere), and K7c at block 100 on N=1500."""
     from repro_torch.core import fastscan as fs
     from repro_torch.core import pq
@@ -890,12 +939,15 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
     # bytes: the LUTs and codes read once, the (Q, N) sums written once
     nbytes = qq * M * 16 + n * mh + qq * n * 4
     ops_count = qq * n * M * 2
-    for name, fn, dev_name, src, line, what in (
+    # mmas: the one-hot product's m16n8k32 MMAs, one a (8 queries, 16 rows,
+    # code byte)
+    for name, fn, dev_name, src, line, what, mmas in (
             ("fastscan_select_flat", sfk.fastscan_select_tree,
-             "select_flat_kernel", "fastscan_select_flat.cu", 128, "K7a"),
+             "select_flat_kernel", "fastscan_select_flat.cu", 128, "K7a",
+             None),
             ("fastscan_onehot_mma_flat", mfk.fastscan_onehot_mxu,
              "onehot_mma_flat_kernel", "fastscan_onehot_mma_flat.cu", 211,
-             "K7b")):
+             "K7b", -(-qq // 8) * -(-n // 16) * mh)):
         def kernel(fn=fn):
             return fn(table, codes)
 
@@ -905,7 +957,8 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
         out.append(time_kernel(
             torch, kernel, plain, dev_name, nbytes, ops_count, what,
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/fastscan_kernel.py:{line}"))
+            replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
+            mmas=mmas))
     del want
     # a yardstick, not a port: the card filling the same (Q, N) i32 output
     out_q = torch.empty((qq, n), dtype=torch.int32, device=dev)
@@ -913,7 +966,12 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
     log(f"store floor: torch fill_ of the ({qq}, {n}) i32 output, "
         f"{qq * n * 4} B: events {fill_ms:.5f} ms")
     del out_q
-    # the flat path's small buckets: K7b (the 'mxu' default) beside K7a
+    block = TILE_N
+    codes_ff = ops._pad_to(index.packed_codes, 0, block, value=0xFF
+                           ).contiguous()
+    n_ff = codes_ff.shape[0]
+    # the flat path's small buckets: K7b (the 'mxu' default) beside K7a,
+    # and K7c
     for qs in (1, 8):
         t_s = table[:qs].contiguous()
         want_s = sfk.fastscan_distances_plain(t_s, codes)
@@ -932,9 +990,20 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
                 f"device {ms_dev} ms, events {ms_ev:.5f} ms, bound "
                 f"{bound:.6f} ms ({by})")
         del want_s
-    block = TILE_N
-    codes_ff = ops._pad_to(index.packed_codes, 0, block, value=0xFF
-                           ).contiguous()
+
+        def small_k7c():
+            return bk.fastscan_blockmin(t_s, codes_ff, tile_n=block)
+
+        assert_same(small_k7c(), bk.fastscan_blockmin_plain(
+            t_s, codes_ff, tile_n=block), f"K7c Q={qs}")
+        bound, by = bound_ms(
+            qs * M * 16 + n_ff * mh + 2 * qs * (n_ff // block) * 4,
+            qs * n_ff * M * 2)
+        ms_ev = event_ms(torch, small_k7c, 20)
+        ms_dev = device_ms(torch, small_k7c, "blockmin_kernel", 10)
+        log(f"K7c at Q={qs} N={n_ff} M={M} block={block}: mins and ids == "
+            f"plain bit for bit; device {ms_dev} ms, events {ms_ev:.5f} ms, "
+            f"bound {bound:.6f} ms ({by})")
 
     def k7c():
         return bk.fastscan_blockmin(table, codes_ff, tile_n=block)
@@ -943,15 +1012,15 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
         return bk.fastscan_blockmin_plain(table, codes_ff, tile_n=block)
 
     assert_same(k7c(), k7c_plain(), "K7c")
-    log(f"K7c fastscan_blockmin: Q={qq} N={codes_ff.shape[0]} (0xFF-padded) "
+    log(f"K7c fastscan_blockmin: Q={qq} N={n_ff} (0xFF-padded) "
         f"M={M} block={block}: mins and ids == plain bit for bit")
-    nb = codes_ff.shape[0] // block
     out.append(time_kernel(
         torch, k7c, k7c_plain, "blockmin_kernel",
-        qq * M * 16 + codes_ff.shape[0] * mh + 2 * qq * nb * 4,
-        qq * codes_ff.shape[0] * M * 2, "K7c", name="fastscan_blockmin",
+        qq * M * 16 + n_ff * mh + 2 * qq * (n_ff // block) * 4,
+        qq * n_ff * M * 2, "K7c", name="fastscan_blockmin",
         source="src/repro_torch/kernels/csrc/fastscan_blockmin.cu",
-        replaces="src/repro/kernels/fastscan_kernel.py:311"))
+        replaces="src/repro/kernels/fastscan_kernel.py:311",
+        mmas=-(-qq // 8) * -(-n_ff // 16) * mh))
 
     # untimed: other widths, ties, a block that is no multiple of 8
     rng = np.random.default_rng(args.seed + 7)
@@ -1204,6 +1273,12 @@ def main() -> int:
     k3, k5, k6 = grouped_phases(torch, args, cap, args.nlist)
     k4 = k4_phase(torch, args, cap, args.nlist)
     k7a, k7b, k7c = flat_kernel_phases(torch, args, flat, ds.queries)
+    # the one-hot scans' products against mma.sync's own rate
+    rate = mma_yardstick(torch)
+    for kern in (k6, k7b, k7c):
+        log(f"{kern['name']}: {kern['mmas']} MMAs take "
+            f"{kern['mmas'] / rate * 1e3:.6f} ms at the yardstick's rate; "
+            f"{kern['ms']:.6f} ms this run")
 
     # 5. the stream serving path
     launches = slice_phase(torch, args, engine, ds, build_s)

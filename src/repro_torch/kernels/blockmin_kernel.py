@@ -3,12 +3,15 @@ argmin.
 
 Replaces the TPU kernel ``repro/kernels/fastscan_kernel.py::
 fastscan_blockmin`` (Pallas body ``_blockmin_kernel``); the CUDA source is
-``csrc/fastscan_blockmin.cu``. K7b's tensor-core sums are folded on the
-spot into 64-bit ``(sum << 32 | row)`` keys, whose minimum per (query,
-block) is the smallest sum and, among equal sums, the lowest row; the
-(Q, N) sums never reach device memory. It serves ``ops.fastscan_blockmin``.
-Bound by memory on the H100: the codes read once, two i32 written per
-(query, block).
+``csrc/fastscan_blockmin.cu``. K7b's tensor-core sums (the one-hot of 16
+code rows against up to 8 query tiles' LUT words) are folded into the
+minimum where K7b would store them: persistent CTAs each own a run of whole
+blocks and walk it in row chunks through a ``cp.async`` ring, keeping a
+running (sum, row) per query, merged on ``(sum << 32 | row)`` keys, whose
+minimum per (query, block) is the smallest sum and, among equal sums, the
+lowest row. The (Q, N) sums never reach device memory. It serves
+``ops.fastscan_blockmin``. Bound by memory on the H100: the codes read once
+a query block, two i32 written per (query, block).
 
 Beside the kernel: ``fastscan_blockmin_plain``, the same function in plain
 PyTorch (the CPU path and the on-card reference), and ``launches``, the

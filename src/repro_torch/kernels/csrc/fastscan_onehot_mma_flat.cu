@@ -15,8 +15,9 @@
 //     sub-space 2j + k / 16 equals k % 16, else 0 -- the one-hot of 16
 //     code rows, built in registers (lane (g, t) holds rows g and g + 8);
 //   B (32 x 8, col-major): B[k, c] = LUT[q0 + c, 2j + k / 16, k % 16] --
-//     8 queries' LUT bytes, which are the LUT's own 4-byte words (lane
-//     (g, t) reads query g's bytes 4t .. 4t + 3 of each sub-space);
+//     8 queries' LUT bytes as they lie in memory (lane (g, t) reads words
+//     2t and 2t + 1 of query g's 32 bytes of byte j; the fragments' order
+//     of k is fastscan_mma_flat.cuh's);
 //   C (16 x 8 s32): C[i, c] is code row i's sum for query q0 + c.
 // Exact: every product is {0, 1} * u8, and a sum has at most M terms of at
 // most 255. Fragment layouts are the PTX ISA's for m16n8k32 with 8-bit
@@ -34,12 +35,15 @@
 //     query tile at Q <= 8 over 8 row blocks, 8 query tiles at Q = 128
 //     over one;
 //   - the one-hot A is built once per (16 rows, k-step) and feeds the MMAs
-//     of all QT query tiles; a one-hot word is one shift (shl.b32 clamps
-//     a shift >= 32 to 0);
+//     of all QT query tiles; a lane's two words of a row are one byte
+//     permute and one 64-bit shift, after a funnel shift and a lop3 for
+//     four code bytes;
 //   - B comes from the CTA's query block of LUTs, staged once in shared
-//     memory with each byte j's two sub-spaces interleaved word by word,
-//     so that b0 and b1 are one 8-byte load (rows padded to 8 words mod
-//     32: the 16 lanes of a phase hit distinct bank pairs);
+//     memory in their own order, so that b0 and b1 are one 8-byte load
+//     (rows padded to 8 words mod 32: the 16 lanes of a phase hit distinct
+//     bank pairs);
+//   - that core (LUT staging, plan, k-loop) and the cp.async ring's copies
+//     are shared with K7c, in fastscan_mma_flat.cuh;
 //   - persistent CTAs (as many as fit on the card) walk the chunks, with a
 //     ring of 4 cp.async stages (3 chunks in flight), one barrier a chunk;
 //   - the epilogue goes through shared memory: the accumulators are staged
@@ -55,21 +59,11 @@
 
 namespace {
 
-using repro_cuda::mma_u8_m16n8k32;
+using namespace repro_cuda;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;  // code chunks in the cp.async ring
-constexpr size_t kSmemLimit = 232448;
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
-
-// Words of one query's staged LUT row: 4M, padded to 8 mod 32.
-__host__ __device__ inline int lut_words(int m) {
-  return 4 * m + ((8 - 4 * m) % 32 + 32) % 32;
-}
 
 // Byte offsets: the query block's LUT rows, two staged output tiles, the
 // code chunk ring.
@@ -87,64 +81,8 @@ __host__ __device__ inline Layout layout(int m, int qt, int rb) {
   return l;
 }
 
-struct Plan {
-  int qt, rb;
-  size_t smem;
-};
-
-// The largest query tile count that Q fills (up to 8), with 8 / QT row
-// blocks; where that does not fit, one row block and QT halving. smem >
-// kSmemLimit: refused (QT = RB = 1 does not fit).
-inline Plan plan(int q, int m) {
-  int qt = 1;
-  while (qt < 8 && 8 * qt < q) qt *= 2;
-  if (layout(m, qt, 8 / qt).total <= kSmemLimit)
-    return Plan{qt, 8 / qt, layout(m, qt, 8 / qt).total};
-  while (qt > 1 && layout(m, qt, 1).total > kSmemLimit) qt /= 2;
-  return Plan{qt, 1, layout(m, qt, 1).total};
-}
-
-// The four one-hot bytes of code c (0..15) at the k entries 4t .. 4t + 3
-// that lane t of a group holds: shift = 8c - 32t, in [0, 24] exactly when
-// c >> 2 == t; any other shift, as unsigned, is >= 32 and gives 0.
-__device__ __forceinline__ uint32_t onehot(uint32_t c8, uint32_t t32) {
-  uint32_t r;
-  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(1u), "r"(c8 - t32));
-  return r;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Starts the copy of the chunk of `rows` code rows from row0 into dst:
-// 16-byte cp.async where the codes are 16-byte aligned (every chunk starts
-// at a multiple of 128 * M/2 bytes), plain loads for the tail or unaligned
-// codes.
-__device__ __forceinline__ void load_chunk(uint8_t* dst, const uint8_t* codes,
-                                           long long row0, int rows, int mh,
-                                           bool aligned) {
-  const size_t bytes = static_cast<size_t>(rows) * mh;
-  const uint8_t* src = codes + row0 * mh;
-  const size_t head = aligned ? bytes & ~static_cast<size_t>(15) : 0;
-  for (size_t i = 16 * static_cast<size_t>(threadIdx.x); i < head;
-       i += 16 * kThreads)
-    cp_async16(dst + i, src + i);
-  for (size_t i = head + threadIdx.x; i < bytes; i += kThreads)
-    dst[i] = src[i];
+inline FlatPlan plan(int q, int m) {
+  return flat_plan(q, [m](int qt, int rb) { return layout(m, qt, rb).total; });
 }
 
 template <int QT, int RB>
@@ -152,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) onehot_mma_flat_kernel(
     const uint8_t* __restrict__ table,  // (Q, M, 16)
     const uint8_t* __restrict__ codes,  // (N, M/2)
     int q, int m, int n, int n_chunks, int ctas_per_block,
-    int codes_aligned, int32_t* __restrict__ out) {  // (Q, N)
+    int32_t* __restrict__ out) {        // (Q, N)
   constexpr int kRows = 16 * kWarps * RB;  // code rows of a chunk
   constexpr int kOutStride = kRows + 4;    // words of a staged query row
   constexpr int kQueries = 8 * QT;
@@ -172,39 +110,25 @@ __global__ void __launch_bounds__(kThreads) onehot_mma_flat_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  // the query block's LUT rows, byte j's words interleaved (word w of
-  // sub-space 2j, then of 2j + 1), zero past q inside the last query tile
-  const uint8_t* tab = table + static_cast<size_t>(q0) * m * 16;
-  for (int i = tid; i < 8 * nqt * mh; i += kThreads) {
-    const int qi = i / mh, j = i - qi * mh;
-    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (qi < nq) {
-      const uint8_t* p = tab + (static_cast<size_t>(qi) * m + 2 * j) * 16;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        w[k] = p[4 * k] | p[4 * k + 1] << 8 | p[4 * k + 2] << 16 |
-               static_cast<uint32_t>(p[4 * k + 3]) << 24;
-    }
-    uint4* d = reinterpret_cast<uint4*>(luts + qi * sw + 8 * j);
-    d[0] = make_uint4(w[0], w[4], w[1], w[5]);
-    d[1] = make_uint4(w[2], w[6], w[3], w[7]);
-  }
+  stage_lut_words<kThreads>(luts, table + static_cast<size_t>(q0) * m * 16,
+                            nq, nqt, m);
   // lane (g, t) reads query g's words t of sub-spaces 2j and 2j + 1
   const uint2* lut_g = reinterpret_cast<const uint2*>(luts + g * sw) + t;
-  const uint32_t t32 = 32u * t;
   const bool vec_out = (n & 3) == 0;
   auto chunk_rows = [&](int c) {
     return static_cast<int>(min(static_cast<long long>(kRows),
                                 n - static_cast<long long>(c) * kRows));
   };
+  auto load = [&](int c, int s) {
+    copy_async<kThreads>(ring + s * l.code_bytes,
+                         codes + static_cast<size_t>(c) * kRows * mh,
+                         static_cast<size_t>(chunk_rows(c)) * mh);
+  };
 
   // the ring: chunk i of this CTA in stage i % kStages
   for (int s = 0; s < kStages - 1; ++s) {
     const int c = first + s * ctas_per_block;
-    if (c < n_chunks)
-      load_chunk(ring + s * l.code_bytes, codes,
-                 static_cast<long long>(c) * kRows, chunk_rows(c), mh,
-                 codes_aligned);
+    if (c < n_chunks) load(c, s);
     cp_async_commit();
   }
   // chunk c's staged tile (buffer buf) to the output
@@ -236,59 +160,15 @@ __global__ void __launch_bounds__(kThreads) onehot_mma_flat_kernel(
     // tile of chunk i - 1 is staged
     __syncthreads();
     const int nc = c + (kStages - 1) * ctas_per_block;
-    if (nc < n_chunks)
-      load_chunk(ring + ((i + kStages - 1) % kStages) * l.code_bytes, codes,
-                 static_cast<long long>(nc) * kRows, chunk_rows(nc), mh,
-                 codes_aligned);
+    if (nc < n_chunks) load(nc, (i + kStages - 1) % kStages);
     cp_async_commit();
     if (prev >= 0) epilogue(prev, (i - 1) & 1);
 
-    const uint8_t* rows_g =
-        ring + (i % kStages) * l.code_bytes + (16 * RB * warp + g) * mh;
     int acc[QT][RB][4];
-#pragma unroll
-    for (int a = 0; a < QT; ++a)
-#pragma unroll
-      for (int b = 0; b < RB; ++b)
-        acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0;
-    // k-step j of row block b: the one-hot of its rows g and g + 8 from
-    // their code bytes, then one MMA a query tile
-    auto kstep = [&](int j, int b, uint32_t bg, uint32_t bg8) {
-      const uint32_t a0 = onehot((bg << 3) & 0x78u, t32);
-      const uint32_t a1 = onehot((bg8 << 3) & 0x78u, t32);
-      const uint32_t a2 = onehot((bg >> 1) & 0x78u, t32);
-      const uint32_t a3 = onehot((bg8 >> 1) & 0x78u, t32);
-      const uint2* bw = lut_g + 4 * j;
-#pragma unroll
-      for (int qt = 0; qt < QT; ++qt) {
-        if (qt < nqt) {
-          const uint2 bv = bw[qt * 4 * sw];
-          mma_u8_m16n8k32(acc[qt][b], a0, a1, a2, a3, bv.x, bv.y);
-        }
-      }
-    };
-    if (mh % 4 == 0) {  // rows start at multiples of 4 bytes
-      for (int j = 0; j < mh; j += 4) {
-        uint32_t wg[RB], wg8[RB];
-#pragma unroll
-        for (int b = 0; b < RB; ++b) {
-          wg[b] = *reinterpret_cast<const uint32_t*>(rows_g + 16 * b * mh + j);
-          wg8[b] = *reinterpret_cast<const uint32_t*>(rows_g +
-                                                      (16 * b + 8) * mh + j);
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int b = 0; b < RB; ++b)
-            kstep(j + k, b, (wg[b] >> (8 * k)) & 0xffu,
-                  (wg8[b] >> (8 * k)) & 0xffu);
-      }
-    } else {
-      for (int j = 0; j < mh; ++j)
-#pragma unroll
-        for (int b = 0; b < RB; ++b)
-          kstep(j, b, rows_g[16 * b * mh + j], rows_g[(16 * b + 8) * mh + j]);
-    }
+    mma_rows<QT, RB>(acc,
+                     ring + (i % kStages) * l.code_bytes +
+                         (16 * RB * warp + g) * mh,
+                     lut_g, sw, mh, nqt, t);
     // C[r, c] -> staged[query c][row r]
     int32_t* tile = staged + (i & 1) * kQueries * kOutStride;
 #pragma unroll
@@ -317,31 +197,20 @@ template <int QT, int RB>
 cudaError_t launch(const uint8_t* table, const uint8_t* codes, int q, int m,
                    int n, size_t smem, int32_t* out, cudaStream_t stream) {
   const auto kernel = onehot_mma_flat_kernel<QT, RB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  long long resident = 0;
+  const cudaError_t err = resident_ctas(kernel, kThreads, smem, resident);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return err;
   // persistent CTAs: as many as are resident, spread over the query blocks
   const long long rows = 16LL * kWarps * RB;
   const long long n_chunks = (n + rows - 1) / rows;
   const long long q_blocks = (q + 8LL * QT - 1) / (8LL * QT);
-  const long long resident = static_cast<long long>(sms) * std::max(per_sm, 1);
   const long long per_block = std::max(
       1LL, std::min(n_chunks, (resident + q_blocks - 1) / q_blocks));
   if (q_blocks * per_block >= (1LL << 31))
     return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(q_blocks * per_block), kThreads, smem,
            stream>>>(table, codes, q, m, n, static_cast<int>(n_chunks),
-                     static_cast<int>(per_block),
-                     reinterpret_cast<uintptr_t>(codes) % 16 == 0 ? 1 : 0,
-                     out);
+                     static_cast<int>(per_block), out);
   return cudaGetLastError();
 }
 
@@ -358,7 +227,7 @@ extern "C" long long repro_fastscan_onehot_mma_flat_smem(int m) {
 extern "C" int repro_fastscan_onehot_mma_flat(const void* table,
                                               const void* codes, int q, int m,
                                               int n, void* out, void* stream) {
-  const Plan p = plan(q, m);
+  const FlatPlan p = plan(q, m);
   if (p.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const auto* t = static_cast<const uint8_t*>(table);
   const auto* c = static_cast<const uint8_t*>(codes);

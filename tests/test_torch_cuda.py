@@ -207,19 +207,30 @@ def test_card_engine_equals_host_engine(dev):
             assert torch.equal(a.cpu(), b)
 
 
-# (g, cap or N, mh, tile): odd M/2, M=2, tile 8, the serving shape, and M=128
-GROUPED_CASES = [(3, 64, 4, 32), (8, 96, 3, 32), (5, 40, 1, 8),
-                 (512, 4096, 8, 1024), (64, 1024, 8, 128), (2, 64, 64, 64)]
+# (g, cap or N, mh, tile, LUT, zero-group share): odd M/2, M=2, tile 8,
+# the serving shape, M=128 (K6 reads B from shared memory), an all-255 LUT
+# (every sum M * 255), and gathered copies whose -1-probe groups are zero
+# rows; N = 40 and 96 leave a chunk part full and rows unaligned
+GROUPED_CASES = [(3, 64, 4, 32, "rand", 0.0), (8, 96, 3, 32, "rand", 0.0),
+                 (5, 40, 1, 8, "rand", 0.0), (512, 4096, 8, 1024, "rand", 0.0),
+                 (64, 1024, 8, 128, "rand", 0.0), (2, 64, 64, 64, "rand", 0.0),
+                 (4, 64, 64, 8, "255", 0.0), (6, 96, 64, 32, "255", 0.3),
+                 (64, 4096, 8, 1024, "rand", 0.3),
+                 (7, 40, 3, 8, "rand", 0.3)]
 
 
 @pytest.mark.parametrize("case", range(len(GROUPED_CASES)))
 def test_k3_k5_k6_kernels_equal_plain(dev, case):
-    g, n, mh, tile = GROUPED_CASES[case]
+    g, n, mh, tile, lut, zero = GROUPED_CASES[case]
     rng = np.random.default_rng(100 + case)
-    table = torch.as_tensor(rng.integers(0, 256, (g, 2 * mh, 16), np.uint8),
-                            device=dev)
-    codes = torch.as_tensor(rng.integers(0, 256, (g, n, mh), np.uint8),
-                            device=dev)
+    table = rng.integers(0, 256, (g, 2 * mh, 16), np.uint8)
+    if lut == "255":
+        table[:] = 255
+    codes = rng.integers(0, 256, (g, n, mh), np.uint8)
+    if zero:
+        codes[rng.random(g) < zero] = 0
+    table = torch.as_tensor(table, device=dev)
+    codes = torch.as_tensor(codes, device=dev)
     want = sk.fastscan_grouped_plain(table, codes, tile_n=tile)
     for mod, fn in ((sk, sk.fastscan_select_tree_grouped),
                     (mk, mk.fastscan_onehot_mxu_grouped)):
@@ -240,6 +251,18 @@ def test_k3_k5_k6_kernels_equal_plain(dev, case):
     assert sgk.launches == n0 + 1
     assert torch.equal(got, sgk.fastscan_stream_grouped_plain(
         table, store, probes, tile_n=tile))
+
+
+def test_k6_smem_mirror_equals_the_kernels_export(dev):
+    """K6's Python plan (the CPU wrapper's check) equals the .cu's over the
+    card-test widths and tiles and every even M up to 1100 (the plan does
+    not depend on the tile)."""
+    fn = _build.load_library().repro_fastscan_onehot_mma_grouped_smem
+    widths = {2 * case[2] for case in GROUPED_CASES} | set(range(2, 1101, 2))
+    for m in sorted(widths):
+        assert fn(m) == mk.smem_bytes(m), m
+    for g, n, mh, tile, _, _ in GROUPED_CASES:
+        assert n % tile == 0 and fn(2 * mh) <= _build.SMEM_LIMIT
 
 
 # (q, p, nlist, cap, mh, tile, keep, filter fill, skew, LUT): the LUT is
@@ -420,11 +443,21 @@ def test_k7_extreme_values_stay_exact(dev):
                                          device=dev).expand(3, 3))
 
 
-# (q, n, mh, block, lut values)
+# (q, n, mh, block, lut values; 255: every entry 255): levels 2 ties sums
+# across lanes, warps, chunks and CTAs; blocks of 3 (many a chunk) and 2500
+# (straddling chunks of 256 to 1024 rows); Q in {1, 9, 65, 128} (one query
+# tile, a partial query tile, a query block of one query); the kernel's
+# 32-bit keys at their edge (M = 256, all sums 65,280) and its (sum, row)
+# pairs past it (M = 260, sums of 66,300; a block of 131,072 rows)
 BLOCKMIN_CASES = [(1, 64, 4, 64, 256), (3, 1500, 2, 100, 2),
                   (17, 2048, 8, 1024, 2), (20, 3000, 3, 1000, 256),
                   (8, 5000, 16, 2500, 256), (2, 90, 5, 3, 2),
-                  (128, 1_000_448, 8, 1024, 256)]
+                  (128, 1_000_448, 8, 1024, 256),
+                  (1, 100_000, 8, 2500, 2), (9, 30_000, 8, 3, 2),
+                  (65, 200_000, 8, 2500, 2), (128, 262_144, 8, 1024, 2),
+                  (65, 3000, 5, 3, 2), (128, 50_000, 16, 2500, 2),
+                  (2, 3000, 128, 1000, 255), (3, 5000, 130, 1000, 255),
+                  (3, 5000, 130, 1000, 2), (2, 262_144, 4, 131_072, 2)]
 
 
 @pytest.mark.parametrize("case", range(len(BLOCKMIN_CASES)))
@@ -462,14 +495,16 @@ def test_k7_wrappers_check_shared_memory_before_launch(dev):
     m = 4096
     table = torch.zeros((1, m, 16), dtype=torch.uint8, device=dev)
     codes = torch.zeros((8, m // 2), dtype=torch.uint8, device=dev)
-    n0 = (sfk.launches, mfk.launches, bk.launches)
+    n0 = (sfk.launches, mfk.launches, bk.launches, mk.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.fastscan_onehot_mxu_grouped(table, codes[None], tile_n=8)
     with pytest.raises(ValueError, match="shared memory"):
         sfk.fastscan_select_tree(table, codes)
     with pytest.raises(ValueError, match="shared memory"):
         mfk.fastscan_onehot_mxu(table, codes)
     with pytest.raises(ValueError, match="shared memory"):
         bk.fastscan_blockmin(table, codes, tile_n=8)
-    assert (sfk.launches, mfk.launches, bk.launches) == n0
+    assert (sfk.launches, mfk.launches, bk.launches, mk.launches) == n0
     lib = _build.load_library()
     for fn, nargs in _build.SMEM_FNS.items():
         args = (16,) if nargs == 1 else (1024, 40, 16)

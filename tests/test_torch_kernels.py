@@ -19,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import rerank_kernel as jrk
 from repro_torch.kernels import _build
 from repro_torch.kernels import fastscan_kernel as tfk
+from repro_torch.kernels import mxu_kernel as tmk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rerank_kernel as trk
 
@@ -246,6 +247,30 @@ def test_k1_smem_plan_accepts_every_tile_the_old_formula_did():
                     assert tfk.smem_bytes(tile, kc, m) <= tfk.SMEM_LIMIT, (
                         tile, kc, m)
     assert checked > 300
+
+
+def test_k6_smem_plan_accepts_every_tile_the_old_formula_did():
+    """K6's shared-memory plan (a ring of LUT + code-chunk stages) refuses
+    no (M, tile_n) that the wmma version's m * 256 + 8 * (256 + 1024)
+    accepted (the plan does not depend on the tile), and the CPU wrapper
+    takes those shapes; M = 1024 stays refused."""
+    def old(m):
+        return m * 256 + 8 * (256 + 1024)
+
+    checked = 0
+    for m in range(2, 1200, 2):
+        if old(m) <= _build.SMEM_LIMIT:
+            checked += 1
+            assert tmk.smem_bytes(m) <= _build.SMEM_LIMIT, m
+    assert checked == 434
+    assert tmk.smem_bytes(1024) > _build.SMEM_LIMIT
+    rng = np.random.default_rng(0)
+    for m, tile in ((2, 8), (16, 1024), (128, 32), (868, 64)):
+        table = torch.as_tensor(rng.integers(0, 256, (2, m, 16), np.uint8))
+        codes = torch.as_tensor(rng.integers(0, 256, (2, 2 * tile, m // 2),
+                                             np.uint8))
+        got = tmk.fastscan_onehot_mxu_grouped(table, codes, tile_n=tile)
+        assert got.shape == (2, 2 * tile)
 
 
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take():
