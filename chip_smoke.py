@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel (K1-K6) against its plain PyTorch version on the card at
-the shapes the serving paths give it, then serves a SIFT1M-shaped index
+the shapes the serving paths give it (K2 also at Q = 1 and 8 and at
+tiles 16 and 32, K5 also at one query's 32 groups), then serves a SIFT1M-shaped index
 (N x 128 f32 base, M=16 4-bit PQ, flat coarse over nlist lists) built by
 ``SearchEngine.build``, through ``search_jit`` at the serving buckets
 Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
@@ -79,11 +80,25 @@ FIG2_GAP = 0.05               # |recall@10 fast-scan - naive PQ| allowed
 # 80GB HBM3, 700 W), printed beside this run's times; not part of the
 # kernels line
 EARLIER_MS = {"fastscan_stream_topk": 0.182801,
+              "rerank_stream_topk": 0.009445,
+              "fastscan_select_grouped": 0.181785,
               "fastscan_onehot_mma_flat": 0.424301,
               "fastscan_onehot_mma_grouped": 1.247889,
               "fastscan_blockmin": 0.425841}
+# K2 at the stream path's shape (R = RERANK_MULT * K candidates, k = K) over
+# (Q, tile_r), and K5 over G = AT_NPROBE (one query's probes, the anytime
+# path's Q = 1 bucket) as well as the path's G: device ms of the first
+# versions at these shapes (the mean of two runs of
+# tools/time_port_kernels.py on the tree before their redesign, in one
+# call, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's times;
+# not part of the kernels line
+K2_SHAPES = ((128, 64), (8, 64), (1, 64), (128, 32), (128, 16))
+EARLIER_K2_MS = {(128, 64): 0.009459, (8, 64): 0.009129, (1, 64): 0.008630,
+                 (128, 32): 0.011183, (128, 16): 0.011353}
+EARLIER_K5_MS = {32: 0.003031}
 # kernels whose ptxas registers and spills are summarised after the build
-PTXAS_SUMMARY = ("stream_topk_kernel", "onehot_mma_flat_kernel",
+PTXAS_SUMMARY = ("stream_topk_kernel", "rerank_kernel",
+                 "select_grouped_kernel", "onehot_mma_flat_kernel",
                  "onehot_mma_grouped_kernel", "blockmin_kernel")
 
 
@@ -264,61 +279,87 @@ def k1_phase(torch, args, cap: int, nlist: int):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def k2_phase(torch, args, base, norms):
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rerank_kernel as rk
+def k2_inputs(torch, seed: int, base, norms, qq: int, tile: int):
+    """K2's operands at the stream path's shape for qq queries: R =
+    RERANK_MULT * K random candidate ids padded with -1 to a ``tile``
+    multiple (query 0 five short), queries near base rows."""
     dev = base.device
-    qq, r, kk = 128, RERANK_MULT * K, K
     n, d = base.shape
-    tile = ops._rerank_tile(r)
+    r = RERANK_MULT * K
     rp = -(-r // tile) * tile
-    rng = np.random.default_rng(args.seed + 2)
+    rng = np.random.default_rng(seed + 2)
     cand_np = np.full((qq, rp), -1, np.int32)
     cand_np[:, :r] = rng.integers(0, n, (qq, r))
     cand_np[0, r - 5:r] = -1                   # a query with a short list
     qrows = torch.as_tensor(rng.integers(0, n, qq), device=dev)
     q = (base[qrows] + torch.randn(qq, d, device=dev,
                                    generator=torch.Generator(device=dev).manual_seed(
-                                       args.seed))).contiguous()
+                                       seed))).contiguous()
     cand = torch.as_tensor(cand_np, device=dev)
     xn = norms[cand.clamp_min(0).long()].contiguous()
+    return q, cand, xn, int((cand_np >= 0).sum())
 
-    def kernel():
-        return rk.rerank_stream_topk(base, q, cand, xn, k=kk, tile_r=tile)
 
-    def plain():
-        return rk.rerank_stream_topk_plain(base, q, cand, xn, k=kk,
-                                           tile_r=tile)
+def k2_phase(torch, args, base, norms):
+    """K2 held (tie-aware, within K2_RTOL) and timed at every (Q, tile_r)
+    of K2_SHAPES; the stream path's own shape (Q = 128, its tile) is the
+    kernels line's entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rerank_kernel as rk
+    kk = K
+    n, d = base.shape
+    path_tile = ops._rerank_tile(RERANK_MULT * K)
+    entry = None
+    for qq, tile in K2_SHAPES:
+        q, cand, xn, valid = k2_inputs(torch, args.seed, base, norms, qq,
+                                       tile)
+        rp = cand.shape[1]
 
-    (gv, gp), (pv, pp) = kernel(), plain()
-    torch.cuda.synchronize()
-    gv, gp, pv, pp = (t.cpu().numpy() for t in (gv, gp, pv, pp))
-    # reduction order differs, so the error scales with the terms whose
-    # sum is rounded: tolerance = K2_RTOL * (||q||^2 + max ||x||^2)
-    qn = (q * q).sum(-1).cpu().numpy()
-    tol = K2_RTOL * (qn + xn.max(dim=1).values.cpu().numpy())
-    assert_tie_aware(gv, gp, pv, pp, tol, "K2")
-    fin = np.isfinite(pv)
-    max_err = float(np.abs(gv[fin] - pv[fin]).max())
-    ms_events = event_ms(torch, kernel, 100)
-    ms_dev = device_ms(torch, kernel, "rerank_kernel", 50)
-    plain_ms = event_ms(torch, plain, 20, warmup=2)
-    valid = int((cand_np >= 0).sum())
-    nbytes = valid * d * 4 + qq * d * 4 + 2 * qq * rp * 4 + qq * kk * 8
-    flops = 2 * valid * d
-    bound, by = bound_ms(nbytes, flops, F32_OPS_PER_S)
-    ms = ms_dev if ms_dev is not None else ms_events
-    log(f"K2 rerank_stream_topk: Q={qq} R={r} Rp={rp} D={d} k={kk} N={n}: "
-        f"max |kernel - plain| = {max_err} (tolerance {K2_RTOL} x "
-        f"(|q|^2 + max |x|^2), up to {tol.max()}), positions tie-aware equal")
-    log(f"K2 time: device {ms_dev} ms, events {ms_events:.5f} ms, plain "
-        f"{plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
-        f"{flops} flop)")
-    return {"name": "rerank_stream_topk", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rerank_stream_topk.cu",
-            "replaces": "src/repro/kernels/rerank_kernel.py:213",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        def kernel():
+            return rk.rerank_stream_topk(base, q, cand, xn, k=kk,
+                                         tile_r=tile)
+
+        def plain():
+            return rk.rerank_stream_topk_plain(base, q, cand, xn, k=kk,
+                                               tile_r=tile)
+
+        (gv, gp), (pv, pp) = kernel(), plain()
+        torch.cuda.synchronize()
+        gv, gp, pv, pp = (t.cpu().numpy() for t in (gv, gp, pv, pp))
+        # reduction order differs, so the error scales with the terms whose
+        # sum is rounded: tolerance = K2_RTOL * (||q||^2 + max ||x||^2)
+        qn = (q * q).sum(-1).cpu().numpy()
+        tol = K2_RTOL * (qn + xn.max(dim=1).values.cpu().numpy())
+        assert_tie_aware(gv, gp, pv, pp, tol, f"K2 Q={qq} tile={tile}")
+        fin = np.isfinite(pv)
+        max_err = float(np.abs(gv[fin] - pv[fin]).max())
+        ms_dev = device_ms(torch, kernel, "rerank_kernel", 50)
+        nbytes = valid * d * 4 + qq * d * 4 + 2 * qq * rp * 4 + qq * kk * 8
+        flops = 2 * valid * d
+        bound, by = bound_ms(nbytes, flops, F32_OPS_PER_S)
+        earlier = EARLIER_K2_MS.get((qq, tile))
+        log(f"K2 at Q={qq} tile={tile} (Rp={rp}): device {ms_dev} ms, "
+            f"{earlier if earlier is not None else 'not measured'} ms "
+            f"before its redesign, bound {bound:.6f} ms; max |kernel - "
+            f"plain| = {max_err}, positions tie-aware equal")
+        if (qq, tile) != (128, path_tile):
+            continue
+        ms_events = event_ms(torch, kernel, 100)
+        plain_ms = event_ms(torch, plain, 20, warmup=2)
+        ms = ms_dev if ms_dev is not None else ms_events
+        log(f"K2 rerank_stream_topk: Q={qq} R={RERANK_MULT * K} Rp={rp} "
+            f"D={d} k={kk} N={n}: max |kernel - plain| = {max_err} "
+            f"(tolerance {K2_RTOL} x (|q|^2 + max |x|^2), up to "
+            f"{tol.max()}), positions tie-aware equal")
+        log(f"K2 time: device {ms_dev} ms, events {ms_events:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
+            f"{flops} flop)")
+        entry = {"name": "rerank_stream_topk", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rerank_stream_topk.cu",
+                 "replaces": "src/repro/kernels/rerank_kernel.py:213",
+                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return entry
 
 
 def check_result(torch, dists, ids, qq: int, n: int, what: str) -> None:
@@ -621,6 +662,23 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
             mmas=mmas))
+    # K5 at one query's probes (the anytime path's Q = 1 bucket)
+    gs = AT_NPROBE
+    t_s, c_s = table[:gs].contiguous(), gathered[:gs].contiguous()
+
+    def k5_small():
+        return sk.fastscan_select_tree_grouped(t_s, c_s, tile_n=gtile)
+
+    assert_same((k5_small(),),
+                (sk.fastscan_grouped_plain(t_s, c_s, tile_n=gtile),),
+                f"K5 G={gs}")
+    ms_dev = device_ms(torch, k5_small, "select_grouped_kernel", 20)
+    bound, by = bound_ms(gs * n_p * mh + gs * M * 16 + gs * n_p * 4,
+                         gs * n_p * M * 2)
+    earlier = EARLIER_K5_MS.get(gs)
+    log(f"K5 at G={gs} N={n_p} M={M}: kernel == plain bit for bit; device "
+        f"{ms_dev} ms, {earlier if earlier is not None else 'not measured'}"
+        f" ms before its redesign, bound {bound:.6f} ms ({by})")
     return out
 
 

@@ -56,9 +56,11 @@ _SIGNATURES = {
     "repro_fastscan_blockmin": [_VP] * 2 + [_I] * 4 + [_VP] * 3,
 }
 # each kernel's shared memory a CTA needs, as its source computes it (the
-# one place the CTA shape lives), by its int arguments: M for K6 and
-# K7a-K7c, (tile_n, kc, M) for K1 and K4
+# one place the CTA shape lives), by its int arguments: M for K5, K6 and
+# K7a-K7c, (tile_n, kc, M) for K1 and K4, (D, tile_r, k) for K2
 SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
+            "repro_rerank_stream_topk_smem": 3,
+            "repro_fastscan_select_grouped_smem": 1,
             "repro_fastscan_onehot_mma_grouped_smem": 1,
             "repro_fastscan_select_flat_smem": 1,
             "repro_fastscan_onehot_mma_flat_smem": 1,
@@ -166,8 +168,8 @@ def check_args(args: dict, device: torch.device) -> None:
 
 def check_smem(fn: str, *args: int, what: str = "") -> None:
     """Raise ``ValueError`` when a CTA of the kernel whose source exports
-    ``fn`` needs more shared memory at ``args`` (M, or K1's and K4's
-    (tile_n, kc, M)) than a block can get."""
+    ``fn`` needs more shared memory at ``args`` (M, K1's and K4's (tile_n,
+    kc, M), or K2's (D, tile_r, k)) than a block can get."""
     need = getattr(load_library(), fn)(*args)
     if need > SMEM_LIMIT:
         raise ValueError(f"{what or f'M={args[0]}'} needs {need} B of shared "

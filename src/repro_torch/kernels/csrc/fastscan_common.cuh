@@ -1,8 +1,9 @@
-// Device code shared by the fast-scan kernels (K1, K3-K5, K7a-K7c): the
-// shared-memory LUT row sum of one packed code row, the register LUT read
-// by byte permutes (K5), the four-rows-per-permute look-up (K1, K7a), the
-// block-wide staging copy into shared memory (K7a-K7c), and the 64-bit
-// (value, slot) selection key.
+// Device code shared by the fast-scan kernels: the shared-memory LUT row
+// sum of one packed code row (K1, K3, K4, and K5's and K7a's any-M paths),
+// the four-rows-per-permute look-up (K1 and K7a load the codes with
+// load_rows4; K5 stages them and builds selectors4 / sum_rows4 the same
+// way), the block-wide staging copy into shared memory (K1, K5, K7a), and
+// the 64-bit (value, slot) selection key (K4, K7c).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,72 +51,24 @@ __device__ __forceinline__ int row_sum(const uint8_t* row, const uint8_t* lut,
   return acc;
 }
 
-// One entry of a 16-entry u8 LUT held in registers as four 32-bit words:
-// two byte permutes (prmt) pick byte c & 7 of {w1:w0} and of {w3:w2}, a
-// select on bit 3 picks between them -- the Hopper analogue of the paper's
-// two 128-bit vqtbl1q_u8 shuffles, and of the reference's select tree.
-__device__ __forceinline__ uint32_t lookup(const uint32_t (&w)[4],
-                                           uint32_t c) {
-  const uint32_t lo = __byte_perm(w[0], w[1], c & 7u);
-  const uint32_t hi = __byte_perm(w[2], w[3], c & 7u);
-  return ((c & 8u) ? hi : lo) & 0xffu;
-}
-
-// ADC sum of one packed row of MH bytes against the register LUT `lut`
-// (2*MH sub-spaces, four words each), loaded vec (8, 4 or 1) bytes at a
-// time; MH is a template argument so that the LUT stays in registers.
-template <int MH>
-__device__ __forceinline__ int select_row(const uint8_t* row,
-                                          const uint32_t (&lut)[2 * MH][4],
-                                          int vec) {
-  int acc = 0;
-  if constexpr (MH % 8 == 0) {
-    if (vec == 8) {
-#pragma unroll
-      for (int j = 0; j < MH; j += 8) {
-        const uint2 v = *reinterpret_cast<const uint2*>(row + j);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const uint32_t b = ((i < 4 ? v.x : v.y) >> (8 * (i & 3))) & 0xffu;
-          acc += lookup(lut[2 * (j + i)], b & 15u) +
-                 lookup(lut[2 * (j + i) + 1], b >> 4);
-        }
-      }
-      return acc;
-    }
-  }
-  if constexpr (MH % 4 == 0) {
-    if (vec >= 4) {
-#pragma unroll
-      for (int j = 0; j < MH; j += 4) {
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(row + j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t b = (v >> (8 * i)) & 0xffu;
-          acc += lookup(lut[2 * (j + i)], b & 15u) +
-                 lookup(lut[2 * (j + i) + 1], b >> 4);
-        }
-      }
-      return acc;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < MH; ++j) {
-    const uint32_t b = row[j];
-    acc += lookup(lut[2 * j], b & 15u) + lookup(lut[2 * j + 1], b >> 4);
-  }
-  return acc;
-}
-
-// ---- four rows per byte permute (K1, K7a) ------------------------------
+// ---- four rows per byte permute (K1, K5, K7a) --------------------------
 // A sub-space's 16 u8 entries are four words: entries 0-7 in {w1:w0}, 8-15
 // in {w3:w2}. A 16-bit selector holds four rows' low 3 code bits, one
 // nibble each (bit 3 of a selector nibble would replicate the sign in
 // prmt's default mode, so it stays 0): prmt(w0, w1, sel) and prmt(w2, w3,
 // sel) give four entries each, and a byte mask made of the four codes' bit
-// 3 picks between them with one lop3. The four entries are split into even
-// and odd rows (two prmt) and added to two accumulators of 16-bit lanes;
-// at M <= 32 a sum is at most 8,160, so no carry crosses lanes.
+// 3 picks between them with one lop3. The four entries e (one byte a row)
+// are summed twice: as one 32-bit word, and their odd rows (one prmt) in
+// 16-bit lanes; the even rows are the first sum less the odd ones shifted
+// up a byte. At M <= 32 a sum is at most 8,160, so no carry crosses lanes.
+
+// prmt.b32 in its default mode (a selector nibble's bit 3 replicates the
+// sign of the byte it picks).
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
 
 // Byte b of four consecutive rows' codes (MH bytes each, row-major).
 template <int MH>
@@ -161,20 +114,41 @@ template <int MH>
 __device__ __forceinline__ void selectors4(const uint32_t (&cw)[MH],
                                            uint32_t (&sel)[2 * MH],
                                            uint32_t (&msk)[2 * MH]) {
+  uint32_t xs[MH];  // xs[j]: byte j of rows 0..3, one byte each
+  if constexpr (MH % 4 == 0) {
+    // a 4 x 4 byte transpose of each column of words: eight prmt for four
+    // bytes of the four rows
+#pragma unroll
+    for (int w = 0; w < MH / 4; ++w) {
+      const uint32_t a = cw[w], b = cw[MH / 4 + w];
+      const uint32_t c = cw[MH / 2 + w], d = cw[3 * MH / 4 + w];
+      const uint32_t t0 = prmt(a, b, 0x5140), t1 = prmt(a, b, 0x7362);
+      const uint32_t t2 = prmt(c, d, 0x5140), t3 = prmt(c, d, 0x7362);
+      xs[4 * w] = prmt(t0, t2, 0x5410);
+      xs[4 * w + 1] = prmt(t0, t2, 0x7632);
+      xs[4 * w + 2] = prmt(t1, t3, 0x5410);
+      xs[4 * w + 3] = prmt(t1, t3, 0x7632);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < MH; ++j)
+      xs[j] = code_byte<MH>(cw, j) | code_byte<MH>(cw, MH + j) << 8 |
+              code_byte<MH>(cw, 2 * MH + j) << 16 |
+              code_byte<MH>(cw, 3 * MH + j) << 24;
+  }
 #pragma unroll
   for (int j = 0; j < MH; ++j) {
-    // x: byte j of rows 0..3, one byte each
-    const uint32_t x = code_byte<MH>(cw, j) | code_byte<MH>(cw, MH + j) << 8 |
-                       code_byte<MH>(cw, 2 * MH + j) << 16 |
-                       code_byte<MH>(cw, 3 * MH + j) << 24;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // sub-space 2j: low nibbles; 2j+1: high
-      const uint32_t c = (h ? x >> 4 : x) & 0x0f0f0f0fu;
-      const uint32_t lo3 = c & 0x07070707u;
-      // nibbles of bytes 0, 1 into bits 0-7, of bytes 2, 3 into 16-23
-      sel[2 * j + h] = __byte_perm(lo3 | (lo3 >> 4), 0, 0x4420);
-      msk[2 * j + h] = ((c >> 3) & 0x01010101u) * 0xffu;
-    }
+    // sub-space 2j: low nibbles; 2j + 1: high. With bit 3 of every nibble
+    // cleared, one select of x and x >> 4 (of x >> 4 and x >> 8) puts
+    // rows 0, 1 in byte 0 and rows 2, 3 in byte 2, and one prmt packs them
+    const uint32_t x = xs[j];
+    const uint32_t x0 = x & 0x77777777u, x4 = x0 >> 4, x8 = x0 >> 8;
+    constexpr uint32_t kLo = 0x0f0f0f0fu;
+    sel[2 * j] = prmt((x0 & kLo) | (x4 & ~kLo), 0, 0x4420);
+    sel[2 * j + 1] = prmt((x4 & kLo) | (x8 & ~kLo), 0, 0x4420);
+    // bit 3 of each row's nibble moved to its byte's sign, replicated
+    msk[2 * j] = prmt(x << 4, 0, 0xba98);
+    msk[2 * j + 1] = prmt(x, 0, 0xba98);
   }
 }
 
@@ -185,16 +159,17 @@ template <int M>
 __device__ __forceinline__ int4 sum_rows4(const uint4* lut,
                                           const uint32_t (&sel)[M],
                                           const uint32_t (&msk)[M]) {
-  uint32_t even = 0, odd = 0;  // rows 0, 2 and rows 1, 3 in 16-bit lanes
+  uint32_t all = 0, odd = 0;  // the entries as words; rows 1, 3 in lanes
 #pragma unroll
   for (int s = 0; s < M; ++s) {
     const uint4 w = lut[s];
-    const uint32_t lo = __byte_perm(w.x, w.y, sel[s]);
-    const uint32_t hi = __byte_perm(w.z, w.w, sel[s]);
+    const uint32_t lo = prmt(w.x, w.y, sel[s]);
+    const uint32_t hi = prmt(w.z, w.w, sel[s]);
     const uint32_t e = (lo & ~msk[s]) | (hi & msk[s]);
-    even += __byte_perm(e, 0, 0x4240);
-    odd += __byte_perm(e, 0, 0x4341);
+    all += e;
+    odd += prmt(e, 0, 0x4341);
   }
+  const uint32_t even = all - (odd << 8);  // rows 0, 2 in 16-bit lanes
   return make_int4(static_cast<int>(even & 0xffffu),
                    static_cast<int>(odd & 0xffffu),
                    static_cast<int>(even >> 16), static_cast<int>(odd >> 16));

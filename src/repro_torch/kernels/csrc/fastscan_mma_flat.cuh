@@ -19,7 +19,8 @@
 // integer operands.
 //
 // Here: the MMA, the one-hot words, the cp.async staging of code chunks
-// (every kernel walks row chunks with a ring of cp.async stages), and the
+// and the persistent-grid size (every kernel walks row chunks with a ring
+// of cp.async stages; K5, which has no MMA, takes these two too), and the
 // flat kernels' core -- a query block's LUT staged as B words, the
 // (query tiles, row blocks) plan, and the k-loop over a chunk of rows.
 #pragma once

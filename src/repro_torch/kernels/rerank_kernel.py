@@ -5,10 +5,12 @@ rerank_stream_topk`` (Pallas body ``_rerank_kernel``, merge ``_merge_topk``,
 distance ``norms_gemm_dists``); the CUDA source is
 ``csrc/rerank_stream_topk.cu``. It is bound by memory on the H100: each
 candidate row (D*4 bytes, gathered by id from the in-place base) is read
-once for 2*D flops. This first version is simple on purpose -- one CTA per
-query, one warp per candidate row, the running top-k merged by a
-shared-memory bitonic sort -- and its measured time stands in PERF.md
-beside its bound.
+once for 2*D flops, but at the serving shapes its time is a chain of
+latencies (ids, rows, merge). One CTA per query: each warp issues the loads
+of up to 8 candidate rows before it reduces any, with the next batch's ids
+fetched ahead, and each chunk is folded into the running top-k by rank
+(each 64-bit (distance bits, position) key counts the keys below it) while
+the next chunk's rows are in flight: one barrier a chunk, no sort.
 
 The kernel and torch sum the dot products in different orders, so the two
 agree within an f32 tolerance, not bit for bit (chip_smoke.py states it).
@@ -30,13 +32,12 @@ SMEM_LIMIT = _build.SMEM_LIMIT
 launches = 0
 
 
-def _pow2(x: int) -> int:
-    return 1 << max(x - 1, 0).bit_length()
-
-
 def smem_bytes(d: int, tile_r: int, k: int) -> int:
-    """Shared memory one CTA needs (mirrors ``smem_bytes`` in the .cu)."""
-    return _pow2(k + tile_r) * 8 + (d + tile_r + 4 * k) * 4
+    """Shared memory one CTA needs (mirrors ``smem_bytes`` and
+    ``repro_rerank_stream_topk_smem`` in the .cu): the running top-k's
+    64-bit keys and a chunk's f32 distances, each double-buffered; D does
+    not enter (q is read through the cache, not staged)."""
+    return 2 * k * 8 + 2 * tile_r * 4
 
 
 def norms_gemm_dists(qv: torch.Tensor, vecs: torch.Tensor, xn: torch.Tensor
@@ -112,6 +113,8 @@ def rerank_stream_topk(base: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     n, d = base.shape
     qq, rp = cand_ids.shape
+    _build.check_smem("repro_rerank_stream_topk_smem", d, tile_r, k,
+                      what=f"D={d}, tile_r={tile_r}, k={k}")
     vals = torch.empty((qq, k), dtype=torch.float32, device=dev)
     pos = torch.empty((qq, k), dtype=torch.int32, device=dev)
     if qq == 0:

@@ -4,15 +4,18 @@
 Replaces the TPU kernel ``repro/kernels/fastscan_kernel.py::
 fastscan_select_tree_grouped`` (Pallas body
 ``_select_tree_grouped_kernel``); the CUDA source is
-``csrc/fastscan_select_grouped.cu``. Each thread holds the group's u8 LUT
-in registers and looks a code up with two byte permutes and a select, the
-Hopper analogue of the paper's two ``vqtbl1q_u8`` shuffles. It is the
+``csrc/fastscan_select_grouped.cu``. One byte-permute pair looks up four
+rows of a sub-space at once, the Hopper analogue of the paper's
+``vqtbl1q_u8`` shuffles (K7a's look-up, the group's LUT read from shared
+memory); persistent CTAs walk (group, row chunk) units with a ``cp.async``
+ring that stages each unit's LUT beside its codes. It is the
 ``scan_impl='select'`` path and a candidate of the scan autotuner. Bound by
 memory on the H100: the gathered copy is read once, the sums written once.
 
 Beside the kernel: ``fastscan_grouped_plain``, the same function in plain
 PyTorch (the CPU path and the on-card reference of both K5 and K6, which
-compute one function), and ``launches``, the count of kernel launches.
+compute one function), ``smem_bytes``, the shared memory a CTA takes, and
+``launches``, the count of kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +25,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_mod
 
 launches = 0
+_UNIT_ROWS = 4096                         # rows of a full unit
+_STAGES = 3                               # the ring's stages
+_FOUR_ROW = (1, 2, 3, 4, 6, 8, 12, 16)    # M/2 of the four-row look-up
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(m: int) -> int:
+    """Shared memory one K5 CTA takes at M sub-spaces (mirrors
+    ``smem_bytes`` and ``repro_fastscan_select_grouped_smem`` in the .cu):
+    on the four-row path a ring of 3 stages, each the group's LUT and a
+    chunk of 4,096 code rows; at any other M the LUT alone."""
+    if m // 2 in _FOUR_ROW:
+        return _STAGES * (_align16(16 * m) + _align16(_UNIT_ROWS * (m // 2)))
+    return 16 * m
 
 
 def check_grouped(table_q8, codes, tile_n, smem: int) -> None:
@@ -78,9 +98,10 @@ def fastscan_select_tree_grouped(table_q8: torch.Tensor, codes: torch.Tensor,
     raise. Inputs must be contiguous, of the stated dtypes, on one device.
     """
     global launches
-    check_grouped(table_q8, codes, tile_n, table_q8.shape[1] * 16)
+    check_grouped(table_q8, codes, tile_n, smem_bytes(table_q8.shape[1]))
     if table_q8.device.type == "cpu":
         return fastscan_grouped_plain(table_q8, codes, tile_n=tile_n)
+    _build.check_smem("repro_fastscan_select_grouped_smem", table_q8.shape[1])
     out = launch_grouped("repro_fastscan_select_grouped", table_q8, codes,
                          tile_n)
     launches += int(out.numel() > 0)

@@ -117,7 +117,7 @@ def test_k1_smem_mirror_equals_the_kernels_export(dev):
                     tile, kc, m)
 
 
-def _k2_inputs(seed, dev, *, n, d, q, rp, integer):
+def _k2_inputs(seed, dev, *, n, d, q, rp, integer, edge=None):
     rng = np.random.default_rng(seed)
     if integer:
         base = rng.integers(-4, 5, (n, d)).astype(np.float32)
@@ -127,26 +127,52 @@ def _k2_inputs(seed, dev, *, n, d, q, rp, integer):
         base = rng.normal(size=(n, d)).astype(np.float32)
         qv = rng.normal(size=(q, d)).astype(np.float32)
     cand = rng.integers(0, n, (q, rp)).astype(np.int32)
+    if edge == "ties":      # ids 0..3 repeated: ties at the k cut
+        cand = rng.integers(0, 4, (q, rp)).astype(np.int32)
     cand[rng.random((q, rp)) < 0.2] = -1
     cand[0, :3] = [0, 1, 0]
-    cand[1] = -1
+    if q > 1:
+        cand[1] = -1
+    if edge == "pad_chunk":  # the second chunk of 16 holds only -1
+        cand[:, 16:32] = -1
     base_t, q_t, cand_t = (torch.as_tensor(a, device=dev)
                            for a in (base, qv, cand))
+    if edge == "unaligned":  # a contiguous view 4 bytes past 16-byte
+        flat = torch.empty(n * d + 1, device=dev)
+        flat[1:] = base_t.reshape(-1)
+        base_t = flat[1:].view(n, d)
+        assert base_t.data_ptr() % 16 == 4
     xn = (base_t * base_t).sum(-1)[cand_t.clamp_min(0).long()].contiguous()
     return base_t, q_t, cand_t, xn
 
 
+# (D, Rp, tile_r, k, Q, edge): the first three are the first version's
+# cases; then Q = 1, several chunks (tile 16 at Rp = 48), ties at the k cut
+# from repeated ids, a chunk of only -1, k > tile_r, k >= 64, D = 960 (a
+# GIST width, eight 128-column slices) and a base view that is not 16-byte
+# aligned (the scalar column path)
+K2_CASES = [(128, 64, 64, 10, 6, None), (128, 128, 32, 10, 6, None),
+            (30, 16, 8, 20, 6, None), (128, 64, 64, 10, 1, None),
+            (128, 48, 16, 10, 6, None), (128, 64, 16, 10, 6, "ties"),
+            (128, 64, 16, 10, 5, "pad_chunk"), (64, 32, 8, 20, 4, None),
+            (128, 128, 64, 70, 3, None), (960, 64, 32, 10, 3, None),
+            (128, 64, 32, 10, 4, "unaligned")]
+
+
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("d,rp,tile,k", [(128, 64, 64, 10), (128, 128, 32, 10),
-                                         (30, 16, 8, 20)])
-def test_k2_kernel_matches_plain(dev, integer, d, rp, tile, k):
-    base, q, cand, xn = _k2_inputs(d + rp, dev, n=500, d=d, q=6, rp=rp,
-                                   integer=integer)
+@pytest.mark.parametrize("case", range(len(K2_CASES)))
+def test_k2_kernel_matches_plain(dev, integer, case):
+    d, rp, tile, k, q, edge = K2_CASES[case]
+    base, q, cand, xn = _k2_inputs(d + rp, dev, n=500, d=d, q=q, rp=rp,
+                                   integer=integer, edge=edge)
     n0 = rk.launches
     gv, gp = rk.rerank_stream_topk(base, q, cand, xn, k=k, tile_r=tile)
     torch.cuda.synchronize()
     assert rk.launches == n0 + 1
     wv, wp = rk.rerank_stream_topk_plain(base, q, cand, xn, k=k, tile_r=tile)
+    fin_k = torch.isfinite(wv[:, -1])
+    if edge == "ties" and integer:  # the k-th value straddles the cut
+        assert bool(((wv[:, -1] == wv[:, -2]) & fin_k).any())
     if integer:                     # f32 exact: bit for bit
         assert torch.equal(gv, wv) and torch.equal(gp, wp)
         return
@@ -158,6 +184,19 @@ def test_k2_kernel_matches_plain(dev, integer, d, rp, tile, k):
     gap = torch.diff(wv, dim=1).abs() <= tol
     isolated = ~(torch.cat([gap, gap[:, -1:]], 1) | torch.cat([gap[:, :1], gap], 1))
     assert torch.equal(gp[isolated & fin], wp[isolated & fin])
+
+
+def test_k2_smem_mirror_equals_the_kernels_export(dev):
+    """K2's Python mirror (the CPU wrapper's check) computes what its .cu
+    exports, over the card-test shapes and a (D, tile_r, k) grid."""
+    fn = _build.load_library().repro_rerank_stream_topk_smem
+    shapes = {(d, tile, k) for d, _, tile, k, _, _ in K2_CASES}
+    for d in (1, 30, 128, 960, 50000):
+        for tile in (1, 8, 16, 32, 64, 100, 1024, 14600):
+            for k in (1, 10, 64, 70, 1000, 14000):
+                shapes.add((d, tile, k))
+    for d, tile, k in sorted(shapes):
+        assert fn(d, tile, k) == rk.smem_bytes(d, tile, k), (d, tile, k)
 
 
 def test_wrappers_raise_on_mixed_devices(dev):
@@ -208,15 +247,25 @@ def test_card_engine_equals_host_engine(dev):
 
 
 # (g, cap or N, mh, tile, LUT, zero-group share): odd M/2, M=2, tile 8,
-# the serving shape, M=128 (K6 reads B from shared memory), an all-255 LUT
-# (every sum M * 255), and gathered copies whose -1-probe groups are zero
-# rows; N = 40 and 96 leave a chunk part full and rows unaligned
+# the serving shape, M=128 (K6 reads B from shared memory; K5 takes its
+# any-M path), an all-255 LUT (every sum M * 255), and gathered copies
+# whose -1-probe groups are zero rows; N = 40 and 96 leave a chunk part
+# full and rows unaligned. Then K5's edges: G = 32 at N = 4096 (units
+# shrink), N = 1030 (a part-full unit, N % 4 = 2: scalar stores, rows not
+# 16-byte aligned), all-255 LUTs at M = 16 and 32 on the four-row path,
+# and M/2 = 2, 6 and 12 (8- and 16-byte stage loads)
 GROUPED_CASES = [(3, 64, 4, 32, "rand", 0.0), (8, 96, 3, 32, "rand", 0.0),
                  (5, 40, 1, 8, "rand", 0.0), (512, 4096, 8, 1024, "rand", 0.0),
                  (64, 1024, 8, 128, "rand", 0.0), (2, 64, 64, 64, "rand", 0.0),
                  (4, 64, 64, 8, "255", 0.0), (6, 96, 64, 32, "255", 0.3),
                  (64, 4096, 8, 1024, "rand", 0.3),
-                 (7, 40, 3, 8, "rand", 0.3)]
+                 (7, 40, 3, 8, "rand", 0.3),
+                 (32, 4096, 8, 1024, "rand", 0.05),
+                 (3, 1030, 8, 10, "rand", 0.0),
+                 (16, 2048, 8, 1024, "255", 0.0),
+                 (4, 512, 16, 128, "255", 0.0),
+                 (5, 520, 2, 8, "rand", 0.0), (6, 520, 6, 8, "rand", 0.0),
+                 (6, 520, 12, 8, "rand", 0.2)]
 
 
 @pytest.mark.parametrize("case", range(len(GROUPED_CASES)))
@@ -261,6 +310,17 @@ def test_k6_smem_mirror_equals_the_kernels_export(dev):
     widths = {2 * case[2] for case in GROUPED_CASES} | set(range(2, 1101, 2))
     for m in sorted(widths):
         assert fn(m) == mk.smem_bytes(m), m
+    for g, n, mh, tile, _, _ in GROUPED_CASES:
+        assert n % tile == 0 and fn(2 * mh) <= _build.SMEM_LIMIT
+
+
+def test_k5_smem_mirror_equals_the_kernels_export(dev):
+    """K5's Python mirror (the CPU wrapper's check) equals the .cu's over
+    every even M up to 15,000 (the four-row ring up to M = 32, the LUT
+    alone beyond; the plan does not depend on the tile)."""
+    fn = _build.load_library().repro_fastscan_select_grouped_smem
+    for m in range(2, 15001, 2):
+        assert fn(m) == sk.smem_bytes(m), m
     for g, n, mh, tile, _, _ in GROUPED_CASES:
         assert n % tile == 0 and fn(2 * mh) <= _build.SMEM_LIMIT
 

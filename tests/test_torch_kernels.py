@@ -22,6 +22,7 @@ from repro_torch.kernels import fastscan_kernel as tfk
 from repro_torch.kernels import mxu_kernel as tmk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rerank_kernel as trk
+from repro_torch.kernels import select_kernel as tsk
 
 RTOL = 1e-5
 
@@ -273,6 +274,86 @@ def test_k6_smem_plan_accepts_every_tile_the_old_formula_did():
         assert got.shape == (2, 2 * tile)
 
 
+def test_k2_smem_plan_accepts_every_shape_the_old_formula_did():
+    """K2's shared memory (the running keys and a chunk's distances, each
+    double-buffered) refuses no (D, tile_r, k) that the sort-based plan's
+    8 * pow2(k + tile_r) + 4 * (D + tile_r + 4k) accepted, and the CPU
+    wrapper takes those shapes."""
+    def old(d, tile, k):
+        return (1 << max(k + tile - 1, 0).bit_length()) * 8 + \
+            (d + tile + 4 * k) * 4
+
+    checked = 0
+    for d in (1, 30, 128, 960, 4096, 20000, 50000):
+        for tile in (1, 8, 16, 64, 100, 1024, 8192, 14600, 20000):
+            for k in (1, 10, 64, 100, 1000, 8192, 14000):
+                if old(d, tile, k) <= _build.SMEM_LIMIT:
+                    checked += 1
+                    assert trk.smem_bytes(d, tile, k) <= _build.SMEM_LIMIT, (
+                        d, tile, k)
+    assert checked > 200
+    base, qv, cand = (_t(a) for a in _k2_inputs(0, n=50, d=8, q=2, r=16,
+                                                 integer=True))
+    vals, pos = trk.rerank_stream_topk(base, qv, cand, torch.zeros(cand.shape),
+                                       k=3000, tile_r=16)
+    assert vals.shape == pos.shape == (2, 3000)
+
+
+def test_k5_smem_plan_accepts_every_m_the_old_formula_did():
+    """K5's shared memory (a ring of LUT + code-chunk stages on the
+    four-row path, the LUT alone at any other M) refuses no M that the
+    register version's 16 * M accepted, and the CPU wrapper takes them."""
+    checked = 0
+    for m in range(2, 15000, 2):
+        if 16 * m <= _build.SMEM_LIMIT:
+            checked += 1
+            assert tsk.smem_bytes(m) <= _build.SMEM_LIMIT, m
+    assert checked == _build.SMEM_LIMIT // 32
+    assert tsk.smem_bytes(14530) > _build.SMEM_LIMIT
+    rng = np.random.default_rng(0)
+    for m, tile in ((2, 8), (6, 10), (16, 1024), (32, 64), (128, 32),
+                    (14528, 4)):
+        table = torch.as_tensor(rng.integers(0, 256, (2, m, 16), np.uint8))
+        codes = torch.as_tensor(rng.integers(0, 256, (2, 2 * tile, m // 2),
+                                             np.uint8))
+        got = tsk.fastscan_select_tree_grouped(table, codes, tile_n=tile)
+        assert got.shape == (2, 2 * tile)
+
+
+def test_k2_plain_equals_reference_on_ties_at_the_k_cut():
+    """Repeated candidate ids on integer data: many positions share the
+    k-th distance across several chunks; the plain twin keeps the
+    reference's order (running entries, then earlier positions) bit for
+    bit."""
+    rng = np.random.default_rng(11)
+    n, d, q, r, k, tile = 40, 16, 4, 48, 10, 8
+    base = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    base[1] = base[0]
+    qv = rng.integers(-2, 3, (q, d)).astype(np.float32)
+    cand = rng.integers(0, 3, (q, r)).astype(np.int32)   # ids 0, 1, 2
+    cand[rng.random((q, r)) < 0.2] = -1
+    cand[1, 8:16] = -1                                   # a chunk of -1
+    xn = ((base * base).sum(-1))[np.maximum(cand, 0)]
+    want_v, want_p = jrk.rerank_stream_topk(
+        jnp.asarray(base), jnp.asarray(qv), jnp.asarray(cand),
+        jnp.asarray(xn), k=k, tile_r=tile, interpret=True)
+    got_v, got_p = trk.rerank_stream_topk(_t(base), _t(qv), _t(cand), _t(xn),
+                                          k=k, tile_r=tile)
+    want_v, want_p = np.asarray(want_v), np.asarray(want_p)
+    # every query's k-th value is shared by positions on both sides of the
+    # cut, in more than one chunk (integer data: the distances are exact)
+    dist = (qv * qv).sum(-1)[:, None] - 2 * np.einsum(
+        "qd,qrd->qr", qv, base[np.maximum(cand, 0)]) + xn
+    dist = np.where(cand >= 0, np.maximum(dist, 0), np.inf)
+    for i in range(q):
+        tied = np.flatnonzero(dist[i] == want_v[i, -1])
+        assert np.isfinite(want_v[i, -1])
+        assert len(set(tied) - set(want_p[i])) > 0
+        assert len({p // tile for p in tied}) > 1
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+
+
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take():
     base, qv, cand = (_t(a) for a in _k2_inputs(0, n=50, d=8, q=3, r=16,
                                                  integer=False))
@@ -332,5 +413,6 @@ def test_build_key_covers_every_source():
     # each shared-memory need the wrappers check is exported by a source
     text = "".join((_build.CSRC / src).read_text() for src in _build.SOURCES)
     for fn, nargs in _build.SMEM_FNS.items():
-        sig = rf"long long {fn}\(" + r"int \w+,\s*" * (nargs - 1) + r"int m\)"
+        sig = (rf"long long {fn}\(" + r"int \w+,\s*" * (nargs - 1)
+               + r"int \w+\)")
         assert re.search(sig, text), fn
