@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel (K1-K6) against its plain PyTorch version on the card at
 the shapes the serving paths give it (K2 also at Q = 1 and 8 and at
-tiles 16 and 32, K5 also at one query's 32 groups), then serves a SIFT1M-shaped index
+tiles 16 and 32, K3 and K5 also at one query's 32 groups), then serves a
+SIFT1M-shaped index
 (N x 128 f32 base, M=16 4-bit PQ, flat coarse over nlist lists) built by
 ``SearchEngine.build``, through ``search_jit`` at the serving buckets
 Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
@@ -81,25 +82,28 @@ FIG2_GAP = 0.05               # |recall@10 fast-scan - naive PQ| allowed
 # kernels line
 EARLIER_MS = {"fastscan_stream_topk": 0.182801,
               "rerank_stream_topk": 0.009445,
+              "fastscan_stream_grouped": 0.074477,
               "fastscan_select_grouped": 0.181785,
               "fastscan_onehot_mma_flat": 0.424301,
               "fastscan_onehot_mma_grouped": 1.247889,
               "fastscan_blockmin": 0.425841}
 # K2 at the stream path's shape (R = RERANK_MULT * K candidates, k = K) over
-# (Q, tile_r), and K5 over G = AT_NPROBE (one query's probes, the anytime
-# path's Q = 1 bucket) as well as the path's G: device ms of the first
-# versions at these shapes (the mean of two runs of
+# (Q, tile_r), and K3 and K5 over G = AT_NPROBE (one query's probes, the
+# anytime path's Q = 1 bucket) as well as the path's G: device ms of the
+# first versions at these shapes (the mean of two runs of
 # tools/time_port_kernels.py on the tree before their redesign, in one
 # call, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's times;
 # not part of the kernels line
 K2_SHAPES = ((128, 64), (8, 64), (1, 64), (128, 32), (128, 16))
 EARLIER_K2_MS = {(128, 64): 0.009459, (8, 64): 0.009129, (1, 64): 0.008630,
                  (128, 32): 0.011183, (128, 16): 0.011353}
+EARLIER_K3_MS = {32: 0.002915}
 EARLIER_K5_MS = {32: 0.003031}
 # kernels whose ptxas registers and spills are summarised after the build
 PTXAS_SUMMARY = ("stream_topk_kernel", "rerank_kernel",
-                 "select_grouped_kernel", "onehot_mma_flat_kernel",
-                 "onehot_mma_grouped_kernel", "blockmin_kernel")
+                 "stream_grouped_kernel", "select_grouped_kernel",
+                 "onehot_mma_flat_kernel", "onehot_mma_grouped_kernel",
+                 "blockmin_kernel")
 
 
 def log(*parts) -> None:
@@ -662,23 +666,35 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
             mmas=mmas))
-    # K5 at one query's probes (the anytime path's Q = 1 bucket)
+    # K3 and K5 at one query's probes (the anytime path's Q = 1 bucket)
     gs = AT_NPROBE
     t_s, c_s = table[:gs].contiguous(), gathered[:gs].contiguous()
+    p_s = probes[:gs].contiguous()
+    valid_s = valid[:gs]
+
+    def k3_small():
+        return sgk.fastscan_stream_grouped(t_s, store, p_s, tile_n=tile)
 
     def k5_small():
         return sk.fastscan_select_tree_grouped(t_s, c_s, tile_n=gtile)
 
-    assert_same((k5_small(),),
-                (sk.fastscan_grouped_plain(t_s, c_s, tile_n=gtile),),
-                f"K5 G={gs}")
-    ms_dev = device_ms(torch, k5_small, "select_grouped_kernel", 20)
-    bound, by = bound_ms(gs * n_p * mh + gs * M * 16 + gs * n_p * 4,
-                         gs * n_p * M * 2)
-    earlier = EARLIER_K5_MS.get(gs)
-    log(f"K5 at G={gs} N={n_p} M={M}: kernel == plain bit for bit; device "
-        f"{ms_dev} ms, {earlier if earlier is not None else 'not measured'}"
-        f" ms before its redesign, bound {bound:.6f} ms ({by})")
+    for what, fn, plain_out, dev_name, nbytes, ops_count, earlier in (
+            ("K3", k3_small, sgk.fastscan_stream_grouped_plain(
+                t_s, store, p_s, tile_n=tile), "stream_grouped_kernel",
+             np.unique(probes_np[:gs][valid_s]).size * cap * mh
+             + gs * M * 16 + gs * 4 + gs * cap * 4,
+             int(valid_s.sum()) * cap * M * 2, EARLIER_K3_MS.get(gs)),
+            ("K5", k5_small, sk.fastscan_grouped_plain(t_s, c_s, tile_n=gtile),
+             "select_grouped_kernel",
+             gs * n_p * mh + gs * M * 16 + gs * n_p * 4, gs * n_p * M * 2,
+             EARLIER_K5_MS.get(gs))):
+        assert_same((fn(),), (plain_out,), f"{what} G={gs}")
+        ms_dev = device_ms(torch, fn, dev_name, 20)
+        bound, by = bound_ms(nbytes, ops_count)
+        log(f"{what} at G={gs} cap/N={cap if what == 'K3' else n_p} M={M}: "
+            f"kernel == plain bit for bit; device {ms_dev} ms, "
+            f"{earlier if earlier is not None else 'not measured'} ms before "
+            f"its redesign, bound {bound:.6f} ms ({by})")
     return out
 
 
@@ -1249,47 +1265,15 @@ def flat_phase(torch, args, ds, index) -> dict:
     return launches
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--nt", type=int, default=100_000)
-    ap.add_argument("--nlist", type=int, default=1024)
-    args = ap.parse_args()
-
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(root, "src"))
-    import repro_torch  # noqa: F401  (fails outside the repo)
-    from repro_torch.core.fastscan import build_index
+def ivf_engine(torch, args, nq: int):
+    """The data (a SIFT1M-shaped base with ``nq`` queries and exact ground
+    truth, made on the card from ``args.seed``) and the IVF engine of the
+    stream path over it: (dataset, engine, index build seconds)."""
+    from repro_torch.core.lists import grow_cap
     from repro_torch.data.vectors import make_sift_like
     from repro_torch.engine import EngineConfig, SearchEngine
-    from repro_torch.core.lists import grow_cap
-    from repro_torch.kernels import _build
     from repro_torch.kernels.fastscan_kernel import TILE_N
-
-    # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    log(smi)
-    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
-
-    # 2. build
     t0 = time.perf_counter()
-    _build.load_library()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
-    log(_build.build_log)
-    for line in ptxas_summary(_build.build_log, PTXAS_SUMMARY):
-        log(f"ptxas: {line}")
-
-    # set-up: data and the index the slice phase serves (its cap shapes K1)
-    t0 = time.perf_counter()
-    nq = (BATCHES_PER_BUCKET + 1) * sum(BUCKETS) + 32
     ds = make_sift_like(n=args.n, nt=args.nt, nq=nq, d=128, seed=args.seed,
                         device="cuda")
     torch.cuda.synchronize()
@@ -1316,6 +1300,46 @@ def main() -> int:
     log(f"index: nlist={args.nlist} cap={cap} (largest list {raw_cap}) M={M}, "
         f"list sizes min {int(sizes.min())} mean "
         f"{float(sizes.float().mean()):.1f}, built in {build_s:.2f} s")
+    return ds, engine, build_s
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--nt", type=int, default=100_000)
+    ap.add_argument("--nlist", type=int, default=1024)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    import repro_torch  # noqa: F401  (fails outside the repo)
+    from repro_torch.core.fastscan import build_index
+    from repro_torch.kernels import _build
+
+    # 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(smi)
+    log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+    log(_build.build_log)
+    for line in ptxas_summary(_build.build_log, PTXAS_SUMMARY):
+        log(f"ptxas: {line}")
+
+    # set-up: data and the index the slice phase serves (its cap shapes K1)
+    nq = (BATCHES_PER_BUCKET + 1) * sum(BUCKETS) + 32
+    ds, engine, build_s = ivf_engine(torch, args, nq)
     # the flat path's index over the same base (the paper's Fig. 2 setting)
     t0 = time.perf_counter()
     flat = build_index(ds.train, ds.base, m=M, seed=args.seed, device="cuda")

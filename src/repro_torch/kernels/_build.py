@@ -56,10 +56,11 @@ _SIGNATURES = {
     "repro_fastscan_blockmin": [_VP] * 2 + [_I] * 4 + [_VP] * 3,
 }
 # each kernel's shared memory a CTA needs, as its source computes it (the
-# one place the CTA shape lives), by its int arguments: M for K5, K6 and
-# K7a-K7c, (tile_n, kc, M) for K1 and K4, (D, tile_r, k) for K2
+# one place the CTA shape lives), by its int arguments: M for K3, K5, K6
+# and K7a-K7c, (tile_n, kc, M) for K1 and K4, (D, tile_r, k) for K2
 SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
             "repro_rerank_stream_topk_smem": 3,
+            "repro_fastscan_stream_grouped_smem": 1,
             "repro_fastscan_select_grouped_smem": 1,
             "repro_fastscan_onehot_mma_grouped_smem": 1,
             "repro_fastscan_select_flat_smem": 1,

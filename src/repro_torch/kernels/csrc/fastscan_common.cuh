@@ -1,9 +1,10 @@
 // Device code shared by the fast-scan kernels: the shared-memory LUT row
 // sum of one packed code row (K1, K3, K4, and K5's and K7a's any-M paths),
 // the four-rows-per-permute look-up (K1 and K7a load the codes with
-// load_rows4; K5 stages them and builds selectors4 / sum_rows4 the same
-// way), the block-wide staging copy into shared memory (K1, K5, K7a), and
-// the 64-bit (value, slot) selection key (K4, K7c).
+// load_rows4; K3 and K5 stage them and read them with stage_rows4; all
+// build selectors4 / sum_rows4 the same way), the block-wide staging copy
+// into shared memory (K1, K3, K5, K7a), and the 64-bit (value, slot)
+// selection key (K4, K7c).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,7 +52,7 @@ __device__ __forceinline__ int row_sum(const uint8_t* row, const uint8_t* lut,
   return acc;
 }
 
-// ---- four rows per byte permute (K1, K5, K7a) --------------------------
+// ---- four rows per byte permute (K1, K3, K5, K7a) -----------------------
 // A sub-space's 16 u8 entries are four words: entries 0-7 in {w1:w0}, 8-15
 // in {w3:w2}. A 16-bit selector holds four rows' low 3 code bits, one
 // nibble each (bit 3 of a selector nibble would replicate the sign in
@@ -105,6 +106,35 @@ __device__ __forceinline__ void load_rows4(const uint8_t* src, int rows,
           word |= static_cast<uint32_t>(__ldg(src + 4 * i + b)) << (8 * b);
       cw[i] = word;
     }
+  }
+}
+
+// The codes of four consecutive rows staged in shared memory (K3, K5), as
+// MH words: 16-, 8- or 4-byte loads, the widest that 4 * MH bytes a quad
+// keeps aligned.
+template <int MH>
+__device__ __forceinline__ void stage_rows4(const uint8_t* src,
+                                            uint32_t (&cw)[MH]) {
+  if constexpr (MH % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < MH / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+      cw[4 * i] = v.x;
+      cw[4 * i + 1] = v.y;
+      cw[4 * i + 2] = v.z;
+      cw[4 * i + 3] = v.w;
+    }
+  } else if constexpr (MH % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < MH / 2; ++i) {
+      const uint2 v = reinterpret_cast<const uint2*>(src)[i];
+      cw[2 * i] = v.x;
+      cw[2 * i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MH; ++i)
+      cw[i] = reinterpret_cast<const uint32_t*>(src)[i];
   }
 }
 

@@ -74,34 +74,6 @@ __host__ __device__ inline size_t smem_bytes(int m) {
                               : 16 * static_cast<size_t>(m);
 }
 
-// The codes of four consecutive rows from a stage, as MH words: 16-, 8-
-// or 4-byte loads, the widest that 4 * MH bytes a quad keeps aligned.
-template <int MH>
-__device__ __forceinline__ void stage_rows4(const uint8_t* src,
-                                            uint32_t (&cw)[MH]) {
-  if constexpr (MH % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < MH / 4; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
-      cw[4 * i] = v.x;
-      cw[4 * i + 1] = v.y;
-      cw[4 * i + 2] = v.z;
-      cw[4 * i + 3] = v.w;
-    }
-  } else if constexpr (MH % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < MH / 2; ++i) {
-      const uint2 v = reinterpret_cast<const uint2*>(src)[i];
-      cw[2 * i] = v.x;
-      cw[2 * i + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < MH; ++i)
-      cw[i] = reinterpret_cast<const uint32_t*>(src)[i];
-  }
-}
-
 // QUADS quads of rows a thread: units of up to 4 * kThreads * QUADS rows.
 template <int MH, int QUADS>
 __global__ void __launch_bounds__(kThreads) select_grouped_kernel(

@@ -302,6 +302,75 @@ def test_k3_k5_k6_kernels_equal_plain(dev, case):
         table, store, probes, tile_n=tile))
 
 
+# (g, nlist, cap, mh, tile, LUT, -1 probe share, byte offset of the
+# store): every M/2 of the four-row set, with one, two and four quads a
+# thread (units shrink below 264 units) and part-full units; M/2 = 5 and
+# 64 off the set; list bases 16-, 8-, 4- and 1-byte aligned (cap x M/2 =
+# 96 x 3, 40 x 1, 1002 x 2, 37 x 3, 999 x 8, and a store starting 3 bytes
+# into its buffer); odd caps read as one tile (output rows not 16-byte
+# aligned, a part-full last quad); all probes -1, G = 1, nlist = 1, one
+# query's probes (G = 32) over cap 4096, and an all-255 LUT at M = 32 (the
+# largest sum the 16-bit lanes hold, 8,160)
+K3_CASES = [(300, 40, 4096, 1, 1024, "rand", 0.1, 0),
+            (150, 40, 4096, 2, 512, "rand", 0.1, 0),
+            (64, 30, 1024, 3, 256, "rand", 0.1, 0),
+            (300, 40, 2048, 4, 2048, "rand", 0.1, 0),
+            (100, 40, 3000, 6, 1000, "rand", 0.1, 0),
+            (600, 64, 4096, 8, 1024, "rand", 0.05, 0),
+            (40, 20, 520, 12, 8, "rand", 0.1, 0),
+            (300, 30, 4100, 16, 4100, "rand", 0.1, 0),
+            (20, 10, 1500, 5, 500, "rand", 0.1, 0),
+            (6, 4, 2100, 64, 700, "rand", 0.2, 0),
+            (8, 5, 96, 3, 32, "rand", 0.1, 0),
+            (5, 4, 40, 1, 8, "rand", 0.1, 0),
+            (10, 6, 1002, 2, 501, "rand", 0.1, 0),
+            (7, 5, 37, 3, 37, "rand", 0.1, 0),
+            (9, 6, 999, 8, 999, "rand", 0.1, 0),
+            (12, 6, 512, 8, 128, "rand", 0.1, 3),
+            (16, 4, 1024, 8, 1024, "rand", 1.0, 0),
+            (1, 3, 4096, 8, 1024, "rand", 0.0, 0),
+            (10, 1, 512, 8, 64, "rand", 0.1, 0),
+            (32, 64, 4096, 8, 1024, "rand", 0.05, 0),
+            (64, 8, 2048, 16, 256, "255", 0.1, 0)]
+
+
+@pytest.mark.parametrize("case", range(len(K3_CASES)))
+def test_k3_kernel_equals_plain(dev, case):
+    g, nlist, cap, mh, tile, lut, invalid, off = K3_CASES[case]
+    rng = np.random.default_rng(700 + case)
+    table = rng.integers(0, 256, (g, 2 * mh, 16), np.uint8)
+    if lut == "255":
+        table[:] = 255
+    flat = rng.integers(0, 256, off + nlist * cap * mh, np.uint8)
+    probes = rng.integers(0, nlist, g).astype(np.int32)
+    probes[rng.random(g) < invalid] = -1
+    table = torch.as_tensor(table, device=dev)
+    store = torch.as_tensor(flat, device=dev)[off:].view(nlist, cap, mh)
+    assert store.data_ptr() % 16 == off
+    probes = torch.as_tensor(probes, device=dev)
+    n0 = sgk.launches
+    got = sgk.fastscan_stream_grouped(table, store, probes, tile_n=tile)
+    torch.cuda.synchronize()
+    assert sgk.launches == n0 + 1
+    want = sgk.fastscan_stream_grouped_plain(table, store, probes,
+                                             tile_n=tile)
+    assert torch.equal(got, want)
+    assert not got[probes < 0].any()
+    if lut == "255":
+        assert int(got[probes >= 0].min()) == 8160
+
+
+def test_k3_smem_mirror_equals_the_kernels_export(dev):
+    """K3's Python mirror (the CPU wrapper's check) equals the .cu's over
+    every even M up to 15,000 (the four-row ring up to M = 32, the LUT
+    alone beyond; the plan does not depend on the tile)."""
+    fn = _build.load_library().repro_fastscan_stream_grouped_smem
+    for m in range(2, 15001, 2):
+        assert fn(m) == sgk.smem_bytes(m), m
+    for case in K3_CASES:
+        assert case[2] % case[4] == 0 and fn(2 * case[3]) <= _build.SMEM_LIMIT
+
+
 def test_k6_smem_mirror_equals_the_kernels_export(dev):
     """K6's Python plan (the CPU wrapper's check) equals the .cu's over the
     card-test widths and tiles and every even M up to 1100 (the plan does

@@ -23,6 +23,7 @@ from repro_torch.kernels import mxu_kernel as tmk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rerank_kernel as trk
 from repro_torch.kernels import select_kernel as tsk
+from repro_torch.kernels import stream_grouped_kernel as tsgk
 
 RTOL = 1e-5
 
@@ -318,6 +319,34 @@ def test_k5_smem_plan_accepts_every_m_the_old_formula_did():
                                              np.uint8))
         got = tsk.fastscan_select_tree_grouped(table, codes, tile_n=tile)
         assert got.shape == (2, 2 * tile)
+
+
+def test_k3_smem_plan_accepts_every_m_the_old_formula_did():
+    """K3's shared memory (K5's plan: a ring of LUT + code-chunk stages on
+    the four-row path, the LUT alone at any other M) refuses no M that the
+    first version's 16 * M accepted (M <= 14,528), and the CPU wrapper
+    takes them."""
+    checked = 0
+    for m in range(2, 15000, 2):
+        if 16 * m <= _build.SMEM_LIMIT:
+            checked += 1
+            assert tsgk.smem_bytes(m) <= _build.SMEM_LIMIT, m
+    assert checked == _build.SMEM_LIMIT // 32 == 7264
+    assert tsgk.smem_bytes(14530) > _build.SMEM_LIMIT
+    rng = np.random.default_rng(0)
+    for m, cap, tile in ((2, 16, 8), (6, 37, 37), (16, 4096, 1024),
+                         (32, 64, 64), (128, 32, 32), (14528, 4, 4)):
+        table = torch.as_tensor(rng.integers(0, 256, (3, m, 16), np.uint8))
+        store = torch.as_tensor(rng.integers(0, 256, (2, cap, m // 2),
+                                             np.uint8))
+        probes = torch.tensor([1, -1, 0], dtype=torch.int32)
+        got = tsgk.fastscan_stream_grouped(table, store, probes, tile_n=tile)
+        assert got.shape == (3, cap) and not got[1].any()
+    with pytest.raises(ValueError, match="shared memory"):
+        tsgk.fastscan_stream_grouped(
+            torch.zeros((1, 14530, 16), dtype=torch.uint8),
+            torch.zeros((1, 4, 7265), dtype=torch.uint8),
+            torch.zeros(1, dtype=torch.int32), tile_n=4)
 
 
 def test_k2_plain_equals_reference_on_ties_at_the_k_cut():

@@ -128,9 +128,14 @@ def test_ref_chunks_over_groups_without_changing_sums(monkeypatch):
 # K3: the in-place grouped scan
 # ---------------------------------------------------------------------------
 
-# (g, nlist, cap, mh, tile)
+# (g, nlist, cap, mh, tile): lists of 96 x 3 and 40 x 1 bytes, and an odd
+# cap read whole (37 x 3: no list but the first 4-byte aligned, no output
+# row but the first 16-byte aligned), the four-row widths M/2 = 2, 6, 12
+# and 16, and M/2 = 5 and 64 off the four-row set
 STREAM_GRID = [(4, 3, 64, 4, 16), (5, 4, 96, 3, 32), (3, 2, 40, 1, 8),
-               (6, 5, 128, 8, 128), (2, 3, 100, 4, 100)]
+               (6, 5, 128, 8, 128), (2, 3, 100, 4, 100), (4, 3, 37, 3, 37),
+               (3, 2, 24, 2, 8), (3, 3, 40, 6, 20), (2, 2, 16, 12, 16),
+               (3, 2, 32, 16, 8), (3, 2, 30, 5, 10), (2, 2, 16, 64, 8)]
 
 
 @pytest.mark.parametrize("g,nlist,cap,mh,tile", STREAM_GRID)
