@@ -9,7 +9,8 @@ the shapes the serving paths give it (K2 also at Q = 1 and 8 and at
 tiles 16 and 32, K3 and K5 also at one query's 32 groups), then serves a
 SIFT1M-shaped index
 (N x 128 f32 base, M=16 4-bit PQ, flat coarse over nlist lists) built by
-``SearchEngine.build``, through ``search_jit`` at the serving buckets
+``SearchEngine.build``, through ``search_jit`` (CUDA graphs) at the
+serving buckets
 Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
 
   1. the stream path: k=10, nprobe=8, rerank_mult=4, the stream scan (K1)
@@ -29,7 +30,21 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      (K7c) over the million codes; 'select' must equal 'mxu' bit for bit
      and the recall@10 gap between fast-scan and naive PQ stay under 0.05.
 
-For each path it checks that the path's kernels ran, that one Q=32 batch
+``search_jit`` replays one captured CUDA graph per key, so the timed
+batches of both IVF paths are graph replays. A graph phase on each IVF path
+(the stream configuration, and the anytime one under verdicts pinned in a
+v3 autotune file written here) then holds ``search_jit`` bit for bit
+against the eager ``search`` at every bucket, for a filtered Q=32 batch, a
+per-query tau batch (anytime) and a namespaced Q=32 batch (stream: 4
+tenants each owning a random quarter of the lists, a quarter of the
+queries unrestricted; also held against the host pipeline and checked for
+isolation), checks that steady traffic and new values at a seen key
+capture no graph (``fused_cache_size``), and times eager and graph in turns
+(host clock with and without synchronize, profiler busy time, the replay's
+CUDA-event time, each key's capture time, the graphs' memory).
+
+For each path it checks that the path's kernels ran (a replay adds the
+launches its graph holds to the kernels' counters), that one Q=32 batch
 equals the port's own pipeline on CPU copies of the same index (the plain
 versions), and prints recall against exact ground truth, batch latencies
 and a profiler breakdown. Every kernel (K1-K6, K7a-K7c) is also held bit
@@ -53,8 +68,11 @@ imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import cProfile
+import gc
 import json
 import os
+import pstats
 import subprocess
 import sys
 import time
@@ -70,6 +88,8 @@ INT_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BUCKETS = (1, 8, 32, 128)
 BATCHES_PER_BUCKET = 3
+GRAPH_ROUNDS = 6              # eager/graph turns a bucket (graph phase)
+N_TENANTS = 4                 # the namespaced batch's tenants
 K, NPROBE, RERANK_MULT, M = 10, 8, 4, 16
 K2_RTOL = 1e-6                # of ||q||^2 + ||x||^2 (see k2_phase)
 PIPELINE_RTOL = 1e-5          # card vs host f32 pipeline
@@ -387,7 +407,7 @@ def slice_phase(torch, args, engine, ds, build_s):
     from repro_torch.kernels import rerank_kernel as rk
     n = ds.base.shape[0]
     queries = ds.queries
-    # warm-up of every bucket (allocator, cuBLAS handles), not timed
+    # warm-up of every bucket (each captures its graph), not timed
     off = 0
     for qq in BUCKETS:
         engine.search_jit(queries[off:off + qq], K, nprobe=NPROBE,
@@ -509,6 +529,13 @@ def kernel_modules():
             "fastscan_select_flat": sfk,
             "fastscan_onehot_mma_flat": mfk,
             "fastscan_blockmin": bk}
+
+
+def need_launches(launches: dict, names, what: str) -> None:
+    """Fail unless each named kernel launched on the path just run."""
+    missing = [name for name in names if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} not launched: {launches}")
 
 
 def zero_counts() -> None:
@@ -818,19 +845,25 @@ def host_twin_check(torch, engine, config, kept, queries, what: str,
         f"[{time.perf_counter() - t0:.1f} s]")
 
 
+def anytime_config():
+    """docs/anytime.md's configuration, the anytime path's."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig(nprobe=AT_NPROBE, probe_policy="margin",
+                        margin_tau=AT_TAU, early_exit=True, scan_impl="auto",
+                        rerank_mult=RERANK_MULT, rerank_impl="auto")
+
+
 def anytime_phase(torch, args, engine, ds, tuned_file: str) -> dict:
     """The second path: the anytime, autotuned configuration at every
     bucket, then batches that force each scan kernel onto the engine path;
     returns the launch counts of this path."""
     from repro_torch.core.lists import pack_filter_mask
     from repro_torch.core.metrics import recall_at_r
-    from repro_torch.engine import EngineConfig, SearchEngine
+    from repro_torch.engine import SearchEngine
     from repro_torch.kernels import ops
     n = ds.base.shape[0]
     queries = ds.queries
-    cfg = EngineConfig(nprobe=AT_NPROBE, probe_policy="margin",
-                       margin_tau=AT_TAU, early_exit=True, scan_impl="auto",
-                       rerank_mult=RERANK_MULT, rerank_impl="auto")
+    cfg = anytime_config()
 
     def with_cfg(**kw):
         return SearchEngine(engine.index, base=engine.base,
@@ -838,7 +871,8 @@ def anytime_phase(torch, args, engine, ds, tuned_file: str) -> dict:
                             config=cfg._replace(**kw))
 
     at = with_cfg()
-    # warm-up of every bucket: resolves the autotune verdicts (not timed)
+    # warm-up of every bucket: resolves the autotune verdicts and captures
+    # the graphs (not timed)
     ops.clear_autotune_cache()
     t0 = time.perf_counter()
     off = 0
@@ -982,6 +1016,243 @@ def anytime_phase(torch, args, engine, ds, tuned_file: str) -> dict:
             log(f"    {ms:.4f} ms  {name[:90]}")
     log(f"anytime: Q=32 filtered batch {filt_ms:.3f} ms")
     return launches
+
+
+def same_result(torch, a, b) -> bool:
+    """Bitwise: dists, ids and all seven QueryStats fields."""
+    return (torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
+            and all(torch.equal(x, y) for x, y in zip(a.stats, b.stats)))
+
+
+def pin_verdicts(path: str, cap: int, nlist: int, n: int) -> int:
+    """Write a v3 autotune file that fixes the anytime path's verdicts, so
+    its graph-phase figures repeat: per bucket the scan at probe_fill 0.5
+    (`select@1024` at Q = 1, the verdict most earlier sweeps gave at G = 32,
+    with its second resolve at 1.0; `stream@1024` above, the tile K4 runs
+    fastest at) and the re-rank (`stream`, K2 at its default tile)."""
+    from repro_torch.kernels import ops
+    entries = []
+    for qq in BUCKETS:
+        g = qq * AT_NPROBE
+        impl = "select" if qq == 1 else "stream"
+        for fill in ((0.5, 1.0) if impl == "select" else (0.5,)):
+            entries.append({"kind": "scan", "backend": "cuda",
+                            "interpret": False, "g": g, "cap": cap, "m": M,
+                            "nlist": nlist, "probe_fill": fill, "impl": impl,
+                            "tile_n": 1024, "timings_us": []})
+        entries.append({"kind": "rerank", "backend": "cuda",
+                        "interpret": False, "q": qq, "r": RERANK_MULT * K,
+                        "d": 128, "k": K, "n": n, "impl": "stream",
+                        "tile_n": ops._rerank_tile(RERANK_MULT * K),
+                        "timings_us": []})
+    with open(path, "w") as f:
+        json.dump({"schema": "repro.autotune/v3", "entries": entries}, f)
+    return len(entries)
+
+
+def graph_phase(torch, args, engine, ds, what: str, cfg,
+                members=None) -> dict:
+    """``search_jit`` (one CUDA graph replay a batch) against ``search``
+    (eager) on one IVF path, on a fresh engine over ``engine``'s index:
+    bit for bit at every bucket, for a filtered Q=32 batch, a per-query
+    tau batch (margin policy) and, given a namespace table ``members``, a
+    namespaced Q=32 batch (held against the host pipeline too, and
+    isolated); the cache counts under steady traffic and new values; then
+    both timed in turns per bucket. Returns this path's launch counts."""
+    from repro_torch.core.lists import pack_filter_mask
+    from repro_torch.engine import SearchEngine, fused_cache_size
+    gc.collect()
+    queries = ds.queries
+    lists = engine.index.lists
+    dev = lists.ids.device
+    eng = SearchEngine(engine.index, base=engine.base,
+                       base_norms=engine.base_norms, config=cfg,
+                       namespaces=members)
+    margin = cfg.probe_policy == "margin"
+    rng = np.random.default_rng(args.seed + 11)
+    n_ns = 0 if members is None else members.shape[0]
+
+    def request(i: int) -> dict:
+        """Distinct filter, tenants (a quarter -1) and tau for one Q=32
+        batch."""
+        mask = torch.as_tensor(rng.random(tuple(lists.ids.shape)) < 0.5,
+                               device=dev) & (lists.ids >= 0)
+        out = {"filter_bits": pack_filter_mask(mask)}
+        if n_ns:
+            ns = rng.integers(0, n_ns, 32).astype(np.int32)
+            ns[rng.permutation(32)[:8]] = -1
+            out["namespaces"] = torch.as_tensor(ns, device=dev)
+        if margin:
+            out["margin_tau"] = torch.as_tensor(
+                rng.uniform(0.1, 0.6, 32), dtype=torch.float32, device=dev)
+        return out
+
+    def both(q, **kw):
+        got, want = eng.search_jit(q, K, **kw), eng.search(q, K, **kw)
+        if not same_result(torch, got, want):
+            raise AssertionError(f"{what} graph: search_jit != search at "
+                                 f"Q={q.shape[0]} {sorted(kw)}")
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()      # reserved memory = live blocks + pools
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = fused_cache_size()
+    zero_counts()
+    # first call of each key: warm-up, capture, replay; all == eager
+    q32 = queries[:32]
+    for qq in BUCKETS:
+        both(queries[:qq])
+    req = request(0)
+    batches = [("filter_bits",)]
+    if margin:
+        batches.append(("margin_tau",))
+    if n_ns:
+        batches.append(("namespaces",))
+    for names in batches:
+        res = both(q32, **{k: req[k] for k in names})
+        if names == ("namespaces",):
+            ns_res, ns_vec = res, req["namespaces"]
+    keys = len(BUCKETS) + len(batches)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graphs_n = fused_cache_size() - n0
+    alloc1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    peak = torch.cuda.max_memory_allocated()
+    if graphs_n != keys or len(eng.graphs) != keys:
+        raise AssertionError(f"{what} graph: {graphs_n} graphs for {keys} "
+                             "keys")
+    # steady traffic and new values at seen keys capture nothing
+    for _ in range(3):
+        for qq in BUCKETS:
+            both(queries[:qq])
+    for i in range(1, 4):
+        req = request(i)
+        for names in batches:
+            both(q32, **{k: req[k] for k in names})
+    if fused_cache_size() - n0 != keys:
+        raise AssertionError(f"{what} graph: steady traffic or new values "
+                             "captured a graph")
+    log(f"{what} graph: search_jit == search bit for bit (dists, ids, 7 "
+        f"QueryStats) at Q in {BUCKETS} and Q=32 with "
+        f"{', '.join(n for names in batches for n in names)}, 4 rounds and "
+        f"4 values each; fused_cache_size +{graphs_n} for {keys} keys, +0 "
+        "for 3 more rounds and 3 new values at each key")
+    caps = sorted(eng.graphs.capture_seconds().items(), key=str)
+    for key, sec in caps:
+        log(f"{what} graph: capture (warm-up + capture) {sec * 1e3:.1f} ms "
+            f"for Q={key[0][0]} optional shapes {key[2]}")
+    log(f"{what} graph: {keys} graphs; memory_allocated +{alloc1 - alloc0} "
+        f"B (static inputs and outputs, the capture stream's cuBLAS "
+        f"workspace), memory_reserved +{res1 - res0} B (with the graphs' "
+        f"pool; both after empty_cache), max_memory_allocated {peak} B over "
+        "the captures")
+    if n_ns:
+        ns_check(torch, eng, cfg, ns_res, q32, ns_vec, what)
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log(f"{what} graph: kernel launches (replays counted) {launches}")
+
+    # where the graph call's host time goes (cProfile adds its own cost
+    # to every Python call, so only the shares are read)
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(50):
+        eng.search_jit(q32, K)
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof)
+    total = stats.total_tt
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    log(f"{what} graph: host profile of 50 search_jit calls at Q=32 "
+        f"(cProfile, {total * 1e3 / 50:.3f} ms a call under it), own time "
+        "a call: " + "; ".join(
+            f"{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) "
+            f"{v[2] * 1e3 / 50:.4f} ms" for fn, v in rows))
+
+    # eager and graph in turns, per bucket
+    for qq in BUCKETS:
+        q = queries[:qq]
+        lat = {"eager": [], "graph": []}
+        call = {"eager": [], "graph": []}
+        fns = {"eager": lambda: eng.search(q, K),
+               "graph": lambda: eng.search_jit(q, K)}
+        for rnd in range(GRAPH_ROUNDS):
+            for name in (("eager", "graph") if rnd % 2 == 0
+                         else ("graph", "eager")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                call[name].append((t1 - t0) * 1e3)
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        ev = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns["graph"]()
+            end.record()
+            end.synchronize()
+            ev.append(start.elapsed_time(end))
+        busy = {}
+        for name in ("eager", "graph"):
+            _, dev_ms, n_ops, rows = breakdown(torch, fns[name])
+            busy[name] = (dev_ms, n_ops)
+        for name in ("eager", "graph"):
+            med = float(np.median(lat[name]))
+            dev_ms, n_ops = busy[name]
+            log(f"{what} graph: Q={qq} {name}: latency ms (host clock, "
+                f"synchronized) {' '.join(f'{x:.3f}' for x in lat[name])}; "
+                f"median {med:.3f}, QPS {qq / (med / 1e3):.1f}; call "
+                f"without synchronize median "
+                f"{float(np.median(call[name])):.3f} ms; device busy "
+                f"{dev_ms:.4f} ms in {n_ops} device ops (profiler), idle "
+                f"{100 * (1 - dev_ms / med):.1f}%")
+        log(f"{what} graph: Q={qq} replay CUDA-event time ms "
+            f"{' '.join(f'{x:.4f}' for x in ev)}; eager busy "
+            f"{busy['eager'][0]:.4f} ms is "
+            f"{100 * busy['eager'][0] / float(np.median(lat['graph'])):.1f}% "
+            "of the graph median")
+    return launches
+
+
+def ns_check(torch, eng, cfg, res, q, ns, what: str) -> None:
+    """The namespaced Q=32 batch against the host pipeline on CPU copies
+    (ids tie-aware, dists rtol PIPELINE_RTOL, QueryStats exact), and
+    isolation: every id lies in a list its tenant owns."""
+    from repro_torch import interop
+    t0 = time.perf_counter()
+    host = interop.engine_from_arrays(interop.arrays_from_engine(eng),
+                                      config=cfg, device="cpu")
+    want = host.search(q.cpu(), K, namespaces=ns.cpu())
+    wv, wi = want.dists.numpy(), want.ids.numpy()
+    tol = PIPELINE_RTOL * np.abs(wv).max(axis=1)
+    assert_tie_aware(res.dists.cpu().numpy(), res.ids.cpu().numpy(), wv, wi,
+                     tol, f"{what} namespaced card vs host")
+    for f in want.stats._fields:
+        if not np.array_equal(getattr(res.stats, f).cpu().numpy(),
+                              getattr(want.stats, f).numpy()):
+            raise AssertionError(f"{what} namespaced card vs host: "
+                                 f"stats.{f}")
+    lists = eng.index.lists
+    owner = torch.full((eng.base.shape[0],), -1, dtype=torch.long,
+                       device=lists.ids.device)
+    li = torch.arange(lists.nlist, device=owner.device)[:, None].expand(
+        lists.ids.shape)
+    ok = lists.ids >= 0
+    owner[lists.ids[ok].long()] = li[ok]
+    restricted = ns >= 0
+    got = res.ids[restricted].long()
+    allowed = eng.ns_member[ns[restricted].long()]          # (R, nlist)
+    inside = torch.gather(allowed, 1, owner[got.clamp_min(0)]) | (got < 0)
+    if not bool(inside.all()):
+        raise AssertionError(f"{what} namespaced: a query left its tenant")
+    log(f"{what} namespaced: Q=32 batch ({int(restricted.sum())} queries in "
+        f"{int(eng.ns_member.shape[0])} tenants, the rest -1) equals the "
+        f"host pipeline (ids tie-aware, QueryStats exact) and every id lies "
+        f"in its tenant's lists [{time.perf_counter() - t0:.1f} s]")
 
 
 def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
@@ -1366,12 +1637,34 @@ def main() -> int:
     launches = slice_phase(torch, args, engine, ds, build_s)
     k1["launches"] = launches["fastscan_stream_topk"]
     k2["launches"] = launches["rerank_stream_topk"]
+    # 5b. search_jit's graphs on the stream path, with a namespaced batch:
+    # N_TENANTS tenants, each a random quarter of the lists
+    perm = np.random.default_rng(args.seed + 9).permutation(args.nlist)
+    members = np.zeros((N_TENANTS, args.nlist), bool)
+    for t, part in enumerate(np.array_split(perm, N_TENANTS)):
+        members[t, part] = True
+    launches = graph_phase(torch, args, engine, ds, "stream", engine.config,
+                           members)
+    need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
+                  "stream graph")
     # 6. the anytime, autotuned serving path
     tuned_file = os.path.join(root, "build", "chip_smoke_autotune.json")
     os.makedirs(os.path.dirname(tuned_file), exist_ok=True)
     launches = anytime_phase(torch, args, engine, ds, tuned_file)
     for kern in (k3, k4, k5, k6):
         kern["launches"] = launches[kern["name"]]
+    # 6b. search_jit's graphs on the anytime path, under pinned verdicts
+    from repro_torch.kernels import ops
+    pinned = os.path.join(root, "build", "chip_smoke_pinned_verdicts.json")
+    pin_verdicts(pinned, cap, args.nlist, args.n)
+    ops.clear_autotune_cache()
+    log(f"anytime graph: {ops.load_autotune_cache(pinned)} pinned verdicts "
+        f"from {os.path.relpath(pinned, root)}")
+    launches = graph_phase(torch, args, engine, ds, "anytime",
+                           anytime_config())
+    need_launches(launches, ("fastscan_stream_topk_prune",
+                             "fastscan_select_grouped", "rerank_stream_topk"),
+                  "anytime graph")
     # 7. the flat path: fast-scan (K7a, K7b) beside naive PQ, and K7c
     launches = flat_phase(torch, args, ds, flat)
     for kern in (k7a, k7b, k7c):

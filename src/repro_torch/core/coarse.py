@@ -1,6 +1,6 @@
 """Coarse quantizer over the IVF centroids (counterpart of
 ``repro.core.coarse``). Only the flat quantizer is ported; HNSW and the
-k-means tree are ROADMAP Queue 1 item 10."""
+k-means tree are ROADMAP Queue 1 item 5."""
 from __future__ import annotations
 
 from typing import NamedTuple

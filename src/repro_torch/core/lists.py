@@ -96,6 +96,17 @@ def unpack_filter_mask(bits: torch.Tensor, cap: int) -> torch.Tensor:
     return u.reshape(*bits.shape[:-1], -1)[..., :cap].to(torch.bool)
 
 
+def filter_from_attrs(store: ListStore, predicate) -> torch.Tensor:
+    """Evaluate a per-row predicate over ``store.attrs`` into a packed
+    bitmap: ``predicate`` maps the (nlist, cap) i32 attrs elementwise to
+    bool; returns (nlist, W) u8. Padded slots (id -1) are forced to 0
+    whatever the predicate says of the -1 attr sentinel."""
+    if store.attrs is None:
+        raise ValueError("ListStore holds no attrs column; build with "
+                         "build_lists(..., attrs=...)")
+    return pack_filter_mask(predicate(store.attrs) & (store.ids >= 0))
+
+
 def filter_pass_sizes(store: ListStore, filter_bits: torch.Tensor
                       ) -> torch.Tensor:
     """Rows per list that pass the filter: (nlist, W) u8 -> (nlist,) i32.

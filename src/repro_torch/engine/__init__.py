@@ -1,5 +1,7 @@
 """The port's search engine (counterpart of ``repro.engine``)."""
 from repro_torch.engine.engine import (EngineConfig, QueryStats, SearchEngine,
                                        SearchResult)
+from repro_torch.engine.graphs import fused_cache_size
 
-__all__ = ["EngineConfig", "QueryStats", "SearchEngine", "SearchResult"]
+__all__ = ["EngineConfig", "QueryStats", "SearchEngine", "SearchResult",
+           "fused_cache_size"]

@@ -16,17 +16,19 @@ The serving query path, as pure functions of (coarse, index, tensors):
      top-k;
   4. ``make_stats``: the per-query ``QueryStats`` counters.
 
-``SearchEngine.search`` composes them eagerly. PyTorch has no counterpart
-of the reference's fused ``jax.jit`` program; ``search_jit`` keeps the
-reference's name and runs the same eager pipeline (CUDA-graph capture per
-shape bucket is ROADMAP work).
+``SearchEngine.search`` composes them eagerly; ``SearchEngine.search_jit``
+replays the same pipeline as one captured CUDA graph per (shape, knobs,
+presence of each optional input, state) key (``engine.graphs``, the
+counterpart of the reference's fused ``jax.jit``), bit for bit equal to
+``search``. Per query: optional filter bitmaps, namespaces (tenant ids
+into the engine's list-membership table), a margin width.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-namespaces, mutation (upsert/delete/compact, tombstoned stores), HNSW/tree
-coarse.
+mutation (upsert/delete/compact, tombstoned stores), HNSW/tree coarse.
 """
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -35,9 +37,11 @@ from repro_torch.core import coarse as coarse_mod
 from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import lists as lists_mod
 from repro_torch.core import topk as topk_mod
+from repro_torch.core.kmeans import pairwise_sqdist
 from repro_torch.core.lists import (filter_pass_sizes, filter_words,
                                     unpack_filter_mask)
 from repro_torch.device import resolve_device
+from repro_torch.engine import graphs as graphs_mod
 from repro_torch.engine import rerank as rerank_mod
 from repro_torch.kernels import ops as ops_mod
 from repro_torch.kernels.ops import RERANK_IMPLS, SCAN_IMPLS
@@ -128,15 +132,32 @@ def validate_config(config: EngineConfig, *, coarse_kind: str,
 
 
 def coarse_probes(coarse: coarse_mod.FlatCoarse, q: torch.Tensor, *,
-                  nprobe: int, probe_policy: str = "fixed",
+                  nprobe: int, ns_member: torch.Tensor | None = None,
+                  namespaces: torch.Tensor | None = None,
+                  probe_policy: str = "fixed",
                   margin_tau: torch.Tensor | float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage 1: the nprobe nearest lists. Returns (probes (Q, nprobe) i32,
     -1 = no probe; lists_pruned (Q,) i32). Under ``probe_policy='margin'``
     a probe survives only while its centroid distance is within
     ``(1 + margin_tau) x`` the query's best (``core.topk.
-    margin_prune_probes``; scalar or (Q,) tau, None or +inf keeps all)."""
-    vals, probes = coarse.search(q, nprobe)
+    margin_prune_probes``; scalar or (Q,) tau, None or +inf keeps all).
+
+    Namespaces: ``ns_member`` is the engine's (n_ns, nlist) bool table and
+    ``namespaces`` the (Q,) i32 tenant of each query (-1 = unrestricted).
+    The restriction is fused into probe selection (``masked_topk`` over the
+    allowed lists), so a tenant's scan touches only its own lists; a
+    tenant with fewer than nprobe lists gets -1 probes. With every query at
+    -1 the result is bit for bit ``smallest_k``'s. A tenant id past the
+    table reads its last row, as the reference's clamped gather does.
+    """
+    if ns_member is not None and namespaces is not None:
+        row = torch.clamp(namespaces, 0, ns_member.shape[0] - 1).long()
+        allow = (namespaces < 0)[:, None] | ns_member[row]
+        vals, probes = topk_mod.masked_topk(
+            pairwise_sqdist(q, coarse.centroids), allow, nprobe)
+    else:
+        vals, probes = coarse.search(q, nprobe)
     if probe_policy == "margin":
         tau = torch.inf if margin_tau is None else margin_tau
         return topk_mod.margin_prune_probes(vals, probes, tau)
@@ -226,16 +247,18 @@ def make_stats(index: ivf_mod.IVFIndex, probes: torch.Tensor,
 
 
 def _pipeline(coarse, index: ivf_mod.IVFIndex, base: torch.Tensor | None,
-              norms: torch.Tensor | None, q: torch.Tensor,
-              filter_bits: torch.Tensor | None,
+              norms: torch.Tensor | None, ns_member: torch.Tensor | None,
+              q: torch.Tensor, filter_bits: torch.Tensor | None,
+              namespaces: torch.Tensor | None,
               margin_tau: torch.Tensor | None = None, *, k: int, nprobe: int,
               r: int, scan_impl: str, rerank_impl: str,
               probe_policy: str = "fixed", early_exit: bool = False
               ) -> SearchResult:
-    """The whole query path as one function (stages 1-4 + stats)."""
-    probes, lists_pruned = coarse_probes(coarse, q, nprobe=nprobe,
-                                         probe_policy=probe_policy,
-                                         margin_tau=margin_tau)
+    """The whole query path as one function (stages 1-4 + stats). A
+    namespace-excluded probe is -1, so it counts in no stat."""
+    probes, lists_pruned = coarse_probes(
+        coarse, q, nprobe=nprobe, ns_member=ns_member, namespaces=namespaces,
+        probe_policy=probe_policy, margin_tau=margin_tau)
     flat_d, flat_ids, tiles_skipped = scan_candidates(
         index, q, probes, scan_impl=scan_impl, keep=(r * k) if r else k,
         filter_bits=filter_bits, early_exit=early_exit,
@@ -252,6 +275,8 @@ class SearchEngine:
 
     The engine lives on the device of its index. ``base`` (the raw float
     vectors) is optional; without it re-rank requests are rejected.
+    ``namespaces`` is an optional (n_ns, nlist) bool membership table, kept
+    as ``ns_member``: row t = the lists holding tenant t's vectors.
     """
 
     def __init__(self, index: ivf_mod.IVFIndex, *,
@@ -261,12 +286,10 @@ class SearchEngine:
                  namespaces=None, base_norms: torch.Tensor | None = None):
         """``base_norms`` takes precomputed ``‖x‖²`` of the base rows (a
         carried-over index brings its own); they are derived when absent."""
-        if namespaces is not None:
-            raise _not_ported("namespaces", "5b")
         lists = index.lists
         live = torch.sum(lists.ids >= 0, dim=-1, dtype=torch.int32)
         if bool(torch.any(live != lists.sizes)):
-            raise _not_ported("a store holding tombstones (mutation)", "7")
+            raise _not_ported("a store holding tombstones (mutation)", "4")
         self.device = index.centroids.device
         self.index = index
         self.base = None if base is None else base.to(self.device)
@@ -276,16 +299,25 @@ class SearchEngine:
             self.base_norms = lists_mod.base_norms(self.base)
         else:
             self.base_norms = base_norms.to(self.device)
+        if namespaces is not None:
+            namespaces = torch.as_tensor(namespaces, dtype=torch.bool,
+                                         device=self.device)
+            if namespaces.ndim != 2 or namespaces.shape[1] != lists.nlist:
+                raise ValueError(
+                    f"namespaces must be (n_ns, nlist={lists.nlist}) bool "
+                    f"membership, got shape {tuple(namespaces.shape)}")
+        self.ns_member = namespaces
         self.config = config or EngineConfig()
         if isinstance(coarse, coarse_mod.FlatCoarse):
             self.coarse = coarse
         elif coarse == "flat":
             self.coarse = coarse_mod.build_flat(index.centroids)
         else:
-            raise _not_ported(f"coarse={coarse!r}", "10")
+            raise _not_ported(f"coarse={coarse!r}", "5")
         self.coarse_kind = "flat"
         validate_config(self.config, coarse_kind=self.coarse_kind,
                         has_base=base is not None)
+        self.graphs = graphs_mod.GraphCache(self.device)
 
     @classmethod
     def build(cls, train_x, base_x, *, m: int, nlist: int,
@@ -334,8 +366,6 @@ class SearchEngine:
 
     def _resolve(self, queries, nprobe, rerank_mult, filter_bits, namespaces,
                  margin_tau):
-        if namespaces is not None:
-            raise _not_ported("namespaces", "5b")
         q = self._queries(queries)
         nprobe = self.config.nprobe if nprobe is None else nprobe
         r = self.config.rerank_mult if rerank_mult is None else rerank_mult
@@ -346,9 +376,15 @@ class SearchEngine:
                 "EngineConfig(probe_policy='margin')")
         tau = None
         if self.config.probe_policy == "margin":
-            tau = torch.as_tensor(
-                self.config.margin_tau if margin_tau is None else margin_tau,
-                dtype=torch.float32, device=self.device)
+            tau = self.config.margin_tau if margin_tau is None else margin_tau
+            if isinstance(tau, numbers.Real):
+                # filled on the device: a host copy would wait for the
+                # stream's queued work
+                tau = torch.full((), float(tau), dtype=torch.float32,
+                                 device=self.device)
+            else:
+                tau = torch.as_tensor(tau, dtype=torch.float32,
+                                      device=self.device)
             if tau.ndim not in (0, 1) or (tau.ndim == 1
                                           and tau.shape != (q.shape[0],)):
                 raise ValueError(
@@ -369,44 +405,93 @@ class SearchEngine:
                     f"shape {tuple(filter_bits.shape)}")
             filter_bits = filter_bits[:, :filter_words(cap)].to(
                 torch.uint8).contiguous()
-        return q, nprobe, r, filter_bits, tau
+        if namespaces is not None:
+            if self.ns_member is None:
+                raise ValueError(
+                    "per-query namespaces given but the engine was built "
+                    "without a namespace table (pass namespaces=(n_ns, nlist) "
+                    "bool membership to SearchEngine)")
+            namespaces = torch.as_tensor(namespaces, dtype=torch.int32,
+                                         device=self.device)
+            if namespaces.ndim == 0:
+                namespaces = namespaces[None]
+            if namespaces.shape != (q.shape[0],):
+                raise ValueError(
+                    f"namespaces must be ({q.shape[0]},) i32 (one per query, "
+                    f"-1 = unrestricted), got shape "
+                    f"{tuple(namespaces.shape)}")
+            namespaces = namespaces.contiguous()
+        return q, nprobe, r, filter_bits, namespaces, tau
+
+    def _bind(self, *, k: int, nprobe: int, r: int):
+        """The pipeline over one snapshot of the engine's state: (fn of
+        (q, filter_bits, namespaces, margin_tau), the state tensors fn
+        reads)."""
+        coarse, index, base, norms = (self.coarse, self.index, self.base,
+                                      self.base_norms)
+        member, cfg = self.ns_member, self.config
+
+        def fn(q, fb, ns, tau):
+            return _pipeline(coarse, index, base, norms,
+                             member if ns is not None else None, q, fb, ns,
+                             tau, k=k, nprobe=nprobe, r=r,
+                             scan_impl=cfg.scan_impl,
+                             rerank_impl=cfg.rerank_impl,
+                             probe_policy=cfg.probe_policy,
+                             early_exit=cfg.early_exit)
+        lists = index.lists
+        return fn, (lists.codes, lists.ids, lists.sizes, index.centroids,
+                    index.codebook.codewords, coarse.centroids, base, norms,
+                    member)
 
     def search(self, queries, k: int = 10, *, nprobe: int | None = None,
                rerank_mult: int | None = None, filter_bits=None,
                namespaces=None, margin_tau=None) -> SearchResult:
-        """Batched ANN search. queries: (Q, D) or (D,), moved to the
-        engine's device. ``rerank_mult`` overrides the config (0 = pure
+        """Batched ANN search, eagerly. queries: (Q, D) or (D,), moved to
+        the engine's device. ``rerank_mult`` overrides the config (0 = pure
         fast-scan); ``filter_bits`` is an optional (nlist, W) packed
         per-row bitmap (bit 1 = the row may appear in results);
-        ``margin_tau`` (scalar or (Q,)) overrides the config's margin width
-        for this request, only under ``probe_policy='margin'``."""
-        q, nprobe, r, fb, tau = self._resolve(queries, nprobe, rerank_mult,
-                                              filter_bits, namespaces,
-                                              margin_tau)
-        cfg = self.config
+        ``namespaces`` an optional (Q,) i32 of per-query tenant ids into
+        ``ns_member``, -1 = unrestricted; ``margin_tau`` (scalar or (Q,))
+        overrides the config's margin width for this request, only under
+        ``probe_policy='margin'``."""
+        q, nprobe, r, fb, ns, tau = self._resolve(queries, nprobe, rerank_mult,
+                                                  filter_bits, namespaces,
+                                                  margin_tau)
+        fn, _ = self._bind(k=k, nprobe=nprobe, r=r)
         with torch.no_grad():
-            return _pipeline(self.coarse, self.index, self.base,
-                             self.base_norms, q, fb, tau, k=k, nprobe=nprobe,
-                             r=r, scan_impl=cfg.scan_impl,
-                             rerank_impl=cfg.rerank_impl,
-                             probe_policy=cfg.probe_policy,
-                             early_exit=cfg.early_exit)
+            return fn(q, fb, ns, tau)
 
     def search_jit(self, queries, k: int = 10, *, nprobe: int | None = None,
                    rerank_mult: int | None = None, filter_bits=None,
                    namespaces=None, margin_tau=None) -> SearchResult:
-        """The reference's serving entry point, under its name. PyTorch runs
-        eagerly, so this is the same pipeline as ``search`` (no compiled
-        program); CUDA-graph capture per shape bucket is ROADMAP work."""
-        return self.search(queries, k, nprobe=nprobe, rerank_mult=rerank_mult,
-                           filter_bits=filter_bits, namespaces=namespaces,
-                           margin_tau=margin_tau)
+        """The reference's serving entry point: ``search``'s semantics and,
+        bit for bit, its results, as one CUDA graph replay per batch
+        (``engine.graphs``: one graph per (shape, knobs, presence of each
+        optional input, state) key, ``fused_cache_size``). The values of
+        the queries, filter, namespaces and tau never capture a new graph.
+        On the CPU (only when asked for) it runs ``search``'s pipeline and
+        captures nothing."""
+        q, nprobe, r, fb, ns, tau = self._resolve(queries, nprobe, rerank_mult,
+                                                  filter_bits, namespaces,
+                                                  margin_tau)
+        fn, state = self._bind(k=k, nprobe=nprobe, r=r)
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                return fn(q, fb, ns, tau)
+            cfg = self.config
+            key = graphs_mod.graph_key(
+                q, (fb, ns, tau),
+                knobs=(k, nprobe, r, cfg.scan_impl, cfg.rerank_impl,
+                       cfg.probe_policy, cfg.early_exit),
+                state=graphs_mod.state_identity(state))
+            return self.graphs.run(key, state, fn, (q, fb, ns, tau))
 
     def upsert(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.upsert (mutation)", "7")
+        raise _not_ported("SearchEngine.upsert (mutation)", "4")
 
     def delete(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.delete (mutation)", "7")
+        raise _not_ported("SearchEngine.delete (mutation)", "4")
 
     def compact(self, *args, **kwargs):
-        raise _not_ported("SearchEngine.compact (mutation)", "7")
+        raise _not_ported("SearchEngine.compact (mutation)", "4")

@@ -3,7 +3,8 @@
 The dict has the keys the reference's snapshot writes for a single-host
 engine: ``codes``, ``ids``, ``sizes``, optional ``attrs`` (the list store),
 ``centroids``, ``codebook`` (the (M, 16, dsub) codewords) and optional
-``base`` / ``base_norms``. An index built by ``repro`` reaches the port
+``base`` / ``base_norms`` and ``ns_member`` (the (n_ns, nlist) bool
+namespace table). An index built by ``repro`` reaches the port
 through this dict, and ``arrays_from_engine`` writes the same dict back.
 
 A flat fast-scan index (``core.fastscan.FastScanIndex``) crosses as
@@ -23,8 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.engine import EngineConfig, SearchEngine
 
 # keys a snapshot may carry for features the port does not have yet
-_NOT_PORTED = {"live_bits": "tombstones (mutation)",
-               "ns_member": "namespaces"}
+_NOT_PORTED = {"live_bits": "tombstones (mutation)"}
 
 
 def _f32(arrays: dict, key: str, dev: torch.device) -> torch.Tensor:
@@ -45,7 +45,7 @@ def engine_from_arrays(arrays: dict[str, np.ndarray], *,
                        device: str | torch.device | None = None
                        ) -> SearchEngine:
     """Rebuild a flat-coarse ``SearchEngine`` on ``device``, with the base
-    and its norms when the dict carries them."""
+    and its norms and the namespace table when the dict carries them."""
     for key, what in _NOT_PORTED.items():
         if key in arrays:
             raise NotImplementedError(
@@ -56,11 +56,15 @@ def engine_from_arrays(arrays: dict[str, np.ndarray], *,
     base = _f32(arrays, "base", dev) if "base" in arrays else None
     norms = (_f32(arrays, "base_norms", dev)
              if base is not None and "base_norms" in arrays else None)
-    return SearchEngine(index, base=base, config=config, base_norms=norms)
+    member = (torch.from_numpy(np.array(arrays["ns_member"], bool))
+              if "ns_member" in arrays else None)
+    return SearchEngine(index, base=base, config=config, base_norms=norms,
+                        namespaces=member)
 
 
 def arrays_from_engine(engine: SearchEngine) -> dict[str, np.ndarray]:
-    """The inverse: an engine's index (and base) as host arrays."""
+    """The inverse: an engine's index (and base, namespace table) as host
+    arrays."""
     idx = engine.index
     out = dict(store_arrays(idx.lists))
     out["centroids"] = idx.centroids.cpu().numpy()
@@ -68,6 +72,8 @@ def arrays_from_engine(engine: SearchEngine) -> dict[str, np.ndarray]:
     if engine.base is not None:
         out["base"] = engine.base.cpu().numpy()
         out["base_norms"] = engine.base_norms.cpu().numpy()
+    if engine.ns_member is not None:
+        out["ns_member"] = engine.ns_member.cpu().numpy()
     return out
 
 

@@ -51,6 +51,9 @@ from repro_torch.kernels import select_kernel as sk
 from repro_torch.kernels import stream_grouped_kernel as sgk
 from repro_torch.kernels import stream_prune_kernel as spk
 
+# every kernel's module (each counts its launches in ``launches``)
+KERNEL_MODULES = (fk, rk, sgk, spk, sk, mk, sfk, mfk, bk)
+
 GROUPED_IMPLS = ("ref", "select", "mxu", "stream")
 IMPLS = ("ref", "select", "mxu")
 SCAN_IMPLS = GROUPED_IMPLS + ("auto",)
@@ -386,10 +389,16 @@ def _resolve_cached(sig: tuple, sweep_fn, *args) -> TunedScan:
     """Shared resolve-or-sweep path of the scan and re-rank autotuners: one
     sweep per signature per process. (The reference runs the sweep on a
     worker thread to escape an ambient jax trace; torch runs eagerly, so
-    it runs here, under the lock.)"""
+    it runs here, under the lock.) A miss while a CUDA stream is capturing
+    a graph raises: the sweep synchronizes the card, which a capture
+    cannot hold, so every verdict is resolved before capture."""
     hit = _AUTOTUNE_CACHE.get(sig)
     if hit is not None:
         return hit
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"autotune signature {sig} was not resolved before CUDA graph "
+            "capture; run the pipeline eagerly once first")
     with _AUTOTUNE_LOCK:
         hit = _AUTOTUNE_CACHE.get(sig)  # racing thread may have resolved it
         if hit is not None:

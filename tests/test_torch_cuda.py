@@ -9,6 +9,11 @@ it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 (``--noconftest`` because ``tests/conftest.py`` imports jax.)
 """
+import functools
+import gc
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +23,8 @@ from repro_torch.core import fastscan as fs
 from repro_torch.core import pq
 from repro_torch.core.lists import pack_filter_mask
 from repro_torch.data.vectors import make_sift_like
-from repro_torch.engine import EngineConfig, SearchEngine
+from repro_torch.engine import EngineConfig, SearchEngine, fused_cache_size
+from repro_torch.engine import graphs
 from repro_torch.kernels import _build
 from repro_torch.kernels import blockmin_kernel as bk
 from repro_torch.kernels import fastscan_kernel as fk
@@ -673,3 +679,272 @@ def test_flat_search_card_equals_host(dev):
     tol = 1e-5 * wv.abs().amax(dim=1, keepdim=True)
     close = (gv.cpu() - wv).abs() <= tol
     assert bool(close.all()) and bool(((gi.cpu() == wi) | close).all())
+
+
+# ---------------------------------------------------------------------------
+# search_jit: one captured CUDA graph per key, held bit for bit against the
+# eager search
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _graph_setup():
+    """A 20k x 32 index over 64 lists with a 4-tenant namespace table (each
+    tenant a random quarter of the lists), queries, a ~50% filter, tenants
+    with a quarter of the queries unrestricted, per-query tau."""
+    dev = torch.device("cuda")
+    ds = make_sift_like(n=20_000, nt=5_000, nq=32, d=32, ncl=16, seed=4,
+                        device=dev)
+    eng = SearchEngine.build(ds.train, ds.base, m=8, nlist=64,
+                             config=EngineConfig(nprobe=8), seed=0,
+                             device=dev)
+    rng = np.random.default_rng(8)
+    member = np.zeros((4, 64), bool)
+    for t, part in enumerate(np.split(rng.permutation(64), 4)):
+        member[t, part] = True
+    lists = eng.index.lists
+
+    def request(seed):
+        r = np.random.default_rng(seed)
+        mask = torch.as_tensor(r.random(tuple(lists.ids.shape)) < 0.5,
+                               device=dev) & (lists.ids >= 0)
+        ns = r.integers(0, 4, 32).astype(np.int32)
+        ns[r.permutation(32)[:8]] = -1
+        return {"filter_bits": pack_filter_mask(mask),
+                "namespaces": torch.as_tensor(ns, device=dev),
+                "margin_tau": torch.as_tensor(r.uniform(0.1, 0.6, 32),
+                                              dtype=torch.float32,
+                                              device=dev)}
+    return ds, eng, member, request
+
+
+def _graph_engine(cfg, namespaces=True):
+    _, eng, member, _ = _graph_setup()
+    return SearchEngine(eng.index, base=eng.base, base_norms=eng.base_norms,
+                        config=cfg, namespaces=member if namespaces else None)
+
+
+def _assert_bitwise(a, b, what=""):
+    assert torch.equal(a.dists, b.dists), what
+    assert torch.equal(a.ids, b.ids), what
+    for f in a.stats._fields:
+        assert torch.equal(getattr(a.stats, f), getattr(b.stats, f)), (what, f)
+
+
+def _owned(eng, res, ns):
+    """Every id a namespaced query returned lies in a list its tenant
+    owns."""
+    lists = eng.index.lists
+    owner = torch.full((eng.base.shape[0],), -1, dtype=torch.long,
+                       device=lists.ids.device)
+    li = torch.arange(lists.nlist, device=owner.device)[:, None].expand(
+        lists.ids.shape)
+    ok = lists.ids >= 0
+    owner[lists.ids[ok].long()] = li[ok]
+    for qi, t in enumerate(ns.tolist()):
+        got = res.ids[qi][res.ids[qi] >= 0].long()
+        if t >= 0 and got.numel():
+            assert bool(eng.ns_member[t][owner[got]].all()), qi
+
+
+# (scan_impl, rerank_impl, probe_policy, early_exit)
+GRAPH_CASES = [("stream", "stream", "fixed", False),
+               ("stream", "stream", "margin", True),
+               ("select", "gathered", "margin", True),
+               ("mxu", "gathered", "fixed", False),
+               ("auto", "auto", "margin", True),
+               ("auto", "auto", "fixed", False)]
+
+
+@pytest.mark.parametrize("case", range(len(GRAPH_CASES)))
+def test_search_jit_graph_equals_eager_search(dev, case):
+    scan, rerank, policy, ee = GRAPH_CASES[case]
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl=scan,
+                       rerank_impl=rerank, probe_policy=policy,
+                       margin_tau=0.4, early_exit=ee)
+    ds, _, _, request = _graph_setup()
+    eng = _graph_engine(cfg)
+    try:
+        for qq in (1, 8, 32):
+            q = ds.queries[:qq]
+            _assert_bitwise(eng.search_jit(q, 10), eng.search(q, 10), qq)
+        q = ds.queries
+        names = ["filter_bits", "namespaces"]
+        if policy == "margin":
+            names.append("margin_tau")
+        # each optional input alone and all together, two values each:
+        # the second replay of a key must see the new values
+        for use in [[n] for n in names] + [names]:
+            for seed in (1, 2):
+                kw = {n: request(seed)[n] for n in use}
+                got = eng.search_jit(q, 10, **kw)
+                _assert_bitwise(got, eng.search(q, 10, **kw), (use, seed))
+                if "namespaces" in kw:
+                    _owned(eng, got, kw["namespaces"])
+    finally:
+        ops.clear_autotune_cache()
+    assert len(eng.graphs) == 3 + len(names) + 1
+
+
+def test_search_jit_replays_new_values_and_keeps_earlier_results(dev):
+    ds, _, _, request = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream", probe_policy="margin",
+                       margin_tau=0.4, early_exit=True)
+    eng = _graph_engine(cfg)
+    q = ds.queries
+    first = eng.search_jit(q, 10, **request(1))
+    kept = tuple(t.clone() for t in (first.dists, first.ids, *first.stats))
+    n0 = ops.autotune_cache_size(), len(eng.graphs)
+    for seed in (2, 3, 4):
+        kw = request(seed)
+        qs = q.flip(0)
+        got = eng.search_jit(qs, 10, **kw)
+        _assert_bitwise(got, eng.search(qs, 10, **kw), seed)
+        assert not torch.equal(got.ids, first.ids)
+    # the caller's earlier result did not move under the later replays
+    for a, b in zip((first.dists, first.ids, *first.stats), kept):
+        assert torch.equal(a, b)
+    assert (ops.autotune_cache_size(), len(eng.graphs)) == n0
+
+
+def test_fused_cache_size_counts_one_graph_a_key(dev):
+    ds, _, _, request = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream", probe_policy="margin",
+                       margin_tau=0.4, early_exit=True)
+    eng = _graph_engine(cfg)
+    gc.collect()
+    n0 = fused_cache_size()
+    for _ in range(3):                      # steady traffic over 2 buckets
+        for qq in (1, 8):
+            eng.search_jit(ds.queries[:qq], 10)
+    assert fused_cache_size() == n0 + 2
+    for seed in (1, 2, 3):                  # new values at one key each
+        kw = request(seed)
+        eng.search_jit(ds.queries, 10, filter_bits=kw["filter_bits"])
+        eng.search_jit(ds.queries, 10, namespaces=kw["namespaces"])
+        eng.search_jit(ds.queries, 10, margin_tau=kw["margin_tau"])
+    assert fused_cache_size() == n0 + 5
+    eng.search_jit(ds.queries, 5)           # another k
+    eng.search_jit(ds.queries, 10, margin_tau=0.3)   # a scalar tau
+    assert fused_cache_size() == n0 + 7 == n0 + len(eng.graphs)
+    other = _graph_engine(cfg)
+    other.search_jit(ds.queries[:1], 10)
+    assert fused_cache_size() == n0 + 8
+    del eng, other
+    gc.collect()
+    assert fused_cache_size() == n0
+
+
+def test_capture_with_an_unresolved_verdict_raises(dev):
+    ds, _, _, _ = _graph_setup()
+    cfg = EngineConfig(nprobe=8, scan_impl="auto", rerank_impl="stream")
+    eng = _graph_engine(cfg, namespaces=False)
+    fn, state = eng._bind(k=10, nprobe=8, r=0)
+
+    def forgetful(*args):
+        ops.clear_autotune_cache()      # the warm-up's verdicts are lost
+        return fn(*args)
+    cache = graphs.GraphCache(eng.device)
+    q = ds.queries.contiguous()
+    key = graphs.graph_key(q, (None, None, None), knobs=(),
+                           state=graphs.state_identity(state))
+    try:
+        with pytest.raises(RuntimeError, match="not resolved before CUDA "
+                                               "graph capture"):
+            cache.run(key, state, forgetful, (q, None, None, None))
+        assert len(cache) == 0
+        assert ops.autotune_cache_size() == 0   # no sweep ran in the capture
+    finally:
+        ops.clear_autotune_cache()
+    # the stream still serves: a clean capture goes through
+    got = cache.run(key, state, fn, (q, None, None, None))
+    _assert_bitwise(got, eng.search(q, 10))
+    ops.clear_autotune_cache()
+
+
+def test_replacing_engine_state_drops_its_graphs(dev):
+    ds, _, member, _ = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream")
+    eng = _graph_engine(cfg)
+    q = ds.queries
+    ns = torch.zeros(32, dtype=torch.int32, device=dev)
+    eng.search_jit(q, 10)
+    eng.search_jit(q[:8], 10)
+    assert len(eng.graphs) == 2
+    old = eng.search_jit(q, 10, namespaces=ns)
+    # a new table where tenant 0 owns what tenant 1 did
+    eng.ns_member = torch.as_tensor(member[[1, 0, 2, 3]], device=dev)
+    got = eng.search_jit(q, 10, namespaces=ns)
+    assert len(eng.graphs) == 1
+    _assert_bitwise(got, eng.search(q, 10, namespaces=ns))
+    assert not torch.equal(got.ids, old.ids)
+    eng.base = eng.base.clone()
+    eng.base_norms = eng.base_norms.clone()
+    lists = eng.index.lists
+    eng.index = eng.index._replace(lists=lists._replace(
+        codes=lists.codes.clone(), ids=lists.ids.clone()))
+    for qq in (32, 8):
+        _assert_bitwise(eng.search_jit(q[:qq], 10), eng.search(q[:qq], 10))
+    assert len(eng.graphs) == 2
+
+
+def test_launch_counters_grow_with_replays(dev):
+    ds, _, _, _ = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream", probe_policy="margin",
+                       margin_tau=0.4, early_exit=True)
+    eng = _graph_engine(cfg)
+    q = ds.queries
+    eng.search_jit(q, 10)                  # warm-up, capture, replay
+    counts = []
+    for _ in range(3):
+        counts.append((spk.launches, rk.launches))
+        eng.search_jit(q, 10)
+    counts.append((spk.launches, rk.launches))
+    steps = {(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])}
+    assert steps == {(1, 1)}
+
+
+def test_search_jit_from_many_threads_serves_each_request_its_own(dev):
+    """Twelve threads on their own streams replay one key with six
+    different requests; each result must equal its eager twin (a copy-in
+    or clone racing another thread's replay would break it)."""
+    ds, _, _, request = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream", probe_policy="margin",
+                       margin_tau=0.4, early_exit=True)
+    eng = _graph_engine(cfg)
+    q = ds.queries
+    reqs = [request(seed) for seed in range(10, 16)]
+    want = [eng.search(q, 10, **kw) for kw in reqs]
+    eng.search_jit(q, 10, **reqs[0])
+    torch.cuda.synchronize()            # the workers read want on theirs
+    bad, done = [], []
+
+    def worker(i):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for j in range(20):
+                r = (i + j) % len(reqs)
+                got = eng.search_jit(q, 10, **reqs[r])
+                try:
+                    _assert_bitwise(got, want[r])
+                except AssertionError:
+                    bad.append((i, j))
+        done.append(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(done) == 12 and not bad, bad
+    assert len(eng.graphs) == 1

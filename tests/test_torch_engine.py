@@ -188,16 +188,11 @@ def test_interop_round_trip(arrays, tengine):
 
 
 def test_not_yet_ported_features_raise(tengine, arrays, ds):
-    q = np.asarray(ds.queries)[:2]
-    with pytest.raises(NotImplementedError, match="namespaces"):
-        tengine.search_jit(q, 10, namespaces=np.zeros(2, np.int32))
-    with pytest.raises(NotImplementedError, match="namespaces"):
-        SearchEngine(tengine.index, namespaces=np.ones((1, 16), bool))
     for cfg in (EngineConfig(scan_impl="simd"),
                 EngineConfig(rerank_impl="exact")):
         with pytest.raises(ValueError, match="unknown"):
             SearchEngine(tengine.index, config=cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         SearchEngine(tengine.index, coarse="hnsw")
     for op in (tengine.upsert, tengine.delete, tengine.compact):
         with pytest.raises(NotImplementedError, match="mutation"):

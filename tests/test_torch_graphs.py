@@ -1,0 +1,113 @@
+"""The graph cache behind ``search_jit``, off the card: its key, the CPU
+path (eager, nothing captured) and the autotuner's refusal to sweep while a
+stream captures. Graph replays themselves are card tests
+(``tests/test_torch_cuda.py``)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.engine import EngineConfig, fused_cache_size
+from repro_torch.engine import graphs
+from repro_torch.kernels import ops
+
+NLIST, CAP, M, D = 8, 32, 8, 32
+KNOBS = (10, 4, 0, "stream", "stream", "margin", True)
+
+
+def _engine(namespaces=True):
+    rng = np.random.default_rng(0)
+    arrays = {"codes": rng.integers(0, 256, (NLIST, CAP, M // 2), np.uint8),
+              "ids": np.arange(NLIST * CAP, dtype=np.int32).reshape(NLIST,
+                                                                    CAP),
+              "sizes": np.full(NLIST, CAP, np.int32),
+              "centroids": rng.normal(size=(NLIST, D)).astype(np.float32),
+              "codebook": rng.normal(size=(M, 16, D // M)).astype(np.float32),
+              "base": rng.normal(size=(NLIST * CAP, D)).astype(np.float32)}
+    if namespaces:
+        arrays["ns_member"] = rng.random((3, NLIST)) < 0.5
+    cfg = EngineConfig(nprobe=4, probe_policy="margin", margin_tau=0.4,
+                       early_exit=True, scan_impl="stream",
+                       rerank_impl="stream")
+    return interop.engine_from_arrays(arrays, config=cfg, device="cpu")
+
+
+def _key(eng, q, fb=None, ns=None, tau=None, knobs=KNOBS):
+    _, state = eng._bind(k=10, nprobe=4, r=0)
+    return graphs.graph_key(q, (fb, ns, tau), knobs=knobs,
+                            state=graphs.state_identity(state))
+
+
+def test_graph_key_ignores_values_and_holds_shapes_knobs_presence_state():
+    eng = _engine()
+    rng = np.random.default_rng(1)
+
+    def t(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.integers(0, 3, shape)).to(dtype)
+
+    fb = (NLIST, CAP // 8)
+    base = _key(eng, t((8, D)), t(fb, torch.uint8), t((8,), torch.int32),
+                t((8,)))
+    # values of queries, filter, namespaces and tau never enter the key
+    for _ in range(3):
+        assert _key(eng, t((8, D)), t(fb, torch.uint8), t((8,), torch.int32),
+                    t((8,))) == base
+    q, f = t((8, D)), t(fb, torch.uint8)
+    ns, tau = t((8,), torch.int32), t((8,))
+    other = [
+        _key(eng, t((9, D)), f, t((9,), torch.int32), t((9,))),   # Q
+        _key(eng, t((8, D + 1)), f, ns, tau),                     # D
+        _key(eng, q, None, ns, tau),                              # presence
+        _key(eng, q, f, None, tau),
+        _key(eng, q, f, ns, None),
+        _key(eng, q, f, ns, t(())),                               # tau shape
+    ]
+    for i in range(len(KNOBS)):                                   # each knob
+        knobs = list(KNOBS)
+        knobs[i] = {int: 99, str: "select", bool: False}[type(KNOBS[i])]
+        other.append(_key(eng, q, f, ns, tau, knobs=tuple(knobs)))
+    assert base not in other and len(set(other)) == len(other)
+    # the identity of every state tensor the graph reads
+    for attr in ("base", "base_norms", "ns_member"):
+        setattr(eng, attr, getattr(eng, attr).clone())
+        now = _key(eng, q, f, ns, tau)
+        assert now != base
+        base = now
+    lists = eng.index.lists
+    eng.index = eng.index._replace(lists=lists._replace(
+        codes=lists.codes.clone()))
+    assert _key(eng, q, f, ns, tau) != base
+
+
+def test_search_jit_on_the_cpu_captures_nothing_and_is_search():
+    eng = _engine()
+    q = np.random.default_rng(2).normal(size=(6, D)).astype(np.float32)
+    ns = np.asarray([0, 1, 2, -1, 0, 1], np.int32)
+    n0 = fused_cache_size()
+    for kw in ({}, {"namespaces": ns}, {"margin_tau": np.full(6, 0.2)},
+               {"rerank_mult": 4, "namespaces": ns}):
+        a = eng.search(q, 5, **kw)
+        b = eng.search_jit(q, 5, **kw)
+        assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
+        for x, y in zip(a.stats, b.stats):
+            assert torch.equal(x, y)
+    assert fused_cache_size() == n0 and len(eng.graphs) == 0
+
+
+def test_an_unresolved_verdict_raises_while_a_stream_captures(monkeypatch):
+    ops.clear_autotune_cache()
+    try:
+        seen = ops.resolve_grouped_impl(8, 32, 8, device="cpu")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+        # a resolved signature is served from the table
+        assert ops.resolve_grouped_impl(8, 32, 8, device="cpu") == seen
+        with pytest.raises(RuntimeError, match="not resolved before CUDA "
+                                               "graph capture"):
+            ops.resolve_grouped_impl(16, 32, 8, device="cpu")
+        with pytest.raises(RuntimeError, match="'rerank'"):
+            ops.resolve_rerank_impl(4, 40, D, 10, 256, device="cpu")
+        assert ops.autotune_cache_size() == 1     # no sweep ran
+    finally:
+        ops.clear_autotune_cache()
