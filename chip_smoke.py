@@ -30,6 +30,20 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      (K7c) over the million codes; 'select' must equal 'mxu' bit for bit
      and the recall@10 gap between fast-scan and naive PQ stay under 0.05.
 
+  4. live mutation on the stream path's configuration, on an engine of
+     its own over the stream engine's index (its first write clones the
+     store and base, and the stream engine's are checked unchanged after
+     the phase): compact to cap 5120,
+     10,000 new ids, 10,000 deletes and 2,000 re-upserts in batches of
+     1,000, compact; after each batch ``search_jit`` == ``search`` bit for
+     bit, no deleted id returned and each upserted row found first at
+     distance 0, the graphs kept by every batch that keeps the shapes;
+     then the store against a rebuild from its own codes in write order,
+     build-time codes against ``encode_rows``, and recall over the
+     survivors. It prints upsert rows/s and delete ms a batch, compact
+     seconds, the locator's build time, Q=32 ``search_jit`` latency before
+     and after, and the graphs dropped.
+
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
 (the stream configuration, and the anytime one under verdicts pinned in a
@@ -1536,6 +1550,297 @@ def flat_phase(torch, args, ds, index) -> dict:
     return launches
 
 
+MUT_BATCH = 1000              # rows a mutation batch
+MUT_NEW, MUT_DELETE, MUT_REUPSERT = 10_000, 10_000, 2_000
+MUT_CAP = 5120                # 5 x 1024: spare slots, 1024-row scan tiles
+
+
+def sift_rows(torch, args, n: int, d: int, dev):
+    """New rows from the dataset's generator (``make_sift_like`` with the
+    data's seed: the same clusters, other draws), rounded to integers as
+    SIFT descriptors are: a row's distance to itself is then exactly 0 in
+    any summation order."""
+    from repro_torch.data.vectors import make_sift_like
+    rows = make_sift_like(n=n, nt=1, nq=1, d=d, seed=args.seed,
+                          device=dev).base
+    return torch.round(rows)
+
+
+def encoder_check(torch, engine, base) -> None:
+    """How many build-time codes differ from ``encode_rows``' for the same
+    rows (the build encodes through it, so none may), and how many a GEMM
+    at the reference's 65,536-row build chunks would assign or encode
+    otherwise (the batch-shape effect the fixed-shape encoder removes)."""
+    from repro_torch.core import fastscan as fs
+    from repro_torch.core import pq
+    from repro_torch.core.ivf import encode_rows
+    from repro_torch.core.kmeans import pairwise_sqdist
+    idx = engine.index
+    t0 = time.perf_counter()
+    assign, packed = encode_rows(idx.centroids, idx.codebook, base)
+    enc_s = time.perf_counter() - t0
+    ids = idx.lists.ids.cpu().numpy()
+    ls, ss = np.nonzero(ids >= 0)
+    g = ids[ls, ss]
+    codes = idx.lists.codes.cpu().numpy()[ls, ss]
+    differ = int(((assign[g] != ls) | (packed[g] != codes).any(1)).sum())
+    gemm_a, gemm_p = [], []
+    with torch.no_grad():
+        for s in range(0, base.shape[0], 65536):
+            x = base[s:s + 65536]
+            a = torch.argmin(pairwise_sqdist(x, idx.centroids), dim=-1)
+            gemm_a.append(a)
+            gemm_p.append(fs.pack_codes(pq.encode(idx.codebook,
+                                                  x - idx.centroids[a])))
+    gemm_a = torch.cat(gemm_a).cpu().numpy()
+    gemm_p = torch.cat(gemm_p).cpu().numpy()
+    moved = int((gemm_a != assign).sum())
+    recoded = int(((gemm_a == assign) & (gemm_p != packed).any(1)).sum())
+    log(f"mutation: encode_rows over the {base.shape[0]} base rows "
+        f"{enc_s:.2f} s; build-time codes that differ from encode_rows': "
+        f"{differ}; a GEMM at 65536-row chunks (the reference's build) "
+        f"assigns {moved} rows to another list and encodes {recoded} more "
+        f"otherwise")
+    if differ:
+        raise AssertionError(f"mutation: {differ} build-time codes differ "
+                             "from encode_rows'")
+
+
+def mutation_phase(torch, args, engine, ds) -> dict:
+    """Live mutation on the stream path's configuration, on an engine of
+    its own over the stream engine's index (its first write clones the
+    store and base, so the stream engine's stay as they were, which is
+    checked at the end): compact to MUT_CAP, then
+    MUT_NEW new ids, MUT_DELETE deletes and MUT_REUPSERT re-upserts in
+    batches of MUT_BATCH, then compact. After each batch: search_jit ==
+    search bit for bit, no deleted id returned, each upserted row found
+    first at distance 0 by its own vector, the graph count unchanged on
+    shape-keeping batches. At the end: the store equals a rebuild from its
+    own codes laid out in write order, the two engines' results are equal
+    on the stream and the gathered path, and recall against exact ground
+    truth over the survivors. Returns the path's launch counts."""
+    from repro_torch.core.lists import build_lists
+    from repro_torch.core.metrics import intersection_recall
+    from repro_torch.data.vectors import exact_ground_truth
+    from repro_torch.engine import SearchEngine, fused_cache_size
+    idx = engine.index
+    lists = idx.lists
+    cfg = engine.config
+    encoder_check(torch, engine, ds.base)
+    ids_given = lists.ids.clone()
+    mut = SearchEngine(idx, base=engine.base, base_norms=engine.base_norms,
+                       config=cfg)
+    n = engine.base.shape[0]
+    nlist = lists.nlist
+    dev = engine.device
+    q32 = ds.queries[:32].contiguous()
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, loc_s = synced(lambda: mut.locate(0))       # built on first use
+    _, compact0 = synced(lambda: mut.compact(cap=MUT_CAP))
+    log(f"mutation: the locator over {n} rows built in {loc_s * 1e3:.1f} "
+        f"ms; compact to cap {MUT_CAP} (from {lists.cap}) {compact0:.3f} "
+        f"s; spare slots a list >= {MUT_CAP - int(lists.sizes.max())}")
+    q_other = ds.queries[32:64].contiguous()
+
+    def recall(what):
+        """Intersection recall@K of search_jit against exact ground truth
+        over the live rows, for the check queries (their true neighbours
+        are the first rows deleted) and for 32 others."""
+        live = torch.as_tensor(np.nonzero(alive)[0], device=dev)
+        out = []
+        for qs in (q32, q_other):
+            gt = live[exact_ground_truth(mut.base[live], qs, g=K).long()]
+            out.append(float(intersection_recall(
+                mut.search_jit(qs, K).ids.long(), gt)))
+        log(f"mutation: intersection recall@{K} {what} over "
+            f"{int(alive.sum())} live rows: {out[0]:.4f} (the check "
+            f"queries), {out[1]:.4f} (32 others)")
+
+    def latency(what):
+        _, first = synced(lambda: mut.search_jit(q32, K))
+        steady = sorted(synced(lambda: mut.search_jit(q32, K))[1]
+                        for _ in range(9))
+        log(f"mutation: Q=32 search_jit {what}: first call "
+            f"{first * 1e3:.3f} ms, steady median {steady[4] * 1e3:.3f} ms "
+            f"(of 9, host clock + synchronize)")
+    latency("before mutation")
+
+    # host model: which gids live, in what order they were written, where
+    n_max = n + MUT_NEW
+    alive = np.zeros(n_max, bool)
+    alive[:n] = True
+    seq = np.zeros(n_max, np.int64)
+    seq[:n] = np.arange(n)           # the build lays each list in id order
+    list_of = np.full(n_max, -1, np.int64)
+    ids0 = mut.index.lists.ids.cpu().numpy()
+    l0, _ = np.nonzero(ids0 >= 0)
+    list_of[ids0[ids0 >= 0]] = l0
+    written = [n]
+    dead_dev = torch.zeros(n_max, dtype=torch.bool, device=dev)
+    recall("before mutation")
+
+    def check(what, fresh_key=False, vecs=None, gids=None):
+        jit = mut.search_jit(q32, K)
+        eager = mut.search(q32, K)
+        if not same_result(torch, jit, eager):
+            raise AssertionError(f"mutation {what}: search_jit != search")
+        got = jit.ids[jit.ids >= 0].long()
+        if bool(dead_dev[got].any()):
+            raise AssertionError(f"mutation {what}: a deleted id came back")
+        if vecs is not None:
+            hit = mut.search_jit(vecs[:32], K)
+            want = torch.as_tensor(gids[:32], device=dev)
+            if not (torch.equal(hit.ids[:, 0].long(), want)
+                    and bool((hit.dists[:, 0] == 0).all())):
+                raise AssertionError(f"mutation {what}: an upserted row is "
+                                     "not first at distance 0")
+
+    gc.collect()
+    rng = np.random.default_rng(args.seed + 11)
+    zero_counts()
+    drops0 = mut.graphs_dropped
+    rows = sift_rows(torch, args, MUT_NEW + MUT_REUPSERT,
+                     engine.base.shape[1], dev)
+    new_rows, re_rows = rows[:MUT_NEW], rows[MUT_NEW:]
+    ups, recaptures = [], []
+    for b in range(MUT_NEW // MUT_BATCH):      # new ids: the base grows
+        gids = np.arange(n + b * MUT_BATCH, n + (b + 1) * MUT_BATCH)
+        vecs = new_rows[b * MUT_BATCH:(b + 1) * MUT_BATCH]
+        assign, dt = synced(lambda: mut.upsert(gids, vecs))
+        ups.append(MUT_BATCH / dt)
+        # the graphs were dropped with the old base: this call captures
+        recaptures.append(synced(lambda: mut.search_jit(q32, K))[1] * 1e3)
+        alive[gids] = True
+        seq[gids] = written[0] + np.arange(gids.size)
+        written[0] += gids.size
+        list_of[gids] = assign
+        check(f"upsert {b}", vecs=vecs, gids=gids)
+    gc.collect()
+    graphs0, size0 = len(mut.graphs), fused_cache_size()
+    dels = []
+    # the check queries' true neighbours die first, so a stale result shows
+    first = np.unique(ds.gt_ids[:32].cpu().numpy().ravel())
+    pool = rng.permutation(np.setdiff1d(np.arange(n), first))
+    order = np.concatenate([first, pool])[:MUT_DELETE]
+    for b in range(MUT_DELETE // MUT_BATCH):
+        gids = order[b * MUT_BATCH:(b + 1) * MUT_BATCH]
+        got, dt = synced(lambda: mut.delete(gids))
+        if got != gids.size:
+            raise AssertionError(f"mutation: delete {b} removed {got}")
+        dels.append(dt * 1e3)
+        alive[gids] = False
+        dead_dev[torch.as_tensor(gids, device=dev)] = True
+        check(f"delete {b}")
+        if b == 0:
+            graphs1, size1 = len(mut.graphs), fused_cache_size()
+            log(f"mutation: the first delete added {graphs1 - graphs0} "
+                f"graph(s), fused_cache_size {size0} -> {size1}")
+            # one key in use (Q=32, k=10), now with the live-row bitmap
+            # (none off the card, where search_jit captures nothing)
+            added = int(dev.type == "cuda")
+            if (graphs1 - graphs0, size1 - size0) != (added, added):
+                raise AssertionError("mutation: the first delete should add "
+                                     "exactly the live-bits key")
+    live_old = rng.permutation(np.nonzero(alive[:n])[0])[:MUT_REUPSERT]
+    reups = []
+    for b in range(MUT_REUPSERT // MUT_BATCH):
+        gids = live_old[b * MUT_BATCH:(b + 1) * MUT_BATCH]
+        vecs = re_rows[b * MUT_BATCH:(b + 1) * MUT_BATCH]
+        assign, dt = synced(lambda: mut.upsert(gids, vecs))
+        reups.append(MUT_BATCH / dt)
+        seq[gids] = written[0] + np.arange(gids.size)
+        written[0] += gids.size
+        list_of[gids] = assign
+        check(f"re-upsert {b}", vecs=vecs, gids=gids)
+    n_tomb = mut.n_tombstones
+    reclaimed, compact1 = synced(lambda: mut.compact())
+    if reclaimed != n_tomb or mut.index.lists.cap != MUT_CAP:
+        raise AssertionError(f"mutation: compact reclaimed {reclaimed} of "
+                             f"{n_tomb}, cap {mut.index.lists.cap}")
+    check("compact")
+    gc.collect()
+    if (len(mut.graphs), fused_cache_size()) != (graphs1, size1):
+        raise AssertionError(
+            f"mutation: shape-keeping batches changed the graphs: "
+            f"{graphs1} -> {len(mut.graphs)}, fused_cache_size {size1} -> "
+            f"{fused_cache_size()}")
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log("mutation: upsert rows/s by batch (new ids): "
+        + " ".join(f"{x:.0f}" for x in ups))
+    log("mutation: Q=32 search_jit first call after each new-id batch "
+        "(a capture) ms: " + " ".join(f"{x:.3f}" for x in recaptures))
+    log("mutation: delete ms by batch: " + " ".join(f"{x:.3f}" for x in dels))
+    log("mutation: upsert rows/s by batch (re-upserts): "
+        + " ".join(f"{x:.0f}" for x in reups))
+    log(f"mutation: compact {compact1:.3f} s ({reclaimed} tombstones, cap "
+        f"{MUT_CAP}); graphs dropped by reallocating batches "
+        f"{mut.graphs_dropped - drops0}; graphs now {len(mut.graphs)}, "
+        f"unchanged by {MUT_DELETE // MUT_BATCH - 1} deletes, "
+        f"{MUT_REUPSERT // MUT_BATCH} re-upserts and the compaction; epoch "
+        f"{mut.epoch}")
+    latency("after mutation")
+
+    # the rebuild: the store's own live rows, in write order
+    st = mut.index.lists
+    ids = st.ids.cpu().numpy()
+    ls, ss = np.nonzero(ids >= 0)
+    g = ids[ls, ss]
+    if not np.array_equal(np.sort(g), np.nonzero(alive)[0]):
+        raise AssertionError("mutation: the store's live ids are not the "
+                             "model's")
+    if not np.array_equal(list_of[g], ls):
+        raise AssertionError("mutation: a row lies in another list than "
+                             "it was routed to")
+    for gid in rng.choice(g, 5, replace=False):
+        j = int(np.nonzero(g == gid)[0][0])
+        if mut.locate(int(gid)) != (int(ls[j]), int(ss[j])):
+            raise AssertionError(f"mutation: locate({gid}) is wrong")
+    by_write = np.argsort(seq[g], kind="stable")
+    codes = st.codes.cpu().numpy()[ls, ss]
+    rebuilt = build_lists(ls[by_write], codes[by_write], nlist=nlist,
+                          cap=st.cap, ids=g[by_write], device=dev)
+    for name in ("codes", "ids", "sizes"):
+        if not torch.equal(getattr(rebuilt, name), getattr(st, name)):
+            raise AssertionError(f"mutation: the store's {name} differ "
+                                 "from the rebuild's")
+    gathered = cfg._replace(scan_impl="select", rerank_impl="gathered")
+    for what, c in (("stream", cfg), ("gathered", gathered)):
+        a = SearchEngine(mut.index, base=mut.base, base_norms=mut.base_norms,
+                         config=c)
+        o = SearchEngine(mut.index._replace(lists=rebuilt), base=mut.base,
+                         base_norms=mut.base_norms, config=c)
+        for call in ("search", "search_jit"):
+            ra, ro = getattr(a, call)(q32, K), getattr(o, call)(q32, K)
+            if not same_result(torch, ra, ro):
+                raise AssertionError(f"mutation: {what} {call} differs from "
+                                     "the rebuild")
+    log("mutation: the store equals a rebuild from its own codes in write "
+        "order (codes, ids, sizes); search and search_jit equal the "
+        "rebuild's on the stream (K1 + K2) and the gathered (K5 + "
+        "gathered re-rank) path, bit for bit")
+    launches_check = {name: mod.launches
+                      for name, mod in kernel_modules().items()}
+    need_launches(launches_check, ("fastscan_stream_topk",
+                                   "rerank_stream_topk",
+                                   "fastscan_select_grouped"), "mutation")
+    recall("after mutation")
+    if not (engine.index.lists is lists and torch.equal(lists.ids, ids_given)
+            and engine.base.shape[0] == n and engine.live_bits is None):
+        raise AssertionError("mutation: the stream engine's index changed "
+                             "under the engine built over it")
+    log("mutation: the stream engine's store is unchanged (the mutated "
+        "engine's first write cloned it)")
+    log(f"mutation: kernel launches on the path {launches_check}")
+    return launches
+
+
 def ivf_engine(torch, args, nq: int):
     """The data (a SIFT1M-shaped base with ``nq`` queries and exact ground
     truth, made on the card from ``args.seed``) and the IVF engine of the
@@ -1656,10 +1961,18 @@ def main() -> int:
     # 6b. search_jit's graphs on the anytime path, under pinned verdicts
     from repro_torch.kernels import ops
     pinned = os.path.join(root, "build", "chip_smoke_pinned_verdicts.json")
+    g_max = AT_QMAX * AT_NPROBE
+    sig = ("scan", "cuda", False, g_max, cap, M, args.nlist, 0.5)
+    fresh = ops.autotune_cache()[sig]
     pin_verdicts(pinned, cap, args.nlist, args.n)
     ops.clear_autotune_cache()
     log(f"anytime graph: {ops.load_autotune_cache(pinned)} pinned verdicts "
         f"from {os.path.relpath(pinned, root)}")
+    pin = ops.autotune_cache()[sig]
+    log(f"anytime: scan verdict at G={g_max}: fresh {fresh.impl}@"
+        f"{fresh.tile_n} (timings_us "
+        + " ".join(f"{name}={us:.1f}" for name, us in fresh.timings_us)
+        + f"), pinned {pin.impl}@{pin.tile_n}")
     launches = graph_phase(torch, args, engine, ds, "anytime",
                            anytime_config())
     need_launches(launches, ("fastscan_stream_topk_prune",
@@ -1669,6 +1982,10 @@ def main() -> int:
     launches = flat_phase(torch, args, ds, flat)
     for kern in (k7a, k7b, k7c):
         kern["launches"] = launches[kern["name"]]
+    # 8. live mutation on the stream path's configuration, its own engine
+    launches = mutation_phase(torch, args, engine, ds)
+    need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
+                  "mutation")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c)

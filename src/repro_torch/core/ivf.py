@@ -3,9 +3,11 @@
 
 Lists are padded to a fixed ``cap`` (``core.lists.ListStore``); encoding is
 by residual (codes quantize ``x - centroid``). Here: the index, its build,
-the per-(query, probe) residual LUTs, the full-pool ``scan_probes`` (every
-impl of ``kernels.ops.SCAN_IMPLS``), the gather-free reduced-pool
-``scan_probes_stream`` (K1, or K4 with early exit), and ``search_ivf``.
+the fixed-shape encoder the build and the engine's upserts share
+(``encode_rows``), the per-(query, probe) residual LUTs, the full-pool
+``scan_probes`` (every impl of ``kernels.ops.SCAN_IMPLS``), the
+gather-free reduced-pool ``scan_probes_stream`` (K1, or K4 with early
+exit), and ``search_ivf``.
 
 Conventions: queries/centroids/distances float32; packed codes uint8; ids
 and probe ids int32; -1 = no probe / no candidate (distance +inf).
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import fastscan as fs
@@ -23,9 +26,16 @@ from repro_torch.core.kmeans import kmeans, pairwise_sqdist
 from repro_torch.core.lists import ListStore, build_lists
 from repro_torch.core.pq import PQCodebook
 
-# rows per assignment / encode batch at build time (bounds the (chunk,
-# nlist) distance matrix)
+# rows per assignment batch of the training rows (bounds the (chunk, nlist)
+# distance matrix)
 _BUILD_CHUNK = 65536
+# rows per encode call: every encode, at build time and on upsert, runs at
+# this zero-padded shape, so a row's assignment and code bytes do not
+# depend on the batch that carries it (the mutation contract)
+_ENCODE_CHUNK = 256
+# elements of one (rows, centroids, D) product in the encoder's distances;
+# bounds its memory, the centroids are cut into blocks of one fixed size
+_ENCODE_BLOCK = 1 << 25
 
 
 class IVFIndex(NamedTuple):
@@ -53,21 +63,98 @@ def build_ivf(train_x: torch.Tensor, base_x: torch.Tensor, *, m: int,
               nlist: int, cap: int | None = None, coarse_iters: int = 20,
               pq_iters: int = 25, generator: torch.Generator) -> IVFIndex:
     """Train coarse centroids + residual PQ, bucket the base into padded
-    lists. Runs on the device of ``train_x``/``base_x``; the bucketing is
-    host-side numpy."""
+    lists. Runs on the device of ``train_x``/``base_x``; the base is encoded
+    by the same fixed-shape encoder as an upsert (``encode_rows``), the
+    bucketing is host-side numpy."""
     centroids = kmeans(train_x, nlist, coarse_iters,
                        generator=generator).centroids
-    assign = _nearest(base_x, centroids)
     train_res = train_x - centroids[_nearest(train_x, centroids)]
     cb = pq_mod.train_pq(train_res, m, 16, pq_iters, generator=generator)
-    packed = torch.cat([
-        fs.pack_codes(pq_mod.encode(
-            cb, base_x[s:s + _BUILD_CHUNK]
-            - centroids[assign[s:s + _BUILD_CHUNK]]))
-        for s in range(0, base_x.shape[0], _BUILD_CHUNK)])
+    assign, packed = _encode(centroids, cb, base_x)
     lists = build_lists(assign.cpu().numpy(), packed.cpu().numpy(),
                         nlist=nlist, cap=cap, device=base_x.device)
     return IVFIndex(centroids=centroids, codebook=cb, lists=lists)
+
+
+def _sqdist_rowwise(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``pairwise_sqdist``'s expansion ``x2 - 2·x·c + c2`` (clamped at 0),
+    with every dot product an elementwise product summed over D rather than
+    a GEMM: (..., n, D) x (..., k, D) -> (..., n, k). Each entry is reduced
+    by the same code whatever its position, at a given shape."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    c2 = torch.sum(c * c, dim=-1)
+    xc = torch.sum(x[..., :, None, :] * c[..., None, :, :], dim=-1)
+    return torch.clamp_min(x2 - 2.0 * xc + c2[..., None, :], 0.0)
+
+
+def _encode_chunk(centroids: torch.Tensor, cb: PQCodebook,
+                  chunk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centroid + packed residual PQ codes of one (_ENCODE_CHUNK, D)
+    chunk: (assign (n,) i32, packed (n, M//2) u8). The centroids go in
+    zero-padded blocks of one fixed size, so every distance is computed at
+    one shape."""
+    nlist, d = centroids.shape
+    nb = max(1, _ENCODE_BLOCK // (_ENCODE_CHUNK * d))
+    if nb >= nlist:
+        dist = _sqdist_rowwise(chunk, centroids)
+    else:
+        cen = torch.nn.functional.pad(centroids, (0, 0, 0, (-nlist) % nb))
+        dist = torch.cat([_sqdist_rowwise(chunk, cen[s:s + nb])
+                          for s in range(0, cen.shape[0], nb)], dim=1)
+        dist = dist[:, :nlist]
+    assign = torch.argmin(dist, dim=-1)
+    sub = pq_mod.split_subvectors(chunk - centroids[assign], cb.m)
+    codes = torch.argmin(_sqdist_rowwise(sub, cb.codewords), dim=-1).T
+    return assign.to(torch.int32), fs.pack_codes(codes)
+
+
+def _encode(centroids: torch.Tensor, cb: PQCodebook, x: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``encode_rows`` on the device of the centroids, as tensors."""
+    n, d = x.shape
+    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+    packed = torch.empty((n, cb.m // 2), dtype=torch.uint8, device=x.device)
+    for s in range(0, n, _ENCODE_CHUNK):
+        chunk = x[s:s + _ENCODE_CHUNK]
+        c = chunk.shape[0]
+        if c < _ENCODE_CHUNK:
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0,
+                                                    _ENCODE_CHUNK - c))
+        a, p = _encode_chunk(centroids, cb, chunk)
+        assign[s:s + c] = a[:c]
+        packed[s:s + c] = p[:c]
+    return assign, packed
+
+
+def as_rows(vecs, device: torch.device) -> torch.Tensor:
+    """Rows (numpy, read-only too, or a tensor) as an f32 tensor on
+    ``device``; host arrays are copied."""
+    if not isinstance(vecs, torch.Tensor):
+        vecs = np.array(vecs, np.float32)
+    return torch.as_tensor(vecs, dtype=torch.float32, device=device)
+
+
+def encode_rows(centroids: torch.Tensor, cb: PQCodebook, vecs
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic list assignment + residual PQ encode of raw rows.
+
+    vecs: (B, D) f32 (numpy or a tensor, moved to the centroids' device).
+    Returns (assign (B,) i32, packed (B, M//2) u8) as host arrays: each
+    row's nearest centroid and the nibble-packed 4-bit codes of its
+    residual, what ``build_ivf`` stores for a row of the base.
+
+    Every chunk runs at the zero-padded shape ``_ENCODE_CHUNK`` and every
+    distance is a per-row reduction (``_sqdist_rowwise``), not a GEMM: a
+    GEMM library promises the same bits for the same problem, not for a
+    row at another position of the batch. So a row encodes to the same
+    bytes whatever batch carries it, and an upserted row's codes equal
+    those a rebuild over the same centroids and codebook gives it.
+    """
+    x = as_rows(vecs, centroids.device)
+    with torch.no_grad():
+        assign, packed = _encode(centroids, cb, x.reshape(-1,
+                                                          centroids.shape[1]))
+    return assign.cpu().numpy(), packed.cpu().numpy()
 
 
 def _probe_tables(index: IVFIndex, q: torch.Tensor, probe_ids: torch.Tensor

@@ -10,6 +10,15 @@ Layout, byte for byte the reference's:
 Filter bitmaps are packed ``(nlist, W) u8`` with ``W = ceil(cap / 8)``;
 bit ``j`` of word ``w`` is slot ``w*8 + j`` (LSB-first), 1 = the row passes.
 
+Live mutation (the reference's invariants, derivable from ``ids`` and
+``sizes`` alone): ``sizes[l]`` is the watermark, the slots ever written
+this epoch, where appends go; a deleted row is a tombstone, ``ids`` (and
+``attrs``) -1 inside the watermark with its stale code bytes left in
+place; ``live_filter_bits`` packs ``ids >= 0``. ``tombstone_rows``,
+``append_rows`` and ``compact_lists`` (at the same cap) write into the
+given store's own tensors, which is how a serving engine keeps the
+addresses its CUDA graphs read; clone a store first to keep it.
+
 A store may carry leading shard dimensions (``(S, nlist, cap)`` ids); the
 ``nlist``/``cap`` properties read the trailing two dimensions so they hold
 for such stacked stores too.
@@ -174,6 +183,138 @@ def grow_cap(store: ListStore, new_cap: int) -> ListStore:
         sizes=store.sizes,
         attrs=None if store.attrs is None else fpad(store.attrs, (0, pad),
                                                     value=-1))
+
+
+def locate_rows(store: ListStore) -> dict[int, tuple[int, int]]:
+    """Host-side id -> (list, slot) map of every live row."""
+    ids = store.ids.cpu().numpy()
+    ls, ss = np.nonzero(ids >= 0)
+    return {int(ids[l, s]): (int(l), int(s)) for l, s in zip(ls, ss)}
+
+
+def live_counts(store: ListStore) -> torch.Tensor:
+    """(nlist,) i32 rows per list that are live (id >= 0, inside the
+    watermark)."""
+    return torch.sum(store.ids >= 0, dim=-1, dtype=torch.int32)
+
+
+def tombstone_counts(store: ListStore) -> torch.Tensor:
+    """(nlist,) i32 tombstoned slots per list: watermark minus live rows."""
+    return store.sizes - live_counts(store)
+
+
+def live_filter_bits(store: ListStore) -> torch.Tensor:
+    """Packed (nlist, W) u8 bitmap of the live rows: bit 1 exactly where
+    ``ids >= 0``, so padding and tombstones are both 0. ANDed into a
+    request's filter, it makes the scan treat tombstones as padding before
+    its candidate selection."""
+    return pack_filter_mask(store.ids >= 0)
+
+
+def tombstone_rows(store: ListStore, list_ids: np.ndarray, slots: np.ndarray
+                   ) -> ListStore:
+    """Delete rows, in place: ids/attrs at each (list, slot) become -1.
+    Codes and watermarks stay (a tombstone is masked by its id like padding
+    and not reused until compaction). Returns the store."""
+    dev = store.ids.device
+    at = (torch.as_tensor(np.asarray(list_ids, np.int64), device=dev),
+          torch.as_tensor(np.asarray(slots, np.int64), device=dev))
+    minus = torch.tensor(-1, dtype=torch.int32, device=dev)
+    store.ids.index_put_(at, minus)
+    if store.attrs is not None:
+        store.attrs.index_put_(at, minus)
+    return store
+
+
+def append_rows(store: ListStore, list_ids: np.ndarray, packed: np.ndarray,
+                gids: np.ndarray, attrs: np.ndarray | None = None
+                ) -> tuple[ListStore, np.ndarray]:
+    """Append rows into spare slots at each target list's watermark, in
+    place.
+
+    list_ids (B,) target list per row; packed (B, M//2) u8 codes; gids (B,)
+    i32 global ids; attrs optional (B,) i32 (-1 where absent; required to
+    be absent when the store holds no attrs column). Returns (store, slots
+    (B,) the rows landed in): slot = watermark + the row's rank among the
+    batch's rows for its list, batch order. Raises, writing nothing, when a
+    target list lacks spare capacity (compact or grow first).
+    """
+    list_ids = np.asarray(list_ids, np.int64)
+    packed = np.asarray(packed, np.uint8)
+    gids = np.asarray(gids, np.int32)
+    b = list_ids.shape[0]
+    sizes = store.sizes.cpu().numpy().astype(np.int64)
+    order = np.argsort(list_ids, kind="stable")
+    rank = np.empty(b, np.int64)
+    sorted_lists = list_ids[order]
+    rank[order] = np.arange(b) - np.searchsorted(sorted_lists, sorted_lists,
+                                                 side="left")
+    slots = sizes[list_ids] + rank
+    if b and slots.max() >= store.cap:
+        full = int(list_ids[slots.argmax()])
+        raise ValueError(
+            f"append_rows: list {full} is out of spare capacity "
+            f"(cap={store.cap}); compact or grow_cap first")
+    if store.attrs is None and attrs is not None:
+        raise ValueError("append_rows: attrs given but the store holds no "
+                         "attrs column (build with attrs=...)")
+    dev = store.ids.device
+    at = (torch.as_tensor(list_ids, device=dev),
+          torch.as_tensor(slots, device=dev))
+    store.codes.index_put_(at, torch.as_tensor(packed, device=dev))
+    store.ids.index_put_(at, torch.as_tensor(gids, device=dev))
+    counts = np.bincount(list_ids, minlength=store.nlist).astype(np.int32)
+    store.sizes.add_(torch.as_tensor(counts, device=dev))
+    if store.attrs is not None:
+        avals = (np.full(b, -1, np.int32) if attrs is None
+                 else np.asarray(attrs, np.int32))
+        store.attrs.index_put_(at, torch.as_tensor(avals, device=dev))
+    return store, slots.astype(np.int32)
+
+
+def compact_lists(store: ListStore, cap: int | None = None) -> ListStore:
+    """Rebuild every list without tombstones: survivors keep their relative
+    slot order (a stable shift-down), watermarks become live counts, codes,
+    ids and attrs past them are cleared (0, -1, -1), and ``cap`` may change
+    (it must hold the largest live list). At the same cap the store's
+    tensors are rewritten in place and returned; another cap returns new
+    tensors and leaves the store as it was.
+    """
+    live = store.ids >= 0
+    counts = torch.sum(live, dim=-1, dtype=torch.int32)
+    most = int(counts.max()) if counts.numel() else 0
+    old_cap = store.cap
+    new_cap = int(cap if cap is not None else old_cap)
+    if new_cap < most:
+        raise ValueError(
+            f"compact_lists: cap {new_cap} below the largest live list "
+            f"({most} rows)")
+    # live slots first, each group in slot order
+    order = torch.sort((~live).to(torch.uint8), dim=-1, stable=True).indices
+    keep = (torch.arange(old_cap, device=live.device)
+            < counts[..., None])
+
+    def shift(x, fill):
+        got = torch.gather(x, 1, order[..., None].expand_as(x)
+                           if x.ndim == 3 else order)
+        got = torch.where(keep[..., None] if x.ndim == 3 else keep, got,
+                          fill)
+        if new_cap <= old_cap:
+            return got[:, :new_cap]
+        pad = (0, 0, 0, new_cap - old_cap) if x.ndim == 3 else (
+            0, new_cap - old_cap)
+        return torch.nn.functional.pad(got, pad, value=fill)
+
+    fresh = ListStore(
+        codes=shift(store.codes, 0), ids=shift(store.ids, -1), sizes=counts,
+        attrs=None if store.attrs is None else shift(store.attrs, -1))
+    if new_cap != old_cap:
+        return ListStore(*(None if t is None else t.contiguous()
+                           for t in fresh))
+    for dst, src in zip(store, fresh):
+        if dst is not None:
+            dst.copy_(src)
+    return store
 
 
 def store_arrays(store: ListStore) -> dict[str, np.ndarray]:

@@ -10,11 +10,13 @@ instead of one host dispatch per device op.
 
 - **Key** (``graph_key``): the query shape; k, nprobe, r and the config's
   scan_impl, rerank_impl, probe_policy and early_exit; the shape of each
-  optional input (filter bits, namespaces, margin tau), None where it is
-  absent; and the identity (``data_ptr``, shape) of every engine tensor the
-  graph reads. Never the values of the queries, filter, namespaces or tau:
-  those are copied into the graph's static input buffers before each
-  replay, so new values at a seen key capture nothing.
+  optional input (filter bits, namespaces, margin tau, and the engine's
+  live-row bitmap, present while its store holds tombstones), None where
+  it is absent; and the identity (``data_ptr``, shape) of every engine
+  tensor the graph reads. Never the values of the queries, filter,
+  namespaces or tau: those are copied into the graph's static input
+  buffers before each replay, so new values at a seen key capture
+  nothing; nor the values of the engine's tensors, which a replay reads.
 - **First call of a key.** The pipeline runs eagerly once on the cache's
   capture stream. That resolves every autotune verdict the key needs (the
   scan sweep, a gathered verdict's second resolve at probe_fill 1.0, the
@@ -28,10 +30,20 @@ instead of one host dispatch per device op.
   return clones of the outputs, so a caller's result never changes under a
   later replay. One lock per engine covers copy-in, replay and copy-out,
   and an event orders them on the card when callers use several streams.
-- **State.** A graph bakes in the addresses of the engine's tensors. When
-  their identity changes (a caller replaced ``engine.index``, ``base`` or
-  ``ns_member``), the cache drops every graph before it captures anew; it
-  holds the state tensors its graphs read, so their memory cannot be
+  The engine's eager searches and its writes take the same lock and event
+  (``ordered``), so no search sees a half-written epoch and no write lands
+  under a search still in flight on another stream.
+- **State.** A graph bakes in the addresses of the engine's tensors; it
+  reads their values at each replay. The engine's shape-keeping mutations
+  (delete, an upsert into spare slots, compaction at the same cap) write
+  into those tensors in place, inside ``ordered``, so the graphs keep
+  serving the new epoch. A mutation that must reallocate (the engine's
+  first write, which clones the tensors it was given; another cap; a
+  larger base) drops the engine's graphs at once (``clear``), inside the
+  same ``ordered`` block that installs the new tensors. When the
+  identity changes otherwise (a caller replaced ``engine.index``, ``base``
+  or ``ns_member``), the cache drops every graph before it captures anew;
+  it holds the state tensors its graphs read, so their memory cannot be
   reused under a graph.
 - **Memory.** The graphs of one engine share one memory pool. That is
   safe because the lock and the event serialise every copy-in, replay and
@@ -46,6 +58,7 @@ instead of one host dispatch per device op.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import weakref
@@ -102,7 +115,7 @@ class GraphCache:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._lock = threading.Lock()
+        self.lock = threading.RLock()
         self._graphs: dict[tuple, _Entry] = {}
         self._state: tuple = ()      # tensors the graphs read, kept alive
         self._state_id: tuple | None = None
@@ -116,8 +129,42 @@ class GraphCache:
 
     def capture_seconds(self) -> dict[tuple, float]:
         """Warm-up + capture wall time of each cached key."""
-        with self._lock:
+        with self.lock:
             return {key: e.capture_s for key, e in self._graphs.items()}
+
+    def clear(self) -> int:
+        """Drop every graph, their memory pool and the state they read,
+        once the card has finished the engine's last replay, search or
+        write (so no memory is freed under work still in flight on another
+        stream). Returns the number of graphs dropped."""
+        with self.lock:
+            if self._done is not None:
+                self._done.synchronize()
+            dropped = len(self._graphs)
+            self._graphs.clear()
+            self._pool = None
+            self._state, self._state_id = (), None
+            return dropped
+
+    @contextlib.contextmanager
+    def ordered(self):
+        """Hold the engine's lock with the current stream ordered after every
+        earlier replay, eager search and write of the engine; what the block
+        enqueues is ordered before every later one. On the CPU, the lock
+        alone."""
+        with self.lock:
+            if self.device.type != "cuda":
+                yield
+                return
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream()
+                if self._done is not None:
+                    stream.wait_event(self._done)
+                try:
+                    yield
+                finally:
+                    self._done = torch.cuda.Event()
+                    self._done.record(stream)
 
     def run(self, key: tuple, state: tuple, fn: Callable, inputs: tuple):
         """``fn(*inputs)`` through the graph of ``key`` (a ``graph_key``,
@@ -125,11 +172,10 @@ class GraphCache:
         first call of the key. ``state`` is the tensors ``fn`` reads
         besides its inputs; ``inputs`` may hold None for an absent input.
         Returns clones of ``fn``'s outputs."""
-        with self._lock, torch.cuda.device(self.device):
+        with self.lock, torch.cuda.device(self.device):
             sid = key[-1]
             if sid != self._state_id:
-                self._graphs.clear()
-                self._pool = None
+                self.clear()
                 self._state, self._state_id = tuple(state), sid
             stream = torch.cuda.current_stream()
             if self._done is not None:

@@ -3,9 +3,11 @@
 The dict has the keys the reference's snapshot writes for a single-host
 engine: ``codes``, ``ids``, ``sizes``, optional ``attrs`` (the list store),
 ``centroids``, ``codebook`` (the (M, 16, dsub) codewords) and optional
-``base`` / ``base_norms`` and ``ns_member`` (the (n_ns, nlist) bool
-namespace table). An index built by ``repro`` reaches the port
-through this dict, and ``arrays_from_engine`` writes the same dict back.
+``base`` / ``base_norms``, ``ns_member`` (the (n_ns, nlist) bool
+namespace table) and, while the store holds tombstones, ``live_bits`` (the
+packed live-row bitmap). An index built or mutated by ``repro`` reaches
+the port through this dict, and ``arrays_from_engine`` writes the same dict
+back.
 
 A flat fast-scan index (``core.fastscan.FastScanIndex``) crosses as
 ``codewords`` ((M, 16, dsub) f32), ``packed_codes`` ((N, M//2) u8) and
@@ -22,10 +24,6 @@ from repro_torch.core.lists import store_arrays, store_from_arrays
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import EngineConfig, SearchEngine
-
-# keys a snapshot may carry for features the port does not have yet
-_NOT_PORTED = {"live_bits": "tombstones (mutation)"}
-
 
 def _f32(arrays: dict, key: str, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arrays[key], np.float32)).to(dev)
@@ -45,12 +43,10 @@ def engine_from_arrays(arrays: dict[str, np.ndarray], *,
                        device: str | torch.device | None = None
                        ) -> SearchEngine:
     """Rebuild a flat-coarse ``SearchEngine`` on ``device``, with the base
-    and its norms and the namespace table when the dict carries them."""
-    for key, what in _NOT_PORTED.items():
-        if key in arrays:
-            raise NotImplementedError(
-                f"arrays carry {key!r}: {what} is not yet ported to "
-                "repro_torch")
+    and its norms, the namespace table and the live-row bitmap when the
+    dict carries them (the engine derives the bitmap from the ids; a
+    carried one is installed as it is, as the reference's snapshot loader
+    does)."""
     dev = resolve_device(device)
     index = index_from_arrays(arrays, dev)
     base = _f32(arrays, "base", dev) if "base" in arrays else None
@@ -58,13 +54,15 @@ def engine_from_arrays(arrays: dict[str, np.ndarray], *,
              if base is not None and "base_norms" in arrays else None)
     member = (torch.from_numpy(np.array(arrays["ns_member"], bool))
               if "ns_member" in arrays else None)
+    live = (torch.from_numpy(np.array(arrays["live_bits"], np.uint8))
+            if "live_bits" in arrays else None)
     return SearchEngine(index, base=base, config=config, base_norms=norms,
-                        namespaces=member)
+                        namespaces=member, live_bits=live)
 
 
 def arrays_from_engine(engine: SearchEngine) -> dict[str, np.ndarray]:
-    """The inverse: an engine's index (and base, namespace table) as host
-    arrays."""
+    """The inverse: an engine's index (and base, live-row bitmap, namespace
+    table) as host arrays."""
     idx = engine.index
     out = dict(store_arrays(idx.lists))
     out["centroids"] = idx.centroids.cpu().numpy()
@@ -72,6 +70,8 @@ def arrays_from_engine(engine: SearchEngine) -> dict[str, np.ndarray]:
     if engine.base is not None:
         out["base"] = engine.base.cpu().numpy()
         out["base_norms"] = engine.base_norms.cpu().numpy()
+    if engine.live_bits is not None:
+        out["live_bits"] = engine.live_bits.cpu().numpy()
     if engine.ns_member is not None:
         out["ns_member"] = engine.ns_member.cpu().numpy()
     return out

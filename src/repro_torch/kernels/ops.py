@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import topk as topk_mod
+from repro_torch.core.lists import ListStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels import blockmin_kernel as bk
 from repro_torch.kernels import fastscan_kernel as fk
@@ -353,6 +354,14 @@ _AUTOTUNE_CACHE: dict[tuple, TunedScan] = {}
 _AUTOTUNE_LOCK = threading.Lock()
 
 
+# The candidate budget the scan sweep selects for each group: a 'stream'
+# candidate's kc = min(_SWEEP_KEEP, tile), and the selection every
+# candidate's pool goes through; the r*k of the serving default (k = 10,
+# rerank_mult = 4). The verdict key holds no budget, so one stand-in serves
+# every caller of a signature.
+_SWEEP_KEEP = 40
+
+
 def _grouped_tile_candidates(cap: int) -> tuple[int, ...]:
     """Cap-tile sizes worth timing: the shape-fit auto tile plus smaller
     power-of-two tiles."""
@@ -441,8 +450,12 @@ def resolve_grouped_impl(g: int, cap: int, m: int, *, nlist: int | None = None,
     Times every concrete impl (x its tile candidates) on seeded synthetic
     data of the workload shape on ``device`` (None = the CUDA card) and
     caches the winner per ``('scan', device type, False, G, cap, M, nlist,
-    probe_fill)``. ``nlist`` is the size of the in-place store the 'stream'
-    candidate scans (None = the gathered convention's G-list store);
+    probe_fill)``. Each candidate is timed as its whole stage, from the
+    store to each group's ``_SWEEP_KEEP`` best candidates
+    (``_sweep_stage``): the gathered impls with their ``ListStore.gather``,
+    a 'stream' candidate as the per-tile top-kc scan (K1) at its tile;
+    ``nlist`` is the size of the store (None = the gathered convention's
+    G-list store);
     ``probe_fill`` in (0, 1] masks ``1 - probe_fill`` of the sweep's probes
     to -1, the workload an adaptive-nprobe policy presents.
     """
@@ -456,13 +469,33 @@ def resolve_grouped_impl(g: int, cap: int, m: int, *, nlist: int | None = None,
                            nl, fill, dev)
 
 
+def _sweep_stage(table: torch.Tensor, lists: ListStore, probes: torch.Tensor,
+                 impl: str, tile_n: int, keep: int):
+    """One scan candidate's whole stage, from the store to each group's
+    ``keep`` best candidates: a gathered impl's ``ListStore.gather`` and
+    full-pool scan, or the per-tile top-kc scan (K1) over the lists in
+    place that a 'stream' verdict runs (K4 with early exit); then the same
+    selection over the pool either leaves."""
+    if impl == "stream":
+        acc, pos = fastscan_stream_topk(table, lists.codes, probes,
+                                        lists.sizes, keep=keep,
+                                        tile_n=tile_n)
+        valid = pos >= 0
+    else:
+        codes, ids = lists.gather(probes)
+        acc = fastscan_grouped(table, codes, impl=impl, tile_n=tile_n)
+        valid = ids >= 0
+    g = acc.shape[0]
+    return topk_mod.masked_topk(acc.reshape(g, -1).float(),
+                                valid.reshape(g, -1), keep)
+
+
 def _run_grouped_sweep(g: int, cap: int, m: int, nlist: int, fill: float,
                        dev: torch.device) -> TunedScan:
     rng = np.random.default_rng(0)
     table = rng.integers(0, 256, (g, m, 16), dtype=np.uint8)
-    codes = rng.integers(0, 256, (g, cap, m // 2), dtype=np.uint8)
-    # the stream impl's real operand: an nlist-sized in-place store with
-    # random probes, the strides scan_probes drives it with
+    # an nlist-sized store of full lists with random probes: the stream impl
+    # scans it in place, the gathered impls gather the probed lists first
     store = rng.integers(0, 256, (nlist, cap, m // 2), dtype=np.uint8)
     probes = rng.integers(0, nlist, (g,), dtype=np.int32)
     if fill < 1.0:
@@ -471,8 +504,14 @@ def _run_grouped_sweep(g: int, cap: int, m: int, nlist: int, fill: float,
         n_prune = min(g - 1, int(round(g * (1.0 - fill))))
         if n_prune > 0:
             probes[np.linspace(0, g - 1, n_prune).astype(np.int64)] = -1
-    table, codes, store, probes = (torch.from_numpy(a).to(dev)
-                                   for a in (table, codes, store, probes))
+    table, store, probes = (torch.from_numpy(a).to(dev)
+                            for a in (table, store, probes))
+    lists = ListStore(
+        codes=store,
+        ids=torch.arange(nlist * cap, dtype=torch.int32,
+                         device=dev).reshape(nlist, cap),
+        sizes=torch.full((nlist,), cap, dtype=torch.int32, device=dev))
+    keep = min(_SWEEP_KEEP, cap)
     cands = []
     for impl in GROUPED_IMPLS:
         if impl == "ref":
@@ -485,13 +524,8 @@ def _run_grouped_sweep(g: int, cap: int, m: int, nlist: int, fill: float,
         else:
             tiles = _grouped_tile_candidates(cap)
         for tn in tiles:
-            if impl == "stream":
-                fn = functools.partial(fastscan_stream_grouped, table, store,
-                                       probes, tile_n=tn)
-            else:
-                fn = functools.partial(fastscan_grouped, table, codes,
-                                       impl=impl, tile_n=tn)
-            cands.append((impl, tn, fn))
+            cands.append((impl, tn, functools.partial(
+                _sweep_stage, table, lists, probes, impl, tn, keep)))
     return _sweep_verdict(_time_candidates(cands, dev),
                           f"(G={g}, cap={cap}, M={m})")
 

@@ -28,12 +28,15 @@ from repro.engine import engine as jeng_mod
 from repro.kernels import ops as jops
 from repro_torch import interop
 from repro_torch.core import ivf as tivf
+from repro_torch.core import lists as tlists
 from repro_torch.core import topk as ttopk
 from repro_torch.engine import EngineConfig, SearchEngine
 from repro_torch.engine import engine as teng
 from repro_torch.engine import rerank as trerank
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import fastscan_kernel as tfk
 from repro_torch.kernels import select_kernel as tsk
+from repro_torch.kernels import stream_grouped_kernel as tsgk
 
 RTOL = 1e-5
 NPROBE = 8
@@ -448,6 +451,69 @@ def test_sweep_propagates_launch_failures_and_drops_shape_rejections(
     names = [name for name, _ in tuned.timings_us]
     assert not any(n.startswith("select@") for n in names)
     assert any(n.startswith("mxu@") for n in names) and tuned.impl != "select"
+
+
+def test_stream_candidates_time_the_per_tile_topk_scan(clean_cache,
+                                                        monkeypatch):
+    """A 'stream' verdict runs the per-tile top-kc scan (K1, or K4 with
+    early exit) at its tile, so the sweep times K1 at each stream tile with
+    the stand-in budget, and never the full-pool K3, which ignores its
+    tile."""
+    calls = []
+    real = tfk.fastscan_stream_topk_grouped
+
+    def spy(*args, **kwargs):
+        calls.append((kwargs["tile_n"], kwargs["kc"]))
+        return real(*args, **kwargs)
+
+    def k3(*args, **kwargs):
+        raise AssertionError("the sweep timed K3")
+    monkeypatch.setattr(tfk, "fastscan_stream_topk_grouped", spy)
+    monkeypatch.setattr(tsgk, "fastscan_stream_grouped", k3)
+    cap = 2048
+    tuned = tops.resolve_grouped_impl(4, cap, 4, nlist=8, device="cpu")
+    tiles = sorted(int(name.split("@")[1]) for name, _ in tuned.timings_us
+                   if name.startswith("stream@"))
+    want = sorted({tops._stream_tile(cap, t)
+                   for t in tops._grouped_tile_candidates(cap)})
+    assert tiles == want == [128, 512, 1024]
+    assert sorted({tile for tile, _ in calls}) == want
+    assert {(tile, kc) for tile, kc in calls} == {
+        (tile, min(tops._SWEEP_KEEP, tile)) for tile in want}
+
+
+def test_gathered_candidates_time_their_gather(clean_cache, monkeypatch):
+    """A gathered verdict runs ``ListStore.gather`` before its scan, so the
+    sweep times each 'ref', 'select' and 'mxu' candidate on the copy its
+    own gather made, and every candidate's pool goes through the same
+    selection of the stand-in budget."""
+    made, scanned, selected = set(), [], []
+    gather = tlists.ListStore.gather
+    grouped = tops.fastscan_grouped
+    topk = tops.topk_mod.masked_topk
+
+    def gather_spy(self, probe_ids):
+        codes, ids = gather(self, probe_ids)
+        made.add(codes.data_ptr())
+        return codes, ids
+
+    def grouped_spy(table, codes, **kwargs):
+        scanned.append((kwargs["impl"], codes.data_ptr() in made))
+        return grouped(table, codes, **kwargs)
+
+    def topk_spy(d, valid, k):
+        selected.append(k)
+        return topk(d, valid, k)
+    monkeypatch.setattr(tlists.ListStore, "gather", gather_spy)
+    monkeypatch.setattr(tops, "fastscan_grouped", grouped_spy)
+    monkeypatch.setattr(tops.topk_mod, "masked_topk", topk_spy)
+    tuned = tops.resolve_grouped_impl(4, 256, 4, nlist=8, device="cpu")
+    assert {impl for impl, _ in scanned} == {"ref", "select", "mxu"}
+    assert all(fresh for _, fresh in scanned)
+    assert any(name.startswith("stream@") for name, _ in tuned.timings_us)
+    # the stream candidates' pools are selected too
+    assert len(selected) > len(scanned)
+    assert set(selected) == {tops._SWEEP_KEEP}
 
 
 def test_rerank_sweep_cap_env_and_kwarg(clean_cache, monkeypatch):

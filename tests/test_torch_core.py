@@ -255,6 +255,40 @@ def test_recall_at_r_matches_reference():
             float(jmetrics.recall_at_r(jnp.asarray(pred), jnp.asarray(gt), r)))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_intersection_recall_matches_reference(seed):
+    """The port returns the hit ratio rounded once to f32; the reference
+    averages in f32 in XLA's summation order, which may round an ulp
+    either way of it."""
+    rng = np.random.default_rng(seed)
+    pred = rng.integers(-1, 40, (16, 10)).astype(np.int32)
+    gt = rng.integers(0, 40, (16, 10)).astype(np.int32)
+    gt[:4] = pred[:4]                       # some queries all hits
+    hits = (pred[:, :, None] == gt[:, None, :]).any(axis=1)
+    exact = np.float32(hits.mean(axis=1, dtype=np.float64).mean())
+    want = np.float32(jmetrics.intersection_recall(jnp.asarray(pred),
+                                                   jnp.asarray(gt)))
+    got = tmetrics.intersection_recall(torch.from_numpy(pred),
+                                       torch.from_numpy(gt))
+    assert got.dtype == torch.float32 and np.float32(got) == exact
+    assert abs(np.float32(got) - want) <= np.spacing(want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_distance_error_stats_match_reference(seed):
+    rng = np.random.default_rng(seed)
+    exact = rng.uniform(0.0, 100.0, (8, 37)).astype(np.float32)
+    exact[0, :3] = 0.0                      # the 1e-12 floor
+    approx = (exact + rng.normal(0, 0.5, exact.shape)).astype(np.float32)
+    want = jmetrics.distance_error_stats(jnp.asarray(approx),
+                                         jnp.asarray(exact))
+    got = tmetrics.distance_error_stats(torch.from_numpy(approx),
+                                        torch.from_numpy(exact))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=1e-6), key
+
+
 def test_kmeans_is_seeded_and_converges():
     rng = np.random.default_rng(8)
     centers = rng.normal(0, 10, (4, 6)).astype(np.float32)

@@ -21,7 +21,9 @@ import torch
 from repro_torch import interop
 from repro_torch.core import fastscan as fs
 from repro_torch.core import pq
+from repro_torch.core import ivf as tivf
 from repro_torch.core.lists import pack_filter_mask
+from repro_torch.core.pq import PQCodebook
 from repro_torch.data.vectors import make_sift_like
 from repro_torch.engine import EngineConfig, SearchEngine, fused_cache_size
 from repro_torch.engine import graphs
@@ -948,3 +950,230 @@ def test_search_jit_from_many_threads_serves_each_request_its_own(dev):
         sys.setswitchinterval(old)
     assert len(done) == 12 and not bad, bad
     assert len(eng.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# live mutation on the card
+# ---------------------------------------------------------------------------
+
+def _mutable_engine(cfg):
+    """An engine over the graph setup's index and base, cap doubled to a
+    power of two (spare slots, full-size scan tiles) by its first write,
+    which clones what it mutates."""
+    ds, eng, _, _ = _graph_setup()
+    mut = SearchEngine(eng.index, base=eng.base, base_norms=eng.base_norms,
+                       config=cfg)
+    mut.compact(cap=1 << (2 * eng.index.lists.cap - 1).bit_length())
+    return ds, mut
+
+
+def _sift_rows(n, seed):
+    """New rows from the dataset's generator, rounded to integers as SIFT
+    descriptors are (a row's distance to itself is then exactly 0)."""
+    return np.rint(make_sift_like(n=max(n, 16), nt=1, nq=1, d=32, ncl=16,
+                                  seed=seed, device="cpu").base.numpy()[:n])
+
+
+MUTATION_CASES = [("stream", "stream", "fixed", False),
+                  ("select", "gathered", "margin", True),
+                  ("auto", "auto", "margin", True)]
+
+
+@pytest.mark.parametrize("case", range(len(MUTATION_CASES)))
+def test_in_place_mutations_keep_the_graphs(dev, case):
+    """Delete, re-upsert, an upsert of new ids into spare slots and
+    compaction at the same cap write in place: after each, search_jit
+    equals search bit for bit with the graphs captured before it; only the
+    first delete adds keys (the live-row bitmap's presence)."""
+    scan, rerank, policy, ee = MUTATION_CASES[case]
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl=scan,
+                       rerank_impl=rerank, probe_policy=policy,
+                       margin_tau=0.4, early_exit=ee)
+    ds, eng = _mutable_engine(cfg)
+    n = eng.base.shape[0]
+    q = ds.queries
+    ids = eng.index.lists.ids
+    half = torch.rand(tuple(ids.shape), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev) < 0.5
+    fb = pack_filter_mask(half & (ids >= 0))
+    try:
+        def check(what):
+            for qq in (8, 32):
+                _assert_bitwise(eng.search_jit(q[:qq], 10),
+                                eng.search(q[:qq], 10), (what, qq))
+            got = eng.search_jit(q, 10, filter_bits=fb)
+            _assert_bitwise(got, eng.search(q, 10, filter_bits=fb), what)
+        check("fresh")
+        assert len(eng.graphs) == 3
+        rng = np.random.default_rng(2)
+        dead = rng.choice(n, 500, replace=False)
+        assert eng.delete(dead) == 500
+        check("delete")                 # the same shapes with live bits
+        assert len(eng.graphs) == 6
+        found = eng.search_jit(q, 10).ids
+        assert not np.isin(found.cpu().numpy(), dead).any()
+        assert eng.delete(rng.choice(n, 300, replace=False)) > 0
+        check("second delete")
+        live = np.setdiff1d(np.arange(n), dead)[:100]
+        rows = _sift_rows(100, 5)
+        eng.upsert(live, rows)                       # re-upsert
+        check("re-upsert")
+        eng.upsert(dead[:50], rows[:50] + 1.0)       # deleted ids come back
+        check("upsert into spare slots")
+        assert len(eng.graphs) == 6
+        hit = eng.search_jit(torch.as_tensor(rows[:50] + 1.0, device=dev),
+                             10)
+        assert (hit.ids[:, 0].cpu().numpy() == dead[:50]).all()
+        assert (hit.dists[:, 0] == 0).all()
+        cap = eng.index.lists.cap
+        assert eng.compact() > 0 and eng.index.lists.cap == cap
+        check("compact")
+        assert len(eng.graphs) == 7 and eng.graphs_dropped == 0
+    finally:
+        ops.clear_autotune_cache()
+
+
+def test_reallocating_mutations_drop_the_graphs_and_recapture(dev):
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream")
+    ds, eng = _mutable_engine(cfg)
+    q = ds.queries
+    for qq in (8, 32):
+        eng.search_jit(q[:qq], 10)
+    gc.collect()
+    n0 = fused_cache_size()
+    assert len(eng.graphs) == 2
+    cap = eng.index.lists.cap
+    eng.compact(cap=2 * cap)                         # another cap
+    assert len(eng.graphs) == 0 and eng.graphs_dropped == 2
+    assert fused_cache_size() == n0 - 2
+    for qq in (8, 32):
+        _assert_bitwise(eng.search_jit(q[:qq], 10), eng.search(q[:qq], 10))
+    assert len(eng.graphs) == 2
+    n = eng.base.shape[0]
+    rows = _sift_rows(3, 6)
+    eng.upsert(np.array([n, n + 1, n + 300]), rows)  # the base grows
+    assert eng.base.shape[0] == -(-(n + 301) // 256) * 256
+    assert len(eng.graphs) == 0 and eng.graphs_dropped == 4
+    _assert_bitwise(eng.search_jit(q, 10), eng.search(q, 10))
+    hit = eng.search_jit(torch.as_tensor(rows, device=dev), 10)
+    assert hit.ids[:, 0].tolist() == [n, n + 1, n + 300]
+    assert len(eng.graphs) == 2
+
+
+def test_a_writer_leaves_the_graphs_of_an_engine_over_its_index(dev):
+    """Two engines over one index: the writer's first write clones what it
+    mutates, so the reader's captured graphs keep serving its unchanged
+    index, bit for bit, and nothing of the reader's is dropped."""
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream")
+    ds, eng, _, _ = _graph_setup()
+    reader = SearchEngine(eng.index, base=eng.base,
+                          base_norms=eng.base_norms, config=cfg)
+    writer = SearchEngine(eng.index, base=eng.base,
+                          base_norms=eng.base_norms, config=cfg)
+    q = ds.queries
+    before = reader.search_jit(q, 10)
+    writer.search_jit(q, 10)
+    ids = eng.index.lists.ids.clone()
+    n = eng.base.shape[0]
+    assert writer.delete(np.arange(0, n, 3)) > 0
+    writer.upsert(np.arange(1, 600, 3), _sift_rows(200, 7))
+    writer.compact()
+    assert writer.graphs_dropped == 1
+    assert torch.equal(eng.index.lists.ids, ids)
+    after = reader.search_jit(q, 10)
+    _assert_bitwise(after, before, "reader")
+    _assert_bitwise(after, reader.search(q, 10), "reader eager")
+    assert len(reader.graphs) == 1 and reader.graphs_dropped == 0
+    _assert_bitwise(writer.search_jit(q, 10), writer.search(q, 10), "writer")
+
+
+def test_graph_readers_during_mutation_see_one_epoch_each(dev):
+    """Threads on their own streams replay search_jit while the main thread
+    deletes, upserts and compacts in place; every result equals the result
+    of one epoch between the ones read before and after the call."""
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream")
+    ds, serial = _mutable_engine(cfg)
+    q = ds.queries
+    n = serial.base.shape[0]
+    rng = np.random.default_rng(9)
+    program = []
+    for i in range(6):
+        sel = np.sort(rng.choice(np.arange(1000, 3000), 40, replace=False))
+        program.append(("delete", sel))
+        program.append(("upsert", sel, _sift_rows(40, 20 + i)))
+    program.append(("compact",))
+
+    def apply(eng, op):
+        if op[0] == "delete":
+            eng.delete(op[1])
+        elif op[0] == "upsert":
+            eng.upsert(op[1], op[2])
+        else:
+            eng.compact()
+    _, eng = _mutable_engine(cfg)
+    want = {serial.epoch: serial.search(q, 10)}
+    for op in program:
+        apply(serial, op)
+        want[serial.epoch] = serial.search(q, 10)
+    torch.cuda.synchronize()
+    eng.search_jit(q, 10)
+    errors, seen = [], []
+    done = threading.Event()
+
+    def reader():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            while not done.is_set():
+                e0 = eng.epoch
+                got = eng.search_jit(q, 10)
+                e1 = eng.epoch
+                hits = [e for e in range(e0, e1 + 1)
+                        if torch.equal(got.ids, want[e].ids)
+                        and torch.equal(got.dists, want[e].dists)]
+                seen.append(hits[0] if hits else -1)
+                if not hits:
+                    errors.append((e0, e1))
+
+    threads = [threading.Thread(target=reader) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        for op in program:
+            k = len(seen)
+            apply(eng, op)
+            while len(seen) < k + 3 and not done.is_set():
+                done.wait(0.001)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
+    assert len(set(seen)) >= len(program) // 2
+    assert eng.graphs_dropped == 0 and n == eng.base.shape[0]
+
+
+def test_encode_rows_is_batch_independent_on_the_card(dev):
+    """The fixed 256-row encoder on the card: a row gives the same bits at
+    positions 0, 17 and 255 of a chunk and across a chunk boundary, with
+    centroids in one block (nlist 64) and in two padded ones (nlist
+    1500, D 128)."""
+    for nlist, d, m in ((64, 32, 8), (1500, 128, 16)):
+        rng = np.random.default_rng(nlist)
+        cen = torch.as_tensor(rng.normal(size=(nlist, d)) * 10,
+                              dtype=torch.float32, device=dev)
+        cb = PQCodebook(torch.as_tensor(rng.normal(size=(m, 16, d // m)),
+                                        dtype=torch.float32, device=dev))
+        rows = (rng.normal(size=(600, d)) * 10).astype(np.float32)
+        a_all, p_all = tivf.encode_rows(cen, cb, rows)
+        for pos in (0, 17, 255, 256, 300):
+            batch = (rng.normal(size=(max(pos + 1, 257), d)) * 10).astype(
+                np.float32)
+            batch[pos] = rows[7]
+            a, p = tivf.encode_rows(cen, cb, batch)
+            assert a[pos] == a_all[7] and (p[pos] == p_all[7]).all(), pos
+        for lo, hi in ((0, 1), (17, 273), (255, 257), (0, 600)):
+            a, p = tivf.encode_rows(cen, cb, rows[lo:hi])
+            assert (a == a_all[lo:hi]).all() and (p == p_all[lo:hi]).all()

@@ -194,16 +194,6 @@ def test_not_yet_ported_features_raise(tengine, arrays, ds):
             SearchEngine(tengine.index, config=cfg)
     with pytest.raises(NotImplementedError, match="item 5"):
         SearchEngine(tengine.index, coarse="hnsw")
-    for op in (tengine.upsert, tengine.delete, tengine.compact):
-        with pytest.raises(NotImplementedError, match="mutation"):
-            op()
-    with pytest.raises(NotImplementedError, match="live_bits"):
-        interop.engine_from_arrays(dict(arrays, live_bits=arrays["ids"]),
-                                   device="cpu")
-    tomb = dict(arrays, ids=np.where(np.arange(arrays["ids"].shape[1]) == 0,
-                                     -1, arrays["ids"]))
-    with pytest.raises(NotImplementedError, match="tombstones"):
-        interop.engine_from_arrays(tomb, device="cpu")
 
 
 def test_bad_requests_are_rejected(tengine, ds):

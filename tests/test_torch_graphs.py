@@ -111,3 +111,48 @@ def test_an_unresolved_verdict_raises_while_a_stream_captures(monkeypatch):
         assert ops.autotune_cache_size() == 1     # no sweep ran
     finally:
         ops.clear_autotune_cache()
+
+
+def test_mutations_keep_the_state_identity_unless_they_reallocate():
+    """The first write clones the tensors the engine was given, a new
+    identity; after it, shape-keeping writes (delete, an upsert into spare
+    slots, compaction at the same cap) go into the engine's tensors in
+    place, so the identity a graph is keyed by stays; the live-row bitmap's
+    presence keys the graph. Another cap or a larger base is a new
+    identity."""
+    rng = np.random.default_rng(3)
+    ids = np.full((NLIST, CAP), -1, np.int32)
+    ids[:, :CAP // 2] = np.arange(NLIST * CAP // 2).reshape(NLIST, -1)
+    arrays = {"codes": rng.integers(0, 256, (NLIST, CAP, M // 2), np.uint8),
+              "ids": ids, "sizes": np.full(NLIST, CAP // 2, np.int32),
+              "centroids": rng.normal(size=(NLIST, D)).astype(np.float32),
+              "codebook": rng.normal(size=(M, 16, D // M)).astype(np.float32),
+              "base": rng.normal(size=(NLIST * CAP // 2, D)).astype(
+                  np.float32)}
+    eng = interop.engine_from_arrays(
+        arrays, config=EngineConfig(nprobe=4, rerank_mult=2), device="cpu")
+    q = torch.zeros((4, D))
+
+    def key():
+        _, state = eng._bind(k=10, nprobe=4, r=2)
+        return graphs.graph_key(q, (None, None, None, eng.live_bits),
+                                knobs=KNOBS,
+                                state=graphs.state_identity(state))
+    given = key()
+    assert eng.compact() == 0          # the first write clones the tensors
+    k0 = key()
+    assert k0[-1] != given[-1] and k0[:-1] == given[:-1]
+    assert eng.delete(np.arange(0, 40, 3)) == 14
+    k1 = key()
+    assert k1[-1] == k0[-1] and k1 != k0          # live bits now present
+    eng.upsert(np.array([5, 40]), rng.normal(size=(2, D)))   # re-upserts
+    assert key() == k1
+    assert eng.compact() == 16 and eng.live_bits is None
+    assert key() == k0
+    eng.compact(cap=2 * CAP)                      # another cap
+    k2 = key()
+    assert k2[-1] != k0[-1]
+    eng.upsert(np.array([NLIST * CAP]), rng.normal(size=(1, D)))
+    assert eng.base.shape[0] == NLIST * CAP + 256
+    assert key()[-1] != k2[-1]                    # the base grew
+    assert eng.graphs_dropped == 0 and len(eng.graphs) == 0
