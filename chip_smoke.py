@@ -44,6 +44,25 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      seconds, the locator's build time, Q=32 ``search_jit`` latency before
      and after, and the graphs dropped.
 
+  5. the stream index across 4 shards (``ShardedEngine``, shards in turn
+     on this card; the ``torch.distributed`` path needs a card a rank):
+     one shard against the single-host engine, every list probed without
+     re-rank against it, recall@10 at least its own, exact distances, the
+     stats summed over the shards; then 1,000-row upserts, deletes and
+     re-upserts through the shards and the single-host engine alike, and
+     compaction, held after the writes and after compaction. It prints
+     the batch latency a bucket and the writes' rates.
+
+  6. the coarse zoo, the paper's Table 1 pipeline (benchmarks/table1.py):
+     a Deep1B-like N x 96 base, nlist = sqrt(N), M=16, built by
+     ``SearchEngine.build(coarse='hnsw', hnsw_m=16, ef_construction=64)``,
+     with a k-means-tree and a flat-coarse engine over the same index; at
+     nprobe 1, 2, 4, 8 and rerank_mult 0 and 4: recall@1 and @10 of each,
+     ``search_jit`` == ``search`` bit for bit (HNSW, tree) and no repeated
+     probe. It prints the HNSW build's seconds, the coarse stage's device
+     time and device ops beside the whole query's graph, and graph
+     latency a bucket.
+
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
 (the stream configuration, and the anytime one under verdicts pinned in a
@@ -101,6 +120,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BUCKETS = (1, 8, 32, 128)
+DEVICE = "cuda"
 BATCHES_PER_BUCKET = 3
 GRAPH_ROUNDS = 6              # eager/graph turns a bucket (graph phase)
 N_TENANTS = 4                 # the namespaced batch's tenants
@@ -1841,6 +1861,373 @@ def mutation_phase(torch, args, engine, ds) -> dict:
     return launches
 
 
+# the coarse-zoo phase: the paper's Table 1 pipeline (benchmarks/table1.py:
+# Deep1B-like data, nlist = sqrt(N), M = 16, K = 16, HNSW coarse with m = 16
+# and ef_construction = 64, nprobe 1 to 8, rerank_mult 0 and 4)
+T1_D, T1_NCL, T1_NOISE = 96, 4096, 1.0
+T1_NQ = 512
+T1_NPROBES, T1_RERANK = (1, 2, 4, 8), (0, 4)
+T1_HNSW_M, T1_EF_C = 16, 64
+T1_ITERS = 15                 # coarse and PQ k-means iterations (table1.py)
+SHARDS = 4                    # the sharded phase's shards
+SHARD_WRITES = 3              # batches of MUT_BATCH of each write kind
+
+
+def rows_with_repeated_probe(torch, probes) -> int:
+    """Rows of (Q, P) probes in which a valid probe repeats."""
+    s = torch.sort(probes, dim=1).values
+    dup = (s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)
+    return int(dup.any(dim=1).sum())
+
+
+def synced_s(torch, fn):
+    """(fn(), seconds) on the host clock around work ended by a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def coarse_phase(torch, args) -> dict:
+    """The paper's Table 1 pipeline at full width: a Deep1B-like base (N x
+    96, ``make_deep_like`` with table1.py's clusters and query noise),
+    nlist = sqrt(N), M = 16, an HNSW coarse quantizer built by
+    ``SearchEngine.build(coarse='hnsw')``, the stream scan (K1) and re-rank
+    (K2); beside it a k-means-tree engine and a flat-coarse engine over the
+    same index. At nprobe 1, 2, 4, 8 and rerank_mult 0 and 4: recall@1 and
+    @10 of each quantizer through ``search_jit``, ``search_jit`` == ``search``
+    bit for bit (HNSW and tree), no repeated probe in any query. Then the
+    coarse stage's device time and device ops against flat coarse, each
+    engine's graph busy time, and graph latency at each bucket. Returns the
+    launch counts of the driven run."""
+    from repro_torch.core import coarse as coarse_mod
+    from repro_torch.core.lists import grow_cap
+    from repro_torch.core.metrics import recall_at_r
+    from repro_torch.data.vectors import make_deep_like
+    from repro_torch.engine import EngineConfig, SearchEngine
+    from repro_torch.engine.engine import coarse_probes
+    from repro_torch.kernels.fastscan_kernel import TILE_N
+    gc.collect()
+    t0 = time.perf_counter()
+    ds = make_deep_like(n=args.n, nt=args.nt, nq=T1_NQ, d=T1_D, ncl=T1_NCL,
+                        query_noise=T1_NOISE, seed=args.seed, device=DEVICE)
+    nlist = max(16, int(np.sqrt(args.n)))
+    log(f"table1: data {args.n} x {T1_D} (Deep1B-like, {T1_NCL} clusters, "
+        f"query noise {T1_NOISE}), {args.nt} train, {T1_NQ} queries with "
+        f"exact ground truth [{time.perf_counter() - t0:.1f} s]")
+    cfg = EngineConfig(nprobe=NPROBE, rerank_mult=RERANK_MULT,
+                       scan_impl="stream", rerank_impl="stream")
+    built, build_s = synced_s(torch, lambda: SearchEngine.build(
+        ds.train, ds.base, m=M, nlist=nlist, coarse="hnsw", config=cfg,
+        coarse_iters=T1_ITERS, pq_iters=T1_ITERS, seed=args.seed,
+        device=DEVICE, hnsw_m=T1_HNSW_M, ef_construction=T1_EF_C))
+    graph = built.coarse.graph
+    again, hnsw_s = synced_s(torch, lambda: coarse_mod.build_hnsw_coarse(
+        built.index.centroids, m=T1_HNSW_M, ef_construction=T1_EF_C))
+    same = (again.graph.entry == graph.entry and all(
+        torch.equal(a, b) for a, b in zip(again.graph.tensors(),
+                                          graph.tensors())))
+    if not same:
+        raise AssertionError("table1: a second HNSW build over the same "
+                             "centroids gave another graph")
+    pads = int((graph.level0 < 0).any(dim=1).sum())
+    log(f"table1: SearchEngine.build(coarse='hnsw', hnsw_m={T1_HNSW_M}, "
+        f"ef_construction={T1_EF_C}) {build_s:.2f} s, of which the HNSW "
+        f"build over the {nlist} centroids (numpy, host) {hnsw_s:.2f} s "
+        f"(built twice: the same graph); levels above 0: "
+        f"{[int(ids.shape[0]) for ids, _ in graph.uppers]} nodes; level-0 "
+        f"rows with padding {pads} of {nlist}")
+    raw_cap = built.index.cap
+    cap = -(-raw_cap // TILE_N) * TILE_N
+    index = built.index._replace(lists=grow_cap(built.index.lists, cap))
+
+    def engine(coarse):
+        return SearchEngine(index, base=built.base,
+                            base_norms=built.base_norms, config=cfg,
+                            coarse=coarse)
+    engines = {"hnsw": engine(built.coarse), "flat": engine("flat")}
+    engines["tree"], tree_s = synced_s(torch, lambda: engine("tree"))
+    tree = engines["tree"].coarse
+    kids = tree.children[tree.children >= 0]
+    if not torch.equal(torch.sort(kids).values,
+                       torch.arange(nlist, device=kids.device,
+                                    dtype=kids.dtype)):
+        raise AssertionError("table1: a centroid is not under exactly one "
+                             "root")
+    log(f"table1: index nlist={nlist} cap={cap} (largest list {raw_cap}); "
+        f"tree: {tree.roots.shape[0]} roots, up to {tree.children.shape[1]} "
+        f"children, built in {tree_s:.2f} s")
+
+    q_all, gt = ds.queries, ds.gt_ids
+    zero_counts()
+    recall = {}
+    for nprobe in T1_NPROBES:
+        for rr in T1_RERANK:
+            for name in ("hnsw", "tree", "flat"):
+                eng = engines[name]
+                ids = []
+                for off in range(0, T1_NQ, 128):
+                    q = q_all[off:off + 128]
+                    res = eng.search_jit(q, K, nprobe=nprobe,
+                                         rerank_mult=rr)
+                    check_result(torch, res.dists, res.ids, q.shape[0],
+                                 args.n, f"table1 {name} nprobe={nprobe}")
+                    if off == 0 and name != "flat":
+                        eager = eng.search(q, K, nprobe=nprobe,
+                                           rerank_mult=rr)
+                        if not same_result(torch, res, eager):
+                            raise AssertionError(
+                                f"table1 {name}: search_jit != search at "
+                                f"nprobe={nprobe} rerank_mult={rr}")
+                    ids.append(res.ids)
+                ids = torch.cat(ids)
+                recall[(name, nprobe, rr)] = (
+                    float(recall_at_r(ids, gt, 1)),
+                    float(recall_at_r(ids, gt, 10)))
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log(f"table1: kernel launches (replays counted) {launches}")
+    need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
+                  "table1")
+    log(f"table1: search_jit == search bit for bit (dists, ids, 7 "
+        f"QueryStats) for the HNSW and tree engines at nprobe "
+        f"{T1_NPROBES} x rerank_mult {T1_RERANK}")
+    for rr in T1_RERANK:
+        for name in ("hnsw", "tree", "flat"):
+            log(f"table1: {name} rerank_mult={rr} recall@1 / recall@10 by "
+                f"nprobe {T1_NPROBES}: " + "  ".join(
+                    f"{recall[(name, p, rr)][0]:.4f} / "
+                    f"{recall[(name, p, rr)][1]:.4f}" for p in T1_NPROBES))
+    # routing: distinct probes, and how many of flat's probes each finds
+    for nprobe in T1_NPROBES:
+        _, flat_p = engines["flat"].coarse.search(q_all, nprobe)
+        parts = []
+        for name in ("hnsw", "tree"):
+            probes = engines[name].select_probes(q_all, nprobe)
+            dups = rows_with_repeated_probe(torch, probes)
+            if dups:
+                raise AssertionError(f"table1 {name}: {dups} queries hold a "
+                                     f"repeated probe at nprobe={nprobe}")
+            hit = (probes[:, :, None] == flat_p[:, None, :]).any(-1)
+            parts.append(f"{name} {float(hit.float().mean()):.4f} "
+                         f"({int((probes < 0).sum())} empty)")
+        log(f"table1: nprobe={nprobe}: no repeated probe in {T1_NQ} "
+            f"queries; share of flat coarse's probes found: "
+            + ", ".join(parts))
+    # the coarse stage against the rest of the query
+    for qq in (32, 128):
+        q = q_all[:qq]
+        for name in ("flat", "hnsw", "tree"):
+            eng = engines[name]
+            _, c_ms, c_ops, _ = breakdown(torch, lambda: coarse_probes(
+                eng.coarse, q, nprobe=NPROBE, ef=cfg.ef))
+            eng.search_jit(q, K)
+            _, g_ms, g_ops, _ = breakdown(torch,
+                                          lambda: eng.search_jit(q, K))
+            log(f"table1: Q={qq} {name} coarse stage (eager): device "
+                f"{c_ms:.4f} ms in {c_ops} device ops; the whole query as "
+                f"a graph: device {g_ms:.4f} ms in {g_ops} device ops "
+                f"(coarse {100 * c_ms / g_ms:.1f}% of it)")
+    for name in ("hnsw", "tree", "flat"):
+        eng = engines[name]
+        meds = []
+        for qq in BUCKETS:
+            q = q_all[:qq]
+            eng.search_jit(q, K)
+            lat = sorted(synced_s(torch, lambda: eng.search_jit(q, K))[1]
+                         * 1e3 for _ in range(7))
+            meds.append(lat[3])
+        log(f"table1: {name} search_jit latency ms at Q {BUCKETS} (median "
+            f"of 7, host clock + synchronize, nprobe={NPROBE}, "
+            f"rerank_mult={RERANK_MULT}): "
+            + " ".join(f"{x:.3f}" for x in meds))
+    return launches
+
+
+def sharded_phase(torch, args, engine, ds) -> dict:
+    """``ShardedEngine(engine, SHARDS)`` over the stream path's index,
+    shards in turn on this card (one card: the ``torch.distributed`` path
+    needs one a rank and runs in the CPU tests only). Against the
+    single-host engine: one shard tie-aware within 1e-6 x (||q||^2 + max
+    ||x||^2); every list probed without re-rank, the same rows scanned, so
+    tie-aware within PIPELINE_RTOL; at nprobe 8 each returned distance is
+    its row's exact distance, recall@10 at least the single-host engine's,
+    and the stats the sums over the shards. Then a write program through
+    the shards and the single-host engine alike (compact to MUT_CAP,
+    SHARD_WRITES batches each of new ids, deletes and re-upserts, compact),
+    held after it and after the compaction: no deleted id back, upserted
+    rows first at distance 0, the single-host engine with every list
+    probed, and the single-host engine sharded afresh. Returns the launch
+    counts of the driven run."""
+    from repro_torch.core.kmeans import pairwise_sqdist
+    from repro_torch.core.metrics import recall_at_r
+    from repro_torch.core.topk import smallest_k
+    from repro_torch.engine import SearchEngine, ShardedEngine
+    gc.collect()
+    sh, part_s = synced_s(torch, lambda: ShardedEngine(engine, SHARDS))
+    nl = sh.lists_s.nlist
+    nlist = engine.index.lists.nlist
+    q = ds.queries[:128].contiguous()
+    gt = ds.gt_ids[:128]
+    x_max = float(engine.base_norms.max())
+    k2_tol = (1e-6 * ((q * q).sum(1) + x_max)).cpu().numpy()
+    log(f"sharded: ShardedEngine(engine, {SHARDS}) {part_s:.2f} s "
+        f"(partition on the card: {nl} lists a shard, base slices of "
+        f"{sh.base_s.shape[1]} rows, rows a shard {list(sh._state.rows_used)})"
+        "; shards run in turn on one card (the torch.distributed path "
+        "needs a card a rank)")
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def exact_check(res, what):
+        """Each returned distance is its row's true distance."""
+        ids = res.ids.long()
+        if (host(ids) < 0).any():
+            raise AssertionError(f"sharded {what}: an empty result slot")
+        want = []
+        for j in range(0, q.shape[0], 32):
+            diff = (engine.base[ids[j:j + 32]].double()
+                    - q[j:j + 32, None].double())
+            want.append((diff * diff).sum(-1))
+        want = host(torch.cat(want))
+        err = np.abs(host(res.dists).astype(np.float64) - want)
+        if (err > k2_tol[:, None]).any():
+            raise AssertionError(f"sharded {what}: a distance is off its "
+                                 f"row's by {err.max()}")
+
+    def vs(got, want, tol, what):
+        assert_tie_aware(host(got.dists), host(got.ids), host(want.dists),
+                         host(want.ids), tol, what)
+
+    zero_counts()
+    res = sh.search(q, K)
+    single = engine.search(q, K)
+    exact_check(res, "nprobe 8")
+    r_sh = float(recall_at_r(res.ids, gt, 10))
+    r_single = float(recall_at_r(single.ids, gt, 10))
+    if r_sh < r_single:
+        raise AssertionError(f"sharded: recall@10 {r_sh} below the "
+                             f"single-host engine's {r_single}")
+    # the stats, summed over the shards, from each shard's own probes
+    codes = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for j in range(SHARDS):
+        _, p = smallest_k(pairwise_sqdist(q, sh.centroids_s[j]), NPROBE)
+        codes += sh.lists_s.sizes[j][p.long()].sum(1)
+    if not (torch.equal(res.stats.codes_scanned.long(), codes)
+            and bool((res.stats.lists_probed == SHARDS * NPROBE).all())
+            and bool((res.stats.reranked
+                      == SHARDS * RERANK_MULT * K).all())):
+        raise AssertionError("sharded: stats are not the shards' sums")
+    one = ShardedEngine(engine, 1).search(q, K)
+    vs(one, single, k2_tol, "one shard vs the single-host engine")
+    every = sh.search(q[:32], K, nprobe=nl, rerank_mult=0)
+    every1 = engine.search(q[:32], K, nprobe=nlist, rerank_mult=0)
+    tol = PIPELINE_RTOL * np.abs(host(every1.dists)).max(axis=1)
+    vs(every, every1, tol, "every list probed, no re-rank")
+    log(f"sharded: at nprobe {NPROBE} each shard's, recall@10 {r_sh:.4f} "
+        f"(single-host {r_single:.4f}), every distance its row's exact one "
+        f"within 1e-6 x (||q||^2 + max ||x||^2), stats the shards' sums "
+        f"(lists_probed {SHARDS * NPROBE}, reranked "
+        f"{SHARDS * RERANK_MULT * K}); one shard == the single-host engine "
+        f"(ids tie-aware, that tolerance); every list probed without "
+        f"re-rank == the single-host engine (ids tie-aware, dists rtol "
+        f"{PIPELINE_RTOL})")
+    lat = {}
+    for qq in BUCKETS:
+        qb = ds.queries[:qq].contiguous()
+        sh.search(qb, K)
+        ts = sorted(synced_s(torch, lambda: sh.search(qb, K))[1] * 1e3
+                    for _ in range(7))
+        lat[qq] = ts[3]
+    _, busy, n_ops, _ = breakdown(torch, lambda: sh.search(q[:32], K))
+    log(f"sharded: batch latency ms at Q {BUCKETS} (eager, shards in turn, "
+        f"median of 7, host clock + synchronize): "
+        + " ".join(f"{lat[qq]:.3f}" for qq in BUCKETS)
+        + f"; Q=32 device busy {busy:.4f} ms in {n_ops} device ops, idle "
+        f"{100 * (1 - busy / lat[32]):.1f}%")
+
+    # the write program, through the shards and the single-host engine
+    mut = SearchEngine(engine.index, base=engine.base,
+                       base_norms=engine.base_norms, config=engine.config)
+    n = engine.base.shape[0]
+    _, c0 = synced_s(torch, lambda: sh.compact(cap=MUT_CAP))
+    mut.compact(cap=MUT_CAP)
+    rows = sift_rows(torch, args, 2 * SHARD_WRITES * MUT_BATCH,
+                     engine.base.shape[1], q.device)
+    rng = np.random.default_rng(args.seed + 21)
+    times = {"upsert": [], "delete": [], "reupsert": []}
+    dead = np.unique(host(ds.gt_ids[:32]).ravel())
+    dead = np.concatenate([dead, rng.permutation(
+        np.setdiff1d(np.arange(n), dead))])[:SHARD_WRITES * MUT_BATCH]
+    fresh = np.arange(n, n + SHARD_WRITES * MUT_BATCH)
+    moved = rng.permutation(np.setdiff1d(np.arange(n), dead))[
+        :SHARD_WRITES * MUT_BATCH]
+    for b in range(SHARD_WRITES):
+        at = slice(b * MUT_BATCH, (b + 1) * MUT_BATCH)
+        a, dt = synced_s(torch, lambda: sh.upsert(fresh[at], rows[at]))
+        if not np.array_equal(a, mut.upsert(fresh[at], rows[at])):
+            raise AssertionError("sharded: an upsert routed a row to "
+                                 "another list than the single-host engine")
+        times["upsert"].append(MUT_BATCH / dt)
+        got, dt = synced_s(torch, lambda: sh.delete(dead[at]))
+        if got != MUT_BATCH or mut.delete(dead[at]) != MUT_BATCH:
+            raise AssertionError("sharded: a delete missed rows")
+        times["delete"].append(dt * 1e3)
+        vecs = rows[SHARD_WRITES * MUT_BATCH:][at]
+        _, dt = synced_s(torch, lambda: sh.upsert(moved[at], vecs))
+        mut.upsert(moved[at], vecs)
+        times["reupsert"].append(MUT_BATCH / dt)
+    if sh.n_tombstones != 2 * SHARD_WRITES * MUT_BATCH:
+        raise AssertionError(f"sharded: {sh.n_tombstones} tombstones")
+    dead_dev = torch.zeros(n + fresh.size, dtype=torch.bool,
+                           device=q.device)
+    dead_dev[torch.as_tensor(dead, device=q.device)] = True
+
+    def held(what):
+        got = sh.search(q, K)
+        if bool(dead_dev[got.ids[got.ids >= 0].long()].any()):
+            raise AssertionError(f"sharded {what}: a deleted id came back")
+        oracle = ShardedEngine(mut, SHARDS).search(q, K)
+        vs(got, oracle, k2_tol, f"{what}: vs the single-host engine "
+                                "sharded afresh")
+        every = sh.search(q[:32], K, nprobe=nl, rerank_mult=0)
+        every1 = mut.search(q[:32], K, nprobe=nlist, rerank_mult=0)
+        vs(every, every1,
+           PIPELINE_RTOL * np.abs(host(every1.dists)).max(axis=1),
+           f"{what}: every list probed, no re-rank")
+        for vecs, gids in ((rows[:32], fresh[:32]),
+                           (rows[SHARD_WRITES * MUT_BATCH:][:32],
+                            moved[:32])):
+            hit = sh.search(vecs, K)
+            if not (np.array_equal(host(hit.ids[:, 0]), gids)
+                    and bool((hit.dists[:, 0] == 0).all())):
+                raise AssertionError(f"sharded {what}: an upserted row is "
+                                     "not first at distance 0")
+    held("after the writes")
+    _, c1 = synced_s(torch, lambda: sh.compact())
+    mut.compact()
+    if sh.n_tombstones or sh.live_s is not None:
+        raise AssertionError("sharded: compaction left tombstones")
+    held("after compaction")
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log(f"sharded: kernel launches on the path {launches}")
+    need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
+                  "sharded")
+    log(f"sharded: writes through {SHARDS} shards, batches of {MUT_BATCH}: "
+        f"upsert rows/s (new ids) "
+        + " ".join(f"{x:.0f}" for x in times["upsert"])
+        + "; delete ms " + " ".join(f"{x:.3f}" for x in times["delete"])
+        + "; re-upsert rows/s "
+        + " ".join(f"{x:.0f}" for x in times["reupsert"])
+        + f"; compact to cap {MUT_CAP} {c0:.3f} s, after the writes "
+        f"{c1:.3f} s; results held after the writes and after compaction "
+        "(no deleted id, upserted rows first at distance 0, == the "
+        "single-host engine with every list probed, == it sharded afresh)")
+    return launches
+
+
 def ivf_engine(torch, args, nq: int):
     """The data (a SIFT1M-shaped base with ``nq`` queries and exact ground
     truth, made on the card from ``args.seed``) and the IVF engine of the
@@ -1986,6 +2373,11 @@ def main() -> int:
     launches = mutation_phase(torch, args, engine, ds)
     need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
                   "mutation")
+    # 9. the stream index across SHARDS shards, with writes
+    sharded_phase(torch, args, engine, ds)
+    # 10. the coarse zoo: the paper's Table 1 pipeline (HNSW, tree, flat)
+    del flat
+    coarse_phase(torch, args)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c)

@@ -7,7 +7,8 @@ gather-free exact re-rank, and the flat index's two scans and fused block
 minimum (``kernels/*_kernel.py``) -- are hand-written CUDA C++ for
 ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` at first use.
 
-Two entry points: the IVF serving engine (``SearchEngine``) and the flat
+Two entry points: the IVF serving engine (``SearchEngine``, flat, HNSW or
+k-means-tree coarse; ``ShardedEngine`` partitions it across shards) and the flat
 fast-scan index with the naive-PQ baseline beside it, the paper's Fig. 2
 pair (``core.fastscan.build_index`` / ``search`` returning a
 ``FastScanIndex`` and its results; ``core.pq.search``).
@@ -32,7 +33,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from repro_torch.core.fastscan import FastScanIndex  # noqa: E402
 from repro_torch.engine import (EngineConfig, QueryStats,  # noqa: E402
-                                SearchEngine, SearchResult)
+                                SearchEngine, SearchResult, ShardedEngine)
 
 __all__ = ["EngineConfig", "FastScanIndex", "QueryStats", "SearchEngine",
-           "SearchResult"]
+           "SearchResult", "ShardedEngine"]

@@ -339,3 +339,109 @@ def store_from_arrays(arrays: dict[str, np.ndarray], *,
     return ListStore(codes=t("codes", np.uint8), ids=t("ids", np.int32),
                      sizes=t("sizes", np.int32),
                      attrs=t("attrs", np.int32) if "attrs" in arrays else None)
+
+
+# ---------------------------------------------------------------------------
+# shard partitioning (shard j owns lists j, j+S, j+2S, ...)
+# ---------------------------------------------------------------------------
+
+def round_robin_perm(nlist: int, num_shards: int) -> np.ndarray:
+    """The list permutation ``partition_lists`` applies: shard j owns lists
+    j, j+S, j+2S, ... of the (padded to S*L) id space. Exposed so that
+    per-request sidecars (filter bitmaps, namespace rows) are sharded the
+    same way as a store partitioned earlier."""
+    s = int(num_shards)
+    l = -(-int(nlist) // s)
+    return np.arange(s * l).reshape(l, s).T.reshape(-1)
+
+
+def round_robin_rows(x: torch.Tensor, num_shards: int, fill) -> torch.Tensor:
+    """Pad a per-list tensor (nlist, ...) to S*L lists with ``fill`` and
+    lay it out (S, L, ...) in round-robin order."""
+    nlist = x.shape[0]
+    s = int(num_shards)
+    l = -(-nlist // s)
+    if s * l > nlist:
+        x = torch.cat([x, x.new_full((s * l - nlist,) + tuple(x.shape[1:]),
+                                     fill)])
+    perm = torch.as_tensor(round_robin_perm(nlist, s), device=x.device)
+    return x[perm].reshape((s, l) + tuple(x.shape[1:]))
+
+
+def partition_lists(store: ListStore, centroids: torch.Tensor,
+                    num_shards: int
+                    ) -> tuple[torch.Tensor, ListStore, torch.Tensor]:
+    """Round-robin partition of the lists into shards.
+
+    Returns (centroids (S, L, D), a ListStore with a leading shard
+    dimension S, real (S, L) bool), L = ceil(nlist / S). Padding lists
+    (False in ``real``) get a far-away centroid (1e30 in every coordinate),
+    size 0 and all -1 ids, so every shard has the same shapes. ids stay
+    global.
+    """
+    nlist = store.nlist
+    s = int(num_shards)
+    real = torch.as_tensor(round_robin_perm(nlist, s) < nlist,
+                           device=store.ids.device).reshape(s, -1)
+    return (round_robin_rows(centroids.float(), s, 1e30),
+            ListStore(codes=round_robin_rows(store.codes, s, 0),
+                      ids=round_robin_rows(store.ids, s, -1),
+                      sizes=round_robin_rows(store.sizes, s, 0),
+                      attrs=None if store.attrs is None
+                      else round_robin_rows(store.attrs, s, -1)),
+            real)
+
+
+def partition_filter(filter_bits: torch.Tensor, num_shards: int
+                     ) -> torch.Tensor:
+    """Shard a packed (nlist, W) u8 filter bitmap over global list ids as
+    ``partition_lists`` shards the lists: (S, L, W), padding lists all
+    zero (nothing passes)."""
+    return round_robin_rows(filter_bits, num_shards, 0)
+
+
+def pack_local_rows(ids_s: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """Shard-local base rows for a sharded store's ids (S, L, cap): each
+    shard's valid slots get rows 0, 1, ... in order of appearance (list by
+    list, slot by slot). Returns (local ids (S, L, cap) i32, -1 where ids
+    is -1; the shard and the row of each valid slot in that order, both
+    (V,) int64; rows each shard needs, (S,) int64)."""
+    s = ids_s.shape[0]
+    mask = ids_s.reshape(s, -1) >= 0
+    rank = torch.cumsum(mask, dim=1) - 1
+    local = torch.where(mask, rank, -1).to(torch.int32)
+    js, ps = torch.nonzero(mask, as_tuple=True)
+    return (local.reshape(ids_s.shape), js, rank[js, ps],
+            torch.sum(mask, dim=1))
+
+
+def partition_base(lists_s: ListStore, base: torch.Tensor,
+                   norms: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """Per-shard base slices and the id -> row remap of a sharded re-rank.
+
+    lists_s: a store with a leading shard dimension S (``partition_lists``,
+    ids global); base: (N, D) f32; ``norms``: its (N,) ``base_norms`` when
+    the caller holds them (else derived here). Returns base_s (S, R, D) f32
+    (each shard's rows in order of appearance, zero padded), gids_s (S, R)
+    i32 (global id of each local row, -1 = padding), local_ids (S, L, cap)
+    i32 (``lists_s.ids`` remapped to local rows) and norms_s (S, R) f32
+    (the rows' norms gathered, 0 at padding). R is the most rows any shard
+    holds (at least 1).
+    """
+    ids = lists_s.ids
+    s = ids.shape[0]
+    local, js, rows, counts = pack_local_rows(ids)
+    r_cap = max(1, int(counts.max()))
+    flat = ids.reshape(s, -1)
+    gid = flat[flat >= 0].long()
+    base_s = base.new_zeros((s, r_cap, base.shape[1]))
+    base_s[js, rows] = base[gid]
+    gids_s = torch.full((s, r_cap), -1, dtype=torch.int32, device=ids.device)
+    gids_s[js, rows] = gid.to(torch.int32)
+    norms_s = base.new_zeros((s, r_cap))
+    norms_s[js, rows] = (base_norms(base) if norms is None else norms)[gid]
+    return base_s, gids_s, local, norms_s

@@ -40,6 +40,57 @@ def smallest_k(dists: torch.Tensor, k: int
     return torch.gather(dists, -1, pick), pick.to(torch.int32)
 
 
+def tournament_topk(dists: torch.Tensor, k: int, block: int = 1024
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked top-k: each block's k smallest, then the k smallest of
+    those. dists (Q, N) -> (vals (Q, k), ids (Q, k) i32) ascending, the
+    order ``smallest_k`` gives over the whole row (ties: lowest index)."""
+    q, n = dists.shape
+    if n <= max(block, 2 * k):
+        return smallest_k(dists, k)
+    pad = (-n) % block
+    if pad:
+        dists = torch.nn.functional.pad(dists, (0, pad), value=torch.inf)
+    nb = dists.shape[1] // block
+    vals, idx = smallest_k(dists.reshape(q, nb, block), min(k, block))
+    gidx = idx + (torch.arange(nb, dtype=idx.dtype, device=idx.device)
+                  * block)[None, :, None]
+    mvals, midx = smallest_k(vals.reshape(q, -1), k)
+    return mvals, torch.gather(gidx.reshape(q, -1), 1, midx.long())
+
+
+def merge_topk(vals, ids, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shard merge of ``distributed_topk``: each shard's (Q, >=k)
+    results, in shard order, laid side by side as an ``all_gather`` along
+    axis 1 lays them, then the k smallest (ties: the lowest shard, then the
+    lowest position within it). Each shard's own top-k is taken first."""
+    picked_v, picked_i = [], []
+    for v, i in zip(vals, ids):
+        lv, li = smallest_k(v, min(k, v.shape[-1]))
+        picked_v.append(lv)
+        picked_i.append(torch.gather(i, 1, li.long()))
+    mvals, midx = smallest_k(torch.cat(picked_v, dim=1), k)
+    return mvals, torch.gather(torch.cat(picked_i, dim=1), 1, midx.long())
+
+
+def distributed_topk(local_dists: torch.Tensor, local_ids: torch.Tensor,
+                     k: int, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge shard-local results across a ``torch.distributed`` process
+    group, one shard a rank: each rank's (Q, k') results (the same shape
+    on every rank; k' = k in the sharded engine) are all-gathered and
+    merged as ``merge_topk`` merges them (rank order is shard order), so
+    every rank returns the same (Q, k). Wire cost: 2k' values a query and
+    rank."""
+    import torch.distributed as dist
+    size = dist.get_world_size(group)
+    out = []
+    for local in (local_dists.contiguous(), local_ids.contiguous()):
+        parts = [torch.empty_like(local) for _ in range(size)]
+        dist.all_gather(parts, local, group=group)
+        out.append(parts)
+    return merge_topk(*out, k)
+
+
 def masked_topk(dists: torch.Tensor, valid: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over entries where valid; invalid slots return inf/-1."""

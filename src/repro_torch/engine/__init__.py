@@ -2,6 +2,7 @@
 from repro_torch.engine.engine import (EngineConfig, QueryStats, SearchEngine,
                                        SearchResult)
 from repro_torch.engine.graphs import fused_cache_size
+from repro_torch.engine.sharded import ShardedEngine
 
 __all__ = ["EngineConfig", "QueryStats", "SearchEngine", "SearchResult",
-           "fused_cache_size"]
+           "ShardedEngine", "fused_cache_size"]

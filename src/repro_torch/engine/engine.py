@@ -37,8 +37,13 @@ first write's clone, another cap, a larger base) drops the engine's
 graphs.
 ``EngineState`` is the snapshot a search reads once.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-HNSW/tree coarse, a write-ahead log (``attach_wal``).
+Coarse quantizers (``core.coarse``): flat, HNSW (``EngineConfig.ef`` is its
+beam width) or the k-means tree, or a prebuilt object with
+``search(q, nprobe)``. Namespaces are fused into the flat quantizer's probe
+selection; the others' probes are masked after they are routed.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: a
+write-ahead log (``attach_wal``).
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ from repro_torch.kernels import ops as ops_mod
 from repro_torch.kernels.ops import RERANK_IMPLS, SCAN_IMPLS
 
 PROBE_POLICIES = ("fixed", "margin")
+COARSE_KINDS = ("flat", "hnsw", "tree")
 # valid-probe fraction the autotune sweep assumes under the margin policy:
 # an adaptive workload's 'auto' verdict is timed (and cached) against a
 # probe set with this fill instead of a dense one
@@ -148,33 +154,45 @@ def validate_config(config: EngineConfig, *, coarse_kind: str,
             "base vectors for exact re-rank, but the engine holds none")
 
 
-def coarse_probes(coarse: coarse_mod.FlatCoarse, q: torch.Tensor, *,
-                  nprobe: int, ns_member: torch.Tensor | None = None,
+def coarse_probes(coarse, q: torch.Tensor, *, nprobe: int,
+                  ef: int = _EF_DEFAULT,
+                  ns_member: torch.Tensor | None = None,
                   namespaces: torch.Tensor | None = None,
                   probe_policy: str = "fixed",
                   margin_tau: torch.Tensor | float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage 1: the nprobe nearest lists. Returns (probes (Q, nprobe) i32,
-    -1 = no probe; lists_pruned (Q,) i32). Under ``probe_policy='margin'``
-    a probe survives only while its centroid distance is within
+    -1 = no probe; lists_pruned (Q,) i32). An HNSW quantizer searches with
+    a beam of ``max(ef, nprobe)``. Under ``probe_policy='margin'`` a probe
+    survives only while its centroid distance is within
     ``(1 + margin_tau) x`` the query's best (``core.topk.
     margin_prune_probes``; scalar or (Q,) tau, None or +inf keeps all).
 
     Namespaces: ``ns_member`` is the engine's (n_ns, nlist) bool table and
     ``namespaces`` the (Q,) i32 tenant of each query (-1 = unrestricted).
-    The restriction is fused into probe selection (``masked_topk`` over the
-    allowed lists), so a tenant's scan touches only its own lists; a
-    tenant with fewer than nprobe lists gets -1 probes. With every query at
-    -1 the result is bit for bit ``smallest_k``'s. A tenant id past the
-    table reads its last row, as the reference's clamped gather does.
+    On the flat quantizer the restriction is fused into probe selection
+    (``masked_topk`` over the allowed lists), so a tenant's scan touches
+    only its own lists and a tenant with fewer than nprobe lists gets -1
+    probes; with every query at -1 the result is bit for bit
+    ``smallest_k``'s. Other quantizers route first and their probes of
+    lists outside the tenant become -1. A tenant id past the table reads
+    its last row, as the reference's clamped gather does.
     """
-    if ns_member is not None and namespaces is not None:
+    restrict = ns_member is not None and namespaces is not None
+    if restrict:
         row = torch.clamp(namespaces, 0, ns_member.shape[0] - 1).long()
         allow = (namespaces < 0)[:, None] | ns_member[row]
+    if isinstance(coarse, coarse_mod.FlatCoarse) and restrict:
         vals, probes = topk_mod.masked_topk(
             pairwise_sqdist(q, coarse.centroids), allow, nprobe)
     else:
-        vals, probes = coarse.search(q, nprobe)
+        if isinstance(coarse, coarse_mod.HNSWCoarse):
+            vals, probes = coarse.search(q, nprobe, ef=ef)
+        else:
+            vals, probes = coarse.search(q, nprobe)
+        if restrict:
+            ok = torch.gather(allow, 1, torch.clamp_min(probes, 0).long())
+            probes = torch.where(ok & (probes >= 0), probes, -1)
     if probe_policy == "margin":
         tau = torch.inf if margin_tau is None else margin_tau
         return topk_mod.margin_prune_probes(vals, probes, tau)
@@ -304,8 +322,8 @@ def _pipeline(coarse, index: ivf_mod.IVFIndex, base: torch.Tensor | None,
               live_bits: torch.Tensor | None = None,
               margin_tau: torch.Tensor | None = None, *, k: int, nprobe: int,
               r: int, scan_impl: str, rerank_impl: str,
-              probe_policy: str = "fixed", early_exit: bool = False
-              ) -> SearchResult:
+              ef: int = _EF_DEFAULT, probe_policy: str = "fixed",
+              early_exit: bool = False) -> SearchResult:
     """The whole query path as one function (stages 1-4 + stats). A
     namespace-excluded probe is -1, so it counts in no stat. ``live_bits``
     (the engine's live-row bitmap, present only while the store holds
@@ -313,8 +331,9 @@ def _pipeline(coarse, index: ivf_mod.IVFIndex, base: torch.Tensor | None,
     per-tile budget skips deleted rows before it selects; the gathered
     impls mask them by id anyway."""
     probes, lists_pruned = coarse_probes(
-        coarse, q, nprobe=nprobe, ns_member=ns_member, namespaces=namespaces,
-        probe_policy=probe_policy, margin_tau=margin_tau)
+        coarse, q, nprobe=nprobe, ef=ef, ns_member=ns_member,
+        namespaces=namespaces, probe_policy=probe_policy,
+        margin_tau=margin_tau)
     flat_d, flat_ids, tiles_skipped = scan_candidates(
         index, q, probes, scan_impl=scan_impl, keep=(r * k) if r else k,
         filter_bits=combine_filter_bits(filter_bits, live_bits),
@@ -403,12 +422,17 @@ class SearchEngine:
     """
 
     def __init__(self, index: ivf_mod.IVFIndex, *,
-                 base: torch.Tensor | None = None,
-                 coarse: str | coarse_mod.FlatCoarse = "flat",
-                 config: EngineConfig | None = None,
-                 namespaces=None, base_norms: torch.Tensor | None = None,
+                 base: torch.Tensor | None = None, coarse="flat",
+                 config: EngineConfig | None = None, hnsw_m: int = 16,
+                 ef_construction: int = 64, namespaces=None,
+                 base_norms: torch.Tensor | None = None,
                  live_bits: torch.Tensor | None = None):
-        """``base_norms`` takes precomputed ``‖x‖²`` of the base rows (a
+        """``coarse`` is one of ``COARSE_KINDS``, built here over the
+        index's centroids (HNSW with ``hnsw_m`` and ``ef_construction``; the
+        tree from a k-means seeded with 0), or a prebuilt quantizer (a
+        ``core.coarse`` one, or any object with ``search(q, nprobe)``,
+        whose ``search_jit`` then runs eagerly, as the reference's does).
+        ``base_norms`` takes precomputed ``‖x‖²`` of the base rows (a
         carried-over index brings its own); they are derived when absent.
         A store that already holds tombstones gets its live-row bitmap
         here, so the first search is already exact: the packed
@@ -436,13 +460,22 @@ class SearchEngine:
                     f"membership, got shape {tuple(namespaces.shape)}")
         self.ns_member = namespaces
         self.config = config or EngineConfig()
-        if isinstance(coarse, coarse_mod.FlatCoarse):
-            self.coarse = coarse
-        elif coarse == "flat":
-            self.coarse = coarse_mod.build_flat(index.centroids)
+        if isinstance(coarse, str):
+            if coarse == "flat":
+                self.coarse = coarse_mod.build_flat(index.centroids)
+            elif coarse == "hnsw":
+                self.coarse = coarse_mod.build_hnsw_coarse(
+                    index.centroids, m=hnsw_m,
+                    ef_construction=ef_construction)
+            elif coarse == "tree":
+                self.coarse = coarse_mod.build_tree(index.centroids)
+            else:
+                raise ValueError(f"unknown coarse kind {coarse!r}; want one "
+                                 f"of {COARSE_KINDS}")
+            self.coarse_kind = coarse
         else:
-            raise _not_ported(f"coarse={coarse!r}", "5")
-        self.coarse_kind = "flat"
+            self.coarse = coarse
+            self.coarse_kind = _coarse_kind_of(coarse)
         validate_config(self.config, coarse_kind=self.coarse_kind,
                         has_base=base is not None)
         # graphs dropped by mutations that had to reallocate
@@ -522,13 +555,16 @@ class SearchEngine:
 
     @classmethod
     def build(cls, train_x, base_x, *, m: int, nlist: int,
-              coarse: str = "flat", config: EngineConfig | None = None,
+              coarse="flat", config: EngineConfig | None = None,
               cap: int | None = None, coarse_iters: int = 20,
               pq_iters: int = 25, keep_base: bool = True, seed: int = 0,
-              device: str | torch.device | None = None) -> "SearchEngine":
+              device: str | torch.device | None = None,
+              **coarse_kw) -> "SearchEngine":
         """Train + bucket + wrap: raw vectors (numpy or tensors) to a live
         engine on ``device`` (None = the CUDA card; raises without one).
-        k-means draws from a ``torch.Generator`` seeded with ``seed``."""
+        k-means draws from a ``torch.Generator`` seeded with ``seed``;
+        ``coarse_kw`` (``hnsw_m``, ``ef_construction``) goes to the
+        constructor."""
         dev = resolve_device(device)
         train = torch.as_tensor(train_x, dtype=torch.float32, device=dev)
         base = torch.as_tensor(base_x, dtype=torch.float32, device=dev)
@@ -538,7 +574,7 @@ class SearchEngine:
                                       coarse_iters=coarse_iters,
                                       pq_iters=pq_iters, generator=gen)
         return cls(index, base=base if keep_base else None, coarse=coarse,
-                   config=config)
+                   config=config, **coarse_kw)
 
     def _queries(self, queries) -> torch.Tensor:
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
@@ -549,7 +585,7 @@ class SearchEngine:
         the config's probe policy (the pruned counter is dropped; call
         ``coarse_probes`` to see it)."""
         probes, _ = coarse_probes(
-            self.coarse, self._queries(q), nprobe=nprobe,
+            self.coarse, self._queries(q), nprobe=nprobe, ef=self.config.ef,
             probe_policy=self.config.probe_policy,
             margin_tau=self.config.margin_tau)
         return probes
@@ -645,13 +681,21 @@ class SearchEngine:
                              member if ns is not None else None, q, fb, ns,
                              live, tau, k=k, nprobe=nprobe, r=r,
                              scan_impl=cfg.scan_impl,
-                             rerank_impl=cfg.rerank_impl,
+                             rerank_impl=cfg.rerank_impl, ef=cfg.ef,
                              probe_policy=cfg.probe_policy,
                              early_exit=cfg.early_exit)
         lists = index.lists
         return fn, (lists.codes, lists.ids, lists.sizes, index.centroids,
-                    index.codebook.codewords, coarse.centroids, base, norms,
-                    member, self._live)
+                    index.codebook.codewords, base, norms, member, self._live,
+                    *(() if self.coarse_kind == "custom"
+                      else coarse.tensors()))
+
+    def _knobs(self, k: int, nprobe: int, r: int) -> tuple:
+        """The static knobs of a graph key: the request's and the config's,
+        and the coarse quantizer's kind."""
+        cfg = self.config
+        return (k, nprobe, r, cfg.scan_impl, cfg.rerank_impl,
+                cfg.probe_policy, cfg.early_exit, cfg.ef, self.coarse_kind)
 
     def search(self, queries, k: int = 10, *, nprobe: int | None = None,
                rerank_mult: int | None = None, filter_bits=None,
@@ -682,9 +726,10 @@ class SearchEngine:
         optional input and of the live-row bitmap, state) key,
         ``fused_cache_size``). The values of the queries, filter,
         namespaces and tau never capture a new graph, nor do mutations
-        that keep every shape. On the CPU (only when asked for) it runs
+        that keep every shape. On the CPU (only when asked for), and with a
+        custom coarse object (whose tensors the cache cannot key), it runs
         ``search``'s pipeline and captures nothing."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.coarse_kind == "custom":
             return self.search(queries, k, nprobe=nprobe,
                                rerank_mult=rerank_mult,
                                filter_bits=filter_bits,
@@ -695,11 +740,9 @@ class SearchEngine:
                 queries, nprobe, rerank_mult, filter_bits, namespaces,
                 margin_tau, st)
             fn, state = self._bind(k=k, nprobe=nprobe, r=r, st=st)
-            cfg = self.config
             key = graphs_mod.graph_key(
                 q, (fb, ns, tau, st.live_bits),
-                knobs=(k, nprobe, r, cfg.scan_impl, cfg.rerank_impl,
-                       cfg.probe_policy, cfg.early_exit),
+                knobs=self._knobs(k, nprobe, r),
                 state=graphs_mod.state_identity(state))
             return self.graphs.run(key, state, fn, (q, fb, ns, tau))
 
@@ -910,3 +953,13 @@ class SearchEngine:
                                                  cap=old_cap)
                     self._dropped_graphs()
             return st.n_tombstones
+
+
+def _coarse_kind_of(coarse) -> str:
+    if isinstance(coarse, coarse_mod.FlatCoarse):
+        return "flat"
+    if isinstance(coarse, coarse_mod.HNSWCoarse):
+        return "hnsw"
+    if isinstance(coarse, coarse_mod.TreeCoarse):
+        return "tree"
+    return "custom"

@@ -8,12 +8,13 @@ Here the eager pipeline is captured once per such key into a
 ``torch.cuda.CUDAGraph`` and replayed, so a batch costs one graph launch
 instead of one host dispatch per device op.
 
-- **Key** (``graph_key``): the query shape; k, nprobe, r and the config's
-  scan_impl, rerank_impl, probe_policy and early_exit; the shape of each
+- **Key** (``graph_key``): the query shape; k, nprobe, r, the config's
+  scan_impl, rerank_impl, probe_policy, early_exit and ef, and the coarse
+  quantizer's kind; the shape of each
   optional input (filter bits, namespaces, margin tau, and the engine's
   live-row bitmap, present while its store holds tombstones), None where
   it is absent; and the identity (``data_ptr``, shape) of every engine
-  tensor the graph reads. Never the values of the queries, filter,
+  tensor the graph reads, the coarse quantizer's included. Never the values of the queries, filter,
   namespaces or tau: those are copied into the graph's static input
   buffers before each replay, so new values at a seen key capture
   nothing; nor the values of the engine's tensors, which a replay reads.

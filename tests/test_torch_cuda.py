@@ -1177,3 +1177,95 @@ def test_encode_rows_is_batch_independent_on_the_card(dev):
         for lo, hi in ((0, 1), (17, 273), (255, 257), (0, 600)):
             a, p = tivf.encode_rows(cen, cb, rows[lo:hi])
             assert (a == a_all[lo:hi]).all() and (p == p_all[lo:hi]).all()
+
+
+# ---------------------------------------------------------------------------
+# the coarse zoo and sharding on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("coarse", ["hnsw", "tree"])
+def test_coarse_zoo_graph_equals_eager_and_the_host(dev, coarse):
+    """An HNSW (its beam: 2·ef fixed iterations of small ops, scatters for
+    the visited mask) or tree engine captured as a graph: bit for bit
+    ``search``, at each bucket, namespaced too; K1 and K2 launched; no
+    repeated probe; the same quantizer on the host routes and answers
+    alike."""
+    ds, eng, member, request = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream",
+                       ef=32 if coarse == "hnsw" else 64)
+    zeng = SearchEngine(eng.index, base=eng.base, base_norms=eng.base_norms,
+                        config=cfg, namespaces=member, coarse=coarse)
+    fk.launches = rk.launches = 0
+    for qq in (1, 8, 32):
+        q = ds.queries[:qq]
+        _assert_bitwise(zeng.search_jit(q, 10), zeng.search(q, 10), qq)
+    ns = request(1)["namespaces"]
+    got = zeng.search_jit(ds.queries, 10, namespaces=ns)
+    _assert_bitwise(got, zeng.search(ds.queries, 10, namespaces=ns), "ns")
+    _owned(zeng, got, ns)
+    assert fk.launches > 0 and rk.launches > 0
+    probes = zeng.select_probes(ds.queries, 8)
+    s = torch.sort(probes, dim=1).values
+    assert not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+    # the same quantizer on the host: the beam's float sums round their
+    # own way there, so probes and results agree up to near ties
+    host = interop.engine_from_arrays(interop.arrays_from_engine(zeng),
+                                      config=cfg, device="cpu")
+    assert host.coarse_kind == coarse
+    hp = host.select_probes(ds.queries.cpu(), 8)
+    assert float((hp[:, :, None] == probes.cpu()[:, None, :]).any(-1)
+                 .float().mean()) > 0.95
+    want = host.search(ds.queries.cpu(), 10)
+    res = zeng.search_jit(ds.queries, 10)
+    assert float((res.ids.cpu() == want.ids).float().mean()) > 0.95
+
+
+def test_sharded_engine_on_the_card(dev):
+    """Shards in turn on the card: one shard == the single-host engine
+    tie-aware within the K2 tolerance; every list probed without re-rank ==
+    the single-host engine; a write program through the shards leaves no
+    deleted id and equals the single-host engine after the same program,
+    sharded afresh; K1 and K2 launched per shard."""
+    from repro_torch.engine import ShardedEngine
+    ds, eng, _, _ = _graph_setup()
+    cfg = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                       rerank_impl="stream")
+    single = SearchEngine(eng.index, base=eng.base,
+                          base_norms=eng.base_norms, config=cfg)
+    q = ds.queries
+    tol = 1e-6 * float((q * q).sum(1).max() + eng.base_norms.max())
+
+    def close(a, b):
+        np.testing.assert_allclose(a.dists.cpu().numpy(),
+                                   b.dists.cpu().numpy(), rtol=1e-5,
+                                   atol=tol)
+        same = (a.ids == b.ids).float().mean()
+        assert float(same) > 0.98, float(same)
+
+    fk.launches = rk.launches = 0
+    close(ShardedEngine(single, 1).search(q, 10), single.search(q, 10))
+    sh = ShardedEngine(single, 4)
+    assert fk.launches > 0 and rk.launches > 0
+    nlist = eng.index.lists.nlist
+    close(sh.search(q, 10, nprobe=sh.lists_s.nlist, rerank_mult=0),
+          single.search(q, 10, nprobe=nlist, rerank_mult=0))
+    mut = SearchEngine(eng.index, base=eng.base, base_norms=eng.base_norms,
+                       config=cfg)
+    rng = np.random.default_rng(3)
+    n = eng.base.shape[0]
+    dead = rng.choice(n, 300, replace=False)
+    new = torch.round(torch.as_tensor(
+        rng.normal(size=(200, eng.base.shape[1])) * 20 + 60,
+        dtype=torch.float32, device=dev))
+    for e in (sh, mut):
+        assert e.delete(dead) == 300
+        e.upsert(np.arange(n, n + 200), new)
+    got = sh.search(q, 10)
+    assert not np.isin(got.ids.cpu().numpy(), dead).any()
+    close(got, ShardedEngine(mut, 4).search(q, 10))
+    hit = sh.search(new[:16], 10)
+    assert torch.equal(hit.ids[:, 0].cpu(),
+                       torch.arange(n, n + 16, dtype=torch.int32))
+    assert sh.compact() == 300
+    close(sh.search(q, 10), ShardedEngine(mut, 4).search(q, 10))

@@ -192,8 +192,8 @@ def test_not_yet_ported_features_raise(tengine, arrays, ds):
                 EngineConfig(rerank_impl="exact")):
         with pytest.raises(ValueError, match="unknown"):
             SearchEngine(tengine.index, config=cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SearchEngine(tengine.index, coarse="hnsw")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        SearchEngine(tengine.index).attach_wal(None)
 
 
 def test_bad_requests_are_rejected(tengine, ds):

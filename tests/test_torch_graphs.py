@@ -7,12 +7,12 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.engine import EngineConfig, fused_cache_size
+from repro_torch.engine import EngineConfig, SearchEngine, fused_cache_size
 from repro_torch.engine import graphs
 from repro_torch.kernels import ops
 
 NLIST, CAP, M, D = 8, 32, 8, 32
-KNOBS = (10, 4, 0, "stream", "stream", "margin", True)
+KNOBS = (10, 4, 0, "stream", "stream", "margin", True, 64, "flat")
 
 
 def _engine(namespaces=True):
@@ -40,6 +40,7 @@ def _key(eng, q, fb=None, ns=None, tau=None, knobs=KNOBS):
 
 def test_graph_key_ignores_values_and_holds_shapes_knobs_presence_state():
     eng = _engine()
+    assert eng._knobs(10, 4, 0) == KNOBS
     rng = np.random.default_rng(1)
 
     def t(shape, dtype=torch.float32):
@@ -156,3 +157,50 @@ def test_mutations_keep_the_state_identity_unless_they_reallocate():
     assert eng.base.shape[0] == NLIST * CAP + 256
     assert key()[-1] != k2[-1]                    # the base grew
     assert eng.graphs_dropped == 0 and len(eng.graphs) == 0
+
+
+@pytest.mark.parametrize("coarse", ["hnsw", "tree"])
+def test_graph_key_holds_ef_the_coarse_kind_and_the_quantizers_tensors(
+        coarse):
+    """The HNSW beam width and the coarse kind are knobs of the key, and
+    the quantizer's tensors are part of the state identity, so a graph
+    never replays over another quantizer or beam."""
+    flat = _engine()
+    eng = SearchEngine(flat.index, base=flat.base, coarse=coarse,
+                       config=flat.config, namespaces=flat.ns_member,
+                       hnsw_m=4)
+    knobs = eng._knobs(10, 4, 0)
+    assert knobs[:-1] == KNOBS[:-1] and knobs[-1] == coarse
+    if coarse == "hnsw":
+        wider = SearchEngine(flat.index, base=flat.base, coarse=eng.coarse,
+                             config=flat.config._replace(ef=32))
+        assert wider._knobs(10, 4, 0)[7] == 32
+    _, state = eng._bind(k=10, nprobe=4, r=0)
+    ident = graphs.state_identity(state)
+    tensors = eng.coarse.tensors()
+    assert set(graphs.state_identity(tensors)) <= set(ident)
+    eng.coarse = type(eng.coarse)(*(
+        x.clone() if isinstance(x, torch.Tensor) else x
+        for x in eng.coarse)) if coarse == "tree" else type(eng.coarse)(
+        eng.coarse.graph._replace(level0=eng.coarse.graph.level0.clone()))
+    _, state = eng._bind(k=10, nprobe=4, r=0)
+    assert graphs.state_identity(state) != ident
+
+
+@pytest.mark.parametrize("coarse", ["hnsw", "tree"])
+def test_search_jit_on_the_cpu_is_search_for_each_quantizer(coarse):
+    flat = _engine()
+    eng = SearchEngine(flat.index, base=flat.base, coarse=coarse,
+                       config=flat.config._replace(
+                           ef=16 if coarse == "hnsw" else 64),
+                       namespaces=flat.ns_member, hnsw_m=4)
+    q = np.random.default_rng(4).normal(size=(6, D)).astype(np.float32)
+    ns = np.asarray([0, 1, 2, -1, 0, 1], np.int32)
+    n0 = fused_cache_size()
+    for kw in ({}, {"namespaces": ns}, {"rerank_mult": 4}):
+        a = eng.search(q, 5, **kw)
+        b = eng.search_jit(q, 5, **kw)
+        assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
+        for x, y in zip(a.stats, b.stats):
+            assert torch.equal(x, y)
+    assert fused_cache_size() == n0 and len(eng.graphs) == 0
