@@ -63,6 +63,21 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      time and device ops beside the whole query's graph, and graph
      latency a bucket.
 
+  7. durable serving (``repro_torch.serving`` over ``repro_torch.persist``)
+     on the stream configuration, an engine of its own over the stream
+     index compacted to cap 5120: a ``ServingLoop`` booted with a snapshot
+     directory (git-ignored ``build/``) and warmed a bucket; closed-loop
+     clients at 1, 8, 32 and 128 threads (QPS, p50/p99, occupancy,
+     buckets; every served row held against ``search``, tie-aware, stats
+     exact; no capture or sweep after warm-up); reads at 32 clients under
+     1,000-row upserts and deletes with the WAL fsync'd and two forced
+     delta checkpoints (p99 with and without one running, the capture's
+     device time, bytes written and reused, upsert rows/s); recovery with
+     ``persist.open_engine`` on the card, bit for bit; a primary and a
+     standby loop over a ``DirTransport`` (lag, ``promote()`` seconds, the
+     acknowledged prefix held, the old primary fenced, standby reads never
+     failing); and ``tools/crash_test_torch.py`` once a drill.
+
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
 (the stream configuration, and the anytime one under verdicts pinned in a
@@ -2228,6 +2243,454 @@ def sharded_phase(torch, args, engine, ds) -> dict:
     return launches
 
 
+SERVE_CONCURRENCY = (1, 8, 32, 128)   # closed-loop client threads
+SERVE_S = 2.0                 # seconds of reads at each concurrency
+SERVE_WAIT_S = 0.0005         # the batcher's window for co-riders
+SERVE_WRITES = 8              # MUT_BATCH-row writes under reads
+FAILOVER_WRITES = 4           # MUT_BATCH-row writes on the primary
+SERVE_FIELDS = ("lists_probed", "codes_scanned", "reranked", "rows_filtered",
+                "rows_tombstoned", "lists_pruned", "tiles_skipped")
+
+
+class Clients:
+    """Closed-loop client threads against a serving loop: each submits one
+    pool query, waits for it, and submits the next, until ``stop`` is set.
+    Keeps (query row, ServeResult, submit time, done time) of every
+    request and the repr of every failed one."""
+
+    def __init__(self, loop, pool: np.ndarray, threads: int, seed: int):
+        import threading
+        self.loop, self.pool = loop, pool
+        self.stop = threading.Event()
+        self.served, self.failed = [], []
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run,
+                                          args=(seed * 1000 + t,))
+                         for t in range(threads)]
+
+    def _run(self, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        served, failed = [], []
+        while not self.stop.is_set():
+            qi = int(rng.integers(self.pool.shape[0]))
+            t0 = time.monotonic()
+            try:
+                res = self.loop.submit(self.pool[qi], k=K).result(timeout=60)
+            except Exception as e:  # counted: the phase fails on any
+                failed.append(repr(e))
+                continue
+            served.append((qi, res, t0, time.monotonic()))
+        with self._lock:
+            self.served += served
+            self.failed += failed
+
+    def __enter__(self) -> "Clients":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        for t in self._threads:
+            t.join()
+
+
+def held_to_search(served, want, tol, what: str) -> int:
+    """Each served row against the eager ``search`` of its query: equal, or
+    tie-aware within ``tol`` (a differing row not at a tie fails); every
+    stat exact. Returns the rows that differ at a tie."""
+    qi = np.array([s[0] for s in served])
+    gd = np.stack([s[1].dists for s in served])
+    gi = np.stack([s[1].ids for s in served])
+    wd, wi = want["dists"][qi], want["ids"][qi]
+    tied = np.nonzero(~((gd == wd).all(1) & (gi == wi).all(1)))[0]
+    for r in tied:
+        assert_tie_aware(gd[r:r + 1], gi[r:r + 1], wd[r:r + 1], wi[r:r + 1],
+                         tol[qi[r]:qi[r] + 1], what)
+    for f in SERVE_FIELDS:
+        got = np.array([getattr(s[1], f) for s in served])
+        if not np.array_equal(got, want[f][qi]):
+            raise AssertionError(f"{what}: served {f} differ from search")
+    return len(tied)
+
+
+def same_engine_state(torch, a, b, what: str) -> None:
+    """Two engines hold the same store, base, norms, live bits and
+    counters, bit for bit."""
+    la, lb = a.index.lists, b.index.lists
+    pairs = [(x, y) for x, y in zip(la, lb)] + [
+        (a.base, b.base), (a.base_norms, b.base_norms),
+        (a.live_bits, b.live_bits)]
+    for x, y in pairs:
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: the engines' state differs")
+    if (a.epoch, a.n_tombstones) != (b.epoch, b.n_tombstones):
+        raise AssertionError(f"{what}: epoch/tombstones differ")
+
+
+def same_search(torch, a, b, q, what: str) -> None:
+    ra, rb = a.search(q, K), b.search(q, K)
+    for x, y in zip((ra.dists, ra.ids, *ra.stats),
+                    (rb.dists, rb.ids, *rb.stats)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: search results differ")
+
+
+def serving_phase(torch, args, engine, ds, root: str) -> dict:
+    """Durable serving on the stream configuration (``repro_torch.serving``
+    and ``repro_torch.persist``), on an engine of its own over the stream
+    engine's index, compacted to MUT_CAP first. Boots a ``ServingLoop``
+    with a snapshot directory (a full snapshot and a WAL) and warms every
+    bucket; closed-loop clients at each SERVE_CONCURRENCY, every served row
+    held against ``search`` (tie-aware, stats exact) and no graph captured
+    or verdict swept after warm-up; then reads at 32 clients under
+    1,000-row writes with the WAL fsync'd and two forced delta checkpoints;
+    recovery with ``persist.open_engine`` (state and results bit for bit);
+    a primary and a standby loop over a ``DirTransport`` with writes, a
+    promotion, the acknowledged prefix held and the old primary fenced;
+    and ``tools/crash_test_torch.py`` once a drill. Returns the launch
+    counts of the loop's dispatches."""
+    import shutil
+    from repro_torch import persist
+    from repro_torch.engine import SearchEngine
+    from repro_torch.persist import snapshot as snap_mod
+    from repro_torch.serving import ServingLoop
+    gc.collect()
+    work = os.path.join(root, "build", "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sdir = os.path.join(work, "primary")
+    dev = engine.device
+    n = engine.base.shape[0]
+    srv = SearchEngine(engine.index, base=engine.base,
+                       base_norms=engine.base_norms, config=engine.config)
+    srv.compact(cap=MUT_CAP)
+    pool = ds.queries.cpu().numpy()
+    new_rows = sift_rows(torch, args, MUT_BATCH * (SERVE_WRITES + 8), 128,
+                         dev)
+    next_id = [n]
+
+    def rows_new():
+        ids = np.arange(next_id[0], next_id[0] + MUT_BATCH)
+        next_id[0] += MUT_BATCH
+        return ids, new_rows[ids - n]
+
+    zero_counts()
+    # boot: durable (a full snapshot + the WAL), then one graph a bucket
+    t0 = time.perf_counter()
+    loop = ServingLoop(srv, snapshot_dir=sdir, snapshot_every=3600.0,
+                       max_wait_s=SERVE_WAIT_S)
+    boot_s = time.perf_counter() - t0
+    d0 = persist.read_manifest(sdir)["delta"]
+    t0 = time.perf_counter()
+    loop.start(warmup=True)
+    warm_s = time.perf_counter() - t0
+    caps = {key[0][0]: s for key, s in srv.graphs.capture_seconds().items()}
+    m_warm = loop.metrics()
+    log(f"serving: durable boot {boot_s:.2f} s (full snapshot: "
+        f"{d0['bytes_written']} bytes in {d0['segments_written']} segments, "
+        f"capture under the lock {d0['capture_s'] * 1e3:.3f} ms); warm-up "
+        f"{warm_s:.2f} s, {len(srv.graphs)} graphs, {m_warm.compiles} "
+        "captures; capture ms a bucket "
+        + ", ".join(f"Q={b}: {caps[b] * 1e3:.1f}" for b in sorted(caps)))
+    if m_warm.compiles != len(BUCKETS) or len(srv.graphs) != len(BUCKETS):
+        raise AssertionError(f"serving: warm-up captured {m_warm.compiles} "
+                             f"graphs, not one a bucket")
+
+    # steady reads, every served row held against search
+    res = srv.search(ds.queries, K)
+    want = {"dists": res.dists.cpu().numpy(), "ids": res.ids.cpu().numpy()}
+    want.update({f: getattr(res.stats, f).cpu().numpy()
+                 for f in SERVE_FIELDS})
+    tol = PIPELINE_RTOL * np.abs(want["dists"]).max(axis=1)
+    # the dispatch thread's host time: a whole batch, and search_jit in it
+    timed = {"dispatch": [], "search_jit": []}
+
+    def timing(fn, what):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[what].append(time.perf_counter() - t)
+            return out
+        return run
+    loop._dispatch = timing(loop._dispatch, "dispatch")
+    srv.search_jit = timing(srv.search_jit, "search_jit")
+    for c in SERVE_CONCURRENCY:
+        for v in timed.values():
+            v.clear()
+        m0 = loop.metrics()
+        with Clients(loop, pool, c, seed=c) as cl:
+            time.sleep(SERVE_S)
+        m1 = loop.metrics()
+        if cl.failed:
+            raise AssertionError(f"serving c={c}: {len(cl.failed)} failed "
+                                 f"futures, e.g. {cl.failed[0]}")
+        lat = np.array([s[1].latency_s for s in cl.served]) * 1e3
+        rows = m1.rows_served - m0.rows_served
+        pad = m1.rows_padded - m0.rows_padded
+        bc = {b: m1.bucket_counts.get(b, 0) - m0.bucket_counts.get(b, 0)
+              for b in BUCKETS}
+        tied = held_to_search(cl.served, want, tol, f"serving c={c}")
+        disp = np.array(timed["dispatch"]) * 1e3
+        call = np.array(timed["search_jit"]) * 1e3
+        log(f"serving: c={c}: {len(cl.served) / SERVE_S:.1f} QPS, "
+            f"latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms, occupancy "
+            f"{rows / max(1, rows + pad):.3f}, buckets {bc}; a batch on the "
+            f"dispatch thread {np.median(disp):.3f} ms median (search_jit "
+            f"call {np.median(call):.3f}), {len(disp) / SERVE_S:.0f} "
+            f"batches/s; {len(cl.served)} rows held against search, {tied} "
+            "differ at a tie")
+    m_steady = loop.metrics()
+    if (m_steady.compiles, m_steady.autotuned) != (m_warm.compiles,
+                                                   m_warm.autotuned):
+        raise AssertionError(
+            f"serving: steady reads captured {m_steady.compiles - m_warm.compiles}"
+            f" graphs and swept {m_steady.autotuned - m_warm.autotuned} "
+            "verdicts after warm-up")
+
+    # reads under writes, with two forced (delta) checkpoints
+    import threading
+    del loop._dispatch, srv.search_jit
+    ckpts, live = [], np.arange(n)
+    writes = {"new ids": [], "re-upsert": [], "delete": []}
+    rng = np.random.default_rng(args.seed + 23)
+
+    plan = []                       # drawn before the clients start
+    for i in range(SERVE_WRITES):
+        if i % 4 == 1:
+            gids = rng.choice(live, MUT_BATCH, replace=False)
+            plan.append(("delete", gids, None))
+            live = np.setdiff1d(live, gids)
+        elif i % 4 == 3:            # re-upsert live ids with new vectors
+            gids = rng.choice(live, MUT_BATCH, replace=False)
+            plan.append(("re-upsert", gids, new_rows[
+                (gids % new_rows.shape[0]).astype(np.int64)]))
+        else:                       # new ids: the base grows
+            plan.append(("new ids", *rows_new()))
+            live = np.concatenate([live, plan[-1][1]])
+
+    def writer():
+        for kind, gids, vecs in plan:
+            t = time.monotonic()
+            if vecs is None:
+                loop.delete(gids)
+            else:
+                loop.upsert(gids, vecs)
+            writes[kind].append((t, time.monotonic()))
+            time.sleep(0.1)
+
+    def checkpointer():
+        for _ in range(2):
+            time.sleep(0.6)
+            t = time.monotonic()
+            loop.checkpoint()
+            ckpts.append((t, time.monotonic(),
+                          persist.read_manifest(sdir)))
+
+    from repro_torch.persist import io as pio
+    appends, real_append = [], pio.append_record
+
+    def timed_append(f, data):
+        t = time.perf_counter()
+        real_append(f, data)
+        appends.append(time.perf_counter() - t)
+    pio.append_record = timed_append
+    m0 = loop.metrics()
+    threads = [threading.Thread(target=writer),
+               threading.Thread(target=checkpointer)]
+    with Clients(loop, pool, 32, seed=99) as cl:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    m1 = loop.metrics()
+    pio.append_record = real_append
+    if cl.failed or loop.checkpoint_error is not None:
+        raise AssertionError(f"serving under writes: {len(cl.failed)} failed "
+                             f"futures, checkpoint error "
+                             f"{loop.checkpoint_error!r}")
+    if m1.checkpoints - m0.checkpoints != 2 or any(
+            c[2]["parent"] is None for c in ckpts):
+        raise AssertionError("serving: the two forced checkpoints were not "
+                             "both written as deltas")
+    def overlaps(spans):
+        return np.array([any(s[2] < e and s[3] > b for b, e in spans)
+                         for s in cl.served], bool)
+    in_ckpt = overlaps([(b, e) for b, e, _ in ckpts])
+    in_write = overlaps([w for v in writes.values() for w in v])
+    lat = np.array([s[3] - s[2] for s in cl.served]) * 1e3
+
+    def p99(mask):
+        return (f"{np.percentile(lat[mask], 99):.3f} ms ({int(mask.sum())} "
+                "reads)" if mask.any() else "no reads")
+    # the stall a capture puts on the stream: device time of its clones
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with srv._mutate_lock:
+        start.record()
+        tensors, _ = snap_mod._capture_single(srv)
+        end.record()
+    end.synchronize()
+    clone_bytes = sum(t.numel() * t.element_size() for t in tensors.values()
+                      if t is not None)
+    del tensors
+    rates = "; ".join(
+        f"{kind} " + " ".join(f"{MUT_BATCH / (e - b):.0f}" for b, e in v)
+        + " rows/s" for kind, v in writes.items() if kind != "delete")
+    log(f"serving under writes: {len(cl.served)} reads at c=32, p99 with "
+        f"neither a write nor a checkpoint running {p99(~in_ckpt & ~in_write)}"
+        f", with a checkpoint and no write {p99(in_ckpt & ~in_write)}, with "
+        f"a write {p99(in_write)}; max {lat.max():.3f} ms; {MUT_BATCH}-row "
+        f"writes with the WAL fsync'd: {rates}; delete "
+        + " ".join(f"{(e - b) * 1e3:.2f}" for b, e in writes["delete"])
+        + f" ms; the WAL appends of records and file headers (write + fsync) "
+        + " ".join(f"{t * 1e3:.1f}" for t in appends)
+        + f" ms; captures after reallocating writes "
+        f"{m1.compiles - m0.compiles}")
+    for b, e, man in ckpts:
+        dl = man["delta"]
+        log(f"serving: checkpoint {man['snapshot']} (parent {man['parent']})"
+            f" {e - b:.2f} s: {dl['bytes_written']} bytes written, "
+            f"{dl['bytes_reused']} reused ({dl['segments_written']} / "
+            f"{dl['segments_reused']} segments), lock held "
+            f"{dl['capture_s'] * 1e3:.3f} ms")
+    log(f"serving: a checkpoint's capture clones {clone_bytes} bytes on the "
+        f"card in {start.elapsed_time(end):.3f} ms of device time (the "
+        "stall it queues ahead of searches)")
+
+    # recovery: close, two writes only the WAL holds, reopen on the card
+    loop.close()
+    ids, vecs = rows_new()
+    gone = rng.choice(live, MUT_BATCH, replace=False)
+    live = np.setdiff1d(live, gone)
+    (_, up_s), (_, del_s) = (synced_s(torch, lambda: srv.upsert(ids, vecs)),
+                             synced_s(torch, lambda: srv.delete(gone)))
+    srv._wal.close()
+    srv.attach_wal(None)
+    t0 = time.perf_counter()
+    prim, info = persist.open_engine(sdir, device=dev)
+    torch.cuda.synchronize()
+    log(f"serving: recovery (persist.open_engine on the card) "
+        f"{time.perf_counter() - t0:.2f} s: snapshot {info.snapshot}, "
+        f"wal_seq {info.wal_seq}, {info.replayed} records replayed, torn "
+        f"tail {info.truncated_bytes} bytes; the two writes it replayed, "
+        f"made with the WAL and no reader: upsert of new ids "
+        f"{MUT_BATCH / up_s:.0f} rows/s, delete {del_s * 1e3:.2f} ms")
+    if info.replayed != 2:
+        raise AssertionError(f"serving: recovery replayed {info.replayed} "
+                             "records, not 2")
+    same_engine_state(torch, prim, srv, "recovery")
+    same_search(torch, prim, srv, ds.queries[:128], "recovery")
+    del srv, loop
+    gc.collect()
+
+    # failover: a primary loop and a standby loop from its snapshot
+    start_seq = persist.save_snapshot(prim, sdir)["wal_seq"]
+    stb, _ = persist.load_snapshot(sdir, device=dev)
+    tdir = os.path.join(work, "ship")
+    pl = ServingLoop(prim, snapshot_dir=sdir, snapshot_every=3600.0,
+                     transport=persist.DirTransport(tdir), ship_every=0.02,
+                     max_wait_s=SERVE_WAIT_S).start(warmup=True)
+    sl = ServingLoop(stb, role="standby", snapshot_dir=os.path.join(
+        work, "standby"), transport=persist.DirTransport(tdir),
+        poll_every=0.01, standby_start_seq=start_seq,
+        max_wait_s=SERVE_WAIT_S).start(warmup=True)
+    lags, catch_up, write_s = [], [], []
+    plan = [rng.choice(live, MUT_BATCH, replace=False) if i % 2
+            else rows_new() for i in range(FAILOVER_WRITES)]
+    with Clients(sl, pool, 8, seed=7) as cl:
+        for i, w in enumerate(plan):
+            t_w = time.monotonic()
+            if i % 2:
+                pl.delete(w)
+            else:
+                pl.upsert(*w)
+            write_s.append(time.monotonic() - t_w)
+            t_w = time.monotonic()
+            while sl._replica.applied_seq < prim._wal.last_seq:
+                lags.append(sl.replication_lag())
+                if time.monotonic() - t_w > 60.0:
+                    raise AssertionError(
+                        f"failover: the standby applied "
+                        f"{sl._replica.applied_seq} of {prim._wal.last_seq}"
+                        f" records in 60 s (standby error "
+                        f"{sl.replication_error!r}, primary error "
+                        f"{pl.replication_error!r}, segments "
+                        f"{sl.transport.list_segments()})")
+                time.sleep(0.002)
+            catch_up.append(time.monotonic() - t_w)
+        acked = sl._replica.applied_seq
+        same_search(torch, stb, prim, ds.queries[:128],
+                    "failover: standby vs primary")
+        acked_res = stb.search(ds.queries[:128], K)
+        pl.stop()
+        prim.upsert(*rows_new())    # logged by the primary, never shipped
+        t0 = time.perf_counter()
+        term = sl.promote()
+        failover_s = time.perf_counter() - t0
+        time.sleep(0.2)             # reads go on after the promotion
+    if cl.failed:
+        raise AssertionError(f"failover: {len(cl.failed)} failed standby "
+                             f"reads, e.g. {cl.failed[0]}")
+    got = stb.search(ds.queries[:128], K)
+    for x, y in zip((got.dists, got.ids, *got.stats),
+                    (acked_res.dists, acked_res.ids, *acked_res.stats)):
+        if not torch.equal(x, y):
+            raise AssertionError("failover: the promoted engine is not the "
+                                 "acknowledged prefix")
+    fenced = 0
+    for act in (lambda: prim.delete(live[:3]), pl._shipper.ship_once):
+        try:
+            act()
+        except persist.FencedError:
+            fenced += 1
+    if fenced != 2:
+        raise AssertionError("failover: the deposed primary was not fenced "
+                             "on both its append and its ship")
+    sl.upsert(*rows_new())
+    ms = sl.metrics()
+    log(f"failover: {MUT_BATCH}-row writes on the primary "
+        + " ".join(f"{t * 1e3:.1f}" for t in write_s) + " ms; the standby "
+        "applied each in " + " ".join(f"{t * 1e3:.1f}" for t in catch_up)
+        + f" ms; lag max {max((l.seqs for l in lags), default=0)} seqs, "
+        f"{max((l.seconds for l in lags), default=0.0) * 1e3:.1f} ms "
+        f"(sampled {len(lags)} times); promote() "
+        f"{failover_s:.2f} s to term {term}; the promoted engine equals the "
+        f"acknowledged prefix (seq {acked}) bit for bit; the deposed "
+        f"primary's append and ship raise FencedError; {len(cl.served)} "
+        f"standby reads, 0 failed; the promoted loop took a write "
+        f"(role {ms.role}, term {ms.term})")
+    sl.close()
+    pl.close()
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    log(f"serving: kernel launches (replays counted) {launches}")
+    need_launches(launches, ("fastscan_stream_topk", "rerank_stream_topk"),
+                  "serving")
+    del prim, stb, pl, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kill-9 drills, one kill point each, in processes of their own
+    for extra in ([], ["--replication"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "crash_test_torch.py"),
+             "--kill-at", "3", "--steps", "6", "--dir",
+             os.path.join(work, "crash" + "".join(extra))] + extra,
+            capture_output=True, text=True, timeout=600, cwd=root)
+        lines = (out.stdout + out.stderr).strip().splitlines()
+        log(f"serving: crash drill {' '.join(extra) or '(recovery)'} "
+            f"[{time.perf_counter() - t0:.1f} s]: " + " | ".join(lines[-2:]))
+        if out.returncode != 0:
+            raise AssertionError("serving: the crash drill failed:\n"
+                                 + "\n".join(lines[-20:]))
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def ivf_engine(torch, args, nq: int):
     """The data (a SIFT1M-shaped base with ``nq`` queries and exact ground
     truth, made on the card from ``args.seed``) and the IVF engine of the
@@ -2274,6 +2737,7 @@ def main() -> int:
     ap.add_argument("--nlist", type=int, default=1024)
     args = ap.parse_args()
 
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2378,6 +2842,13 @@ def main() -> int:
     # 10. the coarse zoo: the paper's Table 1 pipeline (HNSW, tree, flat)
     del flat
     coarse_phase(torch, args)
+    # 11. durable serving: the loop, the WAL, snapshots, failover, drills
+    log(f"serving: phase starts {time.perf_counter() - t_main:.1f} s into "
+        "the run")
+    t0 = time.perf_counter()
+    serving_phase(torch, args, engine, ds, root)
+    log(f"serving: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c)

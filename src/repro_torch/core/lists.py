@@ -272,6 +272,18 @@ def append_rows(store: ListStore, list_ids: np.ndarray, packed: np.ndarray,
     return store, slots.astype(np.int32)
 
 
+def check_compact_cap(store: ListStore, cap: int,
+                      counts: torch.Tensor | None = None) -> None:
+    """Raise unless ``cap`` holds the store's largest live list
+    (``counts``: its live counts, when the caller has them)."""
+    counts = live_counts(store) if counts is None else counts
+    most = int(counts.max()) if counts.numel() else 0
+    if cap < most:
+        raise ValueError(
+            f"compact_lists: cap {cap} below the largest live list "
+            f"({most} rows)")
+
+
 def compact_lists(store: ListStore, cap: int | None = None) -> ListStore:
     """Rebuild every list without tombstones: survivors keep their relative
     slot order (a stable shift-down), watermarks become live counts, codes,
@@ -282,13 +294,9 @@ def compact_lists(store: ListStore, cap: int | None = None) -> ListStore:
     """
     live = store.ids >= 0
     counts = torch.sum(live, dim=-1, dtype=torch.int32)
-    most = int(counts.max()) if counts.numel() else 0
     old_cap = store.cap
     new_cap = int(cap if cap is not None else old_cap)
-    if new_cap < most:
-        raise ValueError(
-            f"compact_lists: cap {new_cap} below the largest live list "
-            f"({most} rows)")
+    check_compact_cap(store, new_cap, counts)
     # live slots first, each group in slot order
     order = torch.sort((~live).to(torch.uint8), dim=-1, stable=True).indices
     keep = (torch.arange(old_cap, device=live.device)

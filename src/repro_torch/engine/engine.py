@@ -42,8 +42,11 @@ beam width) or the k-means tree, or a prebuilt object with
 ``search(q, nprobe)``. Namespaces are fused into the flat quantizer's probe
 selection; the others' probes are masked after they are routed.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: a
-write-ahead log (``attach_wal``).
+Durability (``attach_wal``, the reference's docs/persistence.md): with a
+``persist.WALWriter`` attached, every mutation appends one fsync'd record
+after every check that can refuse it and before its first in-place write,
+outside the graph cache's lock (the fsync never stalls a search). A failed
+or fenced append leaves the engine as it was.
 """
 from __future__ import annotations
 
@@ -73,12 +76,6 @@ COARSE_KINDS = ("flat", "hnsw", "tree")
 # an adaptive workload's 'auto' verdict is timed (and cached) against a
 # probe set with this fill instead of a dense one
 MARGIN_PROBE_FILL = 0.5
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to repro_torch (ROADMAP Queue 1 item "
-        f"{item})")
 
 
 class EngineConfig(NamedTuple):
@@ -449,6 +446,10 @@ class SearchEngine:
             base_norms = base_norms.to(self.device)
         self.graphs = graphs_mod.GraphCache(self.device)
         self._mutate_lock = threading.RLock()
+        self._wal = None  # persist.WALWriter, attach_wal
+        # how a snapshot rebuilds an HNSW quantizer from the centroids
+        self.hnsw_m = int(hnsw_m)
+        self.ef_construction = int(ef_construction)
         self._install(index, base, base_norms, epoch=0, live_bits=live_bits)
         if namespaces is not None:
             namespaces = torch.as_tensor(namespaces, dtype=torch.bool,
@@ -749,7 +750,12 @@ class SearchEngine:
     # -- live mutation --------------------------------------------------------
 
     def attach_wal(self, wal) -> None:
-        raise _not_ported("SearchEngine.attach_wal (persistence)", "8")
+        """Attach a ``persist.WALWriter``: every later ``upsert`` /
+        ``delete`` / ``compact`` appends a checksummed, fsync'd record
+        before its first write, so the mutation is durable once the call
+        returns. ``None`` detaches (replay must not log again)."""
+        with self._mutate_lock:
+            self._wal = wal
 
     def locate(self, gid: int) -> tuple[int, int] | None:
         """(list, slot) of a live row by global id, None if absent or
@@ -852,6 +858,9 @@ class SearchEngine:
             assign, packed = ivf_mod.encode_rows(st.index.centroids,
                                                  st.index.codebook, vecs)
             loc = self._locate()
+            if self._wal is not None:
+                # durable before visible: nothing below refuses the batch
+                self._wal.log_upsert(ids, vecs.cpu().numpy(), avals)
             with self.graphs.ordered():
                 if self._upsert_locked(self._own(), loc, ids, vecs, assign,
                                        packed, avals):
@@ -918,7 +927,10 @@ class SearchEngine:
             loc = self._locate()
             found = ids[loc.present(ids)]
             if not found.size:
-                return 0
+                return 0  # logs nothing, as the reference
+            if self._wal is not None:
+                # the whole batch: replay finds the same rows
+                self._wal.log_delete(ids)
             with self.graphs.ordered():
                 st = self._own()
                 store = lists_mod.tombstone_rows(st.index.lists,
@@ -938,6 +950,11 @@ class SearchEngine:
         scan verdicts keyed to the old cap. Returns the tombstoned slots
         reclaimed."""
         with self._mutate_lock:
+            if cap is not None:
+                with self.graphs.ordered():
+                    lists_mod.check_compact_cap(self._state.index.lists, cap)
+            if self._wal is not None:
+                self._wal.log_compact(cap)
             with self.graphs.ordered():
                 st = self._own()
                 old_cap = st.index.lists.cap

@@ -74,8 +74,9 @@ _CACHES: weakref.WeakSet = weakref.WeakSet()
 
 
 def fused_cache_size() -> int:
-    """Graphs captured across every live engine in the process: at most one
-    per (shape, knobs, presence, state) key an engine has served."""
+    """Graphs held across every live engine in the process: at most one
+    per (shape, knobs, presence, state) key an engine has served. It falls
+    when an engine drops its graphs; ``GraphCache.captures`` only grows."""
     return sum(len(cache) for cache in list(_CACHES))
 
 
@@ -123,6 +124,7 @@ class GraphCache:
         self._stream = None
         self._pool = None
         self._done = None            # event after the last copy-out
+        self.captures = 0            # graphs ever captured, never falls
         _CACHES.add(self)
 
     def __len__(self) -> int:
@@ -185,6 +187,7 @@ class GraphCache:
             if entry is None:
                 entry = self._capture(fn, inputs)
                 self._graphs[key] = entry
+                self.captures += 1
             for buf, x in zip(entry.inputs, inputs):
                 if buf is not None:
                     buf.copy_(x)

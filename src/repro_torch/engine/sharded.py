@@ -22,11 +22,11 @@ Two ways to run the same per-shard function:
     stats all-reduced (the reference's ``shard_map`` path), so every rank
     returns the same result.
 
-Live mutation as in the single-host engine: ``upsert`` routes rows with the
-global centroid table through the fixed-shape encoder (the same list, so
-shard ``g % S`` and local list ``g // S``, and the same code bytes as the
-single-host engine), appends into the owning shard's spare slots and base
-rows; ``delete`` tombstones slots; ``compact`` rebuilds every shard's lists
+Live mutation (and ``attach_wal``) as in the single-host engine: ``upsert``
+routes rows with the global centroid table through the fixed-shape encoder
+(the same list, so shard ``g % S`` and local list ``g // S``, and the same
+code bytes as the single-host engine), appends into the owning shard's
+spare slots and base rows; ``delete`` tombstones slots; ``compact`` rebuilds every shard's lists
 and base slice tombstone-free. Writes go into the engine's tensors in
 place, under the lock that every search also takes, so no search sees a
 half-written epoch.
@@ -47,7 +47,7 @@ from repro_torch.core.lists import ListStore
 from repro_torch.engine import rerank as rerank_mod
 from repro_torch.engine.engine import (MARGIN_PROBE_FILL, QueryStats,
                                        SearchEngine, SearchResult, _Locator,
-                                       _not_ported, combine_filter_bits,
+                                       combine_filter_bits,
                                        count_rows_filtered,
                                        count_rows_tombstoned, scan_candidates)
 from repro_torch.kernels import ops as ops_mod
@@ -172,8 +172,9 @@ class ShardedEngine:
             base_s=base_s, gids_s=gids_s, norms_s=norms_s,
             live_s=lists_mod.live_filter_bits(lists_s) if n_tomb else None,
             rows_used=rows_used, epoch=0, n_tombstones=n_tomb)
-        self._lock = threading.RLock()
+        self._mutate_lock = threading.RLock()
         self._locator: _Locator | None = None
+        self._wal = None  # persist.WALWriter, attach_wal
         # namespace membership sharded like the lists: (S, n_ns, L), padding
         # lists member-False for every tenant
         self.member_s = (None if engine.ns_member is None else
@@ -219,11 +220,15 @@ class ShardedEngine:
     # -- live mutation -------------------------------------------------------
 
     def attach_wal(self, wal) -> None:
-        raise _not_ported("ShardedEngine.attach_wal (persistence)", "8")
+        """Attach a ``persist.WALWriter`` (``SearchEngine.attach_wal``'s
+        contract: each mutation logs before its first write); ``None``
+        detaches."""
+        with self._mutate_lock:
+            self._wal = wal
 
     def locate(self, gid: int) -> tuple[int, int, int] | None:
         """(shard, local list, slot) of a live row, None if absent."""
-        with self._lock:
+        with self._mutate_lock:
             loc = self._locate()
             g = np.asarray([int(gid)], np.int64)
             if not loc.present(g)[0]:
@@ -281,7 +286,7 @@ class ShardedEngine:
         if np.unique(ids).size != ids.size:
             raise ValueError("duplicate ids within one upsert batch")
         avals = None if attrs is None else np.asarray(attrs, np.int32)
-        with self._lock, torch.no_grad():
+        with self._mutate_lock, torch.no_grad():
             st = self._state
             lists_s = st.lists_s
             if avals is not None and lists_s.attrs is None:
@@ -293,6 +298,9 @@ class ShardedEngine:
             shard = assign.astype(np.int64) % s
             local = assign.astype(np.int64) // s
             loc = self._locate()
+            if self._wal is not None:
+                # durable before visible: nothing below refuses the batch
+                self._wal.log_upsert(ids, vecs.cpu().numpy(), avals)
             n_tomb = st.n_tombstones
             hit = ids[loc.present(ids)]
             if hit.size:
@@ -367,12 +375,14 @@ class ShardedEngine:
         ignored. Returns the number of rows deleted."""
         ids = np.unique(np.asarray(
             ids.cpu() if isinstance(ids, torch.Tensor) else ids, np.int64))
-        with self._lock, torch.no_grad():
+        with self._mutate_lock, torch.no_grad():
             st = self._state
             loc = self._locate()
             found = ids[loc.present(ids)]
             if not found.size:
                 return 0
+            if self._wal is not None:
+                self._wal.log_delete(ids)
             self._write_slots(st.lists_s, *loc.find(found), ids=-1,
                               attrs=-1)
             loc.drop(found)
@@ -388,13 +398,17 @@ class ShardedEngine:
         re-pack in order of appearance (``partition_base``'s order) and R
         becomes the most any shard needs, rounded up to 256. Returns the
         tombstoned slots reclaimed."""
-        with self._lock, torch.no_grad():
+        with self._mutate_lock, torch.no_grad():
             st = self._state
             ls = st.lists_s
             s, nl = ls.ids.shape[0], ls.nlist
             flat = ListStore(*(None if t is None else
                                t.reshape((s * nl,) + tuple(t.shape[2:]))
                                for t in ls))
+            if cap is not None:
+                lists_mod.check_compact_cap(flat, cap)
+            if self._wal is not None:
+                self._wal.log_compact(cap)
             old_cap = ls.cap
             out = lists_mod.compact_lists(flat, cap=cap)
             lists_s = ListStore(*(None if t is None else
@@ -449,7 +463,7 @@ class ShardedEngine:
         reference's ``mesh``); None runs every shard here in turn.
         """
         cfg = self.config
-        with self._lock, torch.no_grad():
+        with self._mutate_lock, torch.no_grad():
             st = self._state
             q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=self.device)

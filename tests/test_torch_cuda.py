@@ -1269,3 +1269,95 @@ def test_sharded_engine_on_the_card(dev):
                        torch.arange(n, n + 16, dtype=torch.int32))
     assert sh.compact() == 300
     close(sh.search(q, 10), ShardedEngine(mut, 4).search(q, 10))
+
+
+# ---------------------------------------------------------------------------
+# durable serving on the card: the loop's graphs, open_engine, the WAL
+# ---------------------------------------------------------------------------
+
+STREAM_CFG = EngineConfig(nprobe=8, rerank_mult=4, scan_impl="stream",
+                          rerank_impl="stream")
+
+
+def test_serving_loop_serves_graph_replays_and_counts_its_own(dev):
+    """The loop warms one graph a bucket on its own engine, serves each
+    full batch bit for bit as search_jit of that batch, and its compiles
+    count its own engine's captures only (a second loop's engine, as a
+    standby's would, counts in its own)."""
+    from repro_torch.serving import ServingLoop
+    ds, mut = _mutable_engine(STREAM_CFG)
+    _, other = _mutable_engine(STREAM_CFG)
+    q = ds.queries[:8].cpu().numpy()
+    a = ServingLoop(mut, max_wait_s=0.05).start(warmup=True)
+    b = ServingLoop(other, buckets=(1, 8), max_wait_s=0.05)
+    try:
+        assert a.metrics().compiles == 4 and len(mut.graphs) == 4
+        b.start(warmup=True)
+        assert a.metrics().compiles == 4 and b.metrics().compiles == 2
+        fk.launches = rk.launches = 0
+        got = [f.result(timeout=60)
+               for f in [a.submit(q[i], k=10) for i in range(8)]]
+        assert fk.launches > 0 and rk.launches > 0  # the replay ran K1, K2
+        want = mut.search_jit(torch.from_numpy(q), 10)
+        np.testing.assert_array_equal(np.stack([r.ids for r in got]),
+                                      want.ids.cpu().numpy())
+        np.testing.assert_array_equal(np.stack([r.dists for r in got]),
+                                      want.dists.cpu().numpy())
+        assert got[0].codes_scanned == int(want.stats.codes_scanned[0])
+        m = a.metrics()
+        assert m.compiles == 4 and m.bucket_counts[8] >= 1
+        # a filter on the engine's device; a write between batches
+        a.set_filter(pack_filter_mask(mut.index.lists.ids >= 0))
+        assert a.filter_bits.device.type == "cuda"
+        a.delete(np.arange(100))
+        r = a.submit(q[0], k=10).result(timeout=60)
+        assert not np.isin(r.ids, np.arange(100)).any()
+    finally:
+        a.close()
+        b.close()
+
+
+def test_open_engine_on_the_card_is_bit_for_bit(dev, tmp_path):
+    from repro_torch import persist
+    ds, mut = _mutable_engine(STREAM_CFG)
+    persist.ensure_attached(mut, str(tmp_path))
+    q = ds.queries
+    rows = torch.as_tensor(_sift_rows(300, 11), dtype=torch.float32)
+    mut.upsert(np.arange(20_000, 20_300), rows)
+    mut.delete(np.arange(0, 500, 3))
+    persist.save_snapshot(mut, str(tmp_path))
+    mut.upsert(np.arange(5, 25), rows[:20] + 1)
+    mut.compact()
+    mut.search_jit(q, 10)
+    rec, info = persist.open_engine(str(tmp_path), attach=False)
+    assert rec.device.type == "cuda" and info.replayed == 2
+    for x, y in zip(rec.index.lists, mut.index.lists):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert torch.equal(rec.base, mut.base)
+    assert torch.equal(rec.base_norms, mut.base_norms)
+    assert (rec.epoch, rec.n_tombstones) == (mut.epoch, mut.n_tombstones)
+    _assert_bitwise(rec.search_jit(q, 10), mut.search_jit(q, 10))
+    _assert_bitwise(rec.search(q, 10), mut.search(q, 10))
+
+
+def test_a_fenced_write_leaves_the_card_engine_and_its_graphs(dev, tmp_path):
+    """Durable before visible on the card: a fenced append raises before
+    any in-place write, so the graphs, the state and the results stay."""
+    from repro_torch import persist
+    ds, mut = _mutable_engine(STREAM_CFG)
+    persist.ensure_attached(mut, str(tmp_path))
+    q = ds.queries
+    before = mut.search_jit(q, 10)
+    graphs0, epoch0 = len(mut.graphs), mut.epoch
+    transport = persist.PipeTransport()
+    transport.bump_term(1, start_seq=1)
+    mut._wal.guard = persist.make_fence_guard(transport, 0)
+    rows = torch.as_tensor(_sift_rows(10, 12), dtype=torch.float32)
+    for op in (lambda: mut.upsert(np.arange(3, 13), rows),
+               lambda: mut.delete(np.arange(50)),
+               lambda: mut.compact()):
+        with pytest.raises(persist.FencedError):
+            op()
+    assert (len(mut.graphs), mut.epoch, mut._wal.last_seq) == (graphs0,
+                                                              epoch0, 0)
+    _assert_bitwise(mut.search_jit(q, 10), before)

@@ -192,8 +192,22 @@ def test_not_yet_ported_features_raise(tengine, arrays, ds):
                 EngineConfig(rerank_impl="exact")):
         with pytest.raises(ValueError, match="unknown"):
             SearchEngine(tengine.index, config=cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SearchEngine(tengine.index).attach_wal(None)
+
+
+def test_attach_and_detach_wal(tengine, tmp_path):
+    from repro_torch import persist
+    eng = SearchEngine(tengine.index, base=tengine.base)
+    path = str(tmp_path / persist.wal_name(1))
+    wal = persist.WALWriter(path, 1)
+    eng.attach_wal(wal)
+    assert eng._wal is wal
+    eng.delete([0, 1])
+    eng.attach_wal(None)
+    eng.delete([2])
+    wal.close()
+    recs, _valid, clean = persist.scan_wal(path)
+    assert clean and [(r.seq, r.op) for r in recs] == [(1, "delete")]
+    assert eng.epoch == 2
 
 
 def test_bad_requests_are_rejected(tengine, ds):

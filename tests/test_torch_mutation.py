@@ -764,8 +764,18 @@ def test_epoch_counters_and_noop_mutations():
     assert eng.locate(5) is None and eng.locate(7) is not None
     eng.upsert(np.array([5]), np.array(_built()[0].base[5])[None, :])
     assert eng.epoch == 2 and eng.locate(5) is not None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.attach_wal(None)
+    # a WAL attaches and detaches; a no-op delete logs nothing
+    records = []
+
+    class Log:
+        def log_delete(self, ids):
+            records.append(("delete", list(ids)))
+
+    eng.attach_wal(Log())
+    assert eng.delete([99999]) == 0 and eng.delete([8]) == 1
+    eng.attach_wal(None)
+    eng.delete([9])
+    assert records == [("delete", [8])] and eng.epoch == 4
 
 
 def test_upsert_validation_leaves_the_engine_as_it_was():

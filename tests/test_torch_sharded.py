@@ -395,8 +395,15 @@ def test_locate_reupsert_growth_and_checks():
         sh.upsert(np.array([1, 1]), np.zeros((2, D), np.float32))
     with pytest.raises(ValueError, match=">= 0"):
         sh.upsert(np.array([-1]), np.zeros((1, D), np.float32))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sh.attach_wal(None)
+    # a WAL attaches and detaches: each write logs one record while on
+    logged = []
+    log = type("Log", (), {"log_delete": lambda self, ids: logged.append(
+        sorted(int(i) for i in ids))})()
+    sh.attach_wal(log)
+    sh.delete(np.array([42, 7]))
+    sh.attach_wal(None)
+    sh.delete(np.array([8]))
+    assert logged == [[7, 42]] and sh._wal is None
     with pytest.raises(ValueError, match="num_shards"):
         ShardedEngine(tmut.port_engine(cfg), 0)
     with pytest.raises(ValueError, match="too narrow"):
