@@ -78,6 +78,22 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      acknowledged prefix held, the old primary fenced, standby reads never
      failing); and ``tools/crash_test_torch.py`` once a drill.
 
+  8. LM serving (``repro_torch.launch.serve``): qwen3-1.7b's full config
+     in bf16 (28 layers, d_model 2048, GQA 16/8 x 128, vocab 151,936),
+     weights from a seeded ``torch.Generator``, ``serve_batch`` on 8
+     prompts of 2,048 tokens with 64 new tokens (max_seq 4,096) through
+     the exact KV cache, held against the teacher-forced ``forward``
+     (max |logit difference| under 5e-2 of max |logit|, the reference's
+     own tolerance), then through the 4-bit PQ KV cache (calibrated
+     codebooks, M = 64) whose decode attention is K8, launched at least
+     28 x 63 times. It prints prefill seconds, decode ms a step and
+     tokens/s a cache, calibration seconds, cache bytes, the exact-vs-PQ
+     token agreement (a figure: the weights are random), peak memory, one
+     decode step's profiled device time with K8's share and the idle
+     share, and K8 held against its plain version at the path's shapes
+     and edges (position 0, Smax - 1, g = 1, both LUT kinds, f32) and
+     timed beside its bound.
+
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
 (the stream configuration, and the anytime one under verdicts pinned in a
@@ -96,8 +112,9 @@ launches its graph holds to the kernels' counters), that one Q=32 batch
 equals the port's own pipeline on CPU copies of the same index (the plain
 versions), and prints recall against exact ground truth, batch latencies
 and a profiler breakdown. Every kernel (K1-K6, K7a-K7c) is also held bit
-for bit (K2 within tolerance) against its plain version at the shapes its
-path gives it, and timed beside its bound: the larger of the bytes the
+for bit (K2 within tolerance; K8 in the LM phase, its output within a
+stated tolerance, its scores bit for bit) against its plain version at the
+shapes its path gives it, and timed beside its bound: the larger of the bytes the
 function must move at the memory rate and the function's own operations
 (for an ADC scan one look-up and one add per row and sub-space) at the
 card's fastest rate for their type.
@@ -172,7 +189,7 @@ EARLIER_K5_MS = {32: 0.003031}
 PTXAS_SUMMARY = ("stream_topk_kernel", "rerank_kernel",
                  "stream_grouped_kernel", "select_grouped_kernel",
                  "onehot_mma_flat_kernel", "onehot_mma_grouped_kernel",
-                 "blockmin_kernel")
+                 "blockmin_kernel", "pq_decode_kernel")
 
 
 def log(*parts) -> None:
@@ -565,6 +582,7 @@ def kernel_modules():
     from repro_torch.kernels import fastscan_kernel as fk
     from repro_torch.kernels import mxu_flat_kernel as mfk
     from repro_torch.kernels import mxu_kernel as mk
+    from repro_torch.kernels import pq_decode_kernel as pqk
     from repro_torch.kernels import rerank_kernel as rk
     from repro_torch.kernels import select_flat_kernel as sfk
     from repro_torch.kernels import select_kernel as sk
@@ -577,7 +595,8 @@ def kernel_modules():
             "fastscan_onehot_mma_grouped": mk,
             "fastscan_select_flat": sfk,
             "fastscan_onehot_mma_flat": mfk,
-            "fastscan_blockmin": bk}
+            "fastscan_blockmin": bk,
+            "pq_decode_attention": pqk}
 
 
 def need_launches(launches: dict, names, what: str) -> None:
@@ -2691,6 +2710,308 @@ def serving_phase(torch, args, engine, ds, root: str) -> dict:
     return launches
 
 
+LM_ARCH = "qwen3-1.7b"          # the LM phase's model, full CONFIG
+LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ = 8, 2048, 64, 4096
+LM_STEPS = 10                 # decode steps timed a cache (median)
+# the exact decode's logits against the teacher-forced forward's, as the
+# reference's own test holds them (tests/test_model_consistency.py): the
+# largest |difference| below 5e-2 of the largest |logit|
+LM_FORWARD_RTOL = 5e-2
+# K8 against its plain version, of each (row, head)'s largest |value|: in
+# bf16 four units in the last place (2**-6): each side's rounding of the
+# output (half a unit each), the plain version's rounding of each
+# 2,048-position chunk's value sum to bf16 (K8 sums in f32; half a unit a
+# chunk), and p rounded to bf16 at another running max (K8's 256-position
+# tiles); in f32 the two summation orders, 1e-5. The q8 scores are held
+# bit for bit.
+K8_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+
+
+def k8_inputs(torch, seed: int, *, b: int, smax: int, kv: int, g: int,
+              m: int, dsub: int, positions, q8: bool, dtype):
+    """K8's arguments as the decode step's glue makes them (LUTs from a
+    random q through ``kvcache._build_ip_lut`` and ``_quantize``), over
+    random codes and codebooks on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hd = m * dsub
+    q = torch.randn((b, kv * g, hd), generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randint(0, 256, (b, smax, kv, m // 2), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+              for _ in range(2))
+    kcb, vcb = (torch.randn((kv, m, 16, dsub), generator=gen, device="cuda"
+                            ).to(dtype) for _ in range(2))
+    return k8_glue(torch, q, kc, vc, kcb, vcb, positions, q8)
+
+
+def k8_glue(torch, q, kc, vc, kcb, vcb, positions, q8: bool):
+    from repro_torch.models import kvcache as kvc
+    b, h, hd = q.shape
+    kv = kc.shape[2]
+    lut = kvc._build_ip_lut(q.reshape(b, kv, h // kv, hd), kcb) / hd ** 0.5
+    table, scale, bias = (kvc._quantize(lut) if q8
+                          else (lut.contiguous(), None, None))
+    pos = torch.as_tensor(np.broadcast_to(np.asarray(positions, np.int32),
+                                          (b,)).copy(), device="cuda")
+    return table, scale, bias, kc, vc, vcb, pos
+
+
+def k8_check(torch, args, out_dtype, chunk: int, what: str) -> float:
+    """K8 against its plain version on the same inputs (not counted as a
+    path launch): the output within K8_RTOL, each live position's score
+    bit for bit (q8) or within 1e-5, dead ones unwritten. Returns the
+    largest error relative to its row's largest |value|."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    table, scale, bias, kc = args[:4]
+    b, kv, g = table.shape[:3]
+    smax = kc.shape[1]
+    scores = torch.full((b, kv, g, smax), float("-inf"), device="cuda")
+    n0 = pqk.launches
+    got = pqk.pq_decode(*args, chunk=chunk, out_dtype=out_dtype,
+                        scores=scores)
+    pqk.launches = n0
+    want = pqk.pq_decode_plain(*args, chunk=chunk, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    scale_row = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+
+    def rel(x, y):
+        return float(((x.float() - y.float()).abs() / scale_row).max())
+
+    err = rel(got, want)
+    tol = K8_RTOL[str(out_dtype).split(".")[-1]]
+    if out_dtype == torch.bfloat16:
+        # both against the function in f32 throughout (f32 codebooks, no
+        # rounding of p, of the chunk sums or of the output): a diagnostic
+        f32 = pqk.pq_decode_plain(*args[:5], args[5].float(), args[6],
+                                  chunk=chunk, out_dtype=torch.float32)
+        log(f"lm: K8 {what}: against the f32 twin: K8 {rel(got, f32):.3e}, "
+            f"plain {rel(want, f32):.3e}")
+    live = (torch.arange(smax, device="cuda")[None]
+            <= args[6].long()[:, None])[:, None, None, :].expand_as(scores)
+    plain_s = pqk.adc_scores(table, scale, bias, kc)
+    if table.dtype == torch.uint8:
+        s_ok = bool(torch.equal(scores[live], plain_s[live]))
+    else:
+        s_ok = bool(torch.allclose(scores[live], plain_s[live], rtol=1e-5,
+                                   atol=1e-5))
+    s_ok = s_ok and bool(torch.isinf(scores[~live]).all())
+    log(f"lm: K8 {what}: max error {err:.3e} of the row's largest |value| "
+        f"(tolerance {tol:.3e}); scores {'held' if s_ok else 'DIFFER'}")
+    if not (err <= tol and s_ok):
+        raise AssertionError(f"K8 {what}: kernel != plain ({err}, scores "
+                             f"{s_ok})")
+    return err
+
+
+def lm_phase(torch, args) -> dict:
+    """LM serving on the card: qwen3-1.7b's full CONFIG in bf16 (weights
+    from a seeded ``torch.Generator``) through ``serve_batch`` on
+    LM_BATCH prompts of LM_PROMPT tokens (numpy, ``--seed``), LM_GEN new
+    tokens, max_seq LM_MAX_SEQ: the exact cache, held against the
+    teacher-forced ``forward``, then the 4-bit PQ cache (calibrated
+    codebooks, M = head_dim / 2) through K8, its launches counted from 0.
+    Then one decode step a cache timed and profiled, and K8 held against
+    its plain version at the path's shapes and edges and timed. Returns
+    K8's entry of the kernels line."""
+    from repro_torch import configs
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = configs.get_config(LM_ARCH)
+    exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg.replace(kv_pq=True)
+    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    m, g = cfg.resolved_kv_pq_m, cfg.n_heads // cfg.n_kv_heads
+    t0 = time.perf_counter()
+    params = model_lib.init_lm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed),
+        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"lm: {cfg.name} full CONFIG ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {kv} KV heads x {hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} padded to {cfg.padded_vocab}, qk_norm, {cfg.mlp_type})"
+        f": {n_params} parameters in {cfg.dtype} "
+        f"({n_params * 2} B), random from seed {args.seed}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(args.seed + 24)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                           dtype=np.int32), device=dev)
+    new = LM_BATCH * (LM_GEN - 1)
+
+    # the exact cache, and its decode against the teacher-forced forward
+    torch.cuda.reset_peak_memory_stats()
+    st_e = {}
+    tok_e, logits_e = serve.serve_batch(exact_cfg, params, prompts, LM_GEN,
+                                        max_seq=LM_MAX_SEQ,
+                                        return_logits=True, stats=st_e)
+    peak_e = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    full, _ = model_lib.forward(
+        params, torch.cat([prompts, tok_e[:, :-1].to(torch.int32)], 1),
+        exact_cfg)
+    ref = full[:, LM_PROMPT - 1:].float()
+    del full
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    diff = float((logits_e.float() - ref).abs().max())
+    top = float(ref.abs().max())
+    same_top = float((logits_e[..., :cfg.vocab].argmax(-1)
+                      == ref[..., :cfg.vocab].argmax(-1)).float().mean())
+    log(f"lm: exact decode vs teacher-forced forward ({LM_BATCH} x "
+        f"{LM_PROMPT + LM_GEN - 1} tokens, {fwd_s:.2f} s): max |logit "
+        f"difference| {diff:.4f} of max |logit| {top:.4f} = "
+        f"{diff / top:.3e} (tolerance {LM_FORWARD_RTOL}); the same top "
+        f"token at {same_top:.4f} of the {LM_GEN} positions x {LM_BATCH}")
+    if not diff / top < LM_FORWARD_RTOL:
+        raise AssertionError(f"lm: exact decode != forward ({diff / top})")
+    del ref, logits_e
+
+    # the PQ cache through K8, its launches counted from 0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    st_p = {}
+    tok_p = serve.serve_batch(pq_cfg, params, prompts, LM_GEN,
+                              max_seq=LM_MAX_SEQ,
+                              generator=torch.Generator().manual_seed(
+                                  args.seed), stats=st_p)
+    torch.cuda.synchronize()
+    launches = pqk.launches
+    peak_p = torch.cuda.max_memory_allocated()
+    need = L * (LM_GEN - 1)
+    log(f"lm: K8 launches on the PQ run: {launches} (at least {L} layers x "
+        f"{LM_GEN - 1} decode steps = {need})")
+    if launches < need:
+        raise AssertionError(f"lm: K8 launched {launches} < {need} times")
+    for tok, what in ((tok_e, "exact"), (tok_p, "pq")):
+        if tok.shape != (LM_BATCH, LM_GEN) or int(tok.min()) < 0 or \
+                int(tok.max()) >= cfg.vocab:
+            raise AssertionError(f"lm: {what} tokens {tuple(tok.shape)} out "
+                                 "of shape or vocab")
+    agree = float((tok_e == tok_p).float().mean())
+    exact_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * hd * 2
+    pq_codes_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * (m // 2)
+    pq_cb_b = 2 * L * kv * m * 16 * (hd // m) * 2
+    for what, st, peak in (("exact", st_e, peak_e), ("pq", st_p, peak_p)):
+        log(f"lm: {what}: calibrate {st['calibrate_s']:.3f} s, prefill "
+            f"{st['prefill_s']:.3f} s ({LM_BATCH} x {LM_PROMPT} tokens), "
+            f"decode {st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms a "
+            f"step of {LM_BATCH} ({new / st['decode_s']:.1f} tokens/s over "
+            f"{st['decode_steps']} steps); max_memory_allocated {peak} B")
+    log(f"lm: cache bytes at max_seq {LM_MAX_SEQ}: exact {exact_b}, pq codes "
+        f"{pq_codes_b} + codebooks {pq_cb_b} = {pq_codes_b + pq_cb_b} "
+        f"({exact_b / (pq_codes_b + pq_cb_b):.2f}x smaller; M={m})")
+    log(f"lm: exact-vs-pq token agreement {agree:.4f} (random weights: a "
+        "figure, not a check)")
+
+    # one decode step a cache, timed and profiled, after a fresh prefill
+    step_ms = {}
+    for what, c in (("exact", exact_cfg), ("pq", pq_cfg)):
+        pqc = (serve.calibrate_pq_cache(torch.Generator().manual_seed(
+            args.seed), params, c, LM_BATCH, LM_MAX_SEQ) if c.kv_pq else None)
+        _, cache = model_lib.prefill(params, prompts, c, max_seq=LM_MAX_SEQ,
+                                     pq_cache=pqc)
+        times = []
+        for i in range(LM_STEPS + 1):
+            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = model_lib.decode_step(params, cache, tok_e[:, i], pos,
+                                             c)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[what] = float(np.median(times[1:]))
+        pos = torch.full((LM_BATCH,), LM_PROMPT + LM_STEPS + 1,
+                         dtype=torch.int32, device=dev)
+        _, busy, ops, rows = breakdown(
+            torch, lambda: model_lib.decode_step(params, cache,
+                                                 tok_e[:, LM_STEPS + 1], pos,
+                                                 c))
+        k8_ms = sum(ms for name, ms in rows if "pq_decode_kernel" in name)
+        log(f"lm: {what} decode step: {step_ms[what]:.3f} ms (host clock, "
+            f"synchronized, median of {LM_STEPS}); profiled device time "
+            f"{busy:.4f} ms in {ops} ops, idle {1 - busy / step_ms[what]:.4f}"
+            f" of the step; K8 {k8_ms:.4f} ms = {k8_ms / busy:.4f} of it "
+            f"({k8_ms / L:.5f} ms a call, each layer's codes cold in L2)")
+        for name, ms in rows[:6]:
+            log(f"    {ms:.4f} ms  {name[:90]}")
+        if c.kv_pq:
+            pq_cache = cache
+        del cache
+    pqk.launches = launches   # the path's count; checks below do not count
+
+    # K8 against its plain version: the path's shapes (layer 0 of the PQ
+    # cache, the last decode's position), then edges
+    live = LM_PROMPT + LM_GEN - 1
+    q = torch.randn((LM_BATCH, cfg.n_heads, hd), generator=torch.Generator(
+        device="cuda").manual_seed(args.seed + 25), device=dev).to(
+            torch.bfloat16)
+    path = k8_glue(torch, q, pq_cache.k_codes[0], pq_cache.v_codes[0],
+                   pq_cache.k_cb[0], pq_cache.v_cb[0], [live - 1], True)
+    err = k8_check(torch, path, torch.bfloat16, 2048,
+                   f"path shapes (B={LM_BATCH}, Smax={LM_MAX_SEQ}, KV={kv}, "
+                   f"g={g}, M={m}, {live} live), q8")
+    k8_check(torch, k8_glue(torch, q, pq_cache.k_codes[0],
+                            pq_cache.v_codes[0], pq_cache.k_cb[0],
+                            pq_cache.v_cb[0], [live - 1], False),
+             torch.bfloat16, 2048, "path shapes, f32 LUT")
+    edges = ((dict(positions=[0], q8=True, dtype=torch.bfloat16, g=g),
+              "position 0"),
+             (dict(positions=[LM_MAX_SEQ - 1], q8=True, dtype=torch.bfloat16,
+                   g=g), "position Smax - 1"),
+             (dict(positions=list(range(0, LM_MAX_SEQ, 512)), q8=False,
+                   dtype=torch.bfloat16, g=1), "g = 1, f32 LUT, mixed"),
+             (dict(positions=[live - 1], q8=True, dtype=torch.float32, g=g),
+              "f32, q8"),
+             (dict(positions=[-1, 5, LM_MAX_SEQ + 9, 2047, 2048, 3000, 77,
+                              live - 1], q8=False, dtype=torch.float32, g=1),
+              "f32, f32 LUT, g = 1, none live / past Smax"))
+    for i, (kw, what) in enumerate(edges):
+        gg = kw.pop("g")
+        k8_check(torch, k8_inputs(torch, args.seed + 30 + i, b=LM_BATCH,
+                                  smax=LM_MAX_SEQ, kv=cfg.n_heads // gg, g=gg,
+                                  m=m, dsub=hd // m, **kw),
+                 kw["dtype"], 2048, what)
+    pqk.launches = launches
+
+    def kernel():
+        pqk.pq_decode(*path, chunk=2048, out_dtype=torch.bfloat16)
+
+    def plain():
+        pqk.pq_decode_plain(*path, chunk=2048, out_dtype=torch.bfloat16)
+
+    ms_ev = event_ms(torch, kernel, 20)
+    ms_dev = device_ms(torch, kernel, "pq_decode_kernel", 20)
+    plain_ms = event_ms(torch, plain, 3, warmup=1)
+    pqk.launches = launches
+    table = path[0]
+    nbytes = (2 * LM_BATCH * live * kv * (m // 2) + table.numel()
+              + 2 * 4 * LM_BATCH * kv * g + pq_cache.v_cb[0].numel() * 2
+              + 4 * LM_BATCH + LM_BATCH * cfg.n_heads * hd * 2)
+    int_ops = LM_BATCH * kv * g * live * m * 2
+    flops = LM_BATCH * kv * g * live * hd * 2
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
+    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log(f"lm: K8 time at the path's shapes, back to back on one layer's "
+        f"codes (warm in L2): device {ms_dev} ms, events "
+        f"{ms_ev:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.6f} ms "
+        f"({by}: {nbytes} B; {int_ops} int ops, {flops} f32 ops), "
+        f"{launches} launches on the PQ run")
+    del pq_cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(name="pq_decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/pq_decode_attention.cu",
+                replaces="src/repro/models/kvcache.py:156",
+                launches=launches, max_abs_err=err,
+                ms=ms_dev if ms_dev is not None else ms_ev,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
 def ivf_engine(torch, args, nq: int):
     """The data (a SIFT1M-shaped base with ``nq`` queries and exact ground
     truth, made on the card from ``args.seed``) and the IVF engine of the
@@ -2849,9 +3170,15 @@ def main() -> int:
     serving_phase(torch, args, engine, ds, root)
     log(f"serving: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
+    # 12. LM serving: qwen3-1.7b at full width, exact and PQ caches (K8)
+    log(f"lm: phase starts {time.perf_counter() - t_main:.1f} s into the run")
+    t0 = time.perf_counter()
+    k8 = lm_phase(torch, args)
+    log(f"lm: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c)
+    kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c, k8)
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel was not launched on its path")
     # the next slice's order of work (no kernel has a library call yet):

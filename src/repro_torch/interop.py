@@ -19,6 +19,13 @@ an engine gets the flat quantizer.
 A flat fast-scan index (``core.fastscan.FastScanIndex``) crosses as
 ``codewords`` ((M, 16, dsub) f32), ``packed_codes`` ((N, M//2) u8) and
 ``n``: ``fastscan_index_from_arrays`` / ``arrays_from_fastscan_index``.
+
+An LM's parameters cross as the reference's parameter tree flattened to
+``/``-joined path keys (``embedding``, ``ln_f``, ``lm_head``,
+``stack/blocks/attn/wq``, ... the stacked blocks with their leading layer
+axis): ``lm_params_from_arrays`` / ``arrays_from_lm_params``. A PQ KV cache
+crosses as ``k_codes``, ``v_codes`` (u8) and ``k_cb``, ``v_cb`` (the
+codebooks): ``pq_cache_from_arrays`` / ``arrays_from_pq_cache``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,10 @@ from repro_torch.core.lists import store_arrays, store_from_arrays
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import EngineConfig, SearchEngine
+from repro_torch.models import layers as ll
+from repro_torch.models import model as model_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.kvcache import PQKVCache
 
 
 def _f32(arrays: dict, key: str, dev: torch.device) -> torch.Tensor:
@@ -153,3 +164,89 @@ def arrays_from_fastscan_index(index: FastScanIndex) -> dict[str, np.ndarray]:
     return {"codewords": index.codebook.codewords.cpu().numpy(),
             "packed_codes": index.packed_codes.cpu().numpy(),
             "n": np.asarray(index.n, np.int64)}
+
+
+_BLOCKS = "stack.blocks."
+
+
+def _tree_key(name: str) -> tuple[str, int | None]:
+    """A module's dotted parameter name -> (the reference's path key, its
+    layer index in the stacked blocks or None)."""
+    if name.startswith(_BLOCKS):
+        layer, rest = name[len(_BLOCKS):].split(".", 1)
+        return "stack/blocks/" + rest.replace(".", "/"), int(layer)
+    return name.replace(".", "/"), None
+
+
+def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
+                          device: str | torch.device | None = None,
+                          dtype: torch.dtype | None = None) -> ll.Params:
+    """The model of ``cfg`` on ``device`` (None = the CUDA card) in
+    ``dtype`` (None = the config's) holding the reference's parameters: a
+    dict of path keys to arrays (any float dtype, read through f32), the
+    stacked blocks with their leading layer axis. Every key must be used."""
+    dev = resolve_device(device)
+    specs = model_lib.lm_specs(cfg)
+    model = ll.Params(specs, dtype=dtype or model_lib.model_dtype(cfg),
+                      device=dev)
+    used = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key, layer = _tree_key(name)
+            if key not in arrays:
+                raise KeyError(f"{key} missing from the arrays")
+            a = np.asarray(arrays[key], np.float32)
+            a = a[layer] if layer is not None else a
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{key}: shape {a.shape}, want "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(a)))
+            used.add(key)
+    extra = sorted(set(arrays) - used)
+    if extra:
+        raise KeyError(f"arrays the config has no parameter for: {extra}")
+    return model
+
+
+def arrays_from_lm_params(model: ll.Params) -> dict[str, np.ndarray]:
+    """The inverse: every parameter as an f32 host array under its path
+    key, the blocks stacked on a leading layer axis."""
+    stacks: dict[str, list] = {}
+    out = {}
+    for name, p in model.named_parameters():
+        key, layer = _tree_key(name)
+        a = p.detach().float().cpu().numpy()
+        if layer is None:
+            out[key] = a
+        else:
+            stacks.setdefault(key, []).append((layer, a))
+    for key, layers in stacks.items():
+        out[key] = np.stack([a for _, a in sorted(layers, key=lambda x: x[0])])
+    return out
+
+
+def pq_cache_from_arrays(arrays: dict[str, np.ndarray],
+                         device: str | torch.device | None = None
+                         ) -> PQKVCache:
+    """A PQ KV cache on ``device`` (None = the CUDA card): ``k_codes`` and
+    ``v_codes`` (L, B, Smax, KV, M//2) u8, ``k_cb`` and ``v_cb`` (L, KV, M,
+    16, dsub) read through f32 and held in bf16, as calibration makes
+    them."""
+    dev = resolve_device(device)
+
+    def codes(key):
+        return torch.from_numpy(np.array(arrays[key], np.uint8)).to(dev)
+
+    def cb(key):
+        return _f32(arrays, key, dev).to(torch.bfloat16)
+
+    return PQKVCache(codes("k_codes"), codes("v_codes"), cb("k_cb"),
+                     cb("v_cb"))
+
+
+def arrays_from_pq_cache(cache: PQKVCache) -> dict[str, np.ndarray]:
+    """The inverse: codes as u8 and codebooks as f32 host arrays."""
+    return {"k_codes": cache.k_codes.cpu().numpy(),
+            "v_codes": cache.v_codes.cpu().numpy(),
+            "k_cb": cache.k_cb.float().cpu().numpy(),
+            "v_cb": cache.v_cb.float().cpu().numpy()}

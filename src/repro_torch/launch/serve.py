@@ -1,0 +1,138 @@
+"""Batched LM serving: prefill, then a greedy decode loop, over the exact
+or the 4-bit PQ KV cache (the port of ``repro/launch/serve.py``).
+
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --tokens 16
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --batch 8 \\
+        --prompt-len 2048 --tokens 64
+
+Runs on the CUDA card unless ``--device cpu``. The weights are random,
+drawn from a seeded generator: no checkpoint is loaded. The reference's
+``--dry-run`` (lowering for a TPU mesh) has no counterpart here.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import kvcache as kvc
+from repro_torch.models import model as model_lib
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@torch.inference_mode()
+def calibrate_pq_cache(generator: torch.Generator, params, cfg, batch: int,
+                       max_seq: int, sample_tokens: int = 256
+                       ) -> kvc.PQKVCache:
+    """Calibrate PQ codebooks from K/V activations on a random prompt: an
+    exact prefill of 2 x ``sample_tokens`` tokens (numpy, seed 0, as the
+    reference draws them), k-means per (layer, KV head, sub-space) seeded
+    by ``generator`` (a CPU one), codebooks cast to bf16."""
+    dev = params.embedding.device
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (2, sample_tokens), np.int32), device=dev)
+    exact_cfg = cfg.replace(kv_pq=False)
+    _, cache = model_lib.prefill(params, toks, exact_cfg,
+                                 max_seq=sample_tokens)
+    m = cfg.resolved_kv_pq_m
+    l, b, s, kv, hd = cache.k.shape
+    k_cb = torch.stack([kvc.calibrate_kv_codebooks(
+        generator, cache.k[i].reshape(b * s, kv, hd), m) for i in range(l)])
+    v_cb = torch.stack([kvc.calibrate_kv_codebooks(
+        generator, cache.v[i].reshape(b * s, kv, hd), m) for i in range(l)])
+    empty = model_lib.init_cache(cfg, batch, max_seq, device=dev)
+    return kvc.PQKVCache(empty.k_codes, empty.v_codes,
+                         k_cb.to(torch.bfloat16), v_cb.to(torch.bfloat16))
+
+
+@torch.inference_mode()
+def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
+                max_seq: int | None = None,
+                generator: torch.Generator | None = None, *,
+                return_logits: bool = False, stats: dict | None = None):
+    """Greedy-decode ``gen_tokens`` for a (B, S) batch of prompts; returns
+    (B, gen_tokens) tokens, the lowest index among equal top logits (and,
+    with ``return_logits``, the (B, gen_tokens, Vpad) logits each token was
+    picked from). With ``cfg.kv_pq`` the codebooks are calibrated first
+    (``generator``, a CPU one, default seed 0).
+
+    ``stats``, when given, gets the seconds of calibration, prefill and
+    decode (the device synchronized at each boundary) and the steps.
+    """
+    b, s = prompts.shape
+    max_seq = max_seq or (s + gen_tokens)
+    dev = prompts.device
+    t0 = time.perf_counter()
+    pq_cache = None
+    if cfg.kv_pq and cfg.block_type == "attn":
+        pq_cache = calibrate_pq_cache(
+            generator if generator is not None
+            else torch.Generator().manual_seed(0), params, cfg, b, max_seq)
+    if stats is not None:
+        _sync(dev)
+        stats["calibrate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    logits, cache = model_lib.prefill(params, prompts, cfg, max_seq=max_seq,
+                                      pq_cache=pq_cache)
+    if stats is not None:
+        _sync(dev)
+        stats["prefill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    kept = [logits] if return_logits else None
+    out = [torch.argmax(logits[:, :cfg.vocab], dim=-1)]
+    for i in range(gen_tokens - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        logits, cache = model_lib.decode_step(params, cache, out[-1], pos, cfg)
+        if return_logits:
+            kept.append(logits)
+        out.append(torch.argmax(logits[:, :cfg.vocab], dim=-1))
+    tokens = torch.stack(out, dim=1)
+    if stats is not None:
+        _sync(dev)
+        stats["decode_s"] = time.perf_counter() - t0
+        stats["decode_steps"] = gen_tokens - 1
+    if return_logits:
+        return tokens, torch.stack(kept, dim=1)
+    return tokens
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="cpu, or the CUDA card when omitted")
+    args = ap.parse_args()
+
+    dev = resolve_device(args.device)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len), np.int32),
+        device=dev)
+    params = model_lib.init_lm(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    t0 = time.perf_counter()
+    tokens = serve_batch(cfg, params, prompts, args.tokens)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"[serve] generated {tuple(tokens.shape)} tokens in {dt:.2f}s "
+          f"({args.batch * args.tokens / dt:.1f} tok/s) on {dev}")
+    print(tokens.cpu().numpy())
+
+
+if __name__ == "__main__":
+    main()

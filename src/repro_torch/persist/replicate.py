@@ -210,8 +210,11 @@ class DirTransport:
             os.path.join(self.directory, _SEG_PREFIX + name), data)
 
     def list_segments(self) -> list[str]:
+        """Published segments only: a publish's temp file (``<name>.tmp.
+        <pid>``, renamed away once written) is not a segment, and a
+        standby that listed one would find it gone when it fetched it."""
         out = [n[len(_SEG_PREFIX):] for n in os.listdir(self.directory)
-               if n.startswith(_SEG_PREFIX)]
+               if n.startswith(_SEG_PREFIX) and ".tmp." not in n]
         out.sort()  # wal-<seq:012d>.log names sort in seq order
         return out
 

@@ -32,6 +32,7 @@ from repro_torch.kernels import blockmin_kernel as bk
 from repro_torch.kernels import fastscan_kernel as fk
 from repro_torch.kernels import mxu_flat_kernel as mfk
 from repro_torch.kernels import mxu_kernel as mk
+from repro_torch.kernels import pq_decode_kernel as pqk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rerank_kernel as rk
 from repro_torch.kernels import select_flat_kernel as sfk
@@ -643,9 +644,10 @@ def test_k7_wrappers_check_shared_memory_before_launch(dev):
         bk.fastscan_blockmin(table, codes, tile_n=8)
     assert (sfk.launches, mfk.launches, bk.launches, mk.launches) == n0
     lib = _build.load_library()
+    # M; (tile_n, kc, M) or (D, tile_r, k); K8's (g, M, head_dim, q8)
+    shapes = {1: (16,), 3: (1024, 40, 16), 4: (2, 64, 128, 1)}
     for fn, nargs in _build.SMEM_FNS.items():
-        args = (16,) if nargs == 1 else (1024, 40, 16)
-        assert 0 < getattr(lib, fn)(*args) <= _build.SMEM_LIMIT
+        assert 0 < getattr(lib, fn)(*shapes[nargs]) <= _build.SMEM_LIMIT
 
 
 def test_flat_search_card_equals_host(dev):
@@ -1361,3 +1363,167 @@ def test_a_fenced_write_leaves_the_card_engine_and_its_graphs(dev, tmp_path):
     assert (len(mut.graphs), mut.epoch, mut._wal.last_seq) == (graphs0,
                                                               epoch0, 0)
     _assert_bitwise(mut.search_jit(q, 10), before)
+
+
+# ---------------------------------------------------------------------------
+# K8: PQ decode attention
+# ---------------------------------------------------------------------------
+
+# K8's output against its plain version, relative to the largest |value|
+# of each (batch row, head): f32 sums in another order (the kernel's
+# 256-position tiles against the plain 2,048-position chunks) at 1e-5; in
+# bf16 four units in the last place (2**-6): each side's rounding of the
+# output, the plain version's rounding of each chunk's value sum to bf16,
+# and p rounded to bf16 at another running max
+K8_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _k8_inputs(seed, dev, *, b, smax, kv, g, m, dsub, positions, q8,
+               cb_dtype, out_dtype):
+    from repro_torch.models import kvcache as tkvc
+    rng = np.random.default_rng(seed)
+    hd = m * dsub
+    q = torch.as_tensor(rng.normal(0, 1, (b, kv * g, hd)), dtype=torch.float32,
+                        device=dev).to(out_dtype)
+    k_codes, v_codes = (torch.as_tensor(
+        rng.integers(0, 256, (b, smax, kv, m // 2), dtype=np.uint8),
+        device=dev) for _ in range(2))
+    k_cb, v_cb = (torch.as_tensor(rng.normal(0, 1, (kv, m, 16, dsub)),
+                                  dtype=torch.float32, device=dev).to(cb_dtype)
+                  for _ in range(2))
+    lut = tkvc._build_ip_lut(q.reshape(b, kv, g, hd), k_cb) / np.sqrt(hd)
+    if q8:
+        table, scale, bias = tkvc._quantize(lut)
+    else:
+        table, scale, bias = lut.contiguous(), None, None
+    position = torch.as_tensor(np.asarray(positions, np.int32), device=dev)
+    return table, scale, bias, k_codes, v_codes, v_cb, position
+
+
+def _k8_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    scale = want.abs().amax(-1, keepdim=True)
+    err = (got - want).abs()
+    assert bool((err <= K8_TOL[dtype] * scale).all()), float(
+        (err / scale.clamp_min(1e-30)).max())
+
+
+# (b, smax, kv, g, m, dsub, positions, chunk): qwen3-1.7b's decode shapes
+# (g = 2, M = 64, hd = 128) at the PQ run's positions; position 0, Smax - 1,
+# -1 (nothing live) and beyond Smax; g = 1 (qwen1.5, MHA), g = 8; M/2 = 3
+# (byte loads) and 4 (4-byte loads); hd = 16 (the smoke configs) and 256
+K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
+            (2, 512, 2, 2, 64, 2, [0, 511], 256),
+            (3, 300, 2, 1, 8, 2, [-1, 299, 1000], 300),
+            (2, 257, 1, 8, 6, 4, [256, 3], 257),
+            (2, 64, 4, 1, 8, 2, [63, 17], 16),
+            (1, 1024, 2, 4, 128, 2, [777], 512)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [True, False])
+@pytest.mark.parametrize("case", range(len(K8_CASES)))
+def test_k8_kernel_matches_plain(dev, case, q8, out_dtype):
+    b, smax, kv, g, m, dsub, positions, chunk = K8_CASES[case]
+    cb_dtype = out_dtype
+    args = _k8_inputs(case, dev, b=b, smax=smax, kv=kv, g=g, m=m, dsub=dsub,
+                      positions=positions, q8=q8, cb_dtype=cb_dtype,
+                      out_dtype=out_dtype)
+    scores = torch.full((b, kv, g, smax), float("-inf"), device=dev)
+    before = pqk.launches
+    got = pqk.pq_decode(*args, chunk=chunk, out_dtype=out_dtype,
+                        scores=scores)
+    torch.cuda.synchronize()
+    assert pqk.launches == before + 1
+    want = pqk.pq_decode_plain(*args, chunk=chunk, out_dtype=out_dtype)
+    assert got.shape == want.shape and got.dtype == out_dtype
+    _k8_close(got, want, out_dtype)
+    # each live position's score: bit for bit from the i32 sums (q8), the
+    # f32 LUT's sums within 1e-5; dead positions never written
+    table, scale, bias, k_codes = args[:4]
+    plain_s = pqk.adc_scores(table, scale, bias, k_codes)
+    live = (torch.arange(smax, device=dev)[None]
+            <= args[6].long()[:, None])[:, None, None, :].expand_as(scores)
+    assert bool(torch.isinf(scores[~live]).all())
+    if q8:
+        assert torch.equal(scores[live], plain_s[live])
+    else:
+        torch.testing.assert_close(scores[live], plain_s[live], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_k8_mixed_codebook_and_output_types(dev):
+    """bf16 codebooks under an f32 query (the f32 smoke configs serve with
+    calibrated bf16 codebooks) and f32 codebooks under bf16."""
+    for cb_dtype, out_dtype in ((torch.bfloat16, torch.float32),
+                                (torch.float32, torch.bfloat16)):
+        args = _k8_inputs(40, dev, b=2, smax=128, kv=2, g=2, m=8, dsub=2,
+                          positions=[100, 127], q8=True, cb_dtype=cb_dtype,
+                          out_dtype=out_dtype)
+        got = pqk.pq_decode(*args, chunk=64, out_dtype=out_dtype)
+        want = pqk.pq_decode_plain(*args, chunk=64, out_dtype=out_dtype)
+        _k8_close(got, want, torch.bfloat16)
+
+
+def test_k8_smem_mirror_equals_the_kernels_export(dev):
+    fn = _build.load_library().repro_pq_decode_attention_smem
+    for g in (1, 2, 3, 8):
+        for m, hd in ((2, 2), (6, 24), (8, 16), (64, 128), (128, 256)):
+            for q8 in (0, 1):
+                assert fn(g, m, hd, q8) == pqk.smem_bytes(g, m, hd, bool(q8))
+
+
+def test_k8_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    args = list(_k8_inputs(41, dev, b=2, smax=64, kv=2, g=2, m=8, dsub=2,
+                           positions=[3, 4], q8=True,
+                           cb_dtype=torch.float32, out_dtype=torch.float32))
+    with pytest.raises(ValueError):     # mixed devices
+        pqk.pq_decode(*args[:6], args[6].cpu(), chunk=64,
+                      out_dtype=torch.float32)
+    with pytest.raises(ValueError):     # more than 8 query heads a KV head
+        big = _k8_inputs(42, dev, b=1, smax=16, kv=1, g=9, m=8, dsub=2,
+                         positions=[3], q8=True, cb_dtype=torch.float32,
+                         out_dtype=torch.float32)
+        pqk.pq_decode(*big, chunk=16, out_dtype=torch.float32)
+
+
+def test_lm_decode_on_the_card_matches_the_host(dev):
+    """qwen3-smoke (f32) through prefill and three decode steps on both
+    caches, the PQ one through K8: the card's logits against the host's.
+    The PQ cache's codebooks are held in f32 here: with bf16 ones the plain
+    version rounds each chunk's value sum to bf16 and K8 does not (that
+    difference is held by the K8 tests at their bf16 tolerance)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tmodel
+    cfg = configs.get_smoke_config("qwen3-1.7b")
+    host = tmodel.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = interop.lm_params_from_arrays(interop.arrays_from_lm_params(host),
+                                         cfg, device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(43).integers(
+        0, cfg.vocab, (2, 64), dtype=np.int32))
+    for pq_on in (False, True):
+        c = cfg.replace(kv_pq=pq_on)
+        caches = {}
+        if pq_on:
+            pqc = serve.calibrate_pq_cache(torch.Generator().manual_seed(1),
+                                           host, c, 2, 68)
+            pqc = pqc._replace(k_cb=pqc.k_cb.float(), v_cb=pqc.v_cb.float())
+            caches = {"cpu": pqc, "cuda": pqc._replace(
+                **{f: getattr(pqc, f).to(dev) for f in pqc._fields})}
+        logits = {}
+        for where, model in (("cpu", host), ("cuda", card)):
+            toks = prompts.to(model.embedding.device)
+            lg, cache = tmodel.prefill(model, toks, c, max_seq=68,
+                                       pq_cache=caches.get(where))
+            seq = [lg]
+            for i in range(3):   # the same tokens on both
+                pos = torch.full((2,), 64 + i, dtype=torch.int32,
+                                 device=toks.device)
+                lg, cache = tmodel.decode_step(model, cache, toks[:, i], pos,
+                                               c)
+                seq.append(lg)
+            logits[where] = torch.stack(seq).cpu()
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
+                                   atol=1e-3)

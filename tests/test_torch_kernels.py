@@ -428,7 +428,7 @@ def test_build_key_covers_every_source():
         _build.SOURCES)
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == sorted(
         _build.HEADERS)
-    assert len(_build.SOURCES) == 9
+    assert len(_build.SOURCES) == 10
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build._digest()) == 16
     # every launcher the wrappers call has a ctypes signature

@@ -182,6 +182,18 @@ def test_transport_retries_are_bounded_then_loud(tmp_path):
 # the reference's frames, either package on either side
 # ---------------------------------------------------------------------------
 
+def test_a_publish_in_flight_is_not_listed(tmp_path):
+    """A publish writes ``seg-<name>.tmp.<pid>`` and renames it; a standby
+    listing the directory meanwhile must not see the temp file, which is
+    gone by the time it would fetch it."""
+    transport = persist.DirTransport(str(tmp_path))
+    transport.publish("t000000000000-wal-000000000001.log", b"x", term=0)
+    (tmp_path / "seg-t000000000000-wal-000000000002.log.tmp.120"
+     ).write_bytes(b"half")
+    assert transport.list_segments() == ["t000000000000-wal-000000000001.log"]
+    assert transport.fetch("t000000000000-wal-000000000001.log") == b"x"
+
+
 def test_ship_frames_and_names_are_the_references():
     payload = os.urandom(777)
     assert persist.encode_ship_frame(3, 41, payload) == \
