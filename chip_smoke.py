@@ -81,18 +81,40 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
   8. LM serving (``repro_torch.launch.serve``): qwen3-1.7b's full config
      in bf16 (28 layers, d_model 2048, GQA 16/8 x 128, vocab 151,936),
      weights from a seeded ``torch.Generator``, ``serve_batch`` on 8
-     prompts of 2,048 tokens with 64 new tokens (max_seq 4,096) through
-     the exact KV cache, held against the teacher-forced ``forward``
-     (max |logit difference| under 5e-2 of max |logit|, the reference's
-     own tolerance), then through the 4-bit PQ KV cache (calibrated
-     codebooks, M = 64) whose decode attention is K8, launched at least
-     28 x 63 times. It prints prefill seconds, decode ms a step and
-     tokens/s a cache, calibration seconds, cache bytes, the exact-vs-PQ
-     token agreement (a figure: the weights are random), peak memory, one
-     decode step's profiled device time with K8's share and the idle
-     share, and K8 held against its plain version at the path's shapes
-     and edges (position 0, Smax - 1, g = 1, both LUT kinds, f32) and
+     prompts of 2,048 tokens with 64 new tokens (max_seq 4,096), each
+     decode step a replay of a captured CUDA graph
+     (``models/decode_graph.py``), through the exact KV cache, held
+     against the teacher-forced ``forward`` (max |logit difference| under
+     5e-2 of max |logit|, the reference's own tolerance), then through the
+     4-bit PQ KV cache (calibrated codebooks, M = 64) whose decode
+     attention is K8, launched at least 28 x 63 times. Then, a cache
+     each, the graph against the eager step bit for bit over the 63 steps
+     (logits, tokens, every cache tensor), both timed (host clock) and
+     profiled (device time, ops, idle share). It prints prefill seconds,
+     decode ms a step and tokens/s, the graph's capture seconds,
+     calibration seconds, cache bytes, the exact-vs-PQ token agreement (a
+     figure: the weights are random), peak memory, and K8 held against its
+     plain version at the path's shapes and edges (position 0, Smax - 1,
+     g = 1, g = 12 as starcoder2-15b has it, both LUT kinds, f32) and
      timed beside its bound.
+
+  9. the recurrent families at full width and depth, B = 8, 2,048-token
+     prompts, 32 new tokens: zamba2-2.7b (54 Mamba2 layers, the shared
+     attention block every 6) through ``serve_batch`` on the exact
+     shared-attention cache, then its published 4-bit PQ cache (codebooks
+     calibrated here a group at a time: the reference's serve_batch has
+     none for a hybrid) through ``prefill(pq_cache=...)`` and graph
+     replays, K8 launched at least 9 x 31 times and held against its plain
+     version at head_dim 80 / M 40 / g 1; and rwkv6-3b (32 layers,
+     ``rwkv_chunk`` 128 -> 32, logged as a reduction) through
+     ``serve_batch``, and one prefill at the published chunk 128, whose
+     logits it reports as finite or not (the reference's WKV6 overflows
+     there). Graph against eager bit for bit on each cache. In bf16 the
+     recurrent decode's departure from the forward is printed as a figure;
+     the same seeded weights in f32 are held against the forward at 5e-2
+     (rwkv6 at full depth, zamba2 at 18 layers: its shared attention
+     multiplies a perturbation ~10x a block on these weights, which a
+     probe prints group by group). The SSD and WKV6 scans' device times.
 
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
@@ -2712,7 +2734,11 @@ def serving_phase(torch, args, engine, ds, root: str) -> dict:
 
 LM_ARCH = "qwen3-1.7b"          # the LM phase's model, full CONFIG
 LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ = 8, 2048, 64, 4096
-LM_STEPS = 10                 # decode steps timed a cache (median)
+REC_GEN = 32                  # new tokens a request, recurrent families
+# the depth at which zamba2's f32 decode is held against its forward: three
+# shared-attention blocks (each multiplies a perturbation ~10x on these
+# weights, so f32 rounding survives three, not nine)
+ZAMBA2_HELD_LAYERS = 18
 # the exact decode's logits against the teacher-forced forward's, as the
 # reference's own test holds them (tests/test_model_consistency.py): the
 # largest |difference| below 5e-2 of the largest |logit|
@@ -2802,16 +2828,189 @@ def k8_check(torch, args, out_dtype, chunk: int, what: str) -> float:
     return err
 
 
+def fresh_pq(torch, pq_cache):
+    """``pq_cache`` with code tensors of its own: the attention family's
+    prefill fills a ``PQKVCache``'s codes in place (a hybrid's codebook
+    dict is only read)."""
+    from repro_torch.models import kvcache as kvc
+    if isinstance(pq_cache, kvc.PQKVCache):
+        return pq_cache._replace(k_codes=torch.zeros_like(pq_cache.k_codes),
+                                 v_codes=torch.zeros_like(pq_cache.v_codes))
+    return pq_cache
+
+
+def graph_vs_eager(torch, params, cfg, prompts, pq_cache, steps: int,
+                   what: str) -> dict:
+    """Two caches prefilled alike; ``steps`` decode steps, eagerly on one and
+    as replays of a ``DecodeGraph`` on the other, fed the same tokens (the
+    eager step's argmax): the logits bit for bit at every step, then every
+    cache tensor. Host ms a step (synchronized; median over the steps after
+    the graph's first, which captures), one profiled step of each (device
+    ms, device ops, idle share) and the replay's back-to-back event time.
+    Leaves K8's count as it found it."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.decode_graph import DecodeGraph, cache_tensors
+    n0 = pqk.launches
+    b, s = prompts.shape
+    (lg, eager), (_, graphed) = (
+        model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ,
+                          pq_cache=fresh_pq(torch, pq_cache))
+        for _ in range(2))
+    graph = DecodeGraph(params, graphed, cfg, b)
+    tok = torch.argmax(lg[:, :cfg.vocab], -1)
+    t_e, t_g = [], []
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = model_lib.decode_step(params, eager, tok, pos, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = graph.step(tok, pos)
+        torch.cuda.synchronize()
+        t_e.append((t1 - t0) * 1e3)
+        t_g.append((time.perf_counter() - t1) * 1e3)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what}: graph != eager at step {i}: max |difference| "
+                f"{float((got.float() - want.float()).abs().max())}")
+        tok = torch.argmax(want[:, :cfg.vocab], -1)
+    for a, c in zip(cache_tensors(graphed), cache_tensors(eager)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{what}: graph and eager caches differ")
+    out = dict(eager_ms=float(np.median(t_e[1:])),
+               graph_ms=float(np.median(t_g[1:])),
+               capture_s=graph.capture_seconds())
+    pos = torch.full((b,), s + steps, dtype=torch.int32, device="cuda")
+    for kind, fn in (("eager", lambda: model_lib.decode_step(
+            params, eager, tok, pos, cfg)), ("graph",
+                                             lambda: graph.step(tok, pos))):
+        _, busy, ops, rows = breakdown(torch, fn)
+        k8 = sum(ms for name, ms in rows if "pq_decode_kernel" in name)
+        out[kind] = dict(busy=busy, ops=ops, k8=k8, rows=rows)
+    out["replay_ms"] = event_ms(torch, lambda: graph.step(tok, pos), 10)
+    log(f"{what}: graph == eager bit for bit over {steps} steps (logits, "
+        f"tokens, every cache tensor); capture {out['capture_s']:.3f} s")
+    for kind in ("eager", "graph"):
+        st, ms = out[kind], out[kind + "_ms"]
+        log(f"{what}: {kind} step {ms:.3f} ms (host clock, synchronized, "
+            f"median of {steps - 1}); profiled device time {st['busy']:.4f}"
+            f" ms in {st['ops']} ops, idle {1 - st['busy'] / ms:.4f} of the "
+            f"step" + (f"; K8 {st['k8']:.4f} ms = {st['k8'] / st['busy']:.4f}"
+                       f" of it" if st["k8"] else ""))
+        for name, dms in st["rows"][:5]:
+            log(f"    {dms:.4f} ms  {name[:90]}")
+    log(f"{what}: a replay back to back {out['replay_ms']:.4f} ms (CUDA "
+        "events)")
+    del graph, graphed, eager
+    pqk.launches = n0
+    return out
+
+
+def serve_exact(torch, cfg, params, prompts, gen: int, what: str,
+                hold: bool = True):
+    """``serve_batch`` through the exact cache (graph replays), its decode
+    against the teacher-forced ``forward``: held within LM_FORWARD_RTOL, or
+    with ``hold`` False printed as a figure. Returns (tokens, stats, peak
+    memory)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    tok, logits = serve.serve_batch(cfg, params, prompts, gen,
+                                    max_seq=LM_MAX_SEQ, return_logits=True,
+                                    stats=st)
+    peak = torch.cuda.max_memory_allocated()
+    b, s = prompts.shape
+    t0 = time.perf_counter()
+    full, _ = model_lib.forward(
+        params, torch.cat([prompts, tok[:, :-1].to(torch.int32)], 1), cfg)
+    ref = full[:, s - 1:].float()
+    del full
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    diff = float((logits.float() - ref).abs().max())
+    top = float(ref.abs().max())
+    same_top = float((logits[..., :cfg.vocab].argmax(-1)
+                      == ref[..., :cfg.vocab].argmax(-1)).float().mean())
+    log(f"{what}: exact decode vs teacher-forced forward ({b} x "
+        f"{s + gen - 1} tokens, {fwd_s:.2f} s): max |logit "
+        f"difference| {diff:.4f} of max |logit| {top:.4f} = "
+        f"{diff / top:.3e} ("
+        + (f"tolerance {LM_FORWARD_RTOL}" if hold else "a figure, not held")
+        + f"); the same top token at {same_top:.4f} of the {gen} positions "
+        f"x {b}")
+    if hold and not diff / top < LM_FORWARD_RTOL:
+        raise AssertionError(f"{what}: exact decode != forward ({diff / top})")
+    check_tokens(tok, cfg, b, gen, what)
+    return tok, st, peak
+
+
+def check_tokens(tok, cfg, b: int, gen: int, what: str) -> None:
+    if tok.shape != (b, gen) or int(tok.min()) < 0 or \
+            int(tok.max()) >= cfg.vocab:
+        raise AssertionError(f"{what}: tokens {tuple(tok.shape)} out of "
+                             "shape or vocab")
+
+
+def log_serve(what: str, st: dict, peak: int, b: int, prompt: int) -> None:
+    new = b * st["decode_steps"]
+    log(f"{what}: calibrate {st.get('calibrate_s', 0.0):.3f} s, prefill "
+        f"{st['prefill_s']:.3f} s ({b} x {prompt} tokens), decode "
+        f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms a step of {b} "
+        f"({new / st['decode_s']:.1f} tokens/s over {st['decode_steps']} "
+        f"steps, graph capture {st.get('capture_s', 0.0):.3f} s of it); "
+        f"max_memory_allocated {peak} B")
+
+
+def k8_time(torch, path, cfg, live: int, launches: int, what: str):
+    """K8's device, event and plain times on ``path`` (its arguments at a
+    path's shapes, back to back on one layer's codes) and its bound there:
+    (ms, plain ms, bound ms, bound by). Leaves K8's count as it was."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    table = path[0]
+    b, kv, g, m, _ = table.shape
+    hd = cfg.resolved_head_dim
+
+    def kernel():
+        pqk.pq_decode(*path, chunk=2048, out_dtype=torch.bfloat16)
+
+    def plain():
+        pqk.pq_decode_plain(*path, chunk=2048, out_dtype=torch.bfloat16)
+
+    n0 = pqk.launches
+    ms_ev = event_ms(torch, kernel, 20)
+    ms_dev = device_ms(torch, kernel, "pq_decode_kernel", 20)
+    plain_ms = event_ms(torch, plain, 3, warmup=1)
+    pqk.launches = n0
+    nbytes = (2 * b * live * kv * (m // 2) + table.numel()
+              + 2 * 4 * b * kv * g + path[5].numel() * path[5].element_size()
+              + 4 * b + b * kv * g * hd * 2)
+    int_ops = b * kv * g * live * m * 2
+    flops = b * kv * g * live * hd * 2
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
+    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log(f"{what}: K8 time at the path's shapes, back to back on one layer's "
+        f"codes (warm in L2): device {ms_dev} ms, events {ms_ev:.5f} ms, "
+        f"plain {plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B; "
+        f"{int_ops} int ops, {flops} f32 ops), {launches} launches on the "
+        "PQ run")
+    return (ms_dev if ms_dev is not None else ms_ev), plain_ms, bound, by
+
+
 def lm_phase(torch, args) -> dict:
     """LM serving on the card: qwen3-1.7b's full CONFIG in bf16 (weights
     from a seeded ``torch.Generator``) through ``serve_batch`` on
     LM_BATCH prompts of LM_PROMPT tokens (numpy, ``--seed``), LM_GEN new
-    tokens, max_seq LM_MAX_SEQ: the exact cache, held against the
-    teacher-forced ``forward``, then the 4-bit PQ cache (calibrated
-    codebooks, M = head_dim / 2) through K8, its launches counted from 0.
-    Then one decode step a cache timed and profiled, and K8 held against
-    its plain version at the path's shapes and edges and timed. Returns
-    K8's entry of the kernels line."""
+    tokens, max_seq LM_MAX_SEQ, each step a replay of the decode graph:
+    the exact cache, held against the teacher-forced ``forward``, then the
+    4-bit PQ cache (calibrated codebooks, M = head_dim / 2) through K8, its
+    launches counted from 0. Then the graph against the eager step, bit for
+    bit over the generated steps, a cache each, both timed and profiled;
+    and K8 held against its plain version at the path's shapes and edges
+    and timed. Returns K8's entry of the kernels line."""
     from repro_torch import configs
     from repro_torch.kernels import pq_decode_kernel as pqk
     from repro_torch.launch import serve
@@ -2838,35 +3037,10 @@ def lm_phase(torch, args) -> dict:
     rng = np.random.default_rng(args.seed + 24)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                                            dtype=np.int32), device=dev)
-    new = LM_BATCH * (LM_GEN - 1)
 
     # the exact cache, and its decode against the teacher-forced forward
-    torch.cuda.reset_peak_memory_stats()
-    st_e = {}
-    tok_e, logits_e = serve.serve_batch(exact_cfg, params, prompts, LM_GEN,
-                                        max_seq=LM_MAX_SEQ,
-                                        return_logits=True, stats=st_e)
-    peak_e = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    full, _ = model_lib.forward(
-        params, torch.cat([prompts, tok_e[:, :-1].to(torch.int32)], 1),
-        exact_cfg)
-    ref = full[:, LM_PROMPT - 1:].float()
-    del full
-    torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
-    diff = float((logits_e.float() - ref).abs().max())
-    top = float(ref.abs().max())
-    same_top = float((logits_e[..., :cfg.vocab].argmax(-1)
-                      == ref[..., :cfg.vocab].argmax(-1)).float().mean())
-    log(f"lm: exact decode vs teacher-forced forward ({LM_BATCH} x "
-        f"{LM_PROMPT + LM_GEN - 1} tokens, {fwd_s:.2f} s): max |logit "
-        f"difference| {diff:.4f} of max |logit| {top:.4f} = "
-        f"{diff / top:.3e} (tolerance {LM_FORWARD_RTOL}); the same top "
-        f"token at {same_top:.4f} of the {LM_GEN} positions x {LM_BATCH}")
-    if not diff / top < LM_FORWARD_RTOL:
-        raise AssertionError(f"lm: exact decode != forward ({diff / top})")
-    del ref, logits_e
+    tok_e, st_e, peak_e = serve_exact(torch, exact_cfg, params, prompts,
+                                      LM_GEN, "lm")
 
     # the PQ cache through K8, its launches counted from 0
     zero_counts()
@@ -2881,65 +3055,31 @@ def lm_phase(torch, args) -> dict:
     peak_p = torch.cuda.max_memory_allocated()
     need = L * (LM_GEN - 1)
     log(f"lm: K8 launches on the PQ run: {launches} (at least {L} layers x "
-        f"{LM_GEN - 1} decode steps = {need})")
+        f"{LM_GEN - 1} decode steps = {need}; the graph's eager warm-up "
+        "adds one step's)")
     if launches < need:
         raise AssertionError(f"lm: K8 launched {launches} < {need} times")
-    for tok, what in ((tok_e, "exact"), (tok_p, "pq")):
-        if tok.shape != (LM_BATCH, LM_GEN) or int(tok.min()) < 0 or \
-                int(tok.max()) >= cfg.vocab:
-            raise AssertionError(f"lm: {what} tokens {tuple(tok.shape)} out "
-                                 "of shape or vocab")
+    check_tokens(tok_p, cfg, LM_BATCH, LM_GEN, "lm: pq")
     agree = float((tok_e == tok_p).float().mean())
     exact_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * hd * 2
     pq_codes_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * (m // 2)
     pq_cb_b = 2 * L * kv * m * 16 * (hd // m) * 2
     for what, st, peak in (("exact", st_e, peak_e), ("pq", st_p, peak_p)):
-        log(f"lm: {what}: calibrate {st['calibrate_s']:.3f} s, prefill "
-            f"{st['prefill_s']:.3f} s ({LM_BATCH} x {LM_PROMPT} tokens), "
-            f"decode {st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms a "
-            f"step of {LM_BATCH} ({new / st['decode_s']:.1f} tokens/s over "
-            f"{st['decode_steps']} steps); max_memory_allocated {peak} B")
+        log_serve(f"lm: {what}", st, peak, LM_BATCH, LM_PROMPT)
     log(f"lm: cache bytes at max_seq {LM_MAX_SEQ}: exact {exact_b}, pq codes "
         f"{pq_codes_b} + codebooks {pq_cb_b} = {pq_codes_b + pq_cb_b} "
         f"({exact_b / (pq_codes_b + pq_cb_b):.2f}x smaller; M={m})")
     log(f"lm: exact-vs-pq token agreement {agree:.4f} (random weights: a "
         "figure, not a check)")
 
-    # one decode step a cache, timed and profiled, after a fresh prefill
-    step_ms = {}
-    for what, c in (("exact", exact_cfg), ("pq", pq_cfg)):
-        pqc = (serve.calibrate_pq_cache(torch.Generator().manual_seed(
-            args.seed), params, c, LM_BATCH, LM_MAX_SEQ) if c.kv_pq else None)
-        _, cache = model_lib.prefill(params, prompts, c, max_seq=LM_MAX_SEQ,
-                                     pq_cache=pqc)
-        times = []
-        for i in range(LM_STEPS + 1):
-            pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
-                             device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, cache = model_lib.decode_step(params, cache, tok_e[:, i], pos,
-                                             c)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        step_ms[what] = float(np.median(times[1:]))
-        pos = torch.full((LM_BATCH,), LM_PROMPT + LM_STEPS + 1,
-                         dtype=torch.int32, device=dev)
-        _, busy, ops, rows = breakdown(
-            torch, lambda: model_lib.decode_step(params, cache,
-                                                 tok_e[:, LM_STEPS + 1], pos,
-                                                 c))
-        k8_ms = sum(ms for name, ms in rows if "pq_decode_kernel" in name)
-        log(f"lm: {what} decode step: {step_ms[what]:.3f} ms (host clock, "
-            f"synchronized, median of {LM_STEPS}); profiled device time "
-            f"{busy:.4f} ms in {ops} ops, idle {1 - busy / step_ms[what]:.4f}"
-            f" of the step; K8 {k8_ms:.4f} ms = {k8_ms / busy:.4f} of it "
-            f"({k8_ms / L:.5f} ms a call, each layer's codes cold in L2)")
-        for name, ms in rows[:6]:
-            log(f"    {ms:.4f} ms  {name[:90]}")
-        if c.kv_pq:
-            pq_cache = cache
-        del cache
+    # the decode graph against the eager step, a cache each
+    pqc = serve.calibrate_pq_cache(torch.Generator().manual_seed(args.seed),
+                                   params, pq_cfg, LM_BATCH, LM_MAX_SEQ)
+    for what, c, pq in (("exact", exact_cfg, None), ("pq", pq_cfg, pqc)):
+        graph_vs_eager(torch, params, c, prompts, pq, LM_GEN - 1,
+                       f"lm: {what}")
+    _, pq_cache = model_lib.prefill(params, prompts, pq_cfg,
+                                    max_seq=LM_MAX_SEQ, pq_cache=pqc)
     pqk.launches = launches   # the path's count; checks below do not count
 
     # K8 against its plain version: the path's shapes (layer 0 of the PQ
@@ -2974,42 +3114,324 @@ def lm_phase(torch, args) -> dict:
                                   smax=LM_MAX_SEQ, kv=cfg.n_heads // gg, g=gg,
                                   m=m, dsub=hd // m, **kw),
                  kw["dtype"], 2048, what)
+    # starcoder2-15b's g = 12 (48 heads over 4 KV heads, head_dim 128), the
+    # most query heads a KV head of the repo's configs
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        k8_check(torch, k8_inputs(torch, args.seed + 40 + i, b=LM_BATCH,
+                                  smax=LM_MAX_SEQ, kv=4, g=12, m=64, dsub=2,
+                                  positions=[live - 1 - 97 * r
+                                             for r in range(LM_BATCH)],
+                                  q8=i == 0, dtype=dtype),
+                 dtype, 2048, f"g = 12 (starcoder2-15b: KV 4, M 64), "
+                 f"{'q8' if i == 0 else 'f32 LUT'}, {dtype}")
     pqk.launches = launches
-
-    def kernel():
-        pqk.pq_decode(*path, chunk=2048, out_dtype=torch.bfloat16)
-
-    def plain():
-        pqk.pq_decode_plain(*path, chunk=2048, out_dtype=torch.bfloat16)
-
-    ms_ev = event_ms(torch, kernel, 20)
-    ms_dev = device_ms(torch, kernel, "pq_decode_kernel", 20)
-    plain_ms = event_ms(torch, plain, 3, warmup=1)
-    pqk.launches = launches
-    table = path[0]
-    nbytes = (2 * LM_BATCH * live * kv * (m // 2) + table.numel()
-              + 2 * 4 * LM_BATCH * kv * g + pq_cache.v_cb[0].numel() * 2
-              + 4 * LM_BATCH + LM_BATCH * cfg.n_heads * hd * 2)
-    int_ops = LM_BATCH * kv * g * live * m * 2
-    flops = LM_BATCH * kv * g * live * hd * 2
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
-    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-    log(f"lm: K8 time at the path's shapes, back to back on one layer's "
-        f"codes (warm in L2): device {ms_dev} ms, events "
-        f"{ms_ev:.5f} ms, plain {plain_ms:.5f} ms, bound {bound:.6f} ms "
-        f"({by}: {nbytes} B; {int_ops} int ops, {flops} f32 ops), "
-        f"{launches} launches on the PQ run")
-    del pq_cache, params
+    ms, plain_ms, bound, by = k8_time(torch, path, cfg, live, launches, "lm")
+    del pq_cache, pqc, params
     gc.collect()
     torch.cuda.empty_cache()
     return dict(name="pq_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/pq_decode_attention.cu",
                 replaces="src/repro/models/kvcache.py:156",
-                launches=launches, max_abs_err=err,
-                ms=ms_dev if ms_dev is not None else ms_ev,
+                launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
+
+
+def recurrent_model(torch, args, arch: str, **cut):
+    """A recurrent family's full CONFIG (``cut`` overrides, logged as
+    reductions) in bf16 on seeded random weights, and its prompts."""
+    from repro_torch import configs
+    from repro_torch.models import model as model_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(arch).replace(**cut)
+    t0 = time.perf_counter()
+    params = model_lib.init_lm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed),
+        device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"{arch}: full CONFIG ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.padded_vocab}): "
+        f"{n} parameters in {cfg.dtype} ({n * 2} B), random from seed "
+        f"{args.seed}, {time.perf_counter() - t0:.2f} s; reduced: "
+        + (", ".join(f"{k} {getattr(configs.get_config(arch), k)} -> {v}"
+                     for k, v in cut.items()) or "nothing"))
+    rng = np.random.default_rng(args.seed + 25)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                           dtype=np.int32), device="cuda")
+    return cfg, params, prompts
+
+
+def hold_in_f32(torch, args, cfg, prompts, gen: int, what: str,
+                depths) -> None:
+    """The same seeded weights in f32 (the bf16 model is their rounding)
+    through ``serve_batch`` at each of ``depths`` ((n_layers, hold)), held
+    against the forward within LM_FORWARD_RTOL where ``hold``, else the
+    figure printed. In bf16 a recurrent family's decode departs from its
+    chunked forward on these random weights in both packages (WKV6 and SSD
+    round their chunk products and carried states to bf16), and zamba2's
+    shared attention multiplies a relative perturbation about tenfold a
+    block on them (``perturbation_probe``), so its check is held at the
+    depth whose nine-block product of that gain f32 rounding survives."""
+    from repro_torch.models import model as model_lib
+    for layers, hold in depths:
+        gc.collect()
+        torch.cuda.empty_cache()
+        c32 = cfg.replace(dtype="float32", n_layers=layers)
+        params = model_lib.init_lm(
+            c32, generator=torch.Generator(device="cuda").manual_seed(
+                args.seed), device="cuda")
+        tok, st, peak = serve_exact(torch, c32, params, prompts, gen,
+                                    f"{what} (f32, {layers} layers)", hold)
+        log_serve(f"{what}: exact, f32, {layers} layers", st, peak,
+                  *prompts.shape)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def perturbation_probe(torch, args, cfg, s: int = 256) -> None:
+    """How a relative perturbation of 1e-6 in the embeddings grows through
+    zamba2's groups (f32, full width and depth, one sequence of ``s``
+    tokens): the relative difference after each group's Mamba layers, of
+    its shared attention's output and after the group. A diagnostic of the
+    reference's init (its attention has no qk_norm and ``wq``'s fan-in is
+    the head count, so scores have a std near 80), run on the port."""
+    from repro_torch.models import layers as ll
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tf
+    c32 = cfg.replace(dtype="float32")
+    params = model_lib.init_lm(
+        c32, generator=torch.Generator(device="cuda").manual_seed(args.seed),
+        device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 30).integers(
+        0, cfg.vocab, (1, s)), device="cuda")
+    pos = torch.arange(s, device="cuda")[None]
+    p, k = params.stack, cfg.shared_attn_every
+
+    def rel(a, b):
+        return float((a - b).norm() / a.norm())
+
+    with torch.inference_mode():
+        h = params.embedding[toks]
+        noise = torch.randn(h.shape, generator=torch.Generator(
+            device="cuda").manual_seed(args.seed + 31), device="cuda")
+        hs = [h, h * (1 + 1e-6 * noise)]
+        h0s = list(hs)
+        line = []
+        for gi in range(cfg.n_layers // k):
+            for j in range(2):
+                for i in range(gi * k, (gi + 1) * k):
+                    hs[j] = tf._mamba_layer(p.blocks[i], hs[j], c32)
+            after_m = rel(*hs)
+            att = []
+            for j in range(2):
+                x = tf._shared_in(p, gi, hs[j], h0s[j])
+                a = ll.attention(p.shared.attn, ll.rmsnorm(
+                    x, p.shared.ln1, c32.norm_eps), c32, pos)
+                x = x + a
+                x = x + ll.ffn(p.shared.ffn, ll.rmsnorm(
+                    x, p.shared.ln2, c32.norm_eps), c32)
+                hs[j] = hs[j] + x
+                att.append(a)
+            line.append(f"{after_m:.1e}/{rel(*att):.1e}/{rel(*hs):.1e}")
+    log("zamba2: a 1e-6 relative perturbation of the embeddings through the "
+        "groups, f32 (after the Mamba layers / of the shared attention's "
+        "output / after the group): " + ", ".join(line))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def scan_ms(torch, fn, what: str) -> float:
+    ms = event_ms(torch, fn, 3, warmup=1)
+    log(f"{what}: {ms:.4f} ms a call (CUDA events, 3 back to back)")
+    return ms
+
+
+def zamba2_phase(torch, args) -> int:
+    """zamba2-2.7b's full CONFIG (54 Mamba2 layers, the shared attention
+    block every 6, d_model 2560, its published kv_pq): ``serve_batch``
+    through the exact shared-attention cache (graph replays), held against
+    the teacher-forced forward; then the PQ cache, whose codebooks the
+    phase calibrates itself a group at a time (the reference's serve_batch
+    has none for a hybrid: ROADMAP Queue 3), through ``prefill(pq_cache=)``
+    and decode-graph replays, K8's launches counted from 0; graph against
+    eager on both caches; K8 against its plain version at the hybrid's
+    shapes; the SSD scan's device time. Returns K8's launches."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.models import kvcache as kvc
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm
+    from repro_torch.models.decode_graph import DecodeGraph
+    cfg, params, prompts = recurrent_model(torch, args, "zamba2-2.7b")
+    exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg
+    b, s, gen = LM_BATCH, LM_PROMPT, REC_GEN
+    n_groups = cfg.n_layers // cfg.shared_attn_every
+    kv, hd, m = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_kv_pq_m
+    g = cfg.n_heads // kv
+    tok_e, st_e, peak_e = serve_exact(torch, exact_cfg, params, prompts, gen,
+                                      "zamba2 (bf16)", hold=False)
+    log_serve("zamba2: exact", st_e, peak_e, b, s)
+    perturbation_probe(torch, args, exact_cfg)
+    hold_in_f32(torch, args, exact_cfg, prompts, gen, "zamba2",
+                ((cfg.n_layers, False), (ZAMBA2_HELD_LAYERS, True)))
+
+    # the PQ cache: codebooks from the exact prefill's shared-attention
+    # K/V, a group at a time, on 2 x 256 positions (calibrate_pq_cache's
+    # sample); prefill(pq_cache=...) and graph replays
+    log("zamba2: pq: the phase calibrates the hybrid's codebooks itself "
+        "(exact prefill, then kvcache.calibrate_kv_codebooks a group at a "
+        "time): serve_batch refuses a hybrid with kv_pq, as the reference's "
+        "does (ROADMAP Queue 3)")
+    t0 = time.perf_counter()
+    _, exact = model_lib.prefill(params, prompts, exact_cfg,
+                                 max_seq=LM_MAX_SEQ)
+    gen_cpu = torch.Generator().manual_seed(args.seed)
+    cbs = {}
+    for name in ("attn_k", "attn_v"):
+        x = exact[name][:, :2, :256]
+        cbs[name + "_cb"] = torch.stack([kvc.calibrate_kv_codebooks(
+            gen_cpu, x[gi].reshape(2 * 256, kv, hd), m)
+            for gi in range(n_groups)]).to(torch.bfloat16)
+    del exact
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lg, cache = model_lib.prefill(params, prompts, pq_cfg, max_seq=LM_MAX_SEQ,
+                                  pq_cache=cbs)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = DecodeGraph(params, cache, pq_cfg, b)
+    out = [torch.argmax(lg[:, :cfg.vocab], -1)]
+    for i in range(gen - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        out.append(torch.argmax(graph.step(out[-1], pos)[:, :cfg.vocab], -1))
+    tok_p = torch.stack(out, 1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    launches = pqk.launches
+    peak_p = torch.cuda.max_memory_allocated()
+    need = n_groups * (gen - 1)
+    log(f"zamba2: K8 launches on the PQ run: {launches} (at least "
+        f"{n_groups} shared blocks x {gen - 1} decode steps = {need})")
+    if launches < need:
+        raise AssertionError(f"zamba2: K8 launched {launches} < {need} times")
+    check_tokens(tok_p, cfg, b, gen, "zamba2: pq")
+    log_serve("zamba2: pq", dict(calibrate_s=cal_s, prefill_s=pre_s,
+                                 decode_s=dec_s, decode_steps=gen - 1,
+                                 capture_s=graph.capture_seconds()),
+              peak_p, b, s)
+    del graph
+    state_b = sum(cache[k].numel() * cache[k].element_size()
+                  for k in ("h", "conv"))
+    exact_b = 2 * n_groups * b * LM_MAX_SEQ * kv * hd * 2
+    pq_b = sum(cache[k].numel() * cache[k].element_size()
+               for k in cache if k.startswith("attn_"))
+    log(f"zamba2: shared-attention cache bytes at max_seq {LM_MAX_SEQ}: "
+        f"exact {exact_b}, pq {pq_b} (codes and codebooks; "
+        f"{exact_b / pq_b:.2f}x smaller; M={m}); Mamba states {state_b} in "
+        "either")
+    log(f"zamba2: exact-vs-pq token agreement "
+        f"{float((tok_e == tok_p).float().mean()):.4f} (random weights)")
+
+    for what, c, pq in (("exact", exact_cfg, None), ("pq", pq_cfg, cbs)):
+        graph_vs_eager(torch, params, c, prompts, pq, gen - 1,
+                       f"zamba2: {what}")
+    pqk.launches = launches
+
+    # K8 at the hybrid's shapes (group 0's codes, the last decode's
+    # position): head_dim 80, M 40, g 1, KV 32
+    live = s + gen - 1
+    q = torch.randn((b, cfg.n_heads, hd), generator=torch.Generator(
+        device="cuda").manual_seed(args.seed + 26), device="cuda").to(
+            torch.bfloat16)
+    args_k8 = (cache["attn_k_codes"][0], cache["attn_v_codes"][0],
+               cache["attn_k_cb"][0], cache["attn_v_cb"][0])
+    path = k8_glue(torch, q, *args_k8, [live - 1], True)
+    k8_check(torch, path, torch.bfloat16, 2048,
+             f"zamba2 shapes (B={b}, Smax={LM_MAX_SEQ}, KV={kv}, g={g}, "
+             f"M={m}, head_dim {hd}, {live} live), q8")
+    k8_check(torch, k8_glue(torch, q, *args_k8, [live - 1], False),
+             torch.bfloat16, 2048, "zamba2 shapes, f32 LUT")
+    k8_check(torch, k8_inputs(torch, args.seed + 27, b=b, smax=LM_MAX_SEQ,
+                              kv=kv, g=g, m=m, dsub=hd // m,
+                              positions=[0, 1, 255, 256, 2047, 3000,
+                                         LM_MAX_SEQ - 1, LM_MAX_SEQ + 3],
+                              q8=True, dtype=torch.float32),
+             torch.float32, 2048, "zamba2 shapes, f32, edges")
+    pqk.launches = launches
+    k8_time(torch, path, cfg, live, launches, "zamba2")
+    pqk.launches = launches
+    del cache, cbs, path, args_k8
+
+    # the SSD scan at the prefill's shapes (a torch-op chain, as the
+    # reference computes it in plain JAX)
+    nh, shd, ds = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    gen_d = torch.Generator(device="cuda").manual_seed(args.seed + 28)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen_d, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    xh, bm, cm = rnd(b, s, nh, shd), rnd(b, s, 1, ds), rnd(b, s, 1, ds)
+    log_a = -torch.rand((b, s, nh), generator=gen_d, device="cuda") * 0.3
+    scan_ms(torch, lambda: ssm.ssd_chunked(xh, log_a, bm, cm, cfg.ssm_chunk),
+            f"zamba2: ssd_chunked (B={b}, S={s}, nh={nh}, hd={shd}, "
+            f"ds={ds}, chunk {cfg.ssm_chunk}, bf16)")
+    del xh, bm, cm, log_a, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv6_phase(torch, args) -> None:
+    """rwkv6-3b's full CONFIG at every published width and depth, with
+    ``rwkv_chunk`` 128 -> 32 (it tiles the scan and is no width; at 128 the
+    reference's WKV6 overflows f32 on these weights, ROADMAP Queue 3):
+    ``serve_batch`` (graph replays) held against the teacher-forced
+    forward, graph against eager, one prefill at the published chunk 128
+    (are its logits finite?), and WKV6's device time at both chunks."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import rwkv6
+    cfg, params, prompts = recurrent_model(torch, args, "rwkv6-3b",
+                                           rwkv_chunk=32)
+    b, s, gen = LM_BATCH, LM_PROMPT, REC_GEN
+    tok, st, peak = serve_exact(torch, cfg, params, prompts, gen,
+                                "rwkv6 (bf16)", hold=False)
+    log_serve("rwkv6", st, peak, b, s)
+    hold_in_f32(torch, args, cfg, prompts, gen, "rwkv6",
+                ((cfg.n_layers, True),))
+    _, cache = model_lib.prefill(params, prompts, cfg)
+    log(f"rwkv6: state bytes {sum(t.numel() * t.element_size() for t in cache.values())}"
+        " (s, tm_prev, cm_prev; no KV cache: the paper's technique does not "
+        "apply)")
+    del cache
+    graph_vs_eager(torch, params, cfg, prompts, None, gen - 1, "rwkv6")
+    published = cfg.replace(rwkv_chunk=128)
+    lg, _ = model_lib.prefill(params, prompts, published)
+    finite = bool(torch.isfinite(lg).all())
+    log(f"rwkv6: prefill at the published rwkv_chunk 128: logits "
+        f"{'finite' if finite else 'NOT finite'} ({int((~torch.isfinite(lg)).sum())}"
+        f" of {lg.numel()} non-finite; the reference forms k * exp(-a) alike: "
+        "ROADMAP Queue 3)")
+    nh, hd = cfg.rwkv_nheads, cfg.rwkv_head_dim
+    gen_d = torch.Generator(device="cuda").manual_seed(args.seed + 29)
+    r, k, v = ((torch.randn((b, s, nh, hd), generator=gen_d, device="cuda")
+                * 0.5).to(torch.bfloat16) for _ in range(3))
+    log_w = -torch.rand((b, s, nh, hd), generator=gen_d, device="cuda") * 0.3
+    u = params.stack.blocks[0].rwkv.u
+    for chunk in (32, 128):
+        scan_ms(torch, lambda: rwkv6.wkv6_chunked(r, k, v, log_w, u, chunk),
+                f"rwkv6: wkv6_chunked (B={b}, S={s}, nh={nh}, hd={hd}, chunk "
+                f"{chunk}, bf16)")
+    del params, r, k, v, log_w
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def ivf_engine(torch, args, nq: int):
@@ -3175,6 +3597,15 @@ def main() -> int:
     t0 = time.perf_counter()
     k8 = lm_phase(torch, args)
     log(f"lm: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
+    # 13. the recurrent families: zamba2-2.7b (its PQ shared-attention
+    # cache through K8) and rwkv6-3b, at full width and depth
+    t0 = time.perf_counter()
+    zamba2_phase(torch, args)
+    log(f"zamba2: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rwkv6_phase(torch, args)
+    log(f"rwkv6: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,13 @@
 """Serve an LM with batched requests on the PyTorch/CUDA port: the exact KV
 cache against the paper's 4-bit-PQ KV cache (decode attention through the
-K8 kernel on the card), comparing the tokens and the cache bytes.
+K8 kernel on the card), comparing the tokens and the cache bytes. A hybrid
+(zamba2) or attention-free (rwkv6) arch is served with its exact cache
+only, as the reference's example serves it.
 
     PYTHONPATH=src python examples/serve_lm_torch.py            # smoke, card
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu \\
+        --arch zamba2-2.7b
     PYTHONPATH=src python examples/serve_lm_torch.py --full \\
         --arch qwen3-1.7b --batch 8 --prompt-len 2048 --tokens 64
 
@@ -24,7 +28,8 @@ from repro_torch.models import model as model_lib
 
 
 def cache_bytes(cache) -> int:
-    return sum(t.numel() * t.element_size() for t in cache)
+    tensors = cache.values() if isinstance(cache, dict) else cache
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main():
@@ -59,6 +64,15 @@ def main():
     print(f"exact: prefill {stats['prefill_s']:.3f} s, decode "
           f"{stats['decode_s'] / max(stats['decode_steps'], 1) * 1e3:.2f} ms"
           " a step")
+
+    if cfg.block_type != "attn":
+        c_exact = model_lib.init_cache(exact_cfg, args.batch, max_seq,
+                                       device=dev)
+        print("arch is attention-free/hybrid: PQ-KV applies to attention "
+              "blocks only")
+        print(f"cache bytes: {cache_bytes(c_exact) / 1e6:.2f}MB")
+        print("generated:", toks_exact[:, :8].cpu().numpy(), "...")
+        return
 
     pq_cfg = cfg.replace(kv_pq=True)
     launches = pqk.launches

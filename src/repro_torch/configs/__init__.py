@@ -3,8 +3,9 @@
 ``get_config(name)`` returns the full config, ``get_smoke_config(name)``
 the reduced same-family config the CPU tests run; both are copies of the
 reference's ``CONFIG`` and ``SMOKE``. The port serves the dense attention
-family so far (qwen3-1.7b, qwen1.5-32b); the other archs of ``ARCHS``
-raise ``NotImplementedError`` (ROADMAP Queue 1).
+family (qwen3-1.7b, qwen1.5-32b, nemotron-4-15b, starcoder2-15b), the
+Mamba2 hybrid (zamba2-2.7b) and RWKV6 (rwkv6-3b); the MoE and frontend
+archs of ``ARCHS`` raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ ARCHS = (
     "rwkv6_3b",
 )
 # the archs whose configs and model code the port has
-PORTED = ("qwen3_1p7b", "qwen1p5_32b")
+PORTED = ("qwen3_1p7b", "qwen1p5_32b", "nemotron_4_15b", "starcoder2_15b",
+          "zamba2_2p7b", "rwkv6_3b")
 
 # canonical ids -> module names
 ALIASES = {
@@ -46,8 +48,8 @@ def _module(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "p")
     if mod_name in ARCHS and mod_name not in PORTED:
         raise NotImplementedError(
-            f"{name}: not ported yet (MoE, SSM, RWKV and the frontends wait "
-            "in ROADMAP Queue 1); the port serves " + ", ".join(PORTED))
+            f"{name}: not ported yet (MoE and the frontends wait in ROADMAP "
+            "Queue 1); the port serves " + ", ".join(PORTED))
     if mod_name not in PORTED:
         raise KeyError(f"unknown arch {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

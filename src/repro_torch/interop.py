@@ -22,10 +22,16 @@ A flat fast-scan index (``core.fastscan.FastScanIndex``) crosses as
 
 An LM's parameters cross as the reference's parameter tree flattened to
 ``/``-joined path keys (``embedding``, ``ln_f``, ``lm_head``,
-``stack/blocks/attn/wq``, ... the stacked blocks with their leading layer
-axis): ``lm_params_from_arrays`` / ``arrays_from_lm_params``. A PQ KV cache
+``stack/blocks/attn/wq``, ``stack/group_in/w``, ... each stacked list, the
+blocks and the hybrid's ``group_in``, with its leading layer axis):
+``lm_params_from_arrays`` / ``arrays_from_lm_params``. A PQ KV cache
 crosses as ``k_codes``, ``v_codes`` (u8) and ``k_cb``, ``v_cb`` (the
-codebooks): ``pq_cache_from_arrays`` / ``arrays_from_pq_cache``.
+codebooks): ``pq_cache_from_arrays`` / ``arrays_from_pq_cache``. The
+recurrent families' caches cross under the reference's dict keys (Mamba2
+``h``, ``conv`` and the hybrid's ``attn_k``/``attn_v`` or
+``attn_k_codes``/``attn_v_codes``/``attn_k_cb``/``attn_v_cb``; RWKV6 ``s``,
+``tm_prev``, ``cm_prev``): ``lm_cache_from_arrays`` /
+``arrays_from_lm_cache``.
 """
 from __future__ import annotations
 
@@ -166,16 +172,14 @@ def arrays_from_fastscan_index(index: FastScanIndex) -> dict[str, np.ndarray]:
             "n": np.asarray(index.n, np.int64)}
 
 
-_BLOCKS = "stack.blocks."
-
-
 def _tree_key(name: str) -> tuple[str, int | None]:
     """A module's dotted parameter name -> (the reference's path key, its
-    layer index in the stacked blocks or None)."""
-    if name.startswith(_BLOCKS):
-        layer, rest = name[len(_BLOCKS):].split(".", 1)
-        return "stack/blocks/" + rest.replace(".", "/"), int(layer)
-    return name.replace(".", "/"), None
+    index on a stacked list's leading axis or None)."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return "/".join(parts[:i] + parts[i + 1:]), int(part)
+    return "/".join(parts), None
 
 
 def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
@@ -250,3 +254,36 @@ def arrays_from_pq_cache(cache: PQKVCache) -> dict[str, np.ndarray]:
             "v_codes": cache.v_codes.cpu().numpy(),
             "k_cb": cache.k_cb.float().cpu().numpy(),
             "v_cb": cache.v_cb.float().cpu().numpy()}
+
+
+# the recurrent caches' f32 states and u8 codes; codebooks are bf16, the
+# rest in the model's dtype
+_F32_STATES = ("h", "s")
+_CODES = ("attn_k_codes", "attn_v_codes")
+_CODEBOOKS = ("attn_k_cb", "attn_v_cb")
+
+
+def lm_cache_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
+                         device: str | torch.device | None = None,
+                         dtype: torch.dtype | None = None) -> dict:
+    """A Mamba2 / hybrid or RWKV6 decode cache on ``device`` (None = the
+    CUDA card) under the reference's keys: ``h`` and ``s`` in f32, codes in
+    u8, codebooks read through f32 and held in bf16 (as calibration makes
+    them), the rest in ``dtype`` (None = the config's)."""
+    dev = resolve_device(device)
+    dtype = dtype or model_lib.model_dtype(cfg)
+    out = {}
+    for key, a in arrays.items():
+        if key in _CODES:
+            out[key] = torch.from_numpy(np.array(a, np.uint8)).to(dev)
+        else:
+            t = _f32(arrays, key, dev)
+            out[key] = t if key in _F32_STATES else t.to(
+                torch.bfloat16 if key in _CODEBOOKS else dtype)
+    return out
+
+
+def arrays_from_lm_cache(cache: dict) -> dict[str, np.ndarray]:
+    """The inverse: codes as u8, everything else as f32 host arrays."""
+    return {key: (t.cpu().numpy() if t.dtype == torch.uint8
+                  else t.float().cpu().numpy()) for key, t in cache.items()}

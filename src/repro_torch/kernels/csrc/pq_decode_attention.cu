@@ -34,6 +34,9 @@
 //     group order.
 // B * KV CTAs (64 at the path's shapes) fill under half of the 132 SMs: a
 // split over the context with a combine pass is the lever left for later.
+// The zamba2 hybrid's shared attention (head_dim 80, M = 40, g = 1, KV =
+// 32) runs 256 CTAs; its 80-dim product uses 3 groups of 80 threads and
+// leaves 16 idle, and its 20-byte rows load 4 bytes at a time.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -48,7 +51,9 @@ using namespace repro_cuda;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;  // positions a tile, one a thread
-constexpr int kMaxG = 8;         // query heads a KV head
+// query heads a KV head: the repo's configs reach 12 (starcoder2-15b's
+// 48 over 4); the per-head registers are arrays of this size
+constexpr int kMaxG = 12;
 constexpr size_t kSmemLimit = 232448;
 
 __host__ __device__ inline size_t align16(size_t x) {

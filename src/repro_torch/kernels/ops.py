@@ -45,6 +45,7 @@ from repro_torch.kernels import blockmin_kernel as bk
 from repro_torch.kernels import fastscan_kernel as fk
 from repro_torch.kernels import mxu_flat_kernel as mfk
 from repro_torch.kernels import mxu_kernel as mk
+from repro_torch.kernels import pq_decode_kernel as pqk
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import rerank_kernel as rk
 from repro_torch.kernels import select_flat_kernel as sfk
@@ -53,7 +54,7 @@ from repro_torch.kernels import stream_grouped_kernel as sgk
 from repro_torch.kernels import stream_prune_kernel as spk
 
 # every kernel's module (each counts its launches in ``launches``)
-KERNEL_MODULES = (fk, rk, sgk, spk, sk, mk, sfk, mfk, bk)
+KERNEL_MODULES = (fk, rk, sgk, spk, sk, mk, sfk, mfk, bk, pqk)
 
 GROUPED_IMPLS = ("ref", "select", "mxu", "stream")
 IMPLS = ("ref", "select", "mxu")

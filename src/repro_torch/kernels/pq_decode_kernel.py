@@ -27,7 +27,7 @@ launches = 0
 
 # mirrors of the .cu's constants
 THREADS = 256
-MAX_G = 8
+MAX_G = 12
 
 
 def _align16(x: int) -> int:

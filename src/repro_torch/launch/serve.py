@@ -1,13 +1,18 @@
 """Batched LM serving: prefill, then a greedy decode loop, over the exact
-or the 4-bit PQ KV cache (the port of ``repro/launch/serve.py``).
+or the 4-bit PQ KV cache, or a recurrent family's states (the port of
+``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --tokens 16
     python -m repro_torch.launch.serve --arch qwen3-1.7b --batch 8 \\
         --prompt-len 2048 --tokens 64
+    python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8
 
-Runs on the CUDA card unless ``--device cpu``. The weights are random,
-drawn from a seeded generator: no checkpoint is loaded. The reference's
-``--dry-run`` (lowering for a TPU mesh) has no counterpart here.
+Runs on the CUDA card unless ``--device cpu``; on the card each decode step
+is one replay of a captured CUDA graph (``models/decode_graph.py``, the
+counterpart of the reference's ``jax.jit`` of the step), on the CPU the
+step runs eagerly. The weights are random, drawn from a seeded generator:
+no checkpoint is loaded. The reference's ``--dry-run`` (lowering for a TPU
+mesh) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import model as model_lib
+from repro_torch.models.decode_graph import DecodeGraph
 
 
 def _sync(dev: torch.device) -> None:
@@ -62,15 +68,29 @@ def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
     """Greedy-decode ``gen_tokens`` for a (B, S) batch of prompts; returns
     (B, gen_tokens) tokens, the lowest index among equal top logits (and,
     with ``return_logits``, the (B, gen_tokens, Vpad) logits each token was
-    picked from). With ``cfg.kv_pq`` the codebooks are calibrated first
-    (``generator``, a CPU one, default seed 0).
+    picked from). With ``cfg.kv_pq`` the attention family's codebooks are
+    calibrated first (``generator``, a CPU one, default seed 0); a hybrid
+    with ``cfg.kv_pq`` is refused, as the reference refuses it.
 
-    ``stats``, when given, gets the seconds of calibration, prefill and
-    decode (the device synchronized at each boundary) and the steps.
+    On the card the decode steps replay one captured CUDA graph; on the
+    CPU they run eagerly. ``stats``, when given, gets the seconds of
+    calibration, prefill and decode (the device synchronized at each
+    boundary) and the steps, and on the card ``capture_s``, the graph's
+    warm-up and capture (inside ``decode_s``).
     """
     b, s = prompts.shape
     max_seq = max_seq or (s + gen_tokens)
     dev = prompts.device
+    if cfg.kv_pq and cfg.block_type == "mamba2" and cfg.shared_attn_every:
+        # the reference's serve_batch calibrates for block_type "attn" only
+        # (repro/launch/serve.py:50), and its prefill then asserts on the
+        # missing codebooks (repro/models/model.py:211-213)
+        raise NotImplementedError(
+            f"{cfg.name}: serve_batch calibrates PQ codebooks for the "
+            "attention family only, as the reference's does; serve the "
+            "hybrid with kv_pq=False, or prefill it through "
+            "models.model.prefill(pq_cache={'attn_k_cb', 'attn_v_cb'}) "
+            "with calibrated codebooks (ROADMAP Queue 3)")
     t0 = time.perf_counter()
     pq_cache = None
     if cfg.kv_pq and cfg.block_type == "attn":
@@ -89,9 +109,15 @@ def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
         t0 = time.perf_counter()
     kept = [logits] if return_logits else None
     out = [torch.argmax(logits[:, :cfg.vocab], dim=-1)]
+    graph = (DecodeGraph(params, cache, cfg, b) if dev.type == "cuda"
+             else None)
     for i in range(gen_tokens - 1):
         pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
-        logits, cache = model_lib.decode_step(params, cache, out[-1], pos, cfg)
+        if graph is not None:
+            logits = graph.step(out[-1], pos)
+        else:
+            logits, cache = model_lib.decode_step(params, cache, out[-1], pos,
+                                                  cfg)
         if return_logits:
             kept.append(logits)
         out.append(torch.argmax(logits[:, :cfg.vocab], dim=-1))
@@ -100,6 +126,8 @@ def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
         _sync(dev)
         stats["decode_s"] = time.perf_counter() - t0
         stats["decode_steps"] = gen_tokens - 1
+        if graph is not None:
+            stats["capture_s"] = graph.capture_seconds()
     if return_logits:
         return tokens, torch.stack(kept, dim=1)
     return tokens

@@ -1,8 +1,9 @@
 """Model configuration schema (a copy of the reference's ``ModelConfig``).
 
 One frozen dataclass drives model construction and the analytic parameter
-count. The port serves the attention family (``block_type="attn"``, no
-experts) so far; the other fields are kept so that configs compare alike.
+count. The port serves the dense attention, Mamba2 (and zamba2 hybrid) and
+RWKV6 families; the MoE and frontend fields are kept so that configs
+compare alike.
 """
 from __future__ import annotations
 

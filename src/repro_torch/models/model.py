@@ -1,10 +1,17 @@
-"""Public model API for the attention family: specs, init, forward,
-prefill and the decode step (the port of ``repro/models/model.py``).
+"""Public model API: specs, init, forward, prefill and the decode step for
+the dense attention, Mamba2 / zamba2-hybrid and RWKV6 families (the port
+of ``repro/models/model.py``).
 
 The model is a ``layers.Params`` tree of modules holding the reference's
 tensors by the reference's names (``embedding``, ``ln_f``, ``lm_head``,
-``stack.blocks[i].attn.wq``, ...). Entry points run under
-``torch.inference_mode``; ``loss_fn`` waits for the training slice.
+``stack.blocks[i].attn.wq``, ``stack.blocks[i].mamba.in_proj``, ...).
+Entry points run under ``torch.inference_mode``; ``loss_fn`` waits for the
+training slice, MoE for its own (ROADMAP Queue 1).
+
+Caches: the attention family's ``ExactKVCache`` / ``PQKVCache``; the
+recurrent families' dicts of the reference's keys (``h``, ``conv`` and the
+hybrid's ``attn_*`` entries; ``s``, ``tm_prev``, ``cm_prev``). A decode
+step updates its cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -28,17 +35,19 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 # specs / init
 # ---------------------------------------------------------------------------
 
+STACK_SPECS = {"attn": tf.attn_stack_specs, "mamba2": tf.mamba_stack_specs,
+               "rwkv6": tf.rwkv_stack_specs}
+
+
 def lm_specs(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.padded_vocab
-    if cfg.block_type != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block_type {cfg.block_type!r} is not ported yet "
-            "(ROADMAP Queue 1)")
+    if cfg.block_type not in STACK_SPECS:
+        raise ValueError(cfg.block_type)
     return {
         "embedding": ParamSpec((v, d), scale=1.0),
         "ln_f": ll.rmsnorm_spec(d),
         "lm_head": ParamSpec((d, v)),
-        "stack": tf.attn_stack_specs(cfg),
+        "stack": STACK_SPECS[cfg.block_type](cfg),
     }
 
 
@@ -75,8 +84,9 @@ def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig
     """forward() minus the lm_head: final-norm hidden states (B, S, D)."""
     b, s = tokens.shape
     h = params.embedding[tokens.long()]
-    h, aux = tf.attn_stack(params.stack, h, cfg,
-                           _positions(b, s, tokens.device))
+    stack = {"attn": tf.attn_stack, "mamba2": tf.mamba_stack,
+             "rwkv6": tf.rwkv_stack}[cfg.block_type]
+    h, aux = stack(params.stack, h, cfg, _positions(b, s, tokens.device))
     return ll.rmsnorm(h, params.ln_f, cfg.norm_eps), aux
 
 
@@ -86,14 +96,20 @@ def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device: str | torch.device | None = None):
-    """An empty exact cache (in ``dtype``, default the config's) or, with
-    ``cfg.kv_pq``, an empty PQ cache, on ``device`` (None = the card)."""
+    """An empty cache on ``device`` (None = the card), its activations in
+    ``dtype`` (default the config's): for the attention family an exact
+    cache or, with ``cfg.kv_pq``, a PQ one; for Mamba2 the states and the
+    hybrid's shared-attention cache (exact, or PQ with ``cfg.kv_pq``); for
+    RWKV6 the states."""
     dev = resolve_device(device)
-    if cfg.block_type != "attn":
-        raise NotImplementedError(f"{cfg.name}: not ported yet")
+    dtype = dtype or model_dtype(cfg)
+    if cfg.block_type == "mamba2":
+        return tf.mamba_cache_init(cfg, batch, max_seq, dtype, dev)
+    if cfg.block_type == "rwkv6":
+        return tf.rwkv_cache_init(cfg, batch, dtype, dev)
     if cfg.kv_pq:
         return kvc.init_pq(cfg, batch, max_seq, dev)
-    return kvc.init_exact(cfg, batch, max_seq, dtype or model_dtype(cfg), dev)
+    return kvc.init_exact(cfg, batch, max_seq, dtype, dev)
 
 
 @torch.inference_mode()
@@ -104,24 +120,49 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
     Returns (logits (B, Vpad), cache), the cache updated in place.
     """
     h = params.embedding[tokens.long()]                       # (B, D)
-    h, cache = tf.attn_stack_decode(params.stack, h, cfg, cache, position)
+    if cfg.block_type == "attn":
+        h, cache = tf.attn_stack_decode(params.stack, h, cfg, cache, position)
+    elif cfg.block_type == "mamba2":
+        h, cache = tf.mamba_stack_decode(params.stack, h, cfg, cache,
+                                         position, h)
+    else:
+        h, cache = tf.rwkv_stack_decode(params.stack, h, cfg, cache, position)
     h = ll.rmsnorm(h, params.ln_f, cfg.norm_eps)
     return h @ params.lm_head, cache
 
 
 @torch.inference_mode()
 def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            max_seq: int | None = None,
-            pq_cache: kvc.PQKVCache | None = None):
+            max_seq: int | None = None, pq_cache=None):
     """Prefill a prompt, returning (last-position logits, filled cache).
 
-    One pass through the stack that also captures each layer's K/V into an
-    exact cache of ``max_seq`` positions (zero past the prompt), or their
-    4-bit PQ codes when ``cfg.kv_pq`` (``pq_cache`` carries calibrated
-    codebooks).
+    Attention family: one pass through the stack that also captures each
+    layer's K/V into an exact cache of ``max_seq`` positions (zero past the
+    prompt), or their 4-bit PQ codes when ``cfg.kv_pq`` (``pq_cache``, a
+    ``PQKVCache``, carries calibrated codebooks). Mamba2 / RWKV6: the
+    chunked scans emit their O(1) states; the hybrid's shared attention
+    fills an exact cache, or with ``cfg.kv_pq`` PQ codes under
+    ``pq_cache["attn_k_cb"]`` / ``["attn_v_cb"]`` (G, KV, M, 16, dsub).
     """
     b, s = tokens.shape
     max_seq = max_seq or s
+    if cfg.block_type != "attn":
+        h = params.embedding[tokens.long()]
+        if cfg.block_type == "mamba2":
+            positions = _positions(b, s, tokens.device)
+            if cfg.kv_pq and cfg.shared_attn_every:
+                assert pq_cache is not None, \
+                    "PQ prefill needs calibrated codebooks"
+                h, cache = tf.mamba_stack_prefill_pq(
+                    params.stack, h, cfg, positions, max_seq,
+                    pq_cache["attn_k_cb"], pq_cache["attn_v_cb"])
+            else:
+                h, cache = tf.mamba_stack_prefill(params.stack, h, cfg,
+                                                  positions, max_seq)
+        else:
+            h, cache = tf.rwkv_stack_prefill(params.stack, h, cfg)
+        h = ll.rmsnorm(h, params.ln_f, cfg.norm_eps)
+        return h[:, -1] @ params.lm_head, cache
     if cfg.kv_pq:  # the paper's technique: K/V straight to 4-bit codes
         assert pq_cache is not None, "PQ prefill needs calibrated codebooks"
         return encode_pq_cache(params, tokens, cfg, pq_cache)

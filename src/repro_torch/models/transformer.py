@@ -1,10 +1,16 @@
-"""Stack assembly for the attention family (the port of the attention part
-of ``repro/models/transformer.py``).
+"""Stack assembly for the dense attention, Mamba2 (with the zamba2 hybrid)
+and RWKV6 families (the port of ``repro/models/transformer.py``).
 
 The reference scans over layer-stacked parameters (and remats them for
-training); here the stack is an ``nn.ModuleList`` of per-layer blocks and a
+training); here a stack is an ``nn.ModuleList`` of per-layer blocks and a
 Python loop visits them. Remat has no meaning at inference and is not
-ported; the MoE, Mamba2 and RWKV6 stacks wait (ROADMAP Queue 1).
+ported; the MoE stack waits (ROADMAP Queue 1).
+
+Decode writes every cache in place: the attention caches at the position
+(``kvcache.update_exact`` / ``update_pq``), and each layer's recurrent
+state (Mamba ``h`` and ``conv``, RWKV ``s``, ``tm_prev`` and ``cm_prev``)
+with ``copy_`` once the layer has read it, where the reference returns new
+arrays. So a captured decode step replays against the same storage.
 """
 from __future__ import annotations
 
@@ -12,14 +18,17 @@ import torch
 
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
 
 
 def _dense_only(cfg: ModelConfig) -> None:
     if cfg.n_experts or cfg.block_type != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family is ported "
-            "(MoE, Mamba2 and RWKV6 wait in ROADMAP Queue 1)")
+            f"{cfg.name}: the attention stack is ported for the dense "
+            "family only (MoE waits in ROADMAP Queue 1)")
 
 
 def attn_block_specs(cfg: ModelConfig) -> dict:
@@ -80,4 +89,297 @@ def attn_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
         h = h + torch.einsum("bhk,hkd->bd", out, lp.attn.wo)
         hn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
         h = h + ll.ffn(lp.ffn, hn[:, None], cfg)[:, 0]
+    return h, cache
+
+
+# ---------------------------------------------------------------------------
+# mamba2 family (+ the zamba2 hybrid: a shared attention block every k
+# layers)
+# ---------------------------------------------------------------------------
+
+def mamba_stack_specs(cfg: ModelConfig) -> dict:
+    specs = {"blocks": ll.stacked({
+        "ln": ll.rmsnorm_spec(cfg.d_model),
+        "mamba": ssm_mod.mamba_specs(cfg),
+    }, cfg.n_layers)}
+    if cfg.shared_attn_every:
+        n_groups = cfg.n_layers // cfg.shared_attn_every
+        d = cfg.d_model
+        specs["shared"] = {
+            "ln1": ll.rmsnorm_spec(d),
+            "ln2": ll.rmsnorm_spec(d),
+            "attn": ll.attn_specs(cfg),
+            "ffn": ll.ffn_specs(cfg),
+        }
+        # zamba2's per-invocation input projection of concat(h, h0)
+        specs["group_in"] = ll.stacked({"w": ParamSpec((2 * d, d))},
+                                       n_groups)
+    return specs
+
+
+def _mamba_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    return h + ssm_mod.mamba_block(lp.mamba,
+                                   ll.rmsnorm(h, lp.ln, cfg.norm_eps), cfg)
+
+
+def _groups(cfg: ModelConfig) -> range:
+    """The hybrid's groups: layers [g k, (g + 1) k) then the shared block."""
+    return range(cfg.n_layers // cfg.shared_attn_every)
+
+
+def _shared_in(p: ll.Params, gi: int, h, h0) -> torch.Tensor:
+    return torch.cat([h, h0], dim=-1) @ p.group_in[gi].w
+
+
+def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), device=h.device)
+    if not cfg.shared_attn_every:
+        for lp in p.blocks:
+            h = _mamba_layer(lp, h, cfg)
+        return h, aux
+    h0, k, shared = h, cfg.shared_attn_every, p.shared
+    for gi in _groups(cfg):
+        for lp in p.blocks[gi * k:(gi + 1) * k]:
+            h = _mamba_layer(lp, h, cfg)
+        # the shared attention block on concat(h, h0), weight-tied
+        x = _shared_in(p, gi, h, h0)
+        x = x + ll.attention(shared.attn,
+                             ll.rmsnorm(x, shared.ln1, cfg.norm_eps), cfg,
+                             positions)
+        x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
+                       cfg)
+        h = h + x
+    return h, aux
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                     dtype: torch.dtype, device: torch.device) -> dict:
+    """Zero states; with the hybrid's shared attention, an exact
+    (``attn_k``/``attn_v``, (G, B, Smax, KV, hd)) or, with ``cfg.kv_pq``, a
+    PQ cache (``attn_k_codes``/``attn_v_codes`` u8 and zero bf16 codebooks
+    ``attn_k_cb``/``attn_v_cb`` (G, KV, M, 16, dsub), which calibration
+    fills)."""
+    nh, hd, ds = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * ds
+    cache = {
+        "h": torch.zeros((cfg.n_layers, batch, nh, hd, ds),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
+    if cfg.shared_attn_every:
+        n_groups = cfg.n_layers // cfg.shared_attn_every
+        kv, ahd = cfg.n_kv_heads, cfg.resolved_head_dim
+        if cfg.kv_pq:
+            m = cfg.resolved_kv_pq_m
+            for name in ("attn_k_codes", "attn_v_codes"):
+                cache[name] = torch.zeros((n_groups, batch, max_seq, kv,
+                                           m // 2), dtype=torch.uint8,
+                                          device=device)
+            for name in ("attn_k_cb", "attn_v_cb"):
+                cache[name] = torch.zeros((n_groups, kv, m, 16, ahd // m),
+                                          dtype=torch.bfloat16, device=device)
+        else:
+            for name in ("attn_k", "attn_v"):
+                cache[name] = torch.zeros((n_groups, batch, max_seq, kv, ahd),
+                                          dtype=dtype, device=device)
+    return cache
+
+
+def _mamba_decode_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                        cache: dict, i: int) -> torch.Tensor:
+    """Layer ``i``'s decode step; its state written back in place."""
+    x = ll.rmsnorm(h, lp.ln, cfg.norm_eps)
+    out, new = ssm_mod.mamba_decode_step(
+        lp.mamba, x, {"h": cache["h"][i], "conv": cache["conv"][i]}, cfg)
+    # both are fresh tensors (conv a view of the step's new window), so
+    # the writes read nothing they overwrite
+    cache["h"][i].copy_(new["h"])
+    cache["conv"][i].copy_(new["conv"])
+    return h + out
+
+
+def mamba_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                       cache: dict, position: torch.Tensor, h0: torch.Tensor
+                       ) -> tuple[torch.Tensor, dict]:
+    """One-token decode. h/h0: (B, D). The cache is updated in place."""
+    if not cfg.shared_attn_every:
+        for i, lp in enumerate(p.blocks):
+            h = _mamba_decode_layer(lp, h, cfg, cache, i)
+        return h, cache
+    k, shared = cfg.shared_attn_every, p.shared
+    for gi in _groups(cfg):
+        for i in range(gi * k, (gi + 1) * k):
+            h = _mamba_decode_layer(p.blocks[i], h, cfg, cache, i)
+        x = _shared_in(p, gi, h, h0)
+        xn = ll.rmsnorm(x, shared.ln1, cfg.norm_eps)
+        q, k_new, v_new = ll.qkv_project(shared.attn, xn[:, None], cfg,
+                                         position[:, None])
+        if cfg.kv_pq:
+            kcod, vcod = kvc.update_pq(
+                cache["attn_k_codes"][gi], cache["attn_v_codes"][gi],
+                k_new[:, 0], v_new[:, 0], cache["attn_k_cb"][gi],
+                cache["attn_v_cb"][gi], position[0])
+            out = kvc.pq_decode_attention(q[:, 0], kcod, vcod,
+                                          cache["attn_k_cb"][gi],
+                                          cache["attn_v_cb"][gi], position)
+        else:
+            kc, vc = kvc.update_exact(cache["attn_k"][gi],
+                                      cache["attn_v"][gi], k_new[:, 0],
+                                      v_new[:, 0], position[0])
+            out = ll.decode_attention_scores(q[:, 0], kc, vc, cfg, position)
+        x = x + torch.einsum("bhk,hkd->bd", out, shared.attn.wo)
+        x = x + ll.ffn(shared.ffn,
+                       ll.rmsnorm(x, shared.ln2, cfg.norm_eps)[:, None],
+                       cfg)[:, 0]
+        h = h + x
+    return h, cache
+
+
+def _mamba_prefill_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                         cache: dict, i: int) -> torch.Tensor:
+    out, st = ssm_mod.mamba_block(lp.mamba, ll.rmsnorm(h, lp.ln, cfg.norm_eps),
+                                  cfg, return_state=True)
+    cache["h"][i] = st["h"]
+    cache["conv"][i] = st["conv"]
+    return h + out
+
+
+def _mamba_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor, cache: dict, encode):
+    """The prefill shared by both caches: every layer's final state into
+    ``cache``, and each group's shared-attention K/V (B, S, KV, hd) handed
+    to ``encode(gi, k, v)``."""
+    if not cfg.shared_attn_every:
+        for i, lp in enumerate(p.blocks):
+            h = _mamba_prefill_layer(lp, h, cfg, cache, i)
+        return h
+    h0, k, shared = h, cfg.shared_attn_every, p.shared
+    for gi in _groups(cfg):
+        for i in range(gi * k, (gi + 1) * k):
+            h = _mamba_prefill_layer(p.blocks[i], h, cfg, cache, i)
+        x = _shared_in(p, gi, h, h0)
+        xn = ll.rmsnorm(x, shared.ln1, cfg.norm_eps)
+        q, kk, vv = ll.qkv_project(shared.attn, xn, cfg, positions)
+        out = ll.chunked_causal_attention(q, kk, vv, cfg)
+        x = x + torch.einsum("bshk,hkd->bsd", out, shared.attn.wo)
+        x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
+                       cfg)
+        encode(gi, kk, vv)
+        h = h + x
+    return h
+
+
+def mamba_stack_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                        positions: torch.Tensor, max_seq: int
+                        ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also emits the decode cache (states, and
+    the shared attention's exact K/V, zero past the prompt)."""
+    b, s, _ = h.shape
+    if cfg.kv_pq and cfg.shared_attn_every:
+        raise NotImplementedError(
+            "hybrid PQ prefill: encode via examples/serve_lm.py calibration")
+    cache = mamba_cache_init(cfg, b, max_seq, h.dtype, h.device)
+
+    def encode(gi, kk, vv):
+        cache["attn_k"][gi, :, :s] = kk
+        cache["attn_v"][gi, :, :s] = vv
+
+    return _mamba_prefill(p, h, cfg, positions, cache, encode), cache
+
+
+def mamba_stack_prefill_pq(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                           positions: torch.Tensor, max_seq: int,
+                           k_cb: torch.Tensor, v_cb: torch.Tensor
+                           ) -> tuple[torch.Tensor, dict]:
+    """Hybrid prefill with 4-bit-PQ encoding of the shared attention's K/V
+    (the paper's technique): the (G, B, S, KV, hd) cache becomes (G, B,
+    Smax, KV, M//2) u8 codes (zero past the prompt) under the given (G,
+    KV, M, 16, dsub) codebooks, which the cache holds."""
+    b, s, _ = h.shape
+    cache = mamba_cache_init(cfg.replace(kv_pq=True), b, max_seq, h.dtype,
+                             h.device)
+    cache["attn_k_cb"], cache["attn_v_cb"] = k_cb, v_cb
+
+    def encode(gi, kk, vv):
+        cache["attn_k_codes"][gi, :, :s] = kvc.encode_kv(kk, k_cb[gi])
+        cache["attn_v_codes"][gi, :, :s] = kvc.encode_kv(vv, v_cb[gi])
+
+    return _mamba_prefill(p, h, cfg, positions, cache, encode), cache
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 family
+# ---------------------------------------------------------------------------
+
+def rwkv_stack_specs(cfg: ModelConfig) -> dict:
+    return {"blocks": ll.stacked({
+        "ln1": ll.rmsnorm_spec(cfg.d_model),
+        "ln2": ll.rmsnorm_spec(cfg.d_model),
+        "rwkv": rwkv_mod.rwkv_specs(cfg),
+    }, cfg.n_layers)}
+
+
+def _rwkv_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig):
+    """One block over a sequence: (h, final state, its ln1 and ln2 inputs
+    to the two mixes)."""
+    x = ll.rmsnorm(h, lp.ln1, cfg.norm_eps)
+    tm, s_final = rwkv_mod.rwkv_time_mix(lp.rwkv, x, cfg)
+    h = h + tm
+    xn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
+    h = h + rwkv_mod.rwkv_channel_mix(lp.rwkv, xn)
+    return h, s_final, x, xn
+
+
+def rwkv_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    del positions
+    for lp in p.blocks:
+        h = _rwkv_layer(lp, h, cfg)[0]
+    return h, torch.zeros((), device=h.device)
+
+
+def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                    device: torch.device) -> dict:
+    nh, hd, d, n = cfg.rwkv_nheads, cfg.rwkv_head_dim, cfg.d_model, cfg.n_layers
+    return {
+        "s": torch.zeros((n, batch, nh, hd, hd), dtype=torch.float32,
+                         device=device),
+        "tm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
+        "cm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
+    }
+
+
+def rwkv_stack_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig
+                       ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward emitting each layer's O(1) decode state."""
+    cache = rwkv_cache_init(cfg, h.shape[0], h.dtype, h.device)
+    for i, lp in enumerate(p.blocks):
+        h, s_final, x, xn = _rwkv_layer(lp, h, cfg)
+        cache["s"][i] = s_final
+        cache["tm_prev"][i] = x[:, -1]
+        cache["cm_prev"][i] = xn[:, -1]
+    return h, cache
+
+
+def rwkv_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
+                      cache: dict, position: torch.Tensor
+                      ) -> tuple[torch.Tensor, dict]:
+    """One-token decode; each layer's state written back in place after
+    the layer has read it."""
+    del position
+    for i, lp in enumerate(p.blocks):
+        s, tm_prev, cm_prev = (cache[n][i] for n in ("s", "tm_prev",
+                                                     "cm_prev"))
+        x = ll.rmsnorm(h, lp.ln1, cfg.norm_eps)
+        tm, new = rwkv_mod.rwkv_decode_step(
+            lp.rwkv, x, {"s": s, "tm_prev": tm_prev, "cm_prev": cm_prev}, cfg)
+        h = h + tm
+        xn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
+        h = h + rwkv_mod.rwkv_channel_mix_step(lp.rwkv, xn, cm_prev)
+        s.copy_(new["s"])
+        tm_prev.copy_(x)
+        cm_prev.copy_(xn)
     return h, cache

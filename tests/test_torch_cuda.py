@@ -1409,10 +1409,17 @@ def _k8_close(got, want, dtype):
 
 
 # (b, smax, kv, g, m, dsub, positions, chunk): qwen3-1.7b's decode shapes
-# (g = 2, M = 64, hd = 128) at the PQ run's positions; position 0, Smax - 1,
-# -1 (nothing live) and beyond Smax; g = 1 (qwen1.5, MHA), g = 8; M/2 = 3
-# (byte loads) and 4 (4-byte loads); hd = 16 (the smoke configs) and 256
+# (g = 2, M = 64, hd = 128) at the PQ run's positions; zamba2-2.7b's shared
+# attention (g = 1, M = 40, hd = 80: three 80-thread groups and 16 idle
+# threads, 20-byte rows); starcoder2-15b's g = 12 (M = 64, hd = 128);
+# position 0, Smax - 1, -1 (nothing live) and beyond Smax; g = 1 (qwen1.5,
+# MHA), g = 8; M/2 = 3 (byte loads) and 4 (4-byte loads); hd = 16 (the
+# smoke configs) and 256
 K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
+            (8, 4096, 32, 1, 40, 2, [2048 + i for i in range(0, 40, 5)],
+             2048),
+            (2, 1024, 4, 12, 64, 2, [777, 1023], 512),
+            (1, 300, 1, 12, 40, 2, [299], 300),
             (2, 512, 2, 2, 64, 2, [0, 511], 256),
             (3, 300, 2, 1, 8, 2, [-1, 299, 1000], 300),
             (2, 257, 1, 8, 6, 4, [256, 3], 257),
@@ -1467,8 +1474,9 @@ def test_k8_mixed_codebook_and_output_types(dev):
 
 def test_k8_smem_mirror_equals_the_kernels_export(dev):
     fn = _build.load_library().repro_pq_decode_attention_smem
-    for g in (1, 2, 3, 8):
-        for m, hd in ((2, 2), (6, 24), (8, 16), (64, 128), (128, 256)):
+    for g in (1, 2, 3, 8, 12):
+        for m, hd in ((2, 2), (6, 24), (8, 16), (40, 80), (64, 128),
+                      (128, 256)):
             for q8 in (0, 1):
                 assert fn(g, m, hd, q8) == pqk.smem_bytes(g, m, hd, bool(q8))
 
@@ -1480,8 +1488,8 @@ def test_k8_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):     # mixed devices
         pqk.pq_decode(*args[:6], args[6].cpu(), chunk=64,
                       out_dtype=torch.float32)
-    with pytest.raises(ValueError):     # more than 8 query heads a KV head
-        big = _k8_inputs(42, dev, b=1, smax=16, kv=1, g=9, m=8, dsub=2,
+    with pytest.raises(ValueError):     # more than 12 query heads a KV head
+        big = _k8_inputs(42, dev, b=1, smax=16, kv=1, g=13, m=8, dsub=2,
                          positions=[3], q8=True, cb_dtype=torch.float32,
                          out_dtype=torch.float32)
         pqk.pq_decode(*big, chunk=16, out_dtype=torch.float32)
@@ -1527,3 +1535,145 @@ def test_lm_decode_on_the_card_matches_the_host(dev):
             logits[where] = torch.stack(seq).cpu()
         torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the LM decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _hybrid_codebooks(params, cfg, prompts, max_seq):
+    """zamba2's shared-attention codebooks, calibrated a group at a time on
+    the exact prefill's K/V (the reference's serve_batch has no hybrid
+    calibration)."""
+    from repro_torch.models import kvcache as tkvc
+    from repro_torch.models import model as tmodel
+    _, exact = tmodel.prefill(params, prompts, cfg.replace(kv_pq=False),
+                              max_seq=max_seq)
+    s, m = prompts.shape[1], cfg.resolved_kv_pq_m
+    out = {}
+    for name in ("attn_k", "attn_v"):
+        x = exact[name][:, :, :s]
+        g, b, _, kv, hd = x.shape
+        out[name + "_cb"] = torch.stack([tkvc.calibrate_kv_codebooks(
+            torch.Generator().manual_seed(gi), x[gi].reshape(b * s, kv, hd),
+            m) for gi in range(g)]).to(torch.bfloat16)
+    return out
+
+
+def _lm_caches(dev, arch, kind, dtype, b=2, s=40, max_seq=48):
+    """A smoke model on the card in ``dtype``, its prompts, and two caches
+    prefilled alike (exact, or PQ with calibrated codebooks)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tmodel
+    cfg = configs.get_smoke_config(arch).replace(kv_pq=kind == "pq")
+    params = tmodel.init_lm(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=dtype)
+    prompts = torch.as_tensor(np.random.default_rng(44).integers(
+        0, cfg.vocab, (b, s), dtype=np.int32), device=dev)
+    pq = None
+    if kind == "pq":
+        pq = (serve.calibrate_pq_cache(torch.Generator().manual_seed(1),
+                                       params, cfg, b, max_seq)
+              if cfg.block_type == "attn"
+              else _hybrid_codebooks(params, cfg, prompts, max_seq))
+    # the attention family's prefill fills a PQ cache's codes in place:
+    # each prefill gets codes of its own
+    caches = [tmodel.prefill(params, prompts, cfg, max_seq=max_seq,
+                             pq_cache=pq if not hasattr(pq, "_replace")
+                             else pq._replace(k_codes=pq.k_codes.clone(),
+                                              v_codes=pq.v_codes.clone()))
+              for _ in range(2)]
+    return cfg, params, prompts, caches
+
+
+def _cache_list(cache):
+    from repro_torch.models.decode_graph import cache_tensors
+    return cache_tensors(cache)
+
+
+LM_GRAPH_CASES = [("qwen3-1.7b", "exact"), ("qwen3-1.7b", "pq"),
+                  ("zamba2-2.7b", "exact"), ("zamba2-2.7b", "pq"),
+                  ("rwkv6-3b", "exact")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LM_GRAPH_CASES)
+def test_lm_decode_graph_equals_the_eager_step(dev, case, dtype):
+    """A replayed decode step equals the eager step bit for bit: the logits
+    and every cache tensor after each of several steps."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.decode_graph import DecodeGraph
+    arch, kind = case
+    cfg, params, prompts, caches = _lm_caches(dev, arch, kind, dtype)
+    (lg_e, eager), (lg_g, cache_g) = caches
+    assert torch.equal(lg_e, lg_g)
+    graph = DecodeGraph(params, cache_g, cfg, prompts.shape[0])
+    tok = torch.argmax(lg_e[:, :cfg.vocab], -1)
+    for i in range(5):
+        pos = torch.full((prompts.shape[0],), prompts.shape[1] + i,
+                         dtype=torch.int32, device=dev)
+        want, _ = tmodel.decode_step(params, eager, tok, pos, cfg)
+        got = graph.step(tok, pos)
+        assert torch.equal(got, want), (case, i)
+        for a, b in zip(_cache_list(cache_g), _cache_list(eager)):
+            assert torch.equal(a, b), (case, i)
+        tok = torch.argmax(want[:, :cfg.vocab], -1)
+    assert len(graph.graphs) == 1 and graph.graphs.captures == 1
+    assert graph.capture_seconds() > 0
+
+
+def test_lm_decode_graph_replays_advance_the_k8_counter(dev):
+    from repro_torch.models.decode_graph import DecodeGraph
+    for arch in ("qwen3-1.7b", "zamba2-2.7b"):
+        cfg, params, prompts, caches = _lm_caches(dev, arch, "pq",
+                                                  torch.float32)
+        lg, cache = caches[0]
+        graph = DecodeGraph(params, cache, cfg, prompts.shape[0])
+        tok = torch.argmax(lg[:, :cfg.vocab], -1)
+        per_step = (cfg.n_layers if cfg.block_type == "attn"
+                    else cfg.n_layers // cfg.shared_attn_every)
+        for i in range(3):
+            before = pqk.launches
+            pos = torch.full((prompts.shape[0],), prompts.shape[1] + i,
+                             dtype=torch.int32, device=dev)
+            tok = torch.argmax(graph.step(tok, pos)[:, :cfg.vocab], -1)
+            # the first step's capture is recorded, not counted; its
+            # eager warm-up launches the kernel for real
+            assert pqk.launches - before == per_step * (2 if i == 0 else 1)
+
+
+def test_serve_batch_on_the_card_replays_one_graph(dev, monkeypatch):
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tmodel
+    made = []
+
+    class Recording(serve.DecodeGraph):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(serve, "DecodeGraph", Recording)
+    for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-3b"):
+        cfg, params, prompts, _ = _lm_caches(dev, arch, "exact",
+                                             torch.float32)
+        made.clear()
+        stats = {}
+        toks, logits = serve.serve_batch(cfg, params, prompts, 6,
+                                         return_logits=True, stats=stats)
+        assert len(made) == 1 and made[0].graphs.captures == 1
+        assert stats["capture_s"] > 0
+        # the same tokens as an eager loop on the card
+        lg, cache = tmodel.prefill(params, prompts, cfg, max_seq=46)
+        want = [torch.argmax(lg[:, :cfg.vocab], -1)]
+        for i in range(5):
+            pos = torch.full((prompts.shape[0],), prompts.shape[1] + i,
+                             dtype=torch.int32, device=dev)
+            lg, cache = tmodel.decode_step(params, cache, want[-1], pos, cfg)
+            assert torch.equal(logits[:, i + 1], lg), (arch, i)
+            want.append(torch.argmax(lg[:, :cfg.vocab], -1))
+        assert torch.equal(toks, torch.stack(want, 1)), arch
+    with pytest.raises(NotImplementedError, match="attention family only"):
+        cfg, params, prompts, _ = _lm_caches(dev, "zamba2-2.7b", "exact",
+                                             torch.float32)
+        serve.serve_batch(cfg.replace(kv_pq=True), params, prompts, 4)

@@ -1,8 +1,9 @@
 """The port's LM serving path (``repro_torch.models``, ``configs``,
 ``launch.serve``) held against the JAX reference on the CPU.
 
-Both smoke configs run: qwen3-smoke (GQA with g = 2, qk_norm) and
-qwen1.5-smoke (qkv_bias, MHA with g = 1, kv_pq), in f32, with inputs made
+Four smoke configs run: qwen3-smoke (GQA with g = 2, qk_norm),
+qwen1.5-smoke (qkv_bias, MHA with g = 1, kv_pq), nemotron-smoke (the
+squared-ReLU FFN) and starcoder2-smoke (the GELU FFN), in f32, with inputs made
 by numpy and the reference's parameters carried across by ``interop``.
 Tolerances: f32 layer stages at atol = rtol = 1e-5; the PQ decode
 attention's plain version and the model's logits at 1e-4 (summation order,
@@ -38,7 +39,10 @@ from repro_torch.models import transformer as ttf
 TOL = 1e-5
 LOGIT_TOL = 1e-4
 BF16_TOL = 2e-3
-ARCHS = ("qwen3-1.7b", "qwen1.5-32b")
+ARCHS = ("qwen3-1.7b", "qwen1.5-32b", "nemotron-4-15b", "starcoder2-15b")
+# what the port does not serve yet: MoE and the frontends (ROADMAP Queue 1)
+UNPORTED = ("dbrx_132b", "llama4_scout_17b_a16e", "internvl2_1b",
+            "musicgen_medium")
 B, PROMPT, GEN = 2, 64, 4
 
 
@@ -99,11 +103,12 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap():
-    for arch in tconfigs.ARCHS:
-        if arch in tconfigs.PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tconfigs.get_config(arch)
+    assert tuple(a for a in tconfigs.ARCHS if a not in tconfigs.PORTED) == \
+        UNPORTED
+    for arch in UNPORTED:
+        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+                get(arch)
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +321,13 @@ def test_pq_decode_wrapper_rejects_bad_shapes_on_the_cpu():
 
 
 def test_smem_mirror_covers_the_path_shapes():
-    # qwen3-1.7b's K8 at M = 64, g = 2: well under one block's limit
+    # qwen3-1.7b's K8 at M = 64, g = 2, and zamba2-2.7b's at M = 40, g = 1,
+    # head_dim 80: well under one block's limit
     assert tpqk.smem_bytes(2, 64, 128, True) < 48 * 1024
+    assert tpqk.smem_bytes(1, 40, 80, True) < 48 * 1024
+    # starcoder2-15b's g = 12 (48 heads over 4), the kernel's largest
+    assert tpqk.MAX_G == 12
+    assert tpqk.smem_bytes(12, 64, 128, True) < 232448
     assert tpqk.smem_bytes(8, 64, 256, False) < 232448
 
 
@@ -496,3 +506,8 @@ def test_the_stack_rejects_families_not_ported():
     cfg = tconfigs.get_smoke_config("qwen3-1.7b").replace(n_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.attn_block_specs(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.lm_specs(cfg)
+    # the recurrent families are served: their stacks build
+    for arch in ("zamba2-2.7b", "rwkv6-3b"):
+        assert "stack" in tmodel.lm_specs(tconfigs.get_smoke_config(arch))
