@@ -96,7 +96,8 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      figure: the weights are random), peak memory, and K8 held against its
      plain version at the path's shapes and edges (position 0, Smax - 1,
      g = 1, g = 12 as starcoder2-15b has it, both LUT kinds, f32) and
-     timed beside its bound.
+     timed beside its bound (20 back-to-back calls replayed as one CUDA
+     graph: the profiler drops K8's records).
 
   9. the recurrent families at full width and depth, B = 8, 2,048-token
      prompts, 32 new tokens: zamba2-2.7b (54 Mamba2 layers, the shared
@@ -115,6 +116,30 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      (rwkv6 at full depth, zamba2 at 18 layers: its shared attention
      multiplies a perturbation ~10x a block on these weights, which a
      probe prints group by group). The SSD and WKV6 scans' device times.
+
+  10. the frontend stubs' archs whole in bf16: internvl2-1b (24 layers,
+     GQA 14/2 x 64, qkv_bias) and musicgen-medium (48 layers, MHA 24 x
+     64, gelu): seeded (B, frontend_len, D) embeddings through ``forward``
+     and the exact ``prefill`` (equal embeddings equal logits, causal
+     reach, prefill against forward), then ``serve_batch`` on 8 x 2,048
+     tokens with 32 new: the exact cache (its decode against the forward
+     a figure on the reference's init, whose unnormalized attention is
+     near one-hot, and held at 5e-2 with the attention conditioned), the
+     PQ cache through K8 (launched at least L x 31 times), graph against
+     eager on both, K8 against its plain version at each arch's shapes.
+
+  11. the MoE archs at full width, depth cut to ``ONE_CARD_LAYERS`` (dbrx-132b
+     8 of 40 layers, llama4-scout-17b-a16e 12 of 48, logged as
+     reductions), 16 new tokens: the prefill's drop share under the
+     published capacity, the exact cache at the published capacity (a
+     figure) and at the check-only capacity E / k (no token drops; held
+     against the forward with the attention conditioned), the PQ cache
+     through K8, graph against eager,
+     the decode step beside its byte bound (every expert's weights a
+     step), K8 at the path's shapes; peak memory a model.
+
+  12. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
+     --shards 4`` once each, in their own processes.
 
 ``search_jit`` replays one captured CUDA graph per key, so the timed
 batches of both IVF paths are graph replays. A graph phase on each IVF path
@@ -265,6 +290,24 @@ def event_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int, reps: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` back-to-back calls captured as
+    one CUDA graph, its replays timed by CUDA events (no host gaps between
+    the calls, and no profiler to drop their records)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = event_ms(torch, graph.replay, reps, warmup=1) / calls
+    del graph
+    return ms
 
 
 def breakdown(torch, fn):
@@ -2739,6 +2782,12 @@ REC_GEN = 32                  # new tokens a request, recurrent families
 # shared-attention blocks (each multiplies a perturbation ~10x on these
 # weights, so f32 rounding survives three, not nine)
 ZAMBA2_HELD_LAYERS = 18
+# the frontend stubs' archs, served whole, and their new tokens a request
+FRONTEND_ARCHS = ("internvl2-1b", "musicgen-medium")
+FRONTEND_GEN = 32
+# new tokens a request of the MoE archs, served at full width with their
+# depth cut to repro_torch.configs.ONE_CARD_LAYERS
+MOE_GEN = 16
 # the exact decode's logits against the teacher-forced forward's, as the
 # reference's own test holds them (tests/test_model_consistency.py): the
 # largest |difference| below 5e-2 of the largest |logit|
@@ -2965,9 +3014,11 @@ def log_serve(what: str, st: dict, peak: int, b: int, prompt: int) -> None:
 
 
 def k8_time(torch, path, cfg, live: int, launches: int, what: str):
-    """K8's device, event and plain times on ``path`` (its arguments at a
-    path's shapes, back to back on one layer's codes) and its bound there:
-    (ms, plain ms, bound ms, bound by). Leaves K8's count as it was."""
+    """K8's times on ``path`` (its arguments at a path's shapes, back to
+    back on one layer's codes): as graph replays (the figure returned),
+    by the profiler and by CUDA events around eager calls (host gaps
+    included); the plain version's; and its bound there: (ms, plain ms,
+    bound ms, bound by). Leaves K8's count as it was."""
     from repro_torch.kernels import pq_decode_kernel as pqk
     table = path[0]
     b, kv, g, m, _ = table.shape
@@ -2982,6 +3033,7 @@ def k8_time(torch, path, cfg, live: int, launches: int, what: str):
     n0 = pqk.launches
     ms_ev = event_ms(torch, kernel, 20)
     ms_dev = device_ms(torch, kernel, "pq_decode_kernel", 20)
+    ms = graph_ms(torch, kernel, 20)
     plain_ms = event_ms(torch, plain, 3, warmup=1)
     pqk.launches = n0
     nbytes = (2 * b * live * kv * (m // 2) + table.numel()
@@ -2993,11 +3045,11 @@ def k8_time(torch, path, cfg, live: int, launches: int, what: str):
     t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
     bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
     log(f"{what}: K8 time at the path's shapes, back to back on one layer's "
-        f"codes (warm in L2): device {ms_dev} ms, events {ms_ev:.5f} ms, "
-        f"plain {plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B; "
-        f"{int_ops} int ops, {flops} f32 ops), {launches} launches on the "
-        "PQ run")
-    return (ms_dev if ms_dev is not None else ms_ev), plain_ms, bound, by
+        f"codes (warm in L2): graph replays {ms:.6f} ms a call, profiler "
+        f"{ms_dev} ms, events {ms_ev:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"{bound:.6f} ms ({by}: {nbytes} B; {int_ops} int ops, {flops} f32 "
+        f"ops), {launches} launches on the PQ run")
+    return ms, plain_ms, bound, by
 
 
 def lm_phase(torch, args) -> dict:
@@ -3043,29 +3095,13 @@ def lm_phase(torch, args) -> dict:
                                       LM_GEN, "lm")
 
     # the PQ cache through K8, its launches counted from 0
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    st_p = {}
-    tok_p = serve.serve_batch(pq_cfg, params, prompts, LM_GEN,
-                              max_seq=LM_MAX_SEQ,
-                              generator=torch.Generator().manual_seed(
-                                  args.seed), stats=st_p)
-    torch.cuda.synchronize()
-    launches = pqk.launches
-    peak_p = torch.cuda.max_memory_allocated()
-    need = L * (LM_GEN - 1)
-    log(f"lm: K8 launches on the PQ run: {launches} (at least {L} layers x "
-        f"{LM_GEN - 1} decode steps = {need}; the graph's eager warm-up "
-        "adds one step's)")
-    if launches < need:
-        raise AssertionError(f"lm: K8 launched {launches} < {need} times")
-    check_tokens(tok_p, cfg, LM_BATCH, LM_GEN, "lm: pq")
+    launches, tok_p, _, _ = serve_pq(torch, args, pq_cfg, params, prompts,
+                                     LM_GEN, "lm", L)
     agree = float((tok_e == tok_p).float().mean())
     exact_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * hd * 2
     pq_codes_b = 2 * L * LM_BATCH * LM_MAX_SEQ * kv * (m // 2)
     pq_cb_b = 2 * L * kv * m * 16 * (hd // m) * 2
-    for what, st, peak in (("exact", st_e, peak_e), ("pq", st_p, peak_p)):
-        log_serve(f"lm: {what}", st, peak, LM_BATCH, LM_PROMPT)
+    log_serve("lm: exact", st_e, peak_e, LM_BATCH, LM_PROMPT)
     log(f"lm: cache bytes at max_seq {LM_MAX_SEQ}: exact {exact_b}, pq codes "
         f"{pq_codes_b} + codebooks {pq_cb_b} = {pq_codes_b + pq_cb_b} "
         f"({exact_b / (pq_codes_b + pq_cb_b):.2f}x smaller; M={m})")
@@ -3137,9 +3173,9 @@ def lm_phase(torch, args) -> dict:
                 library_ms=None)
 
 
-def recurrent_model(torch, args, arch: str, **cut):
-    """A recurrent family's full CONFIG (``cut`` overrides, logged as
-    reductions) in bf16 on seeded random weights, and its prompts."""
+def full_model(torch, args, arch: str, **cut):
+    """An arch's full CONFIG (``cut`` overrides, logged as reductions) in
+    bf16 on seeded random weights, and its prompts."""
     from repro_torch import configs
     from repro_torch.models import model as model_lib
     gc.collect()
@@ -3161,6 +3197,19 @@ def recurrent_model(torch, args, arch: str, **cut):
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                                            dtype=np.int32), device="cuda")
     return cfg, params, prompts
+
+
+def condition_attention(torch, params, cfg) -> None:
+    """Rescale each attention block's ``wq`` and ``wk`` in place to the
+    scale a d_model fan-in would draw them at (the reference's init takes
+    the head count as their fan-in, so without qk_norm the scores have a
+    std of ~170 at internvl2-1b's widths and attention is near one-hot)."""
+    cq = (cfg.n_heads / cfg.d_model) ** 0.5
+    ck = (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    with torch.no_grad():
+        for blk in params.stack.blocks:
+            blk.attn.wq.mul_(cq)
+            blk.attn.wk.mul_(ck)
 
 
 def hold_in_f32(torch, args, cfg, prompts, gen: int, what: str,
@@ -3265,7 +3314,7 @@ def zamba2_phase(torch, args) -> int:
     from repro_torch.models import model as model_lib
     from repro_torch.models import ssm
     from repro_torch.models.decode_graph import DecodeGraph
-    cfg, params, prompts = recurrent_model(torch, args, "zamba2-2.7b")
+    cfg, params, prompts = full_model(torch, args, "zamba2-2.7b")
     exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg
     b, s, gen = LM_BATCH, LM_PROMPT, REC_GEN
     n_groups = cfg.n_layers // cfg.shared_attn_every
@@ -3398,7 +3447,7 @@ def rwkv6_phase(torch, args) -> None:
     (are its logits finite?), and WKV6's device time at both chunks."""
     from repro_torch.models import model as model_lib
     from repro_torch.models import rwkv6
-    cfg, params, prompts = recurrent_model(torch, args, "rwkv6-3b",
+    cfg, params, prompts = full_model(torch, args, "rwkv6-3b",
                                            rwkv_chunk=32)
     b, s, gen = LM_BATCH, LM_PROMPT, REC_GEN
     tok, st, peak = serve_exact(torch, cfg, params, prompts, gen,
@@ -3432,6 +3481,329 @@ def rwkv6_phase(torch, args) -> None:
     del params, r, k, v, log_w
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def serve_pq(torch, args, cfg, params, prompts, gen: int, what: str,
+             per_step: int):
+    """``serve_batch`` through the PQ cache (calibrated codebooks, graph
+    replays), K8's launches counted from 0 and held to at least
+    ``per_step`` x the decode steps. Returns (launches, tokens, stats,
+    peak memory)."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.launch import serve
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    tok = serve.serve_batch(cfg, params, prompts, gen, max_seq=LM_MAX_SEQ,
+                            generator=torch.Generator().manual_seed(
+                                args.seed), stats=st)
+    torch.cuda.synchronize()
+    launches, peak = pqk.launches, torch.cuda.max_memory_allocated()
+    need = per_step * (gen - 1)
+    log(f"{what}: K8 launches on the PQ run: {launches} (at least "
+        f"{per_step} layers x {gen - 1} decode steps = {need}; the graph's "
+        "eager warm-up adds one step's)")
+    if launches < need:
+        raise AssertionError(f"{what}: K8 launched {launches} < {need} times")
+    check_tokens(tok, cfg, *prompts.shape[:1], gen, f"{what}: pq")
+    log_serve(f"{what}: pq", st, peak, *prompts.shape)
+    return launches, tok, st, peak
+
+
+def k8_at_path(torch, args, cfg, params, prompts, gen: int, launches: int,
+               what: str) -> dict:
+    """K8 against its plain version at an attention model's PQ shapes
+    (layer 0 of a prefilled PQ cache, the last decode's position; both LUT
+    kinds, bf16) and at edges of its positions (f32), then timed beside its
+    bound. Leaves K8's count at ``launches``; returns the figures."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    pq_cfg = cfg.replace(kv_pq=True)
+    b, s = prompts.shape
+    kv, hd, m = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_kv_pq_m
+    g = cfg.n_heads // kv
+    pqc = serve.calibrate_pq_cache(torch.Generator().manual_seed(args.seed),
+                                   params, pq_cfg, b, LM_MAX_SEQ)
+    _, cache = model_lib.prefill(params, prompts, pq_cfg, max_seq=LM_MAX_SEQ,
+                                 pq_cache=pqc)
+    live = s + gen - 1
+    q = torch.randn((b, cfg.n_heads, hd), generator=torch.Generator(
+        device="cuda").manual_seed(args.seed + 60), device="cuda").to(
+            torch.bfloat16)
+    layer0 = (cache.k_codes[0], cache.v_codes[0], cache.k_cb[0],
+              cache.v_cb[0])
+    path = k8_glue(torch, q, *layer0, [live - 1], True)
+    shape = (f"B={b}, Smax={LM_MAX_SEQ}, KV={kv}, g={g}, M={m}, head_dim "
+             f"{hd}, {live} live")
+    err = k8_check(torch, path, torch.bfloat16, 2048,
+                   f"{what} shapes ({shape}), q8")
+    k8_check(torch, k8_glue(torch, q, *layer0, [live - 1], False),
+             torch.bfloat16, 2048, f"{what} shapes, f32 LUT")
+    k8_check(torch, k8_inputs(torch, args.seed + 61, b=b, smax=LM_MAX_SEQ,
+                              kv=kv, g=g, m=m, dsub=hd // m,
+                              positions=[0, 1, 255, 256, 2047, 3000,
+                                         LM_MAX_SEQ - 1, LM_MAX_SEQ + 3],
+                              q8=True, dtype=torch.float32),
+             torch.float32, 2048, f"{what} shapes, f32, edges")
+    pqk.launches = launches
+    ms, plain_ms, bound, by = k8_time(torch, path, cfg, live, launches, what)
+    pqk.launches = launches
+    del cache, pqc, path, layer0
+    return dict(path=what, shape=shape, launches=launches, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def embeds_check(torch, args, cfg, params, prompts, what: str) -> None:
+    """The frontend stub on the card: seeded (B, frontend_len, D)
+    embeddings (at the token table's scale) through ``forward`` and the
+    exact ``prefill``. Equal embeddings give equal logits bit for bit; a
+    change at the last embedded position leaves every earlier position bit
+    for bit as it was and moves its own (causal); against the forward
+    without them, every embedded position moves; the prefill's last
+    logits are the forward's within LM_FORWARD_RTOL of max |logit|, with
+    and without them."""
+    from repro_torch.models import model as model_lib
+    f = cfg.frontend_len
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 50)
+    emb = (torch.randn((prompts.shape[0], f, cfg.d_model), generator=gen,
+                       device="cuda")
+           * params.embedding.float().std()).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    with_e, _ = model_lib.forward(params, prompts, cfg, frontend_embeds=emb)
+    again, _ = model_lib.forward(params, prompts, cfg, frontend_embeds=emb)
+    same = bool(torch.equal(with_e, again))
+    del again
+    moved_emb = emb.clone()
+    moved_emb[:, -1] = moved_emb[:, -1] * 2 + 0.01
+    moved, _ = model_lib.forward(params, prompts, cfg,
+                                 frontend_embeds=moved_emb)
+    before = bool(torch.equal(moved[:, :f - 1], with_e[:, :f - 1]))
+    at = bool((moved[:, f - 1] != with_e[:, f - 1]).any(-1).all())
+    after = float((moved[:, f:] != with_e[:, f:]).any(-1).float().mean())
+    del moved
+    plain, _ = model_lib.forward(params, prompts, cfg)
+    differ = (plain != with_e).any(-1)
+    embedded = bool(differ[:, :f].all())
+    every = float(differ[:, f:].float().mean())
+    top = float(with_e.abs().max())
+    rel = []
+    for e, full in ((emb, with_e), (None, plain)):
+        lg, _ = model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ,
+                                  frontend_embeds=e)
+        rel.append(float((lg.float() - full[:, -1].float()).abs().max())
+                   / top)
+    del with_e, plain
+    torch.cuda.synchronize()
+    log(f"{what}: frontend stub, {f} embedded positions of {prompts.shape[1]}"
+        f" ({time.perf_counter() - t0:.2f} s): equal embeddings equal "
+        f"logits {same}; a change at position {f - 1} leaves positions 0-"
+        f"{f - 2} bit for bit {before}, moves its own {at} and {after:.4f} "
+        f"of the later (row, position)s; against no embeddings the "
+        f"embedded positions all move {embedded}, and {every:.4f} of the "
+        f"later ones (attention on these random weights is near one-hot, "
+        f"so a later position moves where it attends to one: a figure); "
+        f"prefill's last logits vs the forward's: {rel[0]:.3e} with, "
+        f"{rel[1]:.3e} without (of max |logit|, tolerance "
+        f"{LM_FORWARD_RTOL})")
+    if not (same and before and at and embedded
+            and max(rel) < LM_FORWARD_RTOL):
+        raise AssertionError(f"{what}: the frontend stub check failed")
+
+
+def frontend_phase(torch, args) -> list[dict]:
+    """The frontend archs whole (internvl2-1b: 24 layers, GQA 14/2 x 64,
+    qkv_bias, vocab 151,655; musicgen-medium: 48 layers, MHA 24 x 64,
+    gelu, vocab 2,048) in bf16 on seeded weights: their stubs' embeddings
+    through ``forward`` and the exact ``prefill`` (``embeds_check``); then
+    ``serve_batch`` (from tokens alone, as the reference's serves them)
+    through the exact cache and the PQ cache through K8; graph against
+    eager on both; K8 against its plain version at each arch's shapes.
+    On the reference's init neither backbone's attention is normalized
+    (no qk_norm, ``wq``/``wk`` drawn at a head-count fan-in), so it is
+    near one-hot and rounding flips which key wins: the decode against
+    the teacher-forced forward is printed there as a figure, and held
+    within LM_FORWARD_RTOL on the same weights with the attention
+    conditioned (``condition_attention``). Returns K8's figures a path."""
+    from repro_torch.launch import serve
+    out = []
+    for arch in FRONTEND_ARCHS:
+        t0 = time.perf_counter()
+        cfg, params, prompts = full_model(torch, args, arch)
+        what = arch.split("-")[0]
+        embeds_check(torch, args, cfg, params, prompts, what)
+        exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg.replace(kv_pq=True)
+        _, st, peak = serve_exact(torch, exact_cfg, params, prompts,
+                                  FRONTEND_GEN, f"{what} (bf16)", hold=False)
+        log_serve(f"{what}: exact", st, peak, *prompts.shape)
+        launches = serve_pq(torch, args, pq_cfg, params, prompts,
+                            FRONTEND_GEN, what, cfg.n_layers)[0]
+        pqc = serve.calibrate_pq_cache(
+            torch.Generator().manual_seed(args.seed), params, pq_cfg,
+            LM_BATCH, LM_MAX_SEQ)
+        for kind, c, pq in (("exact", exact_cfg, None), ("pq", pq_cfg, pqc)):
+            graph_vs_eager(torch, params, c, prompts, pq, FRONTEND_GEN - 1,
+                           f"{what}: {kind}")
+        del pqc
+        out.append(k8_at_path(torch, args, cfg, params, prompts,
+                              FRONTEND_GEN, launches, what))
+        # the held check, on the same weights with the attention conditioned
+        condition_attention(torch, params, cfg)
+        serve_exact(torch, exact_cfg, params, prompts, FRONTEND_GEN,
+                    f"{what} (bf16, attention conditioned)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{what}: phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def drop_share(torch, params, prompts, cfg) -> list[float]:
+    """Each MoE layer's share of (token, k) entries dropped at the exact
+    prefill of ``prompts`` under ``cfg``'s capacity (``moe.route`` wrapped
+    for the one call)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    kept, route = [], moe.route
+
+    def recording(gates_all, c):
+        r = route(gates_all, c)
+        kept.append(r.keep_tok.float().mean())
+        return r
+
+    moe.route = recording
+    try:
+        model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ)
+    finally:
+        moe.route = route
+    return [1.0 - float(k) for k in kept]
+
+
+def moe_phase(torch, args) -> list[dict]:
+    """The MoE archs at every published width (d_model, heads, d_ff,
+    n_experts, top-k, capacity_factor 1.25, moe_groups 32) with the depth
+    cut to ``configs.ONE_CARD_LAYERS`` (logged as a reduction: the whole
+    models hold 263 and 216 GB in bf16), seeded weights, B = 8 prompts of 2,048 tokens:
+    the prefill's drop share under the published capacity (none at the
+    check-only capacity E / k); ``serve_batch`` through the exact cache
+    at the published capacity (its decode against the forward a figure:
+    the forward groups S + gen tokens otherwise, and so drops otherwise;
+    and the attention is near one-hot, as ``frontend_phase`` says) and
+    through the PQ cache (K8); graph against eager on both caches; the
+    decode step beside its byte bound (every expert's weights are read a
+    step, as the reference's expert FFN runs every expert over its
+    capacity slots); K8 at the path's shapes; then the exact decode held
+    against the forward within LM_FORWARD_RTOL at the check-only capacity,
+    where no token drops at any grouping, with the attention conditioned.
+    Frees each model before the next. Returns K8's figures a path."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    out = []
+    for arch, layers in configs.ONE_CARD_LAYERS.items():
+        t0 = time.perf_counter()
+        cfg, params, prompts = full_model(torch, args, arch, n_layers=layers)
+        what = arch.split("-")[0]
+        e, k = cfg.n_experts, cfg.n_experts_active
+        exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg.replace(kv_pq=True)
+        check_cfg = exact_cfg.replace(capacity_factor=float(e // k))
+        weights = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        experts = sum(p.numel() * p.element_size()
+                      for n, p in params.named_parameters()
+                      if ".moe.w" in n)
+        log(f"{what}: {cfg.n_layers} layers at full width, {e} experts top-{k}, capacity_factor {cfg.capacity_factor}, "
+            f"moe_groups {cfg.moe_groups}: weights {weights} B (routed "
+            f"experts {experts} B); torch.cuda.memory_allocated "
+            f"{torch.cuda.memory_allocated()} B")
+        t1 = time.perf_counter()
+        drops = drop_share(torch, params, prompts, exact_cfg)
+        no_drops = drop_share(torch, params, prompts, check_cfg)
+        log(f"{what}: prefill drop share under the published capacity "
+            f"(B x S = {prompts.numel()} tokens, {layers} layers): mean "
+            f"{np.mean(drops):.4f}, per layer {min(drops):.4f}-"
+            f"{max(drops):.4f}; at the check-only capacity_factor "
+            f"{check_cfg.capacity_factor}: {max(no_drops):.4f} "
+            f"[{time.perf_counter() - t1:.1f} s]")
+        if max(no_drops) != 0.0:
+            raise AssertionError(f"{what}: tokens dropped at capacity E/k")
+        _, st, peak = serve_exact(torch, exact_cfg, params, prompts, MOE_GEN,
+                                  f"{what} (bf16, published capacity)",
+                                  hold=False)
+        log_serve(f"{what}: exact", st, peak, *prompts.shape)
+        launches = serve_pq(torch, args, pq_cfg, params, prompts, MOE_GEN,
+                            what, cfg.n_layers)[0]
+        pqc = serve.calibrate_pq_cache(
+            torch.Generator().manual_seed(args.seed), params, pq_cfg,
+            LM_BATCH, LM_MAX_SEQ)
+        steps = {}
+        for kind, c, pq in (("exact", exact_cfg, None), ("pq", pq_cfg, pqc)):
+            steps[kind] = graph_vs_eager(torch, params, c, prompts, pq,
+                                         MOE_GEN - 1, f"{what}: {kind}")
+        del pqc
+        live = prompts.shape[1] + MOE_GEN - 1
+        kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        cache_b = {"exact": 2 * layers * LM_BATCH * live * kv * hd * 2,
+                   "pq": 2 * layers * LM_BATCH * live * kv
+                   * (cfg.resolved_kv_pq_m // 2)}
+        for kind, st_g in steps.items():
+            nbytes = weights + cache_b[kind] + LM_BATCH * cfg.padded_vocab * 2
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"{what}: {kind} decode step {st_g['graph_ms']:.3f} ms "
+                f"(graph; device {st_g['graph']['busy']:.3f} ms) against a "
+                f"byte bound of {bound:.3f} ms ({nbytes} B: every weight "
+                f"once, {experts} B of them routed experts, and the cache's "
+                f"{live} live positions): {st_g['graph_ms'] / bound:.2f}x")
+        out.append(k8_at_path(torch, args, cfg, params, prompts, MOE_GEN,
+                              launches, what))
+        # the held check: the check-only capacity, the attention conditioned
+        condition_attention(torch, params, cfg)
+        _, st_c, peak_c = serve_exact(
+            torch, check_cfg, params, prompts, MOE_GEN,
+            f"{what} (bf16, check-only capacity_factor "
+            f"{check_cfg.capacity_factor}, attention conditioned)")
+        log_serve(f"{what}: exact, check-only capacity", st_c, peak_c,
+                  *prompts.shape)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{what}: phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def examples_phase(root: str) -> None:
+    """The two ANN examples once on the card, each in its own process at
+    its defaults (``--shards 4`` for the engine's): select equal to mxu
+    and fast-scan within FIG2_GAP of naive PQ at recall@10, the re-rank
+    above fast-scan alone."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    recalls = {}
+    for script, extra in (("quickstart_torch.py", []),
+                          ("ann_search_torch.py", ["--shards", "4"])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable,
+                              os.path.join(root, "examples", script),
+                              *extra], capture_output=True, text=True,
+                             env=env, timeout=600)
+        name = script.split("_torch")[0]
+        for line in res.stdout.strip().splitlines():
+            log(f"examples: {name}: {line}")
+            if "recall@1=" in line:
+                head = line.split(":")[0].strip()
+                recalls[head] = {at: float(line.split(f"recall@{at}=")[1]
+                                           .split()[0].rstrip(","))
+                                 for at in ("1", "10")
+                                 if f"recall@{at}=" in line}
+        log(f"examples: {name}: exit {res.returncode} "
+            f"[{time.perf_counter() - t0:.1f} s]")
+        if res.returncode != 0:
+            raise AssertionError(f"examples: {script} failed:\n"
+                                 + res.stderr[-3000:])
+    mxu, sel = recalls["fast-scan[mxu]"], recalls["fast-scan[select]"]
+    naive = recalls["naive PQ (float LUT)"]
+    if not (mxu == sel and abs(mxu["10"] - naive["10"]) < FIG2_GAP
+            and recalls["+ exact re-rank"]["1"]
+            > recalls["fast-scan only"]["1"]):
+        raise AssertionError(f"examples: recalls out of line: {recalls}")
 
 
 def ivf_engine(torch, args, nq: int):
@@ -3592,6 +3964,10 @@ def main() -> int:
     serving_phase(torch, args, engine, ds, root)
     log(f"serving: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
+    # the LM phases take the card's memory: the ANN data and engine go
+    del ds, engine
+    gc.collect()
+    torch.cuda.empty_cache()
     # 12. LM serving: qwen3-1.7b at full width, exact and PQ caches (K8)
     log(f"lm: phase starts {time.perf_counter() - t_main:.1f} s into the run")
     t0 = time.perf_counter()
@@ -3606,6 +3982,24 @@ def main() -> int:
     t0 = time.perf_counter()
     rwkv6_phase(torch, args)
     log(f"rwkv6: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
+    # 14. the frontend stubs whole (internvl2-1b, musicgen-medium), then
+    # the MoE archs at full width with their depth cut (dbrx-132b,
+    # llama4-scout-17b-a16e): exact and PQ caches, K8 at their shapes
+    t0 = time.perf_counter()
+    k8_paths = frontend_phase(torch, args)
+    k8_paths += moe_phase(torch, args)
+    log(f"frontend and moe: phases {time.perf_counter() - t0:.1f} s; the run "
+        f"so far {time.perf_counter() - t_main:.1f} s")
+    for p in k8_paths:
+        log(f"K8 on the {p['path']} path ({p['shape']}): {p['launches']} "
+            f"launches, {p['ms']:.6f} ms, plain {p['plain_ms']:.5f} ms, "
+            f"bound {p['bound_ms']:.6f} ms ({p['bound_by']}), max error "
+            f"{p['max_abs_err']:.3e}")
+    # 15. the two ANN examples, each once in its own process
+    t0 = time.perf_counter()
+    examples_phase(root)
+    log(f"examples: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,9 @@
 cache against the paper's 4-bit-PQ KV cache (decode attention through the
 K8 kernel on the card), comparing the tokens and the cache bytes. A hybrid
 (zamba2) or attention-free (rwkv6) arch is served with its exact cache
-only, as the reference's example serves it.
+only, as the reference's example serves it. The frontend archs
+(internvl2-1b, musicgen-medium) serve from tokens alone, as the
+reference's ``serve_batch`` does.
 
     PYTHONPATH=src python examples/serve_lm_torch.py            # smoke, card
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
@@ -10,6 +12,13 @@ only, as the reference's example serves it.
         --arch zamba2-2.7b
     PYTHONPATH=src python examples/serve_lm_torch.py --full \\
         --arch qwen3-1.7b --batch 8 --prompt-len 2048 --tokens 64
+    PYTHONPATH=src python examples/serve_lm_torch.py --full \
+        --arch dbrx-132b --batch 8 --prompt-len 2048 --tokens 16
+
+The MoE archs do not fit one 80 GB card whole (215.6 GB for
+llama4-scout-17b-a16e and 263.2 GB for dbrx-132b in bf16): ``--full``
+serves them at every published width with the depth cut to
+``configs.ONE_CARD_LAYERS``, and says so.
 
 The weights are random (a seeded generator): no checkpoint is loaded, so
 the tokens are not text and the agreement is a figure, not a quality claim.
@@ -47,6 +56,10 @@ def main():
     dev = resolve_device(args.device)
     cfg = (configs.get_config(args.arch) if args.full
            else configs.get_smoke_config(args.arch))
+    layers = configs.ONE_CARD_LAYERS.get(cfg.name) if args.full else None
+    if layers:
+        print(f"reduced: n_layers {cfg.n_layers} -> {layers}")
+        cfg = cfg.replace(n_layers=layers)
     print(f"== serving {cfg.name} on {dev}: {args.batch} requests of "
           f"{args.prompt_len} tokens, {args.tokens} new tokens each ==")
     params = model_lib.init_lm(

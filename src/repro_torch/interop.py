@@ -23,8 +23,11 @@ A flat fast-scan index (``core.fastscan.FastScanIndex``) crosses as
 An LM's parameters cross as the reference's parameter tree flattened to
 ``/``-joined path keys (``embedding``, ``ln_f``, ``lm_head``,
 ``stack/blocks/attn/wq``, ``stack/group_in/w``, ... each stacked list, the
-blocks and the hybrid's ``group_in``, with its leading layer axis):
-``lm_params_from_arrays`` / ``arrays_from_lm_params``. A PQ KV cache
+blocks and the hybrid's ``group_in``, with its leading layer axis; an MoE
+block's ``stack/blocks/moe/router`` (L, D, E), ``moe/wi_gate``,
+``moe/wi_up`` or ``moe/wi`` (L, E, D, F), ``moe/wo`` (L, E, F, D) and the
+shared expert's ``moe/shared_*``): ``lm_params_from_arrays`` /
+``arrays_from_lm_params``. A PQ KV cache
 crosses as ``k_codes``, ``v_codes`` (u8) and ``k_cb``, ``v_cb`` (the
 codebooks): ``pq_cache_from_arrays`` / ``arrays_from_pq_cache``. The
 recurrent families' caches cross under the reference's dict keys (Mamba2

@@ -80,14 +80,20 @@ def adc_sums(table_q8: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 def adc_scores(table: torch.Tensor, scale, bias, packed: torch.Tensor
                ) -> torch.Tensor:
     """(B, KV, g, C) f32 scores: ``scale * sums + bias`` for a u8 table
-    (scale, summed bias (B, KV, g)), else the f32 table's sums."""
+    (scale, summed bias (B, KV, g)), else the f32 table's sums, added in
+    the kernel's order (so that its scores equal these bit for bit)."""
     if table.dtype == torch.uint8:
         acc = adc_sums(table, packed)
         return scale[..., None] * acc.float() + bias[..., None]
     codes = _codes_bkmc(packed)
     b, kv, g, m, _ = table.shape
     idx = codes.expand(b, kv, g, m, codes.shape[-1])
-    return torch.gather(table, -1, idx).sum(-2)
+    vals = torch.gather(table, -1, idx)                    # (B, KV, g, M, C)
+    # the kernel's order: sub-space 0, 1, ..., M - 1, one f32 add each
+    acc = vals[..., 0, :].clone()
+    for j in range(1, m):
+        acc += vals[..., j, :]
+    return acc
 
 
 def _check(table, scale, bias, k_codes, v_codes, v_cb, position) -> None:

@@ -6,6 +6,11 @@ or the 4-bit PQ KV cache, or a recurrent family's states (the port of
     python -m repro_torch.launch.serve --arch qwen3-1.7b --batch 8 \\
         --prompt-len 2048 --tokens 64
     python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8
+    python -m repro_torch.launch.serve --arch dbrx-132b --smoke
+
+Every arch of ``repro_torch.configs`` serves: dense, MoE, the frontend
+stubs (served from tokens alone: the reference's ``serve_batch`` takes no
+``frontend_embeds``), Mamba2 / zamba2 and RWKV6.
 
 Runs on the CUDA card unless ``--device cpu``; on the card each decode step
 is one replay of a captured CUDA graph (``models/decode_graph.py``, the

@@ -1,9 +1,9 @@
 """Model configuration schema (a copy of the reference's ``ModelConfig``).
 
 One frozen dataclass drives model construction and the analytic parameter
-count. The port serves the dense attention, Mamba2 (and zamba2 hybrid) and
-RWKV6 families; the MoE and frontend fields are kept so that configs
-compare alike.
+count, for every family the reference has: dense and MoE attention (with
+the vlm / audio frontend stubs), Mamba2 (and the zamba2 hybrid) and
+RWKV6.
 """
 from __future__ import annotations
 

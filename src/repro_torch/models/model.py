@@ -1,12 +1,18 @@
 """Public model API: specs, init, forward, prefill and the decode step for
-the dense attention, Mamba2 / zamba2-hybrid and RWKV6 families (the port
-of ``repro/models/model.py``).
+the attention (dense, MoE, and the vlm / audio frontend stubs), Mamba2 /
+zamba2-hybrid and RWKV6 families (the port of ``repro/models/model.py``).
 
 The model is a ``layers.Params`` tree of modules holding the reference's
 tensors by the reference's names (``embedding``, ``ln_f``, ``lm_head``,
 ``stack.blocks[i].attn.wq``, ``stack.blocks[i].mamba.in_proj``, ...).
 Entry points run under ``torch.inference_mode``; ``loss_fn`` waits for the
-training slice, MoE for its own (ROADMAP Queue 1).
+training slice (ROADMAP Queue 1).
+
+The modality frontends are stubs, as in the reference: precomputed patch
+or frame embeddings ``frontend_embeds`` (B, F, D) overwrite the token
+embeddings of the first F positions in ``forward`` and in the attention
+family's exact ``prefill``. The reference's PQ prefill, its recurrent
+prefills and its decode step take none, so those drop them here too.
 
 Caches: the attention family's ``ExactKVCache`` / ``PQKVCache``; the
 recurrent families' dicts of the reference's keys (``h``, ``conv`` and the
@@ -72,18 +78,30 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
-def forward(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig
+def forward(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, Vpad), aux_loss scalar)."""
-    h, aux = _hidden_states(params, tokens, cfg)
+    h, aux = _hidden_states(params, tokens, cfg, frontend_embeds)
     return h @ params.lm_head, aux
 
 
-def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig
+def _embed(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
+           frontend_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings (B, S, D), the first F positions overwritten by the
+    frontend stub's (B, F, D) embeddings when the config has a frontend."""
+    h = params.embedding[tokens.long()]
+    if cfg.frontend != "none" and frontend_embeds is not None:
+        h[:, :frontend_embeds.shape[1]] = frontend_embeds.to(h.dtype)
+    return h
+
+
+def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   frontend_embeds: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """forward() minus the lm_head: final-norm hidden states (B, S, D)."""
     b, s = tokens.shape
-    h = params.embedding[tokens.long()]
+    h = _embed(params, tokens, cfg, frontend_embeds)
     stack = {"attn": tf.attn_stack, "mamba2": tf.mamba_stack,
              "rwkv6": tf.rwkv_stack}[cfg.block_type]
     h, aux = stack(params.stack, h, cfg, _positions(b, s, tokens.device))
@@ -133,13 +151,16 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            max_seq: int | None = None, pq_cache=None):
+            max_seq: int | None = None, frontend_embeds=None, pq_cache=None):
     """Prefill a prompt, returning (last-position logits, filled cache).
 
     Attention family: one pass through the stack that also captures each
     layer's K/V into an exact cache of ``max_seq`` positions (zero past the
-    prompt), or their 4-bit PQ codes when ``cfg.kv_pq`` (``pq_cache``, a
-    ``PQKVCache``, carries calibrated codebooks). Mamba2 / RWKV6: the
+    prompt; ``frontend_embeds`` written over the first positions), or
+    their 4-bit PQ codes when ``cfg.kv_pq`` (``pq_cache``, a
+    ``PQKVCache``, carries calibrated codebooks; the embeddings are
+    dropped, as the reference's ``encode_pq_cache`` drops them). Mamba2 /
+    RWKV6 (no embeddings either, as in the reference): the
     chunked scans emit their O(1) states; the hybrid's shared attention
     fills an exact cache, or with ``cfg.kv_pq`` PQ codes under
     ``pq_cache["attn_k_cb"]`` / ``["attn_v_cb"]`` (G, KV, M, 16, dsub).
@@ -167,7 +188,7 @@ def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
         assert pq_cache is not None, "PQ prefill needs calibrated codebooks"
         return encode_pq_cache(params, tokens, cfg, pq_cache)
 
-    h = params.embedding[tokens.long()]
+    h = _embed(params, tokens, cfg, frontend_embeds)
     positions = _positions(b, s, tokens.device)
     cache = kvc.init_exact(cfg, b, max_seq, h.dtype, h.device)
     for i, lp in enumerate(params.stack.blocks):
@@ -185,8 +206,7 @@ def _prefill_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
     q, k, v = ll.qkv_project(lp.attn, x, cfg, positions)
     out = ll.chunked_causal_attention(q, k, v, cfg)
     h = h + torch.einsum("bshk,hkd->bsd", out, lp.attn.wo)
-    hn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
-    h = h + ll.ffn(lp.ffn, hn, cfg)
+    h = h + tf.block_ffn(lp, ll.rmsnorm(h, lp.ln2, cfg.norm_eps), cfg)
     return h, k, v
 
 

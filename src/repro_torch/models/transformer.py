@@ -1,10 +1,11 @@
-"""Stack assembly for the dense attention, Mamba2 (with the zamba2 hybrid)
-and RWKV6 families (the port of ``repro/models/transformer.py``).
+"""Stack assembly for the attention (dense, MoE and the frontend stubs'
+backbones), Mamba2 (with the zamba2 hybrid) and RWKV6 families (the port
+of ``repro/models/transformer.py``).
 
 The reference scans over layer-stacked parameters (and remats them for
 training); here a stack is an ``nn.ModuleList`` of per-layer blocks and a
 Python loop visits them. Remat has no meaning at inference and is not
-ported; the MoE stack waits (ROADMAP Queue 1).
+ported.
 
 Decode writes every cache in place: the attention caches at the position
 (``kvcache.update_exact`` / ``update_pq``), and each layer's recurrent
@@ -18,27 +19,33 @@ import torch
 
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.n_experts or cfg.block_type != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: the attention stack is ported for the dense "
-            "family only (MoE waits in ROADMAP Queue 1)")
-
-
 def attn_block_specs(cfg: ModelConfig) -> dict:
-    _dense_only(cfg)
-    return {
+    specs = {
         "ln1": ll.rmsnorm_spec(cfg.d_model),
         "ln2": ll.rmsnorm_spec(cfg.d_model),
         "attn": ll.attn_specs(cfg),
-        "ffn": ll.ffn_specs(cfg),
     }
+    if cfg.n_experts:
+        specs["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        specs["ffn"] = ll.ffn_specs(cfg)
+    return specs
+
+
+def block_ffn(p: ll.Params, hn: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The block's FFN on (B, S, D) where its aux loss is not wanted
+    (prefill, decode): the routed experts (``moe``) or the dense FFN."""
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(p.moe, hn, cfg)[0]
+    return ll.ffn(p.ffn, hn, cfg)
 
 
 def attn_block(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
@@ -47,8 +54,11 @@ def attn_block(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
     h = h + ll.attention(p.attn, ll.rmsnorm(h, p.ln1, cfg.norm_eps), cfg,
                          positions)
     hn = ll.rmsnorm(h, p.ln2, cfg.norm_eps)
-    h = h + ll.ffn(p.ffn, hn, cfg)
-    return h, torch.zeros((), device=h.device)
+    if cfg.n_experts:
+        out, aux = moe_mod.moe_ffn(p.moe, hn, cfg)
+    else:
+        out, aux = ll.ffn(p.ffn, hn, cfg), torch.zeros((), device=h.device)
+    return h + out, aux
 
 
 def attn_stack_specs(cfg: ModelConfig) -> dict:
@@ -88,7 +98,7 @@ def attn_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
             out = ll.decode_attention_scores(q[:, 0], kc, vc, cfg, position)
         h = h + torch.einsum("bhk,hkd->bd", out, lp.attn.wo)
         hn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
-        h = h + ll.ffn(lp.ffn, hn[:, None], cfg)[:, 0]
+        h = h + block_ffn(lp, hn[:, None], cfg)[:, 0]
     return h, cache
 
 

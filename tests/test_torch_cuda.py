@@ -1414,7 +1414,10 @@ def _k8_close(got, want, dtype):
 # threads, 20-byte rows); starcoder2-15b's g = 12 (M = 64, hd = 128);
 # position 0, Smax - 1, -1 (nothing live) and beyond Smax; g = 1 (qwen1.5,
 # MHA), g = 8; M/2 = 3 (byte loads) and 4 (4-byte loads); hd = 16 (the
-# smoke configs) and 256
+# smoke configs) and 256; the MoE and frontend archs' shapes: dbrx-132b
+# (KV 8, g 6, M 64, hd 128), llama4-scout (KV 8, g 5), internvl2-1b (KV
+# 2, g 7, M 32, hd 64: 64 of 256 threads gather values) and
+# musicgen-medium (KV 24, g 1, M 32, hd 64)
 K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
             (8, 4096, 32, 1, 40, 2, [2048 + i for i in range(0, 40, 5)],
              2048),
@@ -1424,7 +1427,15 @@ K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
             (3, 300, 2, 1, 8, 2, [-1, 299, 1000], 300),
             (2, 257, 1, 8, 6, 4, [256, 3], 257),
             (2, 64, 4, 1, 8, 2, [63, 17], 16),
-            (1, 1024, 2, 4, 128, 2, [777], 512)]
+            (1, 1024, 2, 4, 128, 2, [777], 512),
+            (8, 4096, 8, 6, 64, 2, [2048 + i for i in range(0, 16, 2)],
+             2048),
+            (8, 4096, 8, 5, 64, 2, [0, 1, 255, 256, 2063, 3000, 4095, 4100],
+             2048),
+            (8, 4096, 2, 7, 32, 2, [2048 + i for i in range(0, 64, 9)],
+             2048),
+            (8, 4096, 24, 1, 32, 2, [2048 + i for i in range(0, 64, 9)],
+             2048)]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -1537,6 +1548,47 @@ def test_lm_decode_on_the_card_matches_the_host(dev):
                                    atol=1e-3)
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e",
+                                  "internvl2-1b", "musicgen-medium"])
+def test_moe_and_frontend_lm_on_the_card_matches_the_host(dev, arch):
+    """The MoE and frontend smoke configs (f32) on the card against the
+    host: the forward (with the frontend's embeddings where the config has
+    a frontend), its aux loss, and an exact prefill then three decode
+    steps. MoE routing on the card sees the same gates up to f32 rounding,
+    so its drops and ties are the host's."""
+    from repro_torch import configs
+    from repro_torch.models import model as tmodel
+    cfg = configs.get_smoke_config(arch)
+    host = tmodel.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = interop.lm_params_from_arrays(interop.arrays_from_lm_params(host),
+                                         cfg, device=dev)
+    rng = np.random.default_rng(45)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64),
+                                           dtype=np.int32))
+    emb = (torch.as_tensor(rng.normal(0, 1, (2, cfg.frontend_len,
+                                             cfg.d_model)),
+                           dtype=torch.float32) if cfg.frontend != "none"
+           else None)
+    out = {}
+    for where, model in (("cpu", host), ("cuda", card)):
+        d = model.embedding.device
+        e = None if emb is None else emb.to(d)
+        logits, aux = tmodel.forward(model, prompts.to(d), cfg,
+                                     frontend_embeds=e)
+        lg, cache = tmodel.prefill(model, prompts.to(d), cfg, max_seq=68,
+                                   frontend_embeds=e)
+        seq = [lg]
+        for i in range(3):
+            pos = torch.full((2,), 64 + i, dtype=torch.int32, device=d)
+            lg, cache = tmodel.decode_step(model, cache, prompts[:, i].to(d),
+                                           pos, cfg)
+            seq.append(lg)
+        out[where] = (logits.cpu(), aux.cpu(), torch.stack(seq).cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # the LM decode step as a CUDA graph
 # ---------------------------------------------------------------------------
@@ -1594,7 +1646,10 @@ def _cache_list(cache):
 
 LM_GRAPH_CASES = [("qwen3-1.7b", "exact"), ("qwen3-1.7b", "pq"),
                   ("zamba2-2.7b", "exact"), ("zamba2-2.7b", "pq"),
-                  ("rwkv6-3b", "exact")]
+                  ("rwkv6-3b", "exact"), ("dbrx-132b", "exact"),
+                  ("dbrx-132b", "pq"), ("llama4-scout-17b-a16e", "exact"),
+                  ("llama4-scout-17b-a16e", "pq"), ("internvl2-1b", "pq"),
+                  ("musicgen-medium", "exact")]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1654,7 +1709,8 @@ def test_serve_batch_on_the_card_replays_one_graph(dev, monkeypatch):
             made.append(self)
 
     monkeypatch.setattr(serve, "DecodeGraph", Recording)
-    for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-3b"):
+    for arch in ("qwen3-1.7b", "zamba2-2.7b", "rwkv6-3b", "dbrx-132b",
+                 "internvl2-1b"):
         cfg, params, prompts, _ = _lm_caches(dev, arch, "exact",
                                              torch.float32)
         made.clear()

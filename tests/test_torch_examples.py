@@ -1,0 +1,67 @@
+"""The port's examples (``examples/*_torch.py``) run end to end on the CPU
+at small sizes, each in a fresh interpreter that must load neither jax nor
+the JAX package: the two ANN examples (the flat fast-scan index beside
+naive PQ; the engine with HNSW coarse, re-rank, flat coarse and shards)
+and the LM example on the MoE and frontend archs' smoke configs."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUN = """
+import runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')
+       or k == 'repro' or k.startswith('repro.')]
+assert not bad, bad
+"""
+
+
+def _run(script: str, *args: str) -> str:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", RUN, os.path.join(ROOT, "examples", script),
+         *args], capture_output=True, text=True, env=env, timeout=300,
+        cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def _recall(line: str, at: str) -> float:
+    return float(line.split(f"recall@{at}=")[1].split()[0].rstrip(","))
+
+
+def test_quickstart_torch_on_the_cpu():
+    out = _run("quickstart_torch.py", "--device", "cpu", "--n", "5000")
+    lines = {ln.split(":")[0]: ln for ln in out.splitlines() if ":" in ln}
+    mxu, sel = lines["fast-scan[mxu]"], lines["fast-scan[select]"]
+    naive = lines["naive PQ (float LUT)"]
+    # select equals mxu; fast-scan within the paper's Fig. 2 gap of naive PQ
+    assert _recall(mxu, 10) == _recall(sel, 10)
+    assert _recall(mxu, 1) == _recall(sel, 1)
+    assert abs(_recall(mxu, 10) - _recall(naive, 10)) < 0.05
+    assert _recall(mxu, 10) > 0.5
+
+
+def test_ann_search_torch_on_the_cpu():
+    out = _run("ann_search_torch.py", "--device", "cpu", "--n", "5000",
+               "--queries", "32", "--shards", "2")
+    lines = {ln.split(":")[0].strip(): ln for ln in out.splitlines()
+             if ":" in ln}
+    scan = _recall(lines["fast-scan only"], 1)
+    rerank = _recall(lines["+ exact re-rank"], 1)
+    assert rerank > scan          # the exact re-rank lifts recall
+    assert "flat-coarse reference" in lines
+    assert _recall(lines["sharded x2 (flat coarse per shard)"], 1) >= 0.0
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e",
+                                  "internvl2-1b", "musicgen-medium"])
+def test_serve_lm_torch_serves_the_new_archs_on_the_cpu(arch):
+    out = _run("serve_lm_torch.py", "--device", "cpu", "--arch", arch,
+               "--batch", "2", "--prompt-len", "16", "--tokens", "4")
+    assert "exact: prefill" in out and "pq: calibrate" in out
+    assert "0 K8 launches" in out       # the CPU takes the plain version

@@ -40,9 +40,10 @@ TOL = 1e-5
 LOGIT_TOL = 1e-4
 BF16_TOL = 2e-3
 ARCHS = ("qwen3-1.7b", "qwen1.5-32b", "nemotron-4-15b", "starcoder2-15b")
-# what the port does not serve yet: MoE and the frontends (ROADMAP Queue 1)
-UNPORTED = ("dbrx_132b", "llama4_scout_17b_a16e", "internvl2_1b",
-            "musicgen_medium")
+# what the port does not serve: nothing, since the MoE archs
+# (tests/test_torch_moe.py) and the frontend stubs
+# (tests/test_torch_frontend.py) joined the dense and recurrent families
+UNPORTED = ()
 B, PROMPT, GEN = 2, 64, 4
 
 
@@ -103,12 +104,15 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap():
+    # every arch of the reference is ported; an unknown name is a KeyError
     assert tuple(a for a in tconfigs.ARCHS if a not in tconfigs.PORTED) == \
         UNPORTED
-    for arch in UNPORTED:
-        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                get(arch)
+    assert tconfigs.PORTED == tconfigs.ARCHS == jconfigs.ARCHS
+    for arch in tconfigs.ARCHS:
+        assert tconfigs.get_config(arch).name == jconfigs.get_config(arch).name
+    for get in (tconfigs.get_config, tconfigs.get_smoke_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("gpt-5")
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +275,25 @@ def test_adc_sums_bit_for_bit_from_the_reference_table():
                jkvc._adc_scores(lut, jnp.asarray(inp["k_codes"]), q8), TOL)
 
 
+def test_f32_lut_scores_add_in_the_kernels_order():
+    # K8 adds an f32 LUT's entries one sub-space after another; the plain
+    # version's scores follow that order, so the kernel's equal them bit
+    # for bit (a reduction in another order differs where large terms
+    # cancel)
+    rng = np.random.default_rng(19)
+    b, kv, g, m, c = 2, 2, 3, 64, 40
+    table = (rng.normal(0, 30, (b, kv, g, m, 16))).astype(np.float32)
+    packed = rng.integers(0, 256, (b, c, kv, m // 2), dtype=np.uint8)
+    got = tpqk.adc_scores(_t(table), None, None, _t(packed)).numpy()
+    codes = tpqk.unpack_codes(_t(packed)).numpy()          # (B, C, KV, M)
+    want = np.zeros((b, kv, g, c), np.float32)
+    for j in range(m):
+        want += np.take_along_axis(
+            table[:, :, :, j, :],
+            codes[:, :, :, j].transpose(0, 2, 1)[:, :, None, :], axis=-1)
+    np.testing.assert_array_equal(got, want)
+
+
 # (positions, chunk, codebook dtype)
 PQ_ATTN_CASES = [([0, 31], 8, "float32"), ([5, 17], 8, "float32"),
                  ([31, 31], 32, "float32"), ([-1, 9], 16, "float32"),
@@ -325,6 +348,19 @@ def test_smem_mirror_covers_the_path_shapes():
     # head_dim 80: well under one block's limit
     assert tpqk.smem_bytes(2, 64, 128, True) < 48 * 1024
     assert tpqk.smem_bytes(1, 40, 80, True) < 48 * 1024
+    # the MoE and frontend archs: dbrx-132b (g 6, M 64, head_dim 128),
+    # llama4-scout (g 5, M 64, 128), internvl2-1b (g 7, M 32, 64) and
+    # musicgen-medium (g 1, M 32, 64), as their configs resolve them
+    for arch, shape in (("dbrx-132b", (6, 64, 128)),
+                        ("llama4-scout-17b-a16e", (5, 64, 128)),
+                        ("internvl2-1b", (7, 32, 64)),
+                        ("musicgen-medium", (1, 32, 64))):
+        cfg = tconfigs.get_config(arch)
+        assert (cfg.n_heads // cfg.n_kv_heads, cfg.resolved_kv_pq_m,
+                cfg.resolved_head_dim) == shape
+        assert shape[0] <= tpqk.MAX_G and shape[2] <= tpqk.THREADS
+        assert tpqk.smem_bytes(*shape, True) < 48 * 1024
+        assert tpqk.smem_bytes(*shape, False) < 232448
     # starcoder2-15b's g = 12 (48 heads over 4), the kernel's largest
     assert tpqk.MAX_G == 12
     assert tpqk.smem_bytes(12, 64, 128, True) < 232448
@@ -503,11 +539,15 @@ def test_serve_batch_pq_runs_the_plain_decode_on_the_cpu(pair):
 
 
 def test_the_stack_rejects_families_not_ported():
+    # an MoE config's blocks hold the routed experts in place of the FFN
     cfg = tconfigs.get_smoke_config("qwen3-1.7b").replace(n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.attn_block_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.lm_specs(cfg)
-    # the recurrent families are served: their stacks build
-    for arch in ("zamba2-2.7b", "rwkv6-3b"):
+    specs = ttf.attn_block_specs(cfg)
+    assert "moe" in specs and "ffn" not in specs
+    assert "moe" in tmodel.lm_specs(cfg)["stack"]["blocks"][0]
+    assert "ffn" in ttf.attn_block_specs(cfg.replace(n_experts=0))
+    # a block type the reference does not have is refused
+    with pytest.raises(ValueError):
+        tmodel.lm_specs(cfg.replace(block_type="transformer-xl"))
+    # every family is served: its stack builds
+    for arch in tconfigs.ARCHS:
         assert "stack" in tmodel.lm_specs(tconfigs.get_smoke_config(arch))
