@@ -95,9 +95,11 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      calibration seconds, cache bytes, the exact-vs-PQ token agreement (a
      figure: the weights are random), peak memory, and K8 held against its
      plain version at the path's shapes and edges (position 0, Smax - 1,
-     g = 1, g = 12 as starcoder2-15b has it, both LUT kinds, f32) and
-     timed beside its bound (20 back-to-back calls replayed as one CUDA
-     graph: the profiler drops K8's records).
+     g = 1, g = 12 as starcoder2-15b has it, both LUT kinds, f32), its
+     error against its split-order twin printed, and timed, both of its
+     passes together, beside its bound and its time before the split
+     redesign (20 back-to-back calls replayed as one CUDA graph: the
+     profiler drops K8's records).
 
   9. the recurrent families at full width and depth, B = 8, 2,048-token
      prompts, 32 new tokens: zamba2-2.7b (54 Mamba2 layers, the shared
@@ -2795,11 +2797,19 @@ LM_FORWARD_RTOL = 5e-2
 # K8 against its plain version, of each (row, head)'s largest |value|: in
 # bf16 four units in the last place (2**-6): each side's rounding of the
 # output (half a unit each), the plain version's rounding of each
-# 2,048-position chunk's value sum to bf16 (K8 sums in f32; half a unit a
-# chunk), and p rounded to bf16 at another running max (K8's 256-position
-# tiles); in f32 the two summation orders, 1e-5. The q8 scores are held
-# bit for bit.
+# 2,048-position chunk's value sum to bf16 (K8 sums each 256-position
+# split in f32 and combines the splits in f32; half a unit a chunk), and
+# p rounded to bf16 at another max (each split's own, then scaled by
+# e^(m_j - m*) in f32: the same half unit a term as a rounding at a
+# running max); in f32 the two orders (the splits' exponentials at their
+# own maxima, scaled and summed in another order), 1e-5. The q8 scores
+# are held bit for bit.
 K8_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+# K8's graph-replay ms a call at each path's shapes before its split
+# redesign (the last chip_smoke.py run before it, NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's; not part of the kernels line
+K8_EARLIER_MS = {"lm": 0.128003, "zamba2": 0.174516, "internvl2": 0.143279,
+                 "musicgen": 0.105408, "dbrx": 0.252949, "llama4": 0.217798}
 
 
 def k8_inputs(torch, seed: int, *, b: int, smax: int, kv: int, g: int,
@@ -2853,6 +2863,11 @@ def k8_check(torch, args, out_dtype, chunk: int, what: str) -> float:
 
     err = rel(got, want)
     tol = K8_RTOL[str(out_dtype).split(".")[-1]]
+    # the kernel's own order in plain PyTorch (splits, then the combine):
+    # a diagnostic
+    twin = pqk.pq_decode_plain(*args, chunk=chunk, out_dtype=out_dtype,
+                               split=pqk.SPLIT)
+    log(f"lm: K8 {what}: against the split-order twin {rel(got, twin):.3e}")
     if out_dtype == torch.bfloat16:
         # both against the function in f32 throughout (f32 codebooks, no
         # rounding of p, of the chunk sums or of the output): a diagnostic
@@ -3015,7 +3030,8 @@ def log_serve(what: str, st: dict, peak: int, b: int, prompt: int) -> None:
 
 def k8_time(torch, path, cfg, live: int, launches: int, what: str):
     """K8's times on ``path`` (its arguments at a path's shapes, back to
-    back on one layer's codes): as graph replays (the figure returned),
+    back on one layer's codes; a call is both of its passes): as graph
+    replays (the figure returned),
     by the profiler and by CUDA events around eager calls (host gaps
     included); the plain version's; and its bound there: (ms, plain ms,
     bound ms, bound by). Leaves K8's count as it was."""
@@ -3045,7 +3061,9 @@ def k8_time(torch, path, cfg, live: int, launches: int, what: str):
     t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
     bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
     log(f"{what}: K8 time at the path's shapes, back to back on one layer's "
-        f"codes (warm in L2): graph replays {ms:.6f} ms a call, profiler "
+        f"codes (warm in L2): graph replays {ms:.6f} ms a call (before the "
+        f"split redesign {K8_EARLIER_MS[what]:.6f} ms: "
+        f"{ms / K8_EARLIER_MS[what]:.3f}x), profiler (both passes) "
         f"{ms_dev} ms, events {ms_ev:.5f} ms, plain {plain_ms:.5f} ms, bound "
         f"{bound:.6f} ms ({by}: {nbytes} B; {int_ops} int ops, {flops} f32 "
         f"ops), {launches} launches on the PQ run")

@@ -18,31 +18,79 @@
 // M = 64, ~2,048-2,111 live positions) it reads ~8.65 MB of K and V codes
 // a call, ~0.0026 ms at 3.35 TB/s; its work (M look-ups and adds a
 // (position, head), hd multiply-adds a (position, head)) is far under
-// that at any of the card's rates.
+// that at any of the card's rates. What held the first version (one CTA a
+// (b, KV head) walking all live positions in 256-position tiles) at 1-4%
+// of that bound was latency: 16-256 CTAs, under half of the 132 SMs at
+// most shapes, each a serial chain of tiles with four barriers a tile.
 //
-// Design (a first, simple one):
-//   - one CTA of 256 threads per (b, KV head); its g u8 (or f32) LUTs and
-//     the head's value codebook (as f32) staged in shared memory;
-//   - the live positions in tiles of 256: thread t sums position t's key
-//     row against each head's LUT with K1's row_sum / sum_word
-//     (fastscan_common.cuh), and copies the value row to shared memory;
-//   - a block max and sum per head each tile (an online softmax, as the
-//     reference's chunks, at the tile's granularity);
-//   - the product: thread (group, d) owns output dim d of every head over
-//     a group of the tile's positions (256 / hd groups), decoding the
-//     value code from shared memory; the groups are summed at the end in
-//     group order.
-// B * KV CTAs (64 at the path's shapes) fill under half of the 132 SMs: a
-// split over the context with a combine pass is the lever left for later.
+// Design: a split over the context, then a combine pass (two launches on
+// the caller's stream, no atomics: the result does not depend on the
+// order in which CTAs run, and a graph replay equals an eager call bit for
+// bit).
+//   1. Split pass, grid (B * KV, ceil(Smax / 256)): CTA (bk, j) owns the
+//      256 positions [256 j, 256 j + 256). The split is fixed, a function
+//      of Smax alone and never of `position`, so the decode graph captures
+//      one grid and replays it as the position moves in its static buffer.
+//      A CTA whose split starts past position[b] writes the empty partial
+//      (m = -inf, l = 0) and exits; at ~2,070 live positions of Smax 4,096
+//      that is 7 of 16 splits, which cost a launch slot and a read of
+//      `position` each. A live CTA
+//        - starts cp.async copies of its g LUTs and of its split's K and V
+//          code rows (16-, 8- or 4-byte, the widest the rows' alignment
+//          takes; byte loads below) into shared memory, each staged row
+//          padded to an odd count of 16-byte units (at M/2 = 32 bytes a
+//          row, 48: the scoring's 4-byte reads, a row a lane, conflict
+//          4-way where 32 would give 8-way); a row of the
+//          (b, KV head) is M/2 bytes at a stride of KV * M/2, so at M = 32
+//          (internvl2, musicgen) a copy uses half of each 32-byte sector,
+//          the other half being the neighbouring head's CTA's;
+//        - meanwhile stages the head's value codebook as f32, transposed
+//          to [code][dim] with a row of a multiple of 32 words, so that
+//          the lanes of a warp (consecutive dims) read distinct banks
+//          whatever their codes;
+//        - scores its positions, one a thread: each K word read once for
+//          all g heads (K1's sum_word for the u8 LUT, the sub-spaces in
+//          order for the f32 LUT, so that its sums equal the plain twin's
+//          bit for bit);
+//        - takes the split's max m_j and sum l_j = sum exp(s - m_j) per
+//          head (two barriers), with p rounded to the codebook's type at
+//          m_j (the same half unit a term as the reference's rounding at
+//          its running max);
+//        - sums p * V: thread (group, unit) owns a unit of two dims (one
+//          where dsub is odd) of every head, and takes four consecutive
+//          positions a step (its group's, then four groups further on):
+//          four value codes decoded once for all g heads (a byte and an
+//          8-byte codebook load each), then one 16-byte load of a head's
+//          four p (stored head-major) for 8 FMAs; four independent loads
+//          in flight a step. The groups are added in group order through
+//          shared memory;
+//        - writes (m_j, l_j, acc_j[hd]) a head to the workspace, f32.
+//      The product runs on FMAs, in f32. An mma.sync.m16n8k16 on bf16 p
+//      and a one-hot of the codes would fit the bf16 codebooks (p times
+//      the one-hot is a histogram of p by code, then 16 FMAs a dim), but
+//      its B fragments need four byte loads a lane a k-step, as many
+//      shared-memory loads as this product at the paths' g <= 7, and the
+//      f32 codebooks would need TF32, which breaks their 1e-5 tolerance.
+//      The per-head registers are arrays of G = 1 where g = 1, else of
+//      kMaxG (launch_split_g says why).
+//   2. Combine pass, one CTA of 128 threads a (b, KV head, query head):
+//      one warp reads the live splits' maxima and sums (their count from
+//      position[b], the same rule as the split pass), m* = max m_j, the
+//      weights e^{m_j - m*} and L = sum e^{m_j - m*} l_j; then each thread
+//      sums its dims' e^{m_j - m*} acc_j in split order and writes
+//      acc / max(L, 1e-20) in the output type. Nothing live gives 0, and
+//      no -inf - -inf is ever taken.
 // The zamba2 hybrid's shared attention (head_dim 80, M = 40, g = 1, KV =
-// 32) runs 256 CTAs; its 80-dim product uses 3 groups of 80 threads and
-// leaves 16 idle, and its 20-byte rows load 4 bytes at a time.
+// 32) reads its 20-byte rows 4 bytes at a copy, and 240 of 256 threads
+// sum its 40 units in 6 groups. Measured (tools/time_k8.py, H100, 700 W):
+// 0.014-0.046 ms a call at the six paths' shapes, 0.10-0.26x the first
+// version, still 7-31x the bound: each CTA's short chain of global round
+// trips, barriers and shared-memory loads, not its bytes, sets the time,
+// and more CTAs an SM (launch bounds of 5 and 8 CTAs) were slower.
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include <algorithm>
-
-#include "fastscan_common.cuh"
+#include "fastscan_mma_flat.cuh"  // cp.async, align16, kSmemLimit
 
 namespace {
 
@@ -50,37 +98,64 @@ using namespace repro_cuda;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kThreads;  // positions a tile, one a thread
+constexpr int kSplit = kThreads;  // positions a split, one a thread
 // query heads a KV head: the repo's configs reach 12 (starcoder2-15b's
 // 48 over 4); the per-head registers are arrays of this size
 constexpr int kMaxG = 12;
-constexpr size_t kSmemLimit = 232448;
+constexpr int kCombineThreads = 128;
 
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
+__host__ __device__ inline int n_splits(int smax) {
+  return (smax + kSplit - 1) / kSplit;
 }
 
-// Byte offsets in shared memory: the g LUTs, the value codebook (hd * 16
-// f32), the tile's value codes, its p (g f32 a position), the reductions.
+// Bytes of one staged code row: M/2 bytes rounded up to an odd count of
+// 16-byte units (16-byte aligned for the copies, and fewer bank conflicts
+// for the scoring's reads, a row a lane, than an even count).
+__host__ __device__ inline int code_stride(int mh) {
+  return 16 * (((mh + 15) / 16) | 1);
+}
+
+// f32 words of one code's row of the staged value codebook.
+__host__ __device__ inline int cb_stride(int hd) { return (hd + 31) & ~31; }
+
+// Dims a thread's product unit covers: 2 (one sub-space's pair) where dsub
+// is even, else 1.
+__host__ __device__ inline int unit_width(int dsub) {
+  return dsub % 2 == 0 ? 2 : 1;
+}
+
+// Byte offsets in the split pass's shared memory: the g LUTs, the value
+// codebook, the split's K codes (after scoring, the product's group sums),
+// its V codes, its p (f32, a head's 256 in a row), the max and sum
+// partials.
 struct Layout {
-  size_t lut, cb, vcodes, p, red, total;
+  size_t lut, cb, kc, vc, p, red, total;
 };
 
 __host__ __device__ inline Layout layout(int g, int m, int hd, bool q8) {
+  const int units = hd / unit_width(hd / m);
+  const size_t rows = static_cast<size_t>(kSplit) * code_stride(m / 2);
+  const size_t sums = static_cast<size_t>(kThreads / units) * g * hd * 4;
   Layout l{};
   size_t off = 0;
   l.lut = off;
   off += align16(static_cast<size_t>(g) * m * 16 * (q8 ? 1 : 4));
   l.cb = off;
-  off += align16(static_cast<size_t>(hd) * 16 * 4);
-  l.vcodes = off;
-  off += align16(static_cast<size_t>(kTile) * (m / 2));
+  off += align16(static_cast<size_t>(16) * cb_stride(hd) * 4);
+  l.kc = off;
+  off += align16(rows > sums ? rows : sums);
+  l.vc = off;
+  off += align16(rows);
   l.p = off;
-  off += align16(static_cast<size_t>(kTile) * g * 4);
+  off += align16(static_cast<size_t>(kSplit) * g * 4);
   l.red = off;
-  off += align16(static_cast<size_t>(kThreads) * g * 4 + kMaxG * 4);
+  off += align16(static_cast<size_t>(2) * kWarps * g * 4);
   l.total = off;
   return l;
+}
+
+__host__ __device__ inline size_t combine_smem(int smax) {
+  return align16(static_cast<size_t>(n_splits(smax) + 1) * 4);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -120,230 +195,410 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of one packed row of mh bytes against an (M, 16) f32 LUT.
-__device__ __forceinline__ float row_sum_f32(const uint8_t* row,
-                                             const float* lut, int mh) {
-  float acc = 0.f;
-  for (int j = 0; j < mh; ++j) {
-    const uint32_t b = row[j];
-    acc += lut[(2 * j) * 16 + (b & 15u)];
-    acc += lut[(2 * j + 1) * 16 + (b >> 4)];
-  }
-  return acc;
+// cp.async of W = 16 (through L2 only), 8 or 4 (through L1) bytes.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(W)
+                 : "memory");
 }
 
-template <typename CB, typename OUT, bool Q8>
-__global__ void __launch_bounds__(kThreads) pq_decode_kernel(
+// Starts the copies of n code rows of mh bytes (source rows `stride`
+// bytes apart, each W-byte aligned) into rows of `cs` bytes at dst,
+// W bytes a copy, neighbouring threads on neighbouring pieces of a row.
+template <int W>
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src,
+                                          int n, int mh, size_t stride,
+                                          int cs) {
+  const int per_row = mh / W;
+  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i % per_row) * W;
+    cp_async<W>(dst + r * cs + c, src + r * stride + c);
+  }
+}
+
+__device__ __forceinline__ void copy_rows_any(uint8_t* dst,
+                                              const uint8_t* src, int n,
+                                              int mh, size_t stride, int cs,
+                                              int width) {
+  if (width == 16) {
+    copy_rows<16>(dst, src, n, mh, stride, cs);
+  } else if (width == 8) {
+    copy_rows<8>(dst, src, n, mh, stride, cs);
+  } else if (width == 4) {
+    copy_rows<4>(dst, src, n, mh, stride, cs);
+  } else {
+    for (int i = threadIdx.x; i < n * mh; i += kThreads) {
+      const int r = i / mh, c = i % mh;
+      dst[r * cs + c] = src[r * stride + c];
+    }
+  }
+}
+
+// Adds the f32 LUT entries of code byte `byte` (sub-spaces 2 byte, 2 byte
+// + 1) to acc, one add each, in sub-space order.
+__device__ __forceinline__ void add_byte_f32(float& acc, uint32_t b,
+                                             const float* lut, int byte) {
+  acc += lut[(2 * byte) * 16 + (b & 15u)];
+  acc += lut[(2 * byte + 1) * 16 + (b >> 4)];
+}
+
+template <typename CB, bool Q8, int G>
+__global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
     const void* __restrict__ table, const float* __restrict__ scale,
     const float* __restrict__ bias, const uint8_t* __restrict__ k_codes,
     const uint8_t* __restrict__ v_codes, const CB* __restrict__ v_cb,
     const int32_t* __restrict__ position, int kv, int g, int m, int dsub,
-    int smax, int vec, OUT* __restrict__ out, float* __restrict__ scores) {
+    int smax, int width, float* __restrict__ work,
+    float* __restrict__ scores) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int hd = m * dsub, mh = m / 2;
   const Layout lay = layout(g, m, hd, Q8);
-  const int b = blockIdx.x / kv, kh = blockIdx.x % kv;
+  const int bk = blockIdx.x, b = bk / kv, kh = bk % kv;
+  const int split = blockIdx.y, nsplit = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t bk = static_cast<size_t>(b) * kv + kh;
+  const int live = min(max(position[b] + 1, 0), smax);
+  const int s0 = split * kSplit;
+  // head h's partial: (m_j, l_j, acc_j[hd]) at part + h * hstride
+  const size_t hstride = static_cast<size_t>(nsplit) * (hd + 2);
+  float* part = work + (static_cast<size_t>(bk) * g * nsplit + split) *
+                           (hd + 2);
+  if (s0 >= live) {
+    if (tid < g) {
+      part[tid * hstride] = -INFINITY;
+      part[tid * hstride + 1] = 0.f;
+    }
+    return;
+  }
+  const int n = min(kSplit, live - s0);
+  const int cs = code_stride(mh);
+  uint8_t* kcs = smem + lay.kc;
+  uint8_t* vcs = smem + lay.vc;
 
-  // this (b, KV head)'s g LUTs and the head's value codebook, as f32
+  // the LUTs and the split's code rows, in flight while the codebook is
+  // staged
   const size_t lut_bytes = static_cast<size_t>(g) * m * 16 * (Q8 ? 1 : 4);
-  stage_bytes(smem + lay.lut,
-              static_cast<const uint8_t*>(table) + bk * lut_bytes, lut_bytes);
+  copy_async<kThreads>(smem + lay.lut,
+                       static_cast<const uint8_t*>(table) + bk * lut_bytes,
+                       lut_bytes);
+  const size_t row_stride = static_cast<size_t>(kv) * mh;
+  const size_t first = ((static_cast<size_t>(b) * smax + s0) * kv + kh) * mh;
+  copy_rows_any(kcs, k_codes + first, n, mh, row_stride, cs, width);
+  copy_rows_any(vcs, v_codes + first, n, mh, row_stride, cs, width);
+  cp_async_commit();
   float* cbs = reinterpret_cast<float*>(smem + lay.cb);
+  const int cbst = cb_stride(hd);
   const CB* cbg = v_cb + static_cast<size_t>(kh) * hd * 16;
-  for (int i = tid; i < hd * 16; i += kThreads) cbs[i] = to_float(cbg[i]);
-  uint8_t* vcs = smem + lay.vcodes;
-  float* ps = reinterpret_cast<float*>(smem + lay.p);
-  float* red = reinterpret_cast<float*>(smem + lay.red);
-  float* lsum = red + kThreads * g;
-
-  float sc[kMaxG], bi[kMaxG], mrun[kMaxG], lrun[kMaxG], acc[kMaxG];
+  for (int i = tid; i < 16 * hd; i += kThreads) {
+    const int c = i / hd, d = i % hd;
+    cbs[c * cbst + d] = to_float(cbg[((d / dsub) * 16 + c) * dsub + d % dsub]);
+  }
+  float sc[G], bi[G];
 #pragma unroll
-  for (int h = 0; h < kMaxG; ++h) {
+  for (int h = 0; h < G; ++h) {
     sc[h] = bi[h] = 0.f;
     if (Q8 && h < g) {
-      sc[h] = scale[bk * g + h];
-      bi[h] = bias[bk * g + h];
+      sc[h] = scale[static_cast<size_t>(bk) * g + h];
+      bi[h] = bias[static_cast<size_t>(bk) * g + h];
     }
-    mrun[h] = -INFINITY;
-    lrun[h] = 0.f;
-    acc[h] = 0.f;
   }
-  const int live = min(max(position[b] + 1, 0), smax);
-  // the product's work split: output dim d of a group of positions
-  const int groups = kThreads / hd;
-  const int d = tid % hd, grp = tid / hd;
-  const int msub = d / dsub, dd = d % dsub;
-  const size_t row_stride = static_cast<size_t>(kv) * mh;
-  const size_t base = (static_cast<size_t>(b) * smax * kv + kh) * mh;
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int t0 = 0; t0 < live; t0 += kTile) {
-    const int n = min(kTile, live - t0);
-    float s[kMaxG];
-    if (tid < n) {
-      const size_t row = base + static_cast<size_t>(t0 + tid) * row_stride;
-      const uint8_t* krow = k_codes + row;
+  // scores: position s0 + tid, each K word read once for all heads
+  float s[G];
+  if (tid < n) {
+    const uint8_t* row = kcs + tid * cs;
+    const int words = mh / 4;
+    if (Q8) {
+      const uint8_t* lut = smem + lay.lut;
+      int a[G];
 #pragma unroll
-      for (int h = 0; h < kMaxG; ++h) {
-        if (h >= g) break;
-        if (Q8) {
-          const int a = row_sum(krow, smem + lay.lut + h * m * 16, mh, vec);
-          s[h] = __fadd_rn(__fmul_rn(sc[h], static_cast<float>(a)), bi[h]);
-        } else {
-          s[h] = row_sum_f32(
-              krow, reinterpret_cast<const float*>(smem + lay.lut) + h * m * 16,
-              mh);
-        }
-        if (scores) scores[(bk * g + h) * smax + t0 + tid] = s[h];
-      }
-      const uint8_t* vrow = v_codes + row;
-      if (vec == 8) {
-        for (int j = 0; j < mh; j += 8)
-          *reinterpret_cast<uint2*>(vcs + tid * mh + j) =
-              *reinterpret_cast<const uint2*>(vrow + j);
-      } else {
-        for (int j = 0; j < mh; ++j) vcs[tid * mh + j] = vrow[j];
-      }
-    } else {
+      for (int h = 0; h < G; ++h) a[h] = 0;
+      for (int j = 0; j < words; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * j);
 #pragma unroll
-      for (int h = 0; h < kMaxG; ++h) s[h] = -INFINITY;
-    }
-    // the tile's max per head
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h) {
-      if (h >= g) break;
-      const float v = warp_max(s[h]);
-      if (lane == 0) red[warp * g + h] = v;
-    }
-    __syncthreads();
-    float msafe[kMaxG], corr[kMaxG];
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h) {
-      msafe[h] = 0.f;
-      corr[h] = 0.f;
-      if (h >= g) continue;
-      float tm = red[h];
-      for (int w = 1; w < kWarps; ++w) tm = fmaxf(tm, red[w * g + h]);
-      const float mnew = fmaxf(mrun[h], tm);
-      msafe[h] = isfinite(mnew) ? mnew : 0.f;
-      corr[h] = isfinite(mrun[h]) ? expf(mrun[h] - msafe[h]) : 0.f;
-      mrun[h] = mnew;
-    }
-    __syncthreads();  // red is reused for the sums
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h) {
-      if (h >= g) break;
-      const float p = tid < n ? expf(s[h] - msafe[h]) : 0.f;
-      ps[tid * g + h] = round_to<CB>(p);
-      const float w = warp_sum(p);
-      if (lane == 0) red[warp * g + h] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h) {
-      if (h >= g) break;
-      float ts = 0.f;
-      for (int w = 0; w < kWarps; ++w) ts += red[w * g + h];
-      lrun[h] = lrun[h] * corr[h] + ts;
-    }
-    if (grp < groups) {
-#pragma unroll
-      for (int h = 0; h < kMaxG; ++h) acc[h] *= corr[h];
-      for (int i = grp; i < n; i += groups) {
-        const uint32_t byte = vcs[i * mh + (msub >> 1)];
-        const uint32_t code = (msub & 1) ? (byte >> 4) : (byte & 15u);
-        const float val = cbs[(msub * 16 + code) * dsub + dd];
-#pragma unroll
-        for (int h = 0; h < kMaxG; ++h) {
+        for (int h = 0; h < G; ++h) {
           if (h >= g) break;
-          acc[h] = fmaf(ps[i * g + h], val, acc[h]);
+          a[h] += sum_word(w, lut + h * m * 16, 4 * j);
+        }
+      }
+      for (int j = 4 * words; j < mh; ++j) {
+        const uint32_t c = row[j];
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          if (h >= g) break;
+          const uint8_t* l = lut + h * m * 16;
+          a[h] += l[(2 * j) * 16 + (c & 15u)] + l[(2 * j + 1) * 16 + (c >> 4)];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < G; ++h)
+        s[h] = __fadd_rn(__fmul_rn(sc[h], static_cast<float>(a[h])), bi[h]);
+    } else {
+      const float* lut = reinterpret_cast<const float*>(smem + lay.lut);
+#pragma unroll
+      for (int h = 0; h < G; ++h) s[h] = 0.f;
+      for (int j = 0; j < words; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * j);
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          if (h >= g) break;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            add_byte_f32(s[h], (w >> (8 * i)) & 0xffu, lut + h * m * 16,
+                         4 * j + i);
+        }
+      }
+      for (int j = 4 * words; j < mh; ++j) {
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          if (h >= g) break;
+          add_byte_f32(s[h], row[j], lut + h * m * 16, j);
         }
       }
     }
-    __syncthreads();  // before the next tile overwrites vcs, ps and red
+    if (scores) {
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        if (h >= g) break;
+        scores[(static_cast<size_t>(bk) * g + h) * smax + s0 + tid] = s[h];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < G; ++h) s[h] = -INFINITY;
   }
 
-  // the position groups' sums, added in group order
-  if (grp < groups) {
+  // the split's max and sum per head; p rounded at the split's max
+  float* red = reinterpret_cast<float*>(smem + lay.red);  // [2][warp][g]
 #pragma unroll
-    for (int h = 0; h < kMaxG; ++h) {
-      if (h >= g) break;
-      red[(grp * g + h) * hd + d] = acc[h];
-    }
-  }
-  if (tid == 0) {
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h)
-      if (h < g) lsum[h] = lrun[h];
+  for (int h = 0; h < G; ++h) {
+    if (h >= g) break;
+    const float v = warp_max(s[h]);
+    if (lane == 0) red[warp * g + h] = v;
   }
   __syncthreads();
+  float* ps = reinterpret_cast<float*>(smem + lay.p);
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    if (h >= g) break;
+    float mj = red[h];
+    for (int w = 1; w < kWarps; ++w) mj = fmaxf(mj, red[w * g + h]);
+    const float p = tid < n ? expf(s[h] - mj) : 0.f;
+    ps[h * kSplit + tid] = round_to<CB>(p);
+    const float w = warp_sum(p);
+    if (lane == 0) red[(kWarps + warp) * g + h] = w;
+  }
+  __syncthreads();
+
+  // the product: thread (grp, u) owns dims d0 .. d0 + uw - 1 of every head
+  // over the positions 4 grp .. 4 grp + 3, then 4 groups further on, ...
+  // (p is 0 and the codes are any nibble past n: no mask)
+  const int uw = unit_width(dsub), units = hd / uw, groups = kThreads / units;
+  const int u = tid % units, grp = tid / units;
+  float* sums = reinterpret_cast<float*>(smem + lay.kc);  // K codes: done
+  if (grp < groups) {
+    const int d0 = u * uw, sub = d0 / dsub;
+    const uint8_t* vbyte = vcs + (sub >> 1);
+    const int shift = (sub & 1) * 4;
+    const float* cbu = cbs + d0;
+    float acc0[G], acc1[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) acc0[h] = acc1[h] = 0.f;
+    for (int i = 4 * grp; i < n; i += 4 * groups) {
+      float v0[4], v1[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t code = (vbyte[(i + q) * cs] >> shift) & 15u;
+        if (uw == 2) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(cbu + code * cbst);
+          v0[q] = v.x;
+          v1[q] = v.y;
+        } else {
+          v0[q] = cbu[code * cbst];
+          v1[q] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        if (h >= g) break;
+        const float4 p = *reinterpret_cast<const float4*>(ps + h * kSplit + i);
+        acc0[h] = fmaf(p.x, v0[0], acc0[h]);
+        acc1[h] = fmaf(p.x, v1[0], acc1[h]);
+        acc0[h] = fmaf(p.y, v0[1], acc0[h]);
+        acc1[h] = fmaf(p.y, v1[1], acc1[h]);
+        acc0[h] = fmaf(p.z, v0[2], acc0[h]);
+        acc1[h] = fmaf(p.z, v1[2], acc1[h]);
+        acc0[h] = fmaf(p.w, v0[3], acc0[h]);
+        acc1[h] = fmaf(p.w, v1[3], acc1[h]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      if (h >= g) break;
+      float* dst = sums + (grp * g + h) * hd + d0;
+      dst[0] = acc0[h];
+      if (uw == 2) dst[1] = acc1[h];
+    }
+  }
+  __syncthreads();
+
+  // the groups' sums in group order, then (m_j, l_j) a head
   for (int i = tid; i < g * hd; i += kThreads) {
-    const int h = i / hd, e = i % hd;
+    const int h = i / hd, d = i % hd;
     float a = 0.f;
-    for (int gr = 0; gr < groups; ++gr) a += red[(gr * g + h) * hd + e];
-    out[(bk * g + h) * hd + e] = from_float<OUT>(a / fmaxf(lsum[h], 1e-20f));
+    for (int gr = 0; gr < groups; ++gr) a += sums[(gr * g + h) * hd + d];
+    part[h * hstride + 2 + d] = a;
+  }
+  if (tid < g) {
+    float mj = red[tid], l = 0.f;
+    for (int w = 1; w < kWarps; ++w) mj = fmaxf(mj, red[w * g + tid]);
+    for (int w = 0; w < kWarps; ++w) l += red[(kWarps + w) * g + tid];
+    part[tid * hstride] = mj;
+    part[tid * hstride + 1] = l;
   }
 }
 
-template <typename CB, typename OUT, bool Q8>
-cudaError_t launch(const void* table, const float* scale, const float* bias,
-                   const uint8_t* k_codes, const uint8_t* v_codes,
-                   const void* v_cb, const int32_t* position, int b, int kv,
-                   int g, int m, int dsub, int smax, void* out, float* scores,
-                   cudaStream_t stream) {
+template <typename OUT>
+__global__ void __launch_bounds__(kCombineThreads) pq_decode_kernel_combine(
+    const float* __restrict__ work, const int32_t* __restrict__ position,
+    int kvg, int hd, int smax, OUT* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* wts = reinterpret_cast<float*>(smem);  // e^{m_j - m*}, then L
+  const int r = blockIdx.x, b = r / kvg, tid = threadIdx.x;
+  const int nsplit = n_splits(smax);
+  const int live = min(max(position[b] + 1, 0), smax);
+  const int nl = (live + kSplit - 1) / kSplit;
+  const size_t ps = static_cast<size_t>(hd) + 2;
+  const float* part = work + static_cast<size_t>(r) * nsplit * ps;
+  if (tid < 32) {
+    float mx = -INFINITY;
+    for (int j = tid; j < nl; j += 32) mx = fmaxf(mx, part[j * ps]);
+    mx = warp_max(mx);
+    float l = 0.f;
+    for (int j = tid; j < nl; j += 32) {
+      const float e = expf(part[j * ps] - mx);
+      wts[j] = e;
+      l += e * part[j * ps + 1];
+    }
+    l = warp_sum(l);
+    if (tid == 0) wts[nsplit] = l;
+  }
+  __syncthreads();
+  const float den = fmaxf(wts[nsplit], 1e-20f);
+  for (int d = tid; d < hd; d += kCombineThreads) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < nl; ++j) a = fmaf(wts[j], part[j * ps + 2 + d], a);
+    out[static_cast<size_t>(r) * hd + d] = from_float<OUT>(a / den);
+  }
+}
+
+// The widest copy (16, 8, 4 or 1 bytes) that both code arrays' rows of mh
+// bytes take.
+inline int copy_width(const void* kc, const void* vc, int mh) {
+  const uintptr_t a =
+      reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc);
+  for (int w = 16; w >= 4; w /= 2)
+    if (mh % w == 0 && a % w == 0) return w;
+  return 1;
+}
+
+template <typename CB, bool Q8, int G>
+cudaError_t launch_split(const void* table, const float* scale,
+                         const float* bias, const uint8_t* k_codes,
+                         const uint8_t* v_codes, const void* v_cb,
+                         const int32_t* position, int b, int kv, int g, int m,
+                         int dsub, int smax, float* work, float* scores,
+                         cudaStream_t stream) {
   const size_t smem = layout(g, m, m * dsub, Q8).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto* kernel = pq_decode_kernel<CB, OUT, Q8>;
+  auto* kernel = pq_decode_kernel_split<CB, Q8, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // the rows are mh bytes at multiples of mh: k_codes and v_codes alike
-  const int vec = std::min(load_width(k_codes, m / 2),
-                           load_width(v_codes, m / 2));
-  kernel<<<b * kv, kThreads, smem, stream>>>(
+  const dim3 grid(b * kv, n_splits(smax));
+  kernel<<<grid, kThreads, smem, stream>>>(
       table, scale, bias, k_codes, v_codes, static_cast<const CB*>(v_cb),
-      position, kv, g, m, dsub, smax, vec, static_cast<OUT*>(out), scores);
+      position, kv, g, m, dsub, smax, copy_width(k_codes, v_codes, m / 2),
+      work, scores);
   return cudaGetLastError();
 }
 
-template <typename CB, typename OUT>
-cudaError_t launch_q8(bool q8, const void* table, const float* scale,
-                      const float* bias, const uint8_t* k_codes,
-                      const uint8_t* v_codes, const void* v_cb,
-                      const int32_t* position, int b, int kv, int g, int m,
-                      int dsub, int smax, void* out, float* scores,
-                      cudaStream_t stream) {
-  return q8 ? launch<CB, OUT, true>(table, scale, bias, k_codes, v_codes,
-                                    v_cb, position, b, kv, g, m, dsub, smax,
-                                    out, scores, stream)
-            : launch<CB, OUT, false>(table, scale, bias, k_codes, v_codes,
-                                     v_cb, position, b, kv, g, m, dsub, smax,
-                                     out, scores, stream);
+// The split pass with register arrays of G = 1 head where g = 1 (zamba2,
+// musicgen, the MHA configs), else of kMaxG. At G = 1 a thread needs 40
+// registers, so 6 CTAs share an SM where 4 do at 64: 17-20% faster at the
+// g = 1 paths' shapes (tools/time_k8.py on the H100). Arrays of 2, 4 or
+// 8 heads were 4-9% slower than kMaxG at g = 2, 5 and 6, and so were
+// 16-byte reads of the K rows (24-28%, more registers).
+template <typename CB, bool Q8>
+cudaError_t launch_split_g(const void* table, const float* scale,
+                           const float* bias, const uint8_t* k_codes,
+                           const uint8_t* v_codes, const void* v_cb,
+                           const int32_t* position, int b, int kv, int g,
+                           int m, int dsub, int smax, float* work,
+                           float* scores, cudaStream_t stream) {
+#define REPRO_K8_SPLIT(G)                                                   \
+  launch_split<CB, Q8, G>(table, scale, bias, k_codes, v_codes, v_cb,       \
+                          position, b, kv, g, m, dsub, smax, work, scores, \
+                          stream)
+  return g == 1 ? REPRO_K8_SPLIT(1) : REPRO_K8_SPLIT(kMaxG);
+#undef REPRO_K8_SPLIT
+}
+
+template <typename OUT>
+cudaError_t launch_combine(const float* work, const int32_t* position, int b,
+                           int kv, int g, int hd, int smax, void* out,
+                           cudaStream_t stream) {
+  const size_t smem = combine_smem(smax);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto* kernel = pq_decode_kernel_combine<OUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<b * kv * g, kCombineThreads, smem, stream>>>(
+      work, position, kv * g, hd, smax, static_cast<OUT*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory (bytes) one CTA needs at (g, M, head_dim, quantize_q8):
-// the wrapper checks it against the card's limit before launching.
+// Shared memory (bytes) one CTA of the split pass needs at (g, M,
+// head_dim, quantize_q8): the wrapper checks it against the card's limit
+// before launching.
 extern "C" long long repro_pq_decode_attention_smem(int g, int m, int hd,
                                                     int q8) {
   return static_cast<long long>(layout(g, m, hd, q8 != 0).total);
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// table: (B, KV, g, M, 16) u8 with scale and summed bias (B, KV, g) f32
-// when q8, else f32 (scale and bias unused); k_codes, v_codes: (B, Smax,
-// KV, M/2) u8; v_cb: (KV, M, 16, dsub) bf16 or f32; position: (B,) i32;
-// out: (B, KV * g, M * dsub) bf16 or f32; scores: null, or (B, KV, g,
-// Smax) f32 that gets each live position's score.
+// Shared memory (bytes) one CTA of the combine pass needs at Smax.
+extern "C" long long repro_pq_decode_combine_smem(int smax) {
+  return static_cast<long long>(combine_smem(smax));
+}
+
+// Launch both passes on `stream`; returns the first cudaGetLastError()
+// that is not 0 (0 = ok). table: (B, KV, g, M, 16) u8 with scale and
+// summed bias (B, KV, g) f32 when q8, else f32 (scale and bias unused);
+// k_codes, v_codes: (B, Smax, KV, M/2) u8; v_cb: (KV, M, 16, dsub) bf16
+// or f32; position: (B,) i32; out: (B, KV * g, M * dsub) bf16 or f32;
+// scores: null, or (B, KV, g, Smax) f32 that gets each live position's
+// score; work: (B, KV, g, ceil(Smax / 256), M * dsub + 2) f32, the split
+// pass's partials.
 extern "C" int repro_pq_decode_attention(
     const void* table, const void* scale, const void* bias,
     const void* k_codes, const void* v_codes, const void* v_cb,
     const void* position, int b, int kv, int g, int m, int dsub, int smax,
-    int q8, int cb_bf16, int out_bf16, void* out, void* scores,
+    int q8, int cb_bf16, int out_bf16, void* out, void* scores, void* work,
     void* stream) {
   if (g < 1 || g > kMaxG || m < 2 || m % 2 || dsub < 1 ||
       m * dsub > kThreads || b < 1 || kv < 1 || smax < 1)
@@ -354,22 +609,25 @@ extern "C" int repro_pq_decode_attention(
   const auto* vc = static_cast<const uint8_t*>(v_codes);
   const auto* pos = static_cast<const int32_t*>(position);
   auto* sco = static_cast<float*>(scores);
+  auto* wk = static_cast<float*>(work);
   auto* s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (cb_bf16 && out_bf16)
-    err = launch_q8<__nv_bfloat16, __nv_bfloat16>(
-        q8, table, sc, bi, kc, vc, v_cb, pos, b, kv, g, m, dsub, smax, out,
-        sco, s);
-  else if (cb_bf16)
-    err = launch_q8<__nv_bfloat16, float>(q8, table, sc, bi, kc, vc, v_cb,
-                                          pos, b, kv, g, m, dsub, smax, out,
-                                          sco, s);
-  else if (out_bf16)
-    err = launch_q8<float, __nv_bfloat16>(q8, table, sc, bi, kc, vc, v_cb,
-                                          pos, b, kv, g, m, dsub, smax, out,
-                                          sco, s);
+  if (cb_bf16)
+    err = q8 ? launch_split_g<__nv_bfloat16, true>(table, sc, bi, kc, vc, v_cb,
+                                                 pos, b, kv, g, m, dsub, smax,
+                                                 wk, sco, s)
+             : launch_split_g<__nv_bfloat16, false>(table, sc, bi, kc, vc, v_cb,
+                                                  pos, b, kv, g, m, dsub,
+                                                  smax, wk, sco, s);
   else
-    err = launch_q8<float, float>(q8, table, sc, bi, kc, vc, v_cb, pos, b,
-                                  kv, g, m, dsub, smax, out, sco, s);
+    err = q8 ? launch_split_g<float, true>(table, sc, bi, kc, vc, v_cb, pos, b,
+                                         kv, g, m, dsub, smax, wk, sco, s)
+             : launch_split_g<float, false>(table, sc, bi, kc, vc, v_cb, pos, b,
+                                          kv, g, m, dsub, smax, wk, sco, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = out_bf16 ? launch_combine<__nv_bfloat16>(wk, pos, b, kv, g, m * dsub,
+                                                 smax, out, s)
+                 : launch_combine<float>(wk, pos, b, kv, g, m * dsub, smax,
+                                         out, s);
   return static_cast<int>(err);
 }

@@ -7,15 +7,28 @@ softmax and value decode over 2,048-position chunks); the CUDA source is
 ``models/kvcache.py::pq_decode_attention`` builds the inner-product LUTs
 and quantizes them; the kernel scores each live position's key codes
 against them with K1's row sum (i32 sums, then ``scale * acc + bias``),
-runs an online softmax in f32 and accumulates the decoded value rows.
-Dead positions (past ``position[b]``) add exactly 0 in the reference and
-are never read. Bound by memory on the H100: the live positions' codes.
+runs a softmax in f32 and accumulates the decoded value rows. Dead
+positions (past ``position[b]``) add exactly 0 in the reference and are
+never read. Bound by memory on the H100: the live positions' codes.
+
+The kernel is two launches a call. The split pass runs one CTA a (batch
+row, KV head, ``SPLIT``-position split of the cache): ``ceil(Smax /
+SPLIT)`` splits, a function of the static shapes alone and never of
+``position``, so a captured decode graph replays one grid while the
+position moves. Each live CTA writes its split's max, sum and value sum
+a head to an f32 workspace; a split past the position writes the empty
+partial. The combine pass, one CTA a (batch row, query head), scales the
+live splits' partials to their common max and divides. Without atomics
+the result is deterministic. The bound is bytes, but what sets the time
+is latency: the split gives every SM CTAs to switch between, and no CTA
+walks more than one 256-position tile.
 
 Beside the kernel: ``pq_decode_plain``, the same function in plain
 PyTorch in the reference's chunked order and casts (the CPU path and the
-on-card reference), the integer and float ADC stages it is built from
-(``adc_sums``, ``adc_scores``), ``decode_kv``, and ``launches``, the count
-of kernel launches.
+on-card reference) or, with ``split=``, in the kernel's split-and-combine
+order; the integer and float ADC stages it is built from (``adc_sums``,
+``adc_scores``), ``decode_kv``, and ``launches``, the count of kernel
+calls (one a call, both passes together).
 """
 from __future__ import annotations
 
@@ -27,20 +40,40 @@ launches = 0
 
 # mirrors of the .cu's constants
 THREADS = 256
+SPLIT = 256           # positions a split of the split pass
 MAX_G = 12
+_WARPS = THREADS // 32
 
 
 def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def n_splits(smax: int) -> int:
+    return -(-smax // SPLIT)
+
+
 def smem_bytes(g: int, m: int, hd: int, q8: bool) -> int:
-    """Shared memory one CTA needs (mirrors ``layout`` in the .cu, which
-    exports it as ``repro_pq_decode_attention_smem``): the g LUTs, the
-    value codebook as f32, a tile's value codes and p, the reductions."""
-    return (_align16(g * m * 16 * (1 if q8 else 4)) + _align16(hd * 16 * 4)
-            + _align16(THREADS * (m // 2)) + _align16(THREADS * g * 4)
-            + _align16(THREADS * g * 4 + MAX_G * 4))
+    """Shared memory one CTA of the split pass needs (mirrors ``layout``
+    in the .cu, which exports it as ``repro_pq_decode_attention_smem``):
+    the g LUTs, the value codebook as f32 in rows of a multiple of 32
+    words, the split's K codes (or the product's group sums, which reuse
+    them) and V codes in rows of an odd count of 16-byte units, its p, the
+    max and sum partials."""
+    dsub = hd // m
+    units = hd // (2 if dsub % 2 == 0 else 1)
+    rows = SPLIT * 16 * ((-(-(m // 2) // 16)) | 1)
+    sums = (THREADS // units) * g * hd * 4
+    return (_align16(g * m * 16 * (1 if q8 else 4))
+            + _align16(16 * ((hd + 31) & ~31) * 4) + _align16(max(rows, sums))
+            + _align16(rows) + _align16(SPLIT * g * 4)
+            + _align16(2 * _WARPS * g * 4))
+
+
+def combine_smem_bytes(smax: int) -> int:
+    """Shared memory one CTA of the combine pass needs (mirrors the .cu's
+    ``repro_pq_decode_combine_smem``): a weight a split and the sum."""
+    return _align16((n_splits(smax) + 1) * 4)
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
@@ -129,11 +162,22 @@ def _check(table, scale, bias, k_codes, v_codes, v_cb, position) -> None:
 
 
 def pq_decode_plain(table, scale, bias, k_codes, v_codes, v_cb, position,
-                    *, chunk: int, out_dtype: torch.dtype) -> torch.Tensor:
+                    *, chunk: int, out_dtype: torch.dtype,
+                    split: int | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the reference's order:
     an online softmax over ``chunk``-position chunks of the whole cache,
     dead positions masked to -inf, p cast to the codebook's type for each
-    chunk's product. Returns (B, KV * g, hd) in ``out_dtype``."""
+    chunk's product. Returns (B, KV * g, hd) in ``out_dtype``.
+
+    With ``split`` (an int; ``chunk`` is then unused), the kernel's order
+    instead: each ``split``-position split of the cache (the last one
+    ragged where Smax is not a multiple) takes its own max m_j, sum l_j
+    and value sum acc_j, p rounded to the codebook's type at m_j and the
+    product in f32; then the splits are scaled to their common max m*,
+    ``sum e^(m_j - m*) acc_j / max(sum e^(m_j - m*) l_j, 1e-20)``."""
+    if split is not None:
+        return _plain_split(table, scale, bias, k_codes, v_codes, v_cb,
+                            position, split, out_dtype)
     b, smax, kv, _ = k_codes.shape
     g = table.shape[2]
     hd = v_cb.shape[1] * v_cb.shape[3]
@@ -162,6 +206,36 @@ def pq_decode_plain(table, scale, bias, k_codes, v_codes, v_cb, position,
     return out.reshape(b, kv * g, hd).to(out_dtype)
 
 
+def _plain_split(table, scale, bias, k_codes, v_codes, v_cb, position,
+                 split: int, out_dtype: torch.dtype) -> torch.Tensor:
+    b, smax, kv, _ = k_codes.shape
+    g = table.shape[2]
+    hd = v_cb.shape[1] * v_cb.shape[3]
+    dev = table.device
+    ms, ls, accs = [], [], []
+    for s0 in range(0, smax, split):
+        kc = k_codes[:, s0:s0 + split]
+        vc = v_codes[:, s0:s0 + split]
+        s = adc_scores(table, scale, bias, kc)              # (B, KV, g, C)
+        pos = s0 + torch.arange(kc.shape[1], device=dev)
+        valid = pos[None, :] <= position[:, None].long()     # (B, C)
+        s = torch.where(valid[:, None, None, :], s, float("-inf"))
+        mj = s.amax(-1)                          # -inf for a dead split
+        p = torch.exp(s - torch.where(torch.isfinite(mj), mj, 0.0)[..., None])
+        vh = decode_kv(vc, v_cb)                             # (B, C, KV, hd)
+        ms.append(mj)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgc,bckp->bkgp", p.to(vh.dtype).float(),
+                                 vh.float()))
+    m = torch.stack(ms)                                  # (n, B, KV, g)
+    top = m.amax(0)
+    w = torch.exp(m - torch.where(torch.isfinite(top), top, 0.0))
+    l = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    out = acc / torch.clamp_min(l, 1e-20)[..., None]
+    return out.reshape(b, kv * g, hd).to(out_dtype)
+
+
 def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
               v_codes: torch.Tensor, v_cb: torch.Tensor,
               position: torch.Tensor, *, chunk: int,
@@ -172,7 +246,8 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
     ``scale`` and summed ``bias`` (B, KV, g) f32) or f32 (scale and bias
     None); ``k_codes``/``v_codes`` (B, Smax, KV, M//2) u8; ``v_cb`` (KV, M,
     16, dsub) bf16 or f32; ``position`` (B,) i32. ``chunk`` is the plain
-    version's chunk (the kernel walks the live positions in its own tiles).
+    version's chunk (the kernel walks the cache in its own ``SPLIT``-
+    position splits).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``scores`` (CUDA only), a (B, KV, g, Smax) f32 tensor, gets
@@ -200,12 +275,18 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
                          f"most {THREADS}) exceed what the kernel takes")
     _build.check_smem("repro_pq_decode_attention_smem", g, m, hd, int(q8),
                       what=f"g={g}, M={m}, head_dim={hd}")
+    _build.check_smem("repro_pq_decode_combine_smem", smax,
+                      what=f"Smax={smax}")
     if scores is not None:
         _build.check_args({"scores": (scores, torch.float32, 4)}, dev)
         if scores.shape != (b, kv, g, smax):
             raise ValueError(f"scores {tuple(scores.shape)}: want "
                              f"{(b, kv, g, smax)}")
     out = torch.empty((b, kv * g, hd), dtype=out_dtype, device=dev)
+    # the split pass's (m_j, l_j, acc_j) a (row, head, split); inside a
+    # capture, from the graph's pool
+    work = torch.empty((b, kv, g, n_splits(smax), hd + 2),
+                       dtype=torch.float32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.repro_pq_decode_attention(
@@ -215,7 +296,7 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             g, m, dsub, smax, int(q8), int(v_cb.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), out.data_ptr(),
             scores.data_ptr() if scores is not None else None,
-            torch.cuda.current_stream(dev).cuda_stream)
+            work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pq_decode_attention")
     launches += 1
     return out

@@ -1371,10 +1371,10 @@ def test_a_fenced_write_leaves_the_card_engine_and_its_graphs(dev, tmp_path):
 
 # K8's output against its plain version, relative to the largest |value|
 # of each (batch row, head): f32 sums in another order (the kernel's
-# 256-position tiles against the plain 2,048-position chunks) at 1e-5; in
-# bf16 four units in the last place (2**-6): each side's rounding of the
-# output, the plain version's rounding of each chunk's value sum to bf16,
-# and p rounded to bf16 at another running max
+# 256-position splits, combined, against the plain 2,048-position chunks)
+# at 1e-5; in bf16 four units in the last place (2**-6): each side's
+# rounding of the output, the plain version's rounding of each chunk's
+# value sum to bf16, and p rounded to bf16 at another max (a split's)
 K8_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 
 
@@ -1410,14 +1410,18 @@ def _k8_close(got, want, dtype):
 
 # (b, smax, kv, g, m, dsub, positions, chunk): qwen3-1.7b's decode shapes
 # (g = 2, M = 64, hd = 128) at the PQ run's positions; zamba2-2.7b's shared
-# attention (g = 1, M = 40, hd = 80: three 80-thread groups and 16 idle
-# threads, 20-byte rows); starcoder2-15b's g = 12 (M = 64, hd = 128);
-# position 0, Smax - 1, -1 (nothing live) and beyond Smax; g = 1 (qwen1.5,
-# MHA), g = 8; M/2 = 3 (byte loads) and 4 (4-byte loads); hd = 16 (the
-# smoke configs) and 256; the MoE and frontend archs' shapes: dbrx-132b
-# (KV 8, g 6, M 64, hd 128), llama4-scout (KV 8, g 5), internvl2-1b (KV
-# 2, g 7, M 32, hd 64: 64 of 256 threads gather values) and
-# musicgen-medium (KV 24, g 1, M 32, hd 64)
+# attention (g = 1, M = 40, hd = 80: 20-byte rows copied 4 bytes at a
+# time, 40 product units in 6 groups); starcoder2-15b's g = 12 (M = 64,
+# hd = 128); position 0, Smax - 1, -1 (nothing live) and beyond Smax; g =
+# 1 (qwen1.5, MHA), g = 8; M/2 = 3 (byte loads) and 4 (4-byte copies); hd
+# = 16 (the smoke configs) and 256; the MoE and frontend archs' shapes:
+# dbrx-132b (KV 8, g 6, M 64, hd 128), llama4-scout (KV 8, g 5),
+# internvl2-1b (KV 2, g 7, M 32, hd 64: 16-byte rows) and musicgen-medium
+# (KV 24, g 1, M 32, hd 64). The split pass's edges (splits of 256
+# positions): positions at a split's boundary (S - 1, S, S + 1, 2S - 1,
+# 2S), Smax not a multiple of the split (300, 257, 600, 64), every split
+# dead, every split but the first dead, and one-dim product units (dsub 1
+# and 3)
 K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
             (8, 4096, 32, 1, 40, 2, [2048 + i for i in range(0, 40, 5)],
              2048),
@@ -1435,7 +1439,14 @@ K8_CASES = [(8, 4096, 8, 2, 64, 2, [2048 + i for i in range(0, 64, 9)], 2048),
             (8, 4096, 2, 7, 32, 2, [2048 + i for i in range(0, 64, 9)],
              2048),
             (8, 4096, 24, 1, 32, 2, [2048 + i for i in range(0, 64, 9)],
-             2048)]
+             2048),
+            (5, 1024, 2, 2, 16, 2, [255, 256, 257, 511, 512], 512),
+            (3, 600, 3, 3, 32, 2, [511, 512, 599], 600),
+            (2, 4096, 8, 2, 64, 2, [-1, -1], 2048),
+            (2, 4096, 8, 2, 64, 2, [0, 255], 2048),
+            (4, 4096, 32, 1, 40, 2, [255, 256, 257, 4095], 2048),
+            (2, 300, 2, 3, 8, 1, [299, 100], 300),
+            (2, 512, 2, 2, 6, 3, [256, 40], 512)]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -1456,6 +1467,16 @@ def test_k8_kernel_matches_plain(dev, case, q8, out_dtype):
     want = pqk.pq_decode_plain(*args, chunk=chunk, out_dtype=out_dtype)
     assert got.shape == want.shape and got.dtype == out_dtype
     _k8_close(got, want, out_dtype)
+    # the kernel's own order (splits, then the combine) in plain PyTorch:
+    # its error printed as a diagnostic, and held at the same tolerance
+    twin = pqk.pq_decode_plain(*args, chunk=chunk, out_dtype=out_dtype,
+                               split=pqk.SPLIT)
+    scale = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    print(f"K8 case {case}: against the split-order twin "
+          f"{float(((got.float() - twin.float()).abs() / scale).max()):.3e}"
+          f", against the reference order "
+          f"{float(((got.float() - want.float()).abs() / scale).max()):.3e}")
+    _k8_close(got, twin, out_dtype)
     # each live position's score: bit for bit from the i32 sums (q8), the
     # f32 LUT's sums within 1e-5; dead positions never written
     table, scale, bias, k_codes = args[:4]
@@ -1484,12 +1505,48 @@ def test_k8_mixed_codebook_and_output_types(dev):
 
 
 def test_k8_smem_mirror_equals_the_kernels_export(dev):
-    fn = _build.load_library().repro_pq_decode_attention_smem
-    for g in (1, 2, 3, 8, 12):
-        for m, hd in ((2, 2), (6, 24), (8, 16), (40, 80), (64, 128),
-                      (128, 256)):
+    lib = _build.load_library()
+    fn = lib.repro_pq_decode_attention_smem
+    for g in (1, 2, 3, 7, 8, 12):
+        for m, hd in ((2, 2), (6, 24), (6, 18), (8, 8), (8, 16), (32, 64),
+                      (40, 80), (64, 128), (128, 256)):
             for q8 in (0, 1):
                 assert fn(g, m, hd, q8) == pqk.smem_bytes(g, m, hd, bool(q8))
+    combine = lib.repro_pq_decode_combine_smem
+    for smax in (1, 16, 255, 256, 257, 300, 600, 4096, 4097, 1 << 20):
+        assert combine(smax) == pqk.combine_smem_bytes(smax)
+
+
+def test_k8_graph_replay_across_split_boundaries_equals_eager(dev):
+    """K8 alone captured in a CUDA graph: the position moves in its static
+    buffer across split boundaries (the grid is fixed by Smax), and every
+    replay equals an eager call at the new position bit for bit."""
+    for q8, dtype in ((True, torch.bfloat16), (False, torch.float32)):
+        args = _k8_inputs(50, dev, b=4, smax=1024, kv=2, g=3, m=32, dsub=2,
+                          positions=[200, 250, 255, 10], q8=q8,
+                          cb_dtype=dtype, out_dtype=dtype)
+        position = args[6]
+
+        def call():
+            return pqk.pq_decode(*args, chunk=512, out_dtype=dtype)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for new in ([255, 256, 257, 0], [511, 512, 513, 1023],
+                    [-1, 300, 700, 1100], [256, 255, 767, 768]):
+            position.copy_(torch.tensor(new, dtype=torch.int32))
+            graph.replay()
+            want = call()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (q8, new)
+            _k8_close(out, pqk.pq_decode_plain(*args, chunk=512,
+                                               out_dtype=dtype), dtype)
 
 
 def test_k8_wrapper_raises_on_what_the_kernel_does_not_take(dev):
