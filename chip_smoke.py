@@ -140,7 +140,26 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      the decode step beside its byte bound (every expert's weights a
      step), K8 at the path's shapes; peak memory a model.
 
-  12. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
+  12. LM training (``repro_torch.train``): qwen3-1.7b's full config in
+     bf16, whole (28 layers, the published remat group:7 and loss_chunk
+     512), seeded random weights, a global batch of 8 x 2,048 tokens from
+     ``data.tokens.batch_at_step`` (seed 0) in 2 microbatches, AdamW
+     (total 8 steps, warm-up 2): step 1's gradients profiled, the 4-bit
+     PQ gradient codec (``grad_compress.ef_step``) once over them (ratio,
+     ms, each leaf's relative error), then 8 steps through
+     ``make_train_step`` (each synchronised: ms, tokens/s, the model-FLOP
+     share of the bf16 peak, peak memory; every loss and grad_norm finite,
+     the loss falling), an ``AsyncCheckpointer`` save after step 4
+     written while steps 5-8 run (bytes, seconds), and a restore of step
+     4 into a fresh state whose steps 5-8 equal the uninterrupted run's
+     bit for bit (the losses, and every parameter, moment and the step),
+     under deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set
+     before the first cuBLAS call); then one step each of zamba2-2.7b and
+     rwkv6-3b (``rwkv_chunk`` 32, the serving phase's reduction) at full
+     width and depth, B 2 x 2,048: a finite loss and gradient norm, step
+     ms and peak memory. It adds no kernel: none is on the training path.
+
+  13. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
      --shards 4`` once each, in their own processes.
 
 ``search_jit`` replays one captured CUDA graph per key, so the timed
@@ -187,6 +206,7 @@ import gc
 import json
 import os
 import pstats
+import shutil
 import subprocess
 import sys
 import time
@@ -3788,6 +3808,277 @@ def moe_phase(torch, args) -> list[dict]:
     return out
 
 
+# the training phase: qwen3-1.7b whole at its published remat and
+# loss_chunk, a global batch of TRAIN_BATCH x TRAIN_SEQ tokens from the
+# token pipeline (seed 0) in TRAIN_MICRO microbatches, TRAIN_STEPS steps
+# of a cosine schedule warming up over 2, a checkpoint after
+# TRAIN_CKPT_STEP and a resume from it; then one step each of the
+# recurrent archs at TRAIN_REC_BATCH x TRAIN_SEQ
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 2048, 2
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_REC_BATCH = 8, 4, 2
+TRAIN_REC = (("zamba2-2.7b", {}), ("rwkv6-3b", {"rwkv_chunk": 32}))
+# the card's dense bf16 peak (H100 SXM data sheet, 700 W), against which
+# the model-FLOP share of a step is printed
+BF16_FLOPS_PER_S = 989e12
+# the codec's relative reconstruction error on a leaf that every token's
+# gradient reaches must stay under the reference's own bound in its test
+# (tests/test_train.py, Gaussian gradients); the vocab-indexed leaves'
+# gradients are row-sparse (the embedding's rows of the batch's tokens
+# only, the head's heavy on the frequent tokens), which a 16-codeword
+# codebook fitted on 4,096 sampled rows spends on the near-zero bulk:
+# their error is printed as a figure
+CODEC_REL_MAX = 0.9
+VOCAB_LEAVES = ("embedding", "lm_head")
+
+def train_steps(torch, step_fn, state, batches, first: int, what: str,
+                flops: float, on_step=None):
+    """Run ``batches`` through ``step_fn`` from step ``first`` (1-based),
+    each synchronised and timed; return (state, the records)."""
+    recs = []
+    for i, batch in enumerate(batches, start=first):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {"step": i, "s": dt, "loss": m["loss"].clone(),
+               **{k: float(m[k]) for k in ("ce", "grad_norm", "lr")}}
+        tokens = batch["tokens"].numel()
+        log(f"{what}: step {i} {dt * 1e3:.1f} ms, {tokens / dt:.0f} tokens/s,"
+            f" model-FLOP share {flops / dt / BF16_FLOPS_PER_S:.4f}, loss "
+            f"{float(rec['loss']):.6f} (ce {rec['ce']:.6f}), grad_norm "
+            f"{rec['grad_norm']:.4f}, lr {rec['lr']:.3e}; peak memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        if not (np.isfinite(float(rec["loss"]))
+                and np.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"{what}: step {i} is not finite: {rec}")
+        recs.append(rec)
+        if on_step is not None:
+            on_step(i, state)
+    return state, recs
+
+
+def host_bits(torch, state) -> dict:
+    """A training state's tensors (params, mu, nu, step) copied to the
+    host as integers of their width, so that equality is of bits."""
+    ints = {2: torch.int16, 4: torch.int32}
+    named = [*(("params." + n, p) for n, p in state.params.named_parameters()),
+             *(("mu." + n, t) for n, t in state.opt.mu.items()),
+             *(("nu." + n, t) for n, t in state.opt.nu.items()),
+             ("step", state.opt.step)]
+    return {n: t.detach().view(ints[t.element_size()]).cpu()
+            for n, t in named}
+
+
+def codec_check(torch, args, cfg, params, batch) -> None:
+    """Step 1's gradients of the whole model timed, then again under the
+    profiler (device ms, ops, the largest kernels), then the 4-bit PQ
+    gradient codec
+    (``train.grad_compress.ef_step``, zero error state) once over them: its
+    ratio, its ms, and the relative reconstruction error of the largest
+    leaves and of all of them; each leaf finite and its new error state
+    the gradient less its decoding, and each leaf but VOCAB_LEAVES under
+    CODEC_REL_MAX."""
+    from repro_torch.train import grad_compress as gc_lib
+    from repro_torch.train import train_loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_loop.accumulate_grads(params, batch, cfg, TRAIN_MICRO)
+    torch.cuda.synchronize()
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    out = {}
+    wall, busy, ops, rows = breakdown(torch, lambda: out.update(
+        g=train_loop.accumulate_grads(params, batch, cfg, TRAIN_MICRO)))
+    grads = out.pop("g")[0]
+    log(f"train: step 1's gradients ({TRAIN_MICRO} microbatches, forward, "
+        f"remat forward and backward) {grads_ms:.1f} ms; profiled: "
+        f"{wall:.1f} ms wall, device {busy:.1f} ms in {ops} ops, idle "
+        f"{1 - busy / grads_ms:.3f} of the unprofiled time; "
+        + ", ".join(f"{k[:60]} {ms:.1f}" for k, ms in rows[:10]))
+    error = gc_lib.init_error(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, new_err, stats = gc_lib.ef_step(
+        torch.Generator().manual_seed(args.seed), grads, error,
+        gc_lib.PQGradCodec())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = {n: float(torch.linalg.vector_norm(dec[n] - g)
+                    / torch.linalg.vector_norm(g)) for n, g in grads.items()}
+    num = sum(float(torch.linalg.vector_norm(dec[n] - g)) ** 2
+              for n, g in grads.items())
+    den = sum(float(torch.linalg.vector_norm(g)) ** 2 for g in grads.values())
+    largest = sorted(grads, key=lambda n: -grads[n].numel())[:4]
+    log(f"train: codec (dsub 4, 16 codewords, k-means 5 iterations on 4,096 "
+        f"rows a leaf) over step 1's f32 gradients, {len(grads)} leaves: "
+        f"{stats['raw_bytes']} B -> {stats['compressed_bytes']} B, ratio "
+        f"{stats['ratio']:.3f}, {ms:.1f} ms; relative error of all leaves "
+        f"{(num / den) ** 0.5:.4f}, of the largest "
+        + ", ".join(f"{n} {tuple(grads[n].shape)} {rel[n]:.4f}"
+                    for n in largest)
+        + "; worst of the other leaves "
+        + str(max(r for n, r in rel.items() if n not in VOCAB_LEAVES)))
+    bad = {n: r for n, r in rel.items()
+           if not (r < CODEC_REL_MAX or n in VOCAB_LEAVES and r < 1.0)}
+    bad.update({n: "error state" for n, g in grads.items()
+                if not (torch.isfinite(dec[n]).all()
+                        and torch.equal(new_err[n], g - dec[n]))})
+    if bad:
+        raise AssertionError(f"train: codec leaves out of bounds: "
+                             f"{sorted(bad.items())[:5]}")
+    del grads, error, dec, new_err
+
+
+def train_phase(torch, args, root: str) -> None:
+    """LM training on the card at full width and depth (see the module
+    docstring, item 12): qwen3-1.7b's TRAIN_STEPS steps with the loss
+    falling, the codec over step 1's gradients, a checkpoint after step
+    TRAIN_CKPT_STEP written while steps go on, a resume from it equal to
+    the uninterrupted run bit for bit (deterministic algorithms: needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS call, as
+    ``main`` sets it), then one step each of zamba2-2.7b and rwkv6-3b."""
+    from repro_torch import configs
+    from repro_torch.data import tokens as tok
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(TRAIN_ARCH)
+    ocfg = opt_lib.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=2)
+    pipe = tok.TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=0)
+    batches = [dict(tok.batch_at_step(pipe, s, dev)._asdict())
+               for s in range(TRAIN_STEPS)]
+    t0 = time.perf_counter()
+    state = train_loop.init_train_state(cfg, args.seed, dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state.params.parameters())
+    n_model = n - state.params.embedding.numel()
+    flops = 6 * n_model * TRAIN_BATCH * TRAIN_SEQ
+    state_b = sum(t.numel() * t.element_size() for t in
+                  [*state.params.parameters(), *state.opt.mu.values(),
+                   *state.opt.nu.values()])
+    log(f"train: {cfg.name} full CONFIG ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), {cfg.dtype}, remat {cfg.remat}, "
+        f"loss_chunk {cfg.loss_chunk}: {n} parameters ({n_model} without "
+        f"the embedding; 6 x {n_model} x {TRAIN_BATCH * TRAIN_SEQ} tokens "
+        f"= {flops:.4e} model FLOPs a step), random from seed {args.seed}; "
+        f"params + moments {state_b} B; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"in {TRAIN_MICRO} microbatches; AdamW {dict(ocfg._asdict())} "
+        f"[{time.perf_counter() - t0:.1f} s]; reduced: nothing")
+    codec_check(torch, args, cfg, state.params, batches[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(root, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free = shutil.disk_usage(os.path.join(root, "build")).free
+    log(f"train: {free} B free on the checkpoint's disk; the state is "
+        f"{state_b} B")
+    step_fn = train_loop.make_train_step(cfg, ocfg, TRAIN_MICRO)
+    ckptr = ckpt_lib.AsyncCheckpointer(ckpt_dir, keep=1)
+    saved = {}
+
+    def checkpoint(i, st):
+        if i == TRAIN_CKPT_STEP:
+            t = time.perf_counter()
+            ckptr.save(i, st)
+            saved.update(snapshot_s=time.perf_counter() - t,
+                         returned=time.time())
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, recs = train_steps(torch, step_fn, state, batches, 1,
+                                  "train", flops, checkpoint)
+        peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        ckptr.wait()
+        wait_s = time.perf_counter() - t
+        step_dir = os.path.join(ckpt_dir, f"step_{TRAIN_CKPT_STEP:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        write_s = (os.path.getmtime(os.path.join(step_dir, ckpt_lib.MANIFEST))
+                   - saved["returned"])
+        steady = [r["s"] for r in recs[1:]]
+        log(f"train: {TRAIN_STEPS} steps, loss {float(recs[0]['loss']):.6f} "
+            f"-> {float(recs[-1]['loss']):.6f}; step s median "
+            f"{np.median(steady):.4f} (steps 2-{TRAIN_STEPS}; step 1 "
+            f"{recs[0]['s']:.4f}), {TRAIN_BATCH * TRAIN_SEQ / np.median(steady):.0f} "
+            f"tokens/s, model-FLOP share {flops / np.median(steady) / BF16_FLOPS_PER_S:.4f} "
+            f"of {BF16_FLOPS_PER_S:.3e}; peak memory {peak} B")
+        log(f"train: checkpoint of step {TRAIN_CKPT_STEP}: {nbytes} B, the "
+            f"host snapshot {saved['snapshot_s']:.2f} s, written "
+            f"{write_s:.2f} s after it (overlapping steps "
+            f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS}), wait after step "
+            f"{TRAIN_STEPS} {wait_s:.2f} s")
+        if not float(recs[-1]["loss"]) < float(recs[0]["loss"]):
+            raise AssertionError(f"train: the loss did not fall: "
+                                 f"{[float(r['loss']) for r in recs]}")
+        t = time.perf_counter()
+        final = host_bits(torch, state)
+        log(f"train: the uninterrupted state to the host "
+            f"{time.perf_counter() - t:.2f} s")
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a fresh state from another seed, so that the restore must
+        # overwrite every tensor
+        fresh = train_loop.init_train_state(cfg, args.seed + 1, dev)
+        t = time.perf_counter()
+        step, fresh = ckpt_lib.restore(ckpt_dir, fresh)
+        torch.cuda.synchronize()
+        log(f"train: restored step {step} in {time.perf_counter() - t:.2f} s")
+        if step != TRAIN_CKPT_STEP or int(fresh.opt.step) != step:
+            raise AssertionError(f"train: restored step {step}, opt step "
+                                 f"{int(fresh.opt.step)}")
+        fresh, again = train_steps(
+            torch, train_loop.make_train_step(cfg, ocfg, TRAIN_MICRO), fresh,
+            batches[TRAIN_CKPT_STEP:], TRAIN_CKPT_STEP + 1, "train resumed",
+            flops)
+        same_loss = all(torch.equal(a["loss"], b["loss"]) for a, b in
+                        zip(recs[TRAIN_CKPT_STEP:], again))
+        resumed = host_bits(torch, fresh)
+        differ = sorted(k for k in final
+                        if not torch.equal(final[k], resumed.get(k)))
+        log(f"train: resume from step {TRAIN_CKPT_STEP}: losses of steps "
+            f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS} equal bit for bit: "
+            f"{same_loss}; {len(final) - len(differ)} of {len(final)} "
+            f"tensors (params, mu, nu, step) equal bit for bit")
+        if differ or not same_loss or set(final) != set(resumed):
+            raise AssertionError(f"train: the resume differs: {differ[:5]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del fresh, final, resumed, batches
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, cut in TRAIN_REC:
+        rcfg = configs.get_config(arch).replace(**cut)
+        state = train_loop.init_train_state(rcfg, args.seed, dev)
+        n = sum(p.numel() for p in state.params.parameters())
+        rpipe = tok.TokenPipelineConfig(vocab=rcfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_REC_BATCH, seed=0)
+        batch = dict(tok.batch_at_step(rpipe, 0, dev)._asdict())
+        rflops = 6 * (n - state.params.embedding.numel()) * batch[
+            "tokens"].numel()
+        log(f"train: {arch} full CONFIG ({rcfg.n_layers} layers, d_model "
+            f"{rcfg.d_model}), {n} parameters in {rcfg.dtype}, remat "
+            f"{rcfg.remat}; reduced: "
+            + (", ".join(f"{k} {getattr(configs.get_config(arch), k)} -> {v}"
+                         for k, v in cut.items()) or "nothing"))
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = train_steps(
+            torch, train_loop.make_train_step(rcfg, ocfg, 1), state, [batch],
+            1, f"train {arch.split('-')[0]}", rflops)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def examples_phase(root: str) -> None:
     """The two ANN examples once on the card, each in its own process at
     its defaults (``--shards 4`` for the engine's): select equal to mxu
@@ -3871,6 +4162,10 @@ def main() -> int:
     args = ap.parse_args()
 
     t_main = time.perf_counter()
+    # the training phase's resume check runs under deterministic
+    # algorithms, which need this set before the process's first cuBLAS
+    # call (the workspace size is the card's default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4014,7 +4309,13 @@ def main() -> int:
             f"launches, {p['ms']:.6f} ms, plain {p['plain_ms']:.5f} ms, "
             f"bound {p['bound_ms']:.6f} ms ({p['bound_by']}), max error "
             f"{p['max_abs_err']:.3e}")
-    # 15. the two ANN examples, each once in its own process
+    # 15. LM training: qwen3-1.7b whole (8 steps, the codec, a checkpoint
+    # and a resume bit for bit), one step each of zamba2-2.7b and rwkv6-3b
+    t0 = time.perf_counter()
+    train_phase(torch, args, root)
+    log(f"train: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
+    # 16. the two ANN examples, each once in its own process
     t0 = time.perf_counter()
     examples_phase(root)
     log(f"examples: phase {time.perf_counter() - t0:.1f} s; the run so far "

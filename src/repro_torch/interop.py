@@ -27,7 +27,10 @@ blocks and the hybrid's ``group_in``, with its leading layer axis; an MoE
 block's ``stack/blocks/moe/router`` (L, D, E), ``moe/wi_gate``,
 ``moe/wi_up`` or ``moe/wi`` (L, E, D, F), ``moe/wo`` (L, E, F, D) and the
 shared expert's ``moe/shared_*``): ``lm_params_from_arrays`` /
-``arrays_from_lm_params``. A PQ KV cache
+``arrays_from_lm_params``. A training state (parameters, AdamW moments
+and step, the codec's error state) crosses under the names its checkpoint
+gives it (``.params/embedding``, ``.opt/.step``, ``.opt/.mu/...``):
+``train_state_from_arrays`` / ``arrays_from_train_state``. A PQ KV cache
 crosses as ``k_codes``, ``v_codes`` (u8) and ``k_cb``, ``v_cb`` (the
 codebooks): ``pq_cache_from_arrays`` / ``arrays_from_pq_cache``. The
 recurrent families' caches cross under the reference's dict keys (Mamba2
@@ -53,6 +56,8 @@ from repro_torch.models import layers as ll
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import PQKVCache
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_loop import TrainState
 
 
 def _f32(arrays: dict, key: str, dev: torch.device) -> torch.Tensor:
@@ -175,14 +180,44 @@ def arrays_from_fastscan_index(index: FastScanIndex) -> dict[str, np.ndarray]:
             "n": np.asarray(index.n, np.int64)}
 
 
-def _tree_key(name: str) -> tuple[str, int | None]:
-    """A module's dotted parameter name -> (the reference's path key, its
-    index on a stacked list's leading axis or None)."""
-    parts = name.split(".")
-    for i, part in enumerate(parts):
-        if part.isdigit():
-            return "/".join(parts[:i] + parts[i + 1:]), int(part)
-    return "/".join(parts), None
+def _named_from_arrays(arrays: dict[str, np.ndarray], named,
+                       dev: torch.device) -> dict[str, torch.Tensor]:
+    """For each (dotted name, like) of ``named``, its layer of the array
+    under its path key, read through f32, as an f32 tensor on ``dev``.
+    Every key must be used."""
+    out, used = {}, set()
+    for name, like in named:
+        key, layer = ll.tree_key(name)
+        if key not in arrays:
+            raise KeyError(f"{key} missing from the arrays")
+        a = np.asarray(arrays[key], np.float32)
+        a = a[layer] if layer is not None else a
+        if a.shape != tuple(like.shape):
+            raise ValueError(f"{key}: shape {a.shape}, want "
+                             f"{tuple(like.shape)}")
+        out[name] = torch.from_numpy(np.array(a)).to(dev)
+        used.add(key)
+    extra = sorted(set(arrays) - used)
+    if extra:
+        raise KeyError(f"arrays the config has no parameter for: {extra}")
+    return out
+
+
+def _arrays_from_named(named) -> dict[str, np.ndarray]:
+    """(dotted name, tensor) pairs as f32 host arrays under their path
+    keys, a parameter of every layer stacked on a leading layer axis."""
+    stacks: dict[str, list] = {}
+    out = {}
+    for name, t in named:
+        key, layer = ll.tree_key(name)
+        a = t.detach().float().cpu().numpy()
+        if layer is None:
+            out[key] = a
+        else:
+            stacks.setdefault(key, []).append((layer, a))
+    for key, layers in stacks.items():
+        out[key] = np.stack([a for _, a in sorted(layers, key=lambda x: x[0])])
+    return out
 
 
 def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
@@ -196,39 +231,59 @@ def lm_params_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
     specs = model_lib.lm_specs(cfg)
     model = ll.Params(specs, dtype=dtype or model_lib.model_dtype(cfg),
                       device=dev)
-    used = set()
+    named = list(model.named_parameters())
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            key, layer = _tree_key(name)
-            if key not in arrays:
-                raise KeyError(f"{key} missing from the arrays")
-            a = np.asarray(arrays[key], np.float32)
-            a = a[layer] if layer is not None else a
-            if a.shape != tuple(p.shape):
-                raise ValueError(f"{key}: shape {a.shape}, want "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(a)))
-            used.add(key)
-    extra = sorted(set(arrays) - used)
-    if extra:
-        raise KeyError(f"arrays the config has no parameter for: {extra}")
+        for name, t in _named_from_arrays(arrays, named, dev).items():
+            model.get_parameter(name).copy_(t)
     return model
 
 
 def arrays_from_lm_params(model: ll.Params) -> dict[str, np.ndarray]:
     """The inverse: every parameter as an f32 host array under its path
     key, the blocks stacked on a leading layer axis."""
-    stacks: dict[str, list] = {}
-    out = {}
-    for name, p in model.named_parameters():
-        key, layer = _tree_key(name)
-        a = p.detach().float().cpu().numpy()
-        if layer is None:
-            out[key] = a
-        else:
-            stacks.setdefault(key, []).append((layer, a))
-    for key, layers in stacks.items():
-        out[key] = np.stack([a for _, a in sorted(layers, key=lambda x: x[0])])
+    return _arrays_from_named(model.named_parameters())
+
+
+def _under(arrays: dict[str, np.ndarray], prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
+def train_state_from_arrays(arrays: dict[str, np.ndarray], cfg: ModelConfig,
+                            device: str | torch.device | None = None,
+                            dtype: torch.dtype | None = None) -> TrainState:
+    """A training state on ``device`` (None = the CUDA card) from host
+    arrays under the checkpoint's names (``.params/...``, ``.opt/.step``,
+    ``.opt/.mu/...``, ``.opt/.nu/...`` and ``.ef_error/...`` when
+    present; the reference's ``TrainState`` flattened as its checkpoint
+    flattens it): the parameters, trainable, in ``dtype`` (None = the
+    config's), the moments and the error state in f32, the step int32."""
+    dev = resolve_device(device)
+    params = ll.set_trainable(lm_params_from_arrays(
+        _under(arrays, ".params/"), cfg, dev, dtype))
+    named = list(params.named_parameters())
+
+    def tree(prefix):
+        return _named_from_arrays(_under(arrays, prefix), named, dev)
+
+    step = torch.tensor(int(np.asarray(arrays[".opt/.step"])),
+                        dtype=torch.int32, device=dev)
+    ef = tree(".ef_error/") if _under(arrays, ".ef_error/") else None
+    return TrainState(params, AdamWState(step, tree(".opt/.mu/"),
+                                         tree(".opt/.nu/")), ef)
+
+
+def arrays_from_train_state(state: TrainState) -> dict[str, np.ndarray]:
+    """The inverse: f32 host arrays (the step int32) under the
+    checkpoint's names."""
+    out = {f".params/{k}": v
+           for k, v in arrays_from_lm_params(state.params).items()}
+    out[".opt/.step"] = np.asarray(state.opt.step.item(), np.int32)
+    trees = {".opt/.mu/": state.opt.mu, ".opt/.nu/": state.opt.nu,
+             ".ef_error/": state.ef_error or {}}
+    for prefix, tree in trees.items():
+        out.update({prefix + k: v
+                    for k, v in _arrays_from_named(tree.items()).items()})
     return out
 
 

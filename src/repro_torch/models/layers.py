@@ -6,6 +6,9 @@ Parameters are declared once as ``ParamSpec`` trees (shape, initializer);
 reference's tensors in the reference's layouts (``wq`` (d, H, hd), ``wo``
 (H, hd, d), ...), a list of trees (the reference's stacked layer axis) as an
 ``nn.ModuleList``, and ``init_params`` fills them by the reference's rule.
+Parameters are registered frozen, as serving wants them;
+``set_trainable`` turns autograd on for training, and ``checkpointed``
+is the remat primitive of the stacks and the loss.
 The layer functions take such a module and read its tensors by name.
 
 Attention is plain torch matmul and softmax transcribed from the reference,
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -50,6 +54,33 @@ class Params(nn.Module):
                     Params(x, dtype=dtype, device=device) for x in s))
             else:
                 self.add_module(name, Params(s, dtype=dtype, device=device))
+
+
+def set_trainable(module: Params, on: bool = True) -> Params:
+    """Turn autograd on for every parameter of ``module`` (training), or
+    back off. ``Params`` registers them frozen, as serving wants them."""
+    for p in module.parameters():
+        p.requires_grad_(on)
+    return module
+
+
+def tree_key(name: str) -> tuple[str, int | None]:
+    """A module's dotted parameter name -> (the reference's ``/``-joined
+    path key, its index on a stacked list's leading axis or None)."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return "/".join(parts[:i] + parts[i + 1:]), int(part)
+    return "/".join(parts), None
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant) while autograd records;
+    a plain call otherwise (serving, inference mode)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def spec_items(specs, prefix: str = ""):

@@ -1,12 +1,16 @@
-"""Public model API: specs, init, forward, prefill and the decode step for
-the attention (dense, MoE, and the vlm / audio frontend stubs), Mamba2 /
-zamba2-hybrid and RWKV6 families (the port of ``repro/models/model.py``).
+"""Public model API: specs, init, forward, the training loss, prefill and
+the decode step for the attention (dense, MoE, and the vlm / audio
+frontend stubs), Mamba2 / zamba2-hybrid and RWKV6 families (the port of
+``repro/models/model.py``).
 
 The model is a ``layers.Params`` tree of modules holding the reference's
 tensors by the reference's names (``embedding``, ``ln_f``, ``lm_head``,
 ``stack.blocks[i].attn.wq``, ``stack.blocks[i].mamba.in_proj``, ...).
-Entry points run under ``torch.inference_mode``; ``loss_fn`` waits for the
-training slice (ROADMAP Queue 1).
+The serving entry points (``forward``, ``prefill``, ``decode_step``) run
+under ``torch.inference_mode``. ``loss_fn`` is the training entry point:
+it goes through ``_hidden_states``, which autograd records (turn the
+parameters on with ``layers.set_trainable``), and the stacks remat as the
+config says (``transformer._remat``).
 
 The modality frontends are stubs, as in the reference: precomputed patch
 or frame embeddings ``frontend_embeds`` (B, F, D) overwrite the token
@@ -31,6 +35,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+AUX_LOSS_WEIGHT = 0.01
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -84,6 +89,52 @@ def forward(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens: (B, S) -> (logits (B, S, Vpad), aux_loss scalar)."""
     h, aux = _hidden_states(params, tokens, cfg, frontend_embeds)
     return h @ params.lm_head, aux
+
+
+def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Masked summed NLL for one (B, s, Vpad) logits block, in f32, the
+    padded vocab columns masked to -1e30."""
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mask)
+
+
+def _head_ce(h: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+             lm_head: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _ce_from_logits(h @ lm_head, targets, mask, cfg)
+
+
+def loss_fn(params: ll.Params, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """batch: {tokens, targets, mask, [frontend_embeds]} -> (loss, metrics
+    {ce, aux, tokens}), the loss ``ce + AUX_LOSS_WEIGHT * aux``.
+
+    Under the reference's condition (``loss_chunk`` off, or not dividing
+    S, or S no longer than a chunk) the whole (B, S, Vpad) logits are
+    formed; otherwise the head and the cross-entropy run over sequence
+    chunks, each checkpointed, so the f32 logits are never whole and
+    nothing of them is saved for backward.
+    """
+    tokens, targets, mask = batch["tokens"], batch["targets"], batch["mask"]
+    s = tokens.shape[1]
+    chunk = cfg.loss_chunk
+    h, aux = _hidden_states(params, tokens, cfg, batch.get("frontend_embeds"))
+    if chunk <= 0 or s % chunk or s <= chunk:
+        nll = _head_ce(h, targets, mask, params.lm_head, cfg)
+    else:
+        nll = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(0, s, chunk):
+            sl = slice(c, c + chunk)
+            nll = nll + ll.checkpointed(_head_ce, h[:, sl], targets[:, sl],
+                                        mask[:, sl], params.lm_head, cfg)
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    ce = nll / denom
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 def _embed(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,

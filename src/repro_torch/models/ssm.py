@@ -5,7 +5,12 @@ Within a chunk of L steps the recurrence h_t = a_t h_{t-1} + B_t (dt_t x_t)
 is unrolled into an L x L decay-weighted product; across chunks a loop
 carries the (nh, hd, ds) state in f32. Plain torch ops transcribed from the
 reference, in its casts: the decays in f32, the products in the working
-type, the carried state in f32.
+type, the carried state in f32. One departure, in backward only: the
+intra-chunk decay is masked before its exponential, where the reference
+masks the product after it, so an upper entry whose exp overflows (a
+chunk's decay past e^88, as zamba2-2.7b's init reaches at chunk 128)
+gives no 0 x inf: the reference's gradient is NaN there (ROADMAP Queue
+3), the forward is the same bit for bit.
 """
 from __future__ import annotations
 
@@ -80,9 +85,13 @@ def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
     # intra-chunk: an L x L product per (chunk, head)
     gmat = torch.einsum("bclhn,bcshn->bchls", ch, bh)            # (B,nc,nh,L,L)
     diff = la_c[:, :, :, None, :] - la_c[:, :, None, :, :]       # (B,nc,L,L,nh)
-    decay = torch.exp(diff.permute(0, 1, 4, 2, 3))
-    del diff
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=xh.device))
+    # masked before the exponential (the reference masks only the
+    # product): the same forward, and no 0 x inf in backward where an
+    # upper entry's exp(diff) overflows
+    decay = torch.exp(torch.where(mask, diff.permute(0, 1, 4, 2, 3),
+                                  float("-inf")))
+    del diff
     m = torch.where(mask, gmat * decay, 0.0).to(dt)
     del gmat, decay
     y_intra = torch.einsum("bchls,bcshp->bclhp", m, xh_c)

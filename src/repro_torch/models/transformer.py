@@ -2,10 +2,14 @@
 backbones), Mamba2 (with the zamba2 hybrid) and RWKV6 families (the port
 of ``repro/models/transformer.py``).
 
-The reference scans over layer-stacked parameters (and remats them for
-training); here a stack is an ``nn.ModuleList`` of per-layer blocks and a
-Python loop visits them. Remat has no meaning at inference and is not
-ported.
+The reference scans over layer-stacked parameters; here a stack is an
+``nn.ModuleList`` of per-layer blocks and a Python loop visits them. The
+config's ``remat`` (``none`` | ``layer`` | ``group:k``) is the
+reference's: each layer, or each group of k layers (``_group_size``; the
+hybrid's unit is its group of Mamba2 layers and the shared block), runs
+under ``torch.utils.checkpoint`` and is recomputed in backward, so a
+stack saves only the units' inputs. It applies only while autograd
+records: serving runs under inference mode and checkpoints nothing.
 
 Decode writes every cache in place: the attention caches at the position
 (``kvcache.update_exact`` / ``update_pq``), and each layer's recurrent
@@ -24,6 +28,28 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` checkpointed (while autograd records) unless the config
+    remats nothing."""
+    if cfg.remat == "none":
+        return fn
+    return lambda *args: ll.checkpointed(fn, *args)
+
+
+def _group_size(cfg: ModelConfig) -> int:
+    if cfg.remat.startswith("group:"):
+        gs = int(cfg.remat.split(":")[1])
+        if gs <= cfg.n_layers and cfg.n_layers % gs == 0:
+            return gs
+    return 1  # fall back to per-layer remat (e.g. reduced smoke configs)
+
+
+def _units(blocks, cfg: ModelConfig) -> list:
+    """The stack's layers cut into remat units of ``_group_size``."""
+    gs = _group_size(cfg)
+    return [blocks[i:i + gs] for i in range(0, len(blocks), gs)]
 
 
 def attn_block_specs(cfg: ModelConfig) -> dict:
@@ -67,10 +93,16 @@ def attn_stack_specs(cfg: ModelConfig) -> dict:
 
 def attn_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def unit(h, aux, layers):
+        for lp in layers:
+            h, a = attn_block(lp, h, cfg, positions)
+            aux = aux + a
+        return h, aux
+
+    body = _remat(cfg, unit)
     aux = torch.zeros((), device=h.device)
-    for lp in p.blocks:
-        h, a = attn_block(lp, h, cfg, positions)
-        aux = aux + a
+    for layers in _units(p.blocks, cfg):
+        h, aux = body(h, aux, layers)
     return h, aux
 
 
@@ -146,11 +178,13 @@ def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), device=h.device)
     if not cfg.shared_attn_every:
+        layer = _remat(cfg, lambda h, lp: _mamba_layer(lp, h, cfg))
         for lp in p.blocks:
-            h = _mamba_layer(lp, h, cfg)
+            h = layer(h, lp)
         return h, aux
-    h0, k, shared = h, cfg.shared_attn_every, p.shared
-    for gi in _groups(cfg):
+    k, shared = cfg.shared_attn_every, p.shared
+
+    def group(h, h0, gi):
         for lp in p.blocks[gi * k:(gi + 1) * k]:
             h = _mamba_layer(lp, h, cfg)
         # the shared attention block on concat(h, h0), weight-tied
@@ -160,7 +194,12 @@ def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                              positions)
         x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
                        cfg)
-        h = h + x
+        return h + x
+
+    body = _remat(cfg, group)
+    h0 = h
+    for gi in _groups(cfg):
+        h = body(h, h0, gi)
     return h, aux
 
 
@@ -346,8 +385,15 @@ def _rwkv_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig):
 def rwkv_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     del positions
-    for lp in p.blocks:
-        h = _rwkv_layer(lp, h, cfg)[0]
+
+    def unit(h, layers):
+        for lp in layers:
+            h = _rwkv_layer(lp, h, cfg)[0]
+        return h
+
+    body = _remat(cfg, unit)
+    for layers in _units(p.blocks, cfg):
+        h = body(h, layers)
     return h, torch.zeros((), device=h.device)
 
 

@@ -1790,3 +1790,127 @@ def test_serve_batch_on_the_card_replays_one_graph(dev, monkeypatch):
         cfg, params, prompts, _ = _lm_caches(dev, "zamba2-2.7b", "exact",
                                              torch.float32)
         serve.serve_batch(cfg.replace(kv_pq=True), params, prompts, 4)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# the card's gradients against the host's, of each leaf's largest |value|
+# (1e-4 by default): dbrx-smoke has no qk_norm, so on the reference's init
+# its attention is near one-hot and the softmax backward multiplies the
+# two devices' f32 summation-order differences (7.0e-4 measured on layer
+# 0's wq at 4 layers, B 4 x 64)
+TRAIN_GRAD_TOL = {"dbrx-132b": 2e-3}
+
+
+def _train_batch(cfg, dev, b=4, s=64, step=0):
+    from repro_torch.data import tokens as ttok
+    pc = ttok.TokenPipelineConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    return dict(ttok.batch_at_step(pc, step, dev)._asdict())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b", "rwkv6-3b",
+                                  "dbrx-132b"])
+def test_train_loss_on_the_card_matches_the_host(dev, arch):
+    """The chunked loss (each chunk checkpointed, remat on) and the full
+    loss agree on the card, and both with the host's, in f32; the
+    gradients too."""
+    from repro_torch import configs
+    from repro_torch.models import layers as tll
+    from repro_torch.models import model as tmodel
+    cfg = configs.get_smoke_config(arch).replace(n_layers=4, remat="group:2")
+    out = {}
+    for where in ("cpu", dev):
+        model = tll.set_trainable(tmodel.init_lm(
+            cfg, generator=torch.Generator().manual_seed(0), device=where))
+        batch = _train_batch(cfg, where)
+        for chunk in (0, 16):
+            loss, _ = tmodel.loss_fn(model, batch,
+                                     cfg.replace(loss_chunk=chunk))
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[(str(where), chunk)] = (loss.detach().cpu(),
+                                        [g.cpu() for g in grads])
+    want_l, want_g = out[("cpu", 0)]
+    names = [n for n, _ in model.named_parameters()]
+    for key, (loss, grads) in out.items():
+        torch.testing.assert_close(loss, want_l, rtol=1e-5, atol=0,
+                                   msg=str(key))
+        err = {n: float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+               for n, g, w in zip(names, grads, want_g)}
+        worst = max(err, key=err.get)
+        assert err[worst] <= TRAIN_GRAD_TOL.get(arch, 1e-4), (key, worst,
+                                                               err[worst])
+
+
+def test_train_resume_on_the_card_is_bit_for_bit(dev, tmp_path,
+                                                  monkeypatch):
+    """Interrupt, restart, and the resumed run equals the uninterrupted one
+    bit for bit, under deterministic algorithms, in bf16 with two
+    microbatches and the chunked loss."""
+    from repro_torch import configs, interop
+    from repro_torch.train import train_loop
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = configs.get_smoke_config("qwen3-1.7b").replace(
+        dtype="bfloat16", loss_chunk=16)
+    kw = dict(steps=6, global_batch=4, seq_len=64, ckpt_every=3,
+              microbatches=2, log=lambda s: None, device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        full, hist = train_loop.train(cfg, ckpt_dir=str(tmp_path / "a"),
+                                      **kw)
+        train_loop.train(cfg, ckpt_dir=str(tmp_path / "b"),
+                         **dict(kw, steps=3))
+        resumed, hist2 = train_loop.train(cfg, ckpt_dir=str(tmp_path / "b"),
+                                          **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in hist[3:]]
+    a = interop.arrays_from_train_state(full)
+    b = interop.arrays_from_train_state(resumed)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_train_bf16_state_round_trips_through_a_checkpoint(dev, tmp_path):
+    from repro_torch import configs
+    from repro_torch.train import checkpoint as tck
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop
+    cfg = configs.get_smoke_config("zamba2-2.7b").replace(dtype="bfloat16")
+    state = train_loop.init_train_state(cfg, 0, dev, grad_compress=True)
+    state, _ = train_loop.make_train_step(
+        cfg, topt.AdamWConfig(warmup_steps=0), 1)(
+        state, _train_batch(cfg, dev))
+    tck.save(str(tmp_path), 1, state)
+    fresh = train_loop.init_train_state(cfg, 7, dev, grad_compress=True)
+    step, fresh = tck.restore(str(tmp_path), fresh)
+    assert step == 1 and fresh.opt.step.device.type == dev.type
+    pairs = [*zip(state.params.parameters(), fresh.params.parameters()),
+             *zip(state.opt.mu.values(), fresh.opt.mu.values()),
+             *zip(state.opt.nu.values(), fresh.opt.nu.values()),
+             *zip(state.ef_error.values(), fresh.ef_error.values()),
+             (state.opt.step, fresh.opt.step)]
+    for a, b in pairs:
+        assert a.dtype == b.dtype and b.device.type == dev.type
+        ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        assert torch.equal(a.view(ints), b.view(ints))
+
+
+def test_train_codec_on_the_card(dev):
+    """The gradient codec on the card: the error state is the target less
+    its decoding, exactly, and the reconstruction error is that of the
+    same codec on the host within the k-means draws' spread."""
+    from repro_torch.train import grad_compress as tgc
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (4096, 8)).astype(np.float32))
+    errs = []
+    for where in ("cpu", dev):
+        x = {"w": g.to(where)}
+        dec, new_err, stats = tgc.ef_step(torch.Generator().manual_seed(0), x,
+                                          tgc.init_error(x), tgc.PQGradCodec())
+        assert torch.equal(new_err["w"], x["w"] - dec["w"])
+        errs.append(float(torch.linalg.vector_norm(dec["w"] - x["w"])
+                          / torch.linalg.vector_norm(x["w"])))
+        assert stats["ratio"] > 7.5
+    assert errs[1] < 1.25 * errs[0]

@@ -2,7 +2,8 @@
 at small sizes, each in a fresh interpreter that must load neither jax nor
 the JAX package: the two ANN examples (the flat fast-scan index beside
 naive PQ; the engine with HNSW coarse, re-rank, flat coarse and shards)
-and the LM example on the MoE and frontend archs' smoke configs."""
+the LM example on the MoE and frontend archs' smoke configs, and the
+training example and launcher on the smoke config."""
 import os
 import subprocess
 import sys
@@ -65,3 +66,50 @@ def test_serve_lm_torch_serves_the_new_archs_on_the_cpu(arch):
                "--batch", "2", "--prompt-len", "16", "--tokens", "4")
     assert "exact: prefill" in out and "pq: calibrate" in out
     assert "0 K8 launches" in out       # the CPU takes the plain version
+
+
+def test_train_lm_torch_on_the_cpu():
+    out = _run("train_lm_torch.py", "--steps", "20", "--device", "cpu")
+    assert "-- simulated preemption at step 12 --" in out
+    assert "[train] resumed from step 12" in out
+    assert "resumed across a restart at step 12" in out
+
+
+LAUNCH = """
+import runpy, sys
+sys.argv = ["train"] + sys.argv[1:]
+try:
+    runpy.run_module("repro_torch.launch.train", run_name="__main__")
+finally:
+    bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')
+           or k == 'repro' or k.startswith('repro.')]
+    assert not bad, bad
+"""
+
+
+def _launch(*args: str):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run([sys.executable, "-c", LAUNCH, *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=300, cwd=ROOT)
+
+
+def test_launch_train_smoke_on_the_cpu(tmp_path):
+    args = ("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--steps",
+            "4", "--seq-len", "32", "--global-batch", "4", "--microbatches",
+            "2", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2")
+    out = _launch(*args)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[train] done: final loss" in out.stdout
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000004"]
+    again = _launch(*args)
+    assert again.returncode == 0, again.stderr[-3000:]
+    assert "[train] resumed from step 4" in again.stdout
+    assert "the checkpoint is at step 4 already" in again.stdout
+
+
+def test_launch_train_refuses_the_dry_run():
+    out = _launch("--arch", "qwen3-1.7b", "--dry-run")
+    assert out.returncode != 0
+    assert "ROADMAP Queue 1" in out.stderr
+    assert "[train] step" not in out.stdout
