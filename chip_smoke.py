@@ -213,13 +213,6 @@ import time
 
 import numpy as np
 
-# The peaks every bound_ms divides by (H100 SXM data sheet, dense, 700 W):
-# the device memory rate; the card's fastest integer rate (int8 on the
-# tensor cores), for the integer look-ups and adds of the ADC scans; the
-# f32 rate outside the tensor cores, for the exact re-rank's products.
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
 BUCKETS = (1, 8, 32, 128)
 DEVICE = "cuda"
 BATCHES_PER_BUCKET = 3
@@ -259,6 +252,29 @@ PTXAS_SUMMARY = ("stream_topk_kernel", "rerank_kernel",
                  "stream_grouped_kernel", "select_grouped_kernel",
                  "onehot_mma_flat_kernel", "onehot_mma_grouped_kernel",
                  "blockmin_kernel", "pq_decode_kernel")
+
+
+class _Lazy:
+    """A module of the port imported at first use, once ``main`` has put
+    ``src/`` on the path."""
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __getattr__(self, attr):
+        import importlib
+        return getattr(importlib.import_module(self._name), attr)
+
+
+# the card's peaks and each kernel's bytes and ops: one yardstick for this
+# run, the dry-run and the tests; and the dry-run's byte counting
+rl = _Lazy("repro_torch.launch.roofline")
+ca = _Lazy("repro_torch.launch.cost_analysis")
+
+
+# what the LM and training phases measured a path, by its name there, for
+# the dry-run's count of the same path (dryrun_phase)
+MEASURED: dict = {}
 
 
 def log(*parts) -> None:
@@ -430,18 +446,13 @@ def k1_phase(torch, args, cap: int, nlist: int):
     ms_dev = device_ms(torch, kernel, "stream_topk_kernel", 20)
     plain_ms = event_ms(torch, plain, 5, warmup=1)
     # bound: what this run's data needs -- each distinct probed list's rows
-    # that are occupied and pass the filter read once (M/2 bytes a row), its
-    # bitmap words and size, every LUT and probe id, the outputs written once
-    distinct = np.unique(probes_np[probes_np >= 0])
-    passing = np.unpackbits(bits_np, axis=1, bitorder="little")[:, :cap]
-    live = passing & (np.arange(cap)[None, :] < sizes_np[:, None])
-    live_rows = live[distinct].sum()
-    n_tiles = cap // tile
-    nbytes = (live_rows * mh + distinct.size * (w + 4) + g * M * 16 + g * 4
-              + 2 * g * n_tiles * kc * 4)
-    group_rows = live[probes_np[probes_np >= 0]].sum()
-    ops_count = int(group_rows) * M * 2     # M look-ups + M adds a row
-    bound, by = bound_ms(int(nbytes), ops_count, INT_OPS_PER_S)
+    # that are occupied and pass the filter, its bitmap bytes and size,
+    # every LUT and probe id, the outputs written once
+    counts = rl.stream_counts(probes_np, sizes_np, cap, bits_np)
+    nbytes, ops_count, bound, by = kernel_bound(
+        "K1", "fastscan_stream_topk", g=g, m=M, kc=kc, n_tiles=cap // tile,
+        live_rows=counts["live_rows"], lists=counts["lists"],
+        filter_bytes=w, group_rows=counts["group_rows"])
     ms = ms_dev if ms_dev is not None else ms_events
     log(f"K1 fastscan_stream_topk: G={g} nlist={nlist} cap={cap} M={M} "
         f"tile={tile} kc={kc} filter~50% invalid_probes="
@@ -511,9 +522,9 @@ def k2_phase(torch, args, base, norms):
         fin = np.isfinite(pv)
         max_err = float(np.abs(gv[fin] - pv[fin]).max())
         ms_dev = device_ms(torch, kernel, "rerank_kernel", 50)
-        nbytes = valid * d * 4 + qq * d * 4 + 2 * qq * rp * 4 + qq * kk * 8
-        flops = 2 * valid * d
-        bound, by = bound_ms(nbytes, flops, F32_OPS_PER_S)
+        nbytes, flops, bound, by = kernel_bound(
+            f"K2 Q={qq} tile={tile}", "rerank_stream_topk", q=qq, d=d, rp=rp,
+            k=kk, valid=valid)
         earlier = EARLIER_K2_MS.get((qq, tile))
         log(f"K2 at Q={qq} tile={tile} (Rp={rp}): device {ms_dev} ms, "
             f"{earlier if earlier is not None else 'not measured'} ms "
@@ -698,17 +709,18 @@ def zero_counts() -> None:
         mod.launches = 0
 
 
-def bound_ms(nbytes: int, ops_count: int, peak: float = INT_OPS_PER_S
-             ) -> tuple[float, str]:
-    """The least time (ms) the card could take for a function, and which
-    term binds: the bytes it must move (each input read once, each output
-    written once, at the shapes it is launched with) at the memory rate,
-    against its own operations at ``peak`` -- for an ADC scan one look-up
-    and one add per row and sub-space at the card's fastest integer rate,
-    never the ops of a kernel's formulation (a one-hot product's 16x)."""
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = ops_count / peak
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+def kernel_bound(what: str, name: str, **shape):
+    """The least time (ms) the card could take for one call of the kernel
+    ``name`` at ``shape``, and which term binds
+    (``roofline.kernel_cost``: each input read once and each output
+    written once at the memory rate, against the function's own
+    operations at their type's peak, never a formulation's). Prints the
+    shape on a ``cost:`` line. Returns (bytes, ops, bound ms, bound by)."""
+    nbytes, ops, peak = rl.kernel_cost(name, **shape)
+    bound, by = rl.bound_ms(nbytes, ops, peak)
+    log(f"cost: {what} {json.dumps({'name': name, **shape})} -> {nbytes} B, "
+        f"{ops} ops at {peak:.6e}/s, bound {bound:.6f} ms ({by})")
+    return nbytes, ops, bound, by
 
 
 def assert_same(got, want, what: str) -> None:
@@ -718,15 +730,15 @@ def assert_same(got, want, what: str) -> None:
                                  f"({int((a != b).sum())} entries)")
 
 
-def time_kernel(torch, kernel, plain, dev_name: str, nbytes: int,
-                ops_count: int, what: str, **entry) -> dict:
+def time_kernel(torch, kernel, plain, dev_name: str, shape: dict,
+                what: str, **entry) -> dict:
     """Profiler and event time of ``kernel``, the plain version's time and
-    the bound; the kernel's entry of the kernels line (launches are filled
-    in by the path that drives it)."""
+    the bound at ``shape`` (``kernel_bound``); the kernel's entry of the
+    kernels line (launches are filled in by the path that drives it)."""
     ms_events = event_ms(torch, kernel, 20)
     ms_dev = device_ms(torch, kernel, dev_name, 10)
     plain_ms = event_ms(torch, plain, 3, warmup=1)
-    bound, by = bound_ms(nbytes, ops_count)
+    nbytes, ops_count, bound, by = kernel_bound(what, entry["name"], **shape)
     log(f"{what} time: device {ms_dev} ms, events {ms_events:.5f} ms, plain "
         f"{plain_ms:.5f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
         f"{ops_count} int ops)")
@@ -768,8 +780,8 @@ def mma_yardstick(torch) -> float:
     log(f"yardstick: independent u8 mma.sync.m16n8k32 from registers, "
         f"{ctas} CTAs x 8 warps x 8 chains: {rate:.6e} MMAs/s = "
         f"{rate * 16 * 8 * 32 * 2 / 1e12:.2f} TOP/s "
-        f"({100 * rate * 16 * 8 * 32 * 2 / INT_OPS_PER_S:.1f}% of "
-        f"{INT_OPS_PER_S / 1e12:.0f})")
+        f"({100 * rate * 16 * 8 * 32 * 2 / rl.PEAK_INT8_OPS:.1f}% of "
+        f"{rl.PEAK_INT8_OPS / 1e12:.0f})")
     return rate
 
 
@@ -805,14 +817,14 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
                                                  tile_n=tile)
 
     assert_same((k3(),), (k3_plain(),), "K3")
-    distinct = np.unique(probes_np[valid]).size
+    counts = rl.stream_counts(probes_np, np.full(nlist, cap), cap)
     log(f"K3 fastscan_stream_grouped: G={g} nlist={nlist} cap={cap} M={M} "
         f"tile={tile} invalid_probes={int((~valid).sum())}: kernel == plain "
         "bit for bit")
     out.append(time_kernel(
         torch, k3, k3_plain, "stream_grouped_kernel",
-        distinct * cap * mh + g * M * 16 + g * 4 + g * cap * 4,
-        int(valid.sum()) * cap * M * 2, "K3",
+        dict(g=g, m=M, cap=cap, lists=counts["lists"],
+             groups=counts["groups"]), "K3",
         name="fastscan_stream_grouped",
         source="src/repro_torch/kernels/csrc/fastscan_stream_grouped.cu",
         replaces="src/repro/kernels/fastscan_kernel.py:440"))
@@ -843,8 +855,7 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
         log(f"{what} {name}: G={g} N={n_p} M={M} tile={gtile} over the "
             "gathered copy: kernel == plain bit for bit")
         out.append(time_kernel(
-            torch, kernel, plain, dev_name,
-            g * n_p * mh + g * M * 16 + g * n_p * 4, g * n_p * M * 2, what,
+            torch, kernel, plain, dev_name, dict(g=g, n=n_p, m=M), what,
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
             mmas=mmas))
@@ -860,19 +871,19 @@ def grouped_phases(torch, args, cap: int, nlist: int) -> list[dict]:
     def k5_small():
         return sk.fastscan_select_tree_grouped(t_s, c_s, tile_n=gtile)
 
-    for what, fn, plain_out, dev_name, nbytes, ops_count, earlier in (
+    small = rl.stream_counts(probes_np[:gs], np.full(nlist, cap), cap)
+    for what, fn, plain_out, dev_name, name, shape, earlier in (
             ("K3", k3_small, sgk.fastscan_stream_grouped_plain(
                 t_s, store, p_s, tile_n=tile), "stream_grouped_kernel",
-             np.unique(probes_np[:gs][valid_s]).size * cap * mh
-             + gs * M * 16 + gs * 4 + gs * cap * 4,
-             int(valid_s.sum()) * cap * M * 2, EARLIER_K3_MS.get(gs)),
+             "fastscan_stream_grouped",
+             dict(g=gs, m=M, cap=cap, lists=small["lists"],
+                  groups=small["groups"]), EARLIER_K3_MS.get(gs)),
             ("K5", k5_small, sk.fastscan_grouped_plain(t_s, c_s, tile_n=gtile),
-             "select_grouped_kernel",
-             gs * n_p * mh + gs * M * 16 + gs * n_p * 4, gs * n_p * M * 2,
-             EARLIER_K5_MS.get(gs))):
+             "select_grouped_kernel", "fastscan_select_grouped",
+             dict(g=gs, n=n_p, m=M), EARLIER_K5_MS.get(gs))):
         assert_same((fn(),), (plain_out,), f"{what} G={gs}")
         ms_dev = device_ms(torch, fn, dev_name, 20)
-        bound, by = bound_ms(nbytes, ops_count)
+        _, _, bound, by = kernel_bound(f"{what} G={gs}", name, **shape)
         log(f"{what} at G={gs} cap/N={cap if what == 'K3' else n_p} M={M}: "
             f"kernel == plain bit for bit; device {ms_dev} ms, "
             f"{earlier if earlier is not None else 'not measured'} ms before "
@@ -953,20 +964,12 @@ def k4_phase(torch, args, cap: int, nlist: int) -> dict:
         # passing the filter) of each distinct (list, tile) it scanned, read
         # once, with their bitmap bytes; every LUT and per-group scalar; the
         # outputs
-        scanned = (probes_np >= 0)[:, None] & ~skipped
-        passing = np.unpackbits(host["bits"], axis=1,
-                                bitorder="little")[:, :cap]
-        live = passing & (np.arange(cap)[None, :] < sizes_np[:, None])
-        live_tile = live.reshape(nlist, n_tiles, tile).sum(-1)   # (nlist, T)
-        gi, ti = np.nonzero(scanned)
-        pairs = np.unique(probes_np[gi] * n_tiles + ti)
-        nbytes = (int(live_tile.reshape(-1)[pairs].sum()) * mh
-                  + pairs.size * (tile // 8 + 4) + g * M * 16 + g * 16
-                  + g * n_tiles * (kc * 8 + 4))
-        ops_count = int(live_tile[probes_np[gi], ti].sum()) * M * 2
+        counts = rl.pruned_counts(probes_np, sizes_np, host["bits"], skipped,
+                                  cap, tile)
         out = time_kernel(
-            torch, kernel, plain, "stream_topk_prune_kernel", nbytes,
-            ops_count, "K4", name="fastscan_stream_topk_prune",
+            torch, kernel, plain, "stream_topk_prune_kernel",
+            dict(g=g, m=M, kc=kc, tile=tile, n_tiles=n_tiles, **counts),
+            "K4", name="fastscan_stream_topk_prune",
             source="src/repro_torch/kernels/csrc/fastscan_stream_topk_prune.cu",
             replaces="src/repro/kernels/fastscan_kernel.py:788")
     return out
@@ -1436,9 +1439,6 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
         return sfk.fastscan_distances_plain(table, codes)
 
     want = plain()
-    # bytes: the LUTs and codes read once, the (Q, N) sums written once
-    nbytes = qq * M * 16 + n * mh + qq * n * 4
-    ops_count = qq * n * M * 2
     # mmas: the one-hot product's m16n8k32 MMAs, one a (8 queries, 16 rows,
     # code byte)
     for name, fn, dev_name, src, line, what, mmas in (
@@ -1455,7 +1455,7 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
         log(f"{what} {name}: Q={qq} N={n} M={M}: kernel == plain bit for "
             f"bit")
         out.append(time_kernel(
-            torch, kernel, plain, dev_name, nbytes, ops_count, what,
+            torch, kernel, plain, dev_name, dict(q=qq, n=n, m=M), what,
             name=name, source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/fastscan_kernel.py:{line}",
             mmas=mmas))
@@ -1475,11 +1475,13 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
     for qs in (1, 8):
         t_s = table[:qs].contiguous()
         want_s = sfk.fastscan_distances_plain(t_s, codes)
-        bound, by = bound_ms(qs * M * 16 + n * mh + qs * n * 4,
-                             qs * n * M * 2)
-        for fn, dev_name, what in (
-                (mfk.fastscan_onehot_mxu, "onehot_mma_flat_kernel", "K7b"),
-                (sfk.fastscan_select_tree, "select_flat_kernel", "K7a")):
+        for fn, dev_name, what, name in (
+                (mfk.fastscan_onehot_mxu, "onehot_mma_flat_kernel", "K7b",
+                 "fastscan_onehot_mma_flat"),
+                (sfk.fastscan_select_tree, "select_flat_kernel", "K7a",
+                 "fastscan_select_flat")):
+            _, _, bound, by = kernel_bound(f"{what} Q={qs}", name, q=qs, n=n,
+                                           m=M)
             def small(fn=fn):
                 return fn(t_s, codes)
 
@@ -1496,9 +1498,8 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
 
         assert_same(small_k7c(), bk.fastscan_blockmin_plain(
             t_s, codes_ff, tile_n=block), f"K7c Q={qs}")
-        bound, by = bound_ms(
-            qs * M * 16 + n_ff * mh + 2 * qs * (n_ff // block) * 4,
-            qs * n_ff * M * 2)
+        _, _, bound, by = kernel_bound(f"K7c Q={qs}", "fastscan_blockmin",
+                                       q=qs, n=n_ff, m=M, block=block)
         ms_ev = event_ms(torch, small_k7c, 20)
         ms_dev = device_ms(torch, small_k7c, "blockmin_kernel", 10)
         log(f"K7c at Q={qs} N={n_ff} M={M} block={block}: mins and ids == "
@@ -1516,8 +1517,7 @@ def flat_kernel_phases(torch, args, index, queries) -> list[dict]:
         f"M={M} block={block}: mins and ids == plain bit for bit")
     out.append(time_kernel(
         torch, k7c, k7c_plain, "blockmin_kernel",
-        qq * M * 16 + n_ff * mh + 2 * qq * (n_ff // block) * 4,
-        qq * n_ff * M * 2, "K7c", name="fastscan_blockmin",
+        dict(q=qq, n=n_ff, m=M, block=block), "K7c", name="fastscan_blockmin",
         source="src/repro_torch/kernels/csrc/fastscan_blockmin.cu",
         replaces="src/repro/kernels/fastscan_kernel.py:311",
         mmas=-(-qq // 8) * -(-n_ff // 16) * mh))
@@ -2967,6 +2967,15 @@ def graph_vs_eager(torch, params, cfg, prompts, pq_cache, steps: int,
                graph_ms=float(np.median(t_g[1:])),
                capture_s=graph.capture_seconds())
     pos = torch.full((b,), s + steps, dtype=torch.int32, device="cuda")
+    # the eager step's own memory: its peak above what was allocated before
+    # it, beside the bytes of its parameters and cache (for dryrun_phase)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model_lib.decode_step(params, eager, tok, pos, cfg)
+    torch.cuda.synchronize()
+    out["step_peak"] = torch.cuda.max_memory_allocated() - base
+    out["static_real"] = ca.tree_bytes(params, eager)
     for kind, fn in (("eager", lambda: model_lib.decode_step(
             params, eager, tok, pos, cfg)), ("graph",
                                              lambda: graph.step(tok, pos))):
@@ -2974,6 +2983,8 @@ def graph_vs_eager(torch, params, cfg, prompts, pq_cache, steps: int,
         k8 = sum(ms for name, ms in rows if "pq_decode_kernel" in name)
         out[kind] = dict(busy=busy, ops=ops, k8=k8, rows=rows)
     out["replay_ms"] = event_ms(torch, lambda: graph.step(tok, pos), 10)
+    MEASURED[what] = dict(out, cfg=cfg, batch=b, smax=LM_MAX_SEQ,
+                          live=s + steps + 1)
     log(f"{what}: graph == eager bit for bit over {steps} steps (logits, "
         f"tokens, every cache tensor); capture {out['capture_s']:.3f} s")
     for kind in ("eager", "graph"):
@@ -3072,21 +3083,17 @@ def k8_time(torch, path, cfg, live: int, launches: int, what: str):
     ms = graph_ms(torch, kernel, 20)
     plain_ms = event_ms(torch, plain, 3, warmup=1)
     pqk.launches = n0
-    nbytes = (2 * b * live * kv * (m // 2) + table.numel()
-              + 2 * 4 * b * kv * g + path[5].numel() * path[5].element_size()
-              + 4 * b + b * kv * g * hd * 2)
-    int_ops = b * kv * g * live * m * 2
-    flops = b * kv * g * live * hd * 2
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = int_ops / INT_OPS_PER_S + flops / F32_OPS_PER_S
-    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    nbytes, ops, bound, by = kernel_bound(
+        f"{what}: K8", "pq_decode_attention", b=b, kv=kv, g=g, m=m,
+        head_dim=hd, live=live, q8=table.dtype == torch.uint8,
+        cb_itemsize=path[5].element_size(), out_itemsize=2)
     log(f"{what}: K8 time at the path's shapes, back to back on one layer's "
         f"codes (warm in L2): graph replays {ms:.6f} ms a call (before the "
         f"split redesign {K8_EARLIER_MS[what]:.6f} ms: "
         f"{ms / K8_EARLIER_MS[what]:.3f}x), profiler (both passes) "
         f"{ms_dev} ms, events {ms_ev:.5f} ms, plain {plain_ms:.5f} ms, bound "
-        f"{bound:.6f} ms ({by}: {nbytes} B; {int_ops} int ops, {flops} f32 "
-        f"ops), {launches} launches on the PQ run")
+        f"{bound:.6f} ms ({by}: {nbytes} B; {ops} int8 and f32 ops), "
+        f"{launches} launches on the PQ run")
     return ms, plain_ms, bound, by
 
 
@@ -3785,7 +3792,7 @@ def moe_phase(torch, args) -> list[dict]:
                    * (cfg.resolved_kv_pq_m // 2)}
         for kind, st_g in steps.items():
             nbytes = weights + cache_b[kind] + LM_BATCH * cfg.padded_vocab * 2
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = nbytes / rl.HBM_BW * 1e3
             log(f"{what}: {kind} decode step {st_g['graph_ms']:.3f} ms "
                 f"(graph; device {st_g['graph']['busy']:.3f} ms) against a "
                 f"byte bound of {bound:.3f} ms ({nbytes} B: every weight "
@@ -3818,9 +3825,6 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 2048, 2
 TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_REC_BATCH = 8, 4, 2
 TRAIN_REC = (("zamba2-2.7b", {}), ("rwkv6-3b", {"rwkv_chunk": 32}))
-# the card's dense bf16 peak (H100 SXM data sheet, 700 W), against which
-# the model-FLOP share of a step is printed
-BF16_FLOPS_PER_S = 989e12
 # the codec's relative reconstruction error on a leaf that every token's
 # gradient reaches must stay under the reference's own bound in its test
 # (tests/test_train.py, Gaussian gradients); the vocab-indexed leaves'
@@ -3845,7 +3849,7 @@ def train_steps(torch, step_fn, state, batches, first: int, what: str,
                **{k: float(m[k]) for k in ("ce", "grad_norm", "lr")}}
         tokens = batch["tokens"].numel()
         log(f"{what}: step {i} {dt * 1e3:.1f} ms, {tokens / dt:.0f} tokens/s,"
-            f" model-FLOP share {flops / dt / BF16_FLOPS_PER_S:.4f}, loss "
+            f" model-FLOP share {flops / dt / rl.PEAK_FLOPS:.4f}, loss "
             f"{float(rec['loss']):.6f} (ce {rec['ce']:.6f}), grad_norm "
             f"{rec['grad_norm']:.4f}, lr {rec['lr']:.3e}; peak memory "
             f"{torch.cuda.max_memory_allocated()} B")
@@ -3878,7 +3882,7 @@ def codec_check(torch, args, cfg, params, batch) -> None:
     ratio, its ms, and the relative reconstruction error of the largest
     leaves and of all of them; each leaf finite and its new error state
     the gradient less its decoding, and each leaf but VOCAB_LEAVES under
-    CODEC_REL_MAX."""
+    CODEC_REL_MAX. Returns the profiled gradients' device ops."""
     from repro_torch.train import grad_compress as gc_lib
     from repro_torch.train import train_loop
     torch.cuda.synchronize()
@@ -3927,6 +3931,7 @@ def codec_check(torch, args, cfg, params, batch) -> None:
         raise AssertionError(f"train: codec leaves out of bounds: "
                              f"{sorted(bad.items())[:5]}")
     del grads, error, dec, new_err
+    return ops
 
 
 def train_phase(torch, args, root: str) -> None:
@@ -3956,19 +3961,25 @@ def train_phase(torch, args, root: str) -> None:
     torch.cuda.synchronize()
     n = sum(p.numel() for p in state.params.parameters())
     n_model = n - state.params.embedding.numel()
-    flops = 6 * n_model * TRAIN_BATCH * TRAIN_SEQ
+    # the model FLOPs of a step by the reference's accounting
+    # (6 x active parameters x tokens and the causal attention term);
+    # the earlier yardstick, 6 x non-embedding parameters x tokens, printed once
+    # beside it
+    flops = rl.model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    flops_6n = 6 * n_model * TRAIN_BATCH * TRAIN_SEQ
     state_b = sum(t.numel() * t.element_size() for t in
                   [*state.params.parameters(), *state.opt.mu.values(),
                    *state.opt.nu.values()])
     log(f"train: {cfg.name} full CONFIG ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, vocab {cfg.vocab}), {cfg.dtype}, remat {cfg.remat}, "
-        f"loss_chunk {cfg.loss_chunk}: {n} parameters ({n_model} without "
-        f"the embedding; 6 x {n_model} x {TRAIN_BATCH * TRAIN_SEQ} tokens "
-        f"= {flops:.4e} model FLOPs a step), random from seed {args.seed}; "
+        f"loss_chunk {cfg.loss_chunk}: {n} parameters; model FLOPs a step "
+        f"{flops:.4e} (roofline.model_flops; 6 x the {n_model} non-embedding "
+        f"parameters x {TRAIN_BATCH * TRAIN_SEQ} tokens would be "
+        f"{flops_6n:.4e}), random from seed {args.seed}; "
         f"params + moments {state_b} B; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"in {TRAIN_MICRO} microbatches; AdamW {dict(ocfg._asdict())} "
         f"[{time.perf_counter() - t0:.1f} s]; reduced: nothing")
-    codec_check(torch, args, cfg, state.params, batches[0])
+    grad_ops = codec_check(torch, args, cfg, state.params, batches[0])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3990,10 +4001,18 @@ def train_phase(torch, args, root: str) -> None:
 
     torch.use_deterministic_algorithms(True)
     try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        static_real = ca.tree_bytes(state.params, state.opt)
         torch.cuda.reset_peak_memory_stats()
         state, recs = train_steps(torch, step_fn, state, batches, 1,
                                   "train", flops, checkpoint)
         peak = torch.cuda.max_memory_allocated()
+        MEASURED["train"] = dict(
+            cfg=cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
+            step_s=float(np.median([r["s"] for r in recs[1:]])),
+            static_real=static_real, step_peak=peak - base,
+            inputs=ca.tree_bytes(batches[0]), grad_ops=grad_ops)
         t = time.perf_counter()
         ckptr.wait()
         wait_s = time.perf_counter() - t
@@ -4007,8 +4026,8 @@ def train_phase(torch, args, root: str) -> None:
             f"-> {float(recs[-1]['loss']):.6f}; step s median "
             f"{np.median(steady):.4f} (steps 2-{TRAIN_STEPS}; step 1 "
             f"{recs[0]['s']:.4f}), {TRAIN_BATCH * TRAIN_SEQ / np.median(steady):.0f} "
-            f"tokens/s, model-FLOP share {flops / np.median(steady) / BF16_FLOPS_PER_S:.4f} "
-            f"of {BF16_FLOPS_PER_S:.3e}; peak memory {peak} B")
+            f"tokens/s, model-FLOP share {flops / np.median(steady) / rl.PEAK_FLOPS:.4f} "
+            f"of {rl.PEAK_FLOPS:.3e}; peak memory {peak} B")
         log(f"train: checkpoint of step {TRAIN_CKPT_STEP}: {nbytes} B, the "
             f"host snapshot {saved['snapshot_s']:.2f} s, written "
             f"{write_s:.2f} s after it (overlapping steps "
@@ -4063,8 +4082,7 @@ def train_phase(torch, args, root: str) -> None:
         rpipe = tok.TokenPipelineConfig(vocab=rcfg.vocab, seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_REC_BATCH, seed=0)
         batch = dict(tok.batch_at_step(rpipe, 0, dev)._asdict())
-        rflops = 6 * (n - state.params.embedding.numel()) * batch[
-            "tokens"].numel()
+        rflops = rl.model_flops(rcfg, "train", TRAIN_REC_BATCH, TRAIN_SEQ)
         log(f"train: {arch} full CONFIG ({rcfg.n_layers} layers, d_model "
             f"{rcfg.d_model}), {n} parameters in {rcfg.dtype}, remat "
             f"{rcfg.remat}; reduced: "
@@ -4077,6 +4095,96 @@ def train_phase(torch, args, root: str) -> None:
         del state, batch
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# the dry-run phase: the paths the LM and training phases measured, each
+# counted again on the meta device (repro_torch.launch.dryrun) at the same
+# shapes, cut and cache. The decode paths: (their name in MEASURED, K8
+# launches a step the count must hold: one a PQ attention layer, none on
+# an exact cache)
+DRYRUN_DECODE = (("lm: exact", 0), ("lm: pq", 28), ("zamba2: pq", 9),
+                 ("dbrx: exact", 0))
+# a measured time below this share of the count's t_bound means the count
+# overstates the work
+DRYRUN_TIME_FLOOR = 0.95
+# counted peak of live bytes / the step's measured peak (its parameters,
+# state and cache, its inputs, and its max_memory_allocated above what was
+# allocated before it). The counter follows each storage's life exactly;
+# the two part by the caching allocator's rounding (a block rounded up to
+# 512 B, a large one by up to 1 MB it does not split), CUDA-only
+# temporaries (K8's split workspace, the deterministic embedding
+# backward's sort) and the order in which the card's autograd engine frees
+# saved tensors: 0.9998-1.0048 on these five paths (NVIDIA H100 80GB
+# HBM3, 700 W)
+DRYRUN_PEAK_BAND = (0.98, 1.02)
+
+
+def dryrun_phase(torch) -> None:
+    """The dry-run's count of the qwen3-1.7b exact and PQ decode steps,
+    zamba2-2.7b's PQ step, dbrx-132b's step at its one-card depth and
+    qwen3's training step (2 microbatches), at the shapes the earlier
+    phases ran them, held against what those phases measured: the
+    measured time (the decode graph's replay by CUDA events; the training
+    step synchronised) never below DRYRUN_TIME_FLOOR x t_bound, the static
+    bytes equal to the real tensors', the peak within DRYRUN_PEAK_BAND,
+    every K8 launch of a PQ step counted. Prints the counted FLOPs, bytes,
+    ops (beside the profiler's), the model-FLOP share of each path
+    (``roofline.model_flops``) and the largest ops by bytes."""
+    from repro_torch.launch import dryrun
+    bad = []
+    paths = [(what, "decode", k8) for what, k8 in DRYRUN_DECODE]
+    paths.append(("train", "train", 0))
+    for what, kind, k8_need in paths:
+        m = MEASURED[what]
+        cfg = m["cfg"]
+        t0 = time.perf_counter()
+        if kind == "train":
+            b, seq = m["batch"], m["seq"]
+            costs = dryrun.count_cell(cfg, kind, b, seq,
+                                      microbatches=m["micro"])
+            ms = m["step_s"] * 1e3
+            measured_ops = f"{m['grad_ops']} device ops in the gradients"
+        else:
+            b, seq = m["batch"], m["live"]
+            costs = dryrun.count_cell(cfg, kind, b, m["smax"], live=seq)
+            ms = m["replay_ms"]
+            measured_ops = f"{m['eager']['ops']} device ops an eager step"
+        trace_s = time.perf_counter() - t0
+        roof = dryrun.roofline(cfg, cfg.name, what, kind, b, seq, costs)
+        bound = roof.t_bound * 1e3
+        peak_real = m["static_real"] + m.get("inputs", 0) + m["step_peak"]
+        ratio = costs.peak_live_bytes / peak_real
+        k8 = costs.kernels.get("pq_decode_attention", 0)
+        log(f"dryrun: {what} ({cfg.name}, {cfg.n_layers} layers, {kind}, B "
+            f"{b}, {'seq' if kind == 'train' else 'live'} {seq}; counted on "
+            f"meta in {trace_s:.1f} s): {costs.flops:.6e} FLOPs, min_bytes "
+            f"{costs.min_bytes}, op_bytes {costs.op_bytes:.6e}, t_bound "
+            f"{bound:.4f} ms ({roof.bottleneck}); measured {ms:.4f} ms = "
+            f"{ms / bound:.3f}x t_bound; model-FLOP share "
+            f"{roof.model_flops_total / (ms * 1e-3) / rl.PEAK_FLOPS:.6f} "
+            f"({roof.model_flops_total:.6e} model FLOPs)")
+        log(f"dryrun: {what}: static_bytes {costs.static_bytes} against the "
+            f"real tensors' {m['static_real']}; peak_live_bytes "
+            f"{costs.peak_live_bytes} (the card holds "
+            f"{rl.card_memory_bytes()}) against {peak_real} measured "
+            f"(max_memory_allocated above the step's start "
+            f"{m['step_peak']}): {ratio:.4f} (band {DRYRUN_PEAK_BAND}); "
+            f"{costs.launches} counted ops against {measured_ops}; K8 "
+            f"{k8} counted (need {k8_need}); largest op_bytes "
+            + ", ".join(f"{n} {v:.4e}" for n, v in costs.top_bytes(4)))
+        if ms < DRYRUN_TIME_FLOOR * bound:
+            bad.append(f"{what}: measured {ms} ms below "
+                       f"{DRYRUN_TIME_FLOOR} x t_bound {bound} ms")
+        if costs.static_bytes != m["static_real"]:
+            bad.append(f"{what}: static_bytes {costs.static_bytes} != "
+                       f"{m['static_real']}")
+        if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+            bad.append(f"{what}: peak ratio {ratio} outside "
+                       f"{DRYRUN_PEAK_BAND}")
+        if k8 != k8_need:
+            bad.append(f"{what}: {k8} K8 launches counted, want {k8_need}")
+    if bad:
+        raise AssertionError("dryrun: " + "; ".join(bad))
 
 
 def examples_phase(root: str) -> None:
@@ -4314,6 +4422,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(torch, args, root)
     log(f"train: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
+    # 15b. the dry-run's count of the paths just measured (meta device)
+    t0 = time.perf_counter()
+    dryrun_phase(torch)
+    log(f"dryrun: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
     # 16. the two ANN examples, each once in its own process
     t0 = time.perf_counter()

@@ -13,8 +13,8 @@ reference's numpy code, kept here as a copy, so the same (seed, step,
 host) gives the same tokens in both packages, bit for bit; the batch is
 then moved to an explicit device (None = the CUDA card).
 
-The reference's ``input_specs_lm`` (shape stand-ins for its TPU dry-run)
-is not ported: the port has no dry-run (ROADMAP Queue 1).
+``input_specs_lm`` gives the batch's shape stand-ins for the dry-run:
+tensors on the meta device, which hold no data (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -72,6 +72,17 @@ def batch_at_step(cfg: TokenPipelineConfig, step: int,
     return TokenBatch(tokens=tokens, targets=targets,
                       mask=torch.ones(tokens.shape, dtype=torch.float32,
                                       device=dev))
+
+
+def input_specs_lm(vocab: int, seq_len: int, global_batch: int
+                   ) -> dict[str, torch.Tensor]:
+    """Meta-device stand-ins of a batch for the dry-run (no allocation)."""
+    del vocab
+    shape = (global_batch, seq_len)
+    meta = torch.device("meta")
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device=meta),
+            "targets": torch.empty(shape, dtype=torch.int32, device=meta),
+            "mask": torch.empty(shape, dtype=torch.float32, device=meta)}
 
 
 class PrefetchIterator:

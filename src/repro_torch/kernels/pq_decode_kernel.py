@@ -236,6 +236,28 @@ def _plain_split(table, scale, bias, k_codes, v_codes, v_cb, position,
     return out.reshape(b, kv * g, hd).to(out_dtype)
 
 
+def _on_meta(b, kv, g, m, hd, smax, q8, v_cb, out_dtype) -> torch.Tensor:
+    """The dry-run's K8: the shared-memory checks by the mirrors, one
+    launch's cost recorded, an empty (B, KV * g, hd) output on meta."""
+    from repro_torch.launch import cost_analysis
+    for what, need in ((f"g={g}, M={m}, head_dim={hd}",
+                        smem_bytes(g, m, hd, q8)),
+                       (f"Smax={smax}", combine_smem_bytes(smax))):
+        if need > _build.SMEM_LIMIT:
+            raise ValueError(f"{what} needs {need} B of shared memory, more "
+                             f"than the {_build.SMEM_LIMIT} B a block can "
+                             "get")
+    counter = cost_analysis.active()
+    live = smax
+    if counter is not None and counter.live_positions is not None:
+        live = min(counter.live_positions, smax)
+    cost_analysis.record_kernel(
+        "pq_decode_attention", b=b, kv=kv, g=g, m=m, head_dim=hd, live=live,
+        q8=q8, cb_itemsize=v_cb.element_size(),
+        out_itemsize=out_dtype.itemsize)
+    return torch.empty((b, kv * g, hd), dtype=out_dtype, device="meta")
+
+
 def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
               v_codes: torch.Tensor, v_cb: torch.Tensor,
               position: torch.Tensor, *, chunk: int,
@@ -252,6 +274,13 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``scores`` (CUDA only), a (B, KV, g, Smax) f32 tensor, gets
     each live position's score from the kernel (for checks).
+
+    Meta tensors (the dry-run, ``launch/dryrun.py``) compute nothing: the
+    kernel's limits and both passes' shared memory are checked through
+    the Python mirrors (no library is loaded), the cost of one launch is
+    recorded on the active ``launch.cost_analysis`` counter (its live
+    positions, or all Smax), and an empty output of the kernel's shape and
+    dtype comes back.
     """
     global launches
     _check(table, scale, bias, k_codes, v_codes, v_cb, position)
@@ -261,7 +290,7 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             raise ValueError("scores is an output of the CUDA kernel only")
         return pq_decode_plain(table, scale, bias, k_codes, v_codes, v_cb,
                                position, chunk=chunk, out_dtype=out_dtype)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype: want f32 or bf16, got {out_dtype}")
@@ -273,6 +302,10 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
     if g > MAX_G or hd > THREADS:
         raise ValueError(f"g={g} (at most {MAX_G}) and head_dim={hd} (at "
                          f"most {THREADS}) exceed what the kernel takes")
+    if dev.type == "meta":
+        if scores is not None:
+            raise ValueError("scores is an output of the CUDA kernel only")
+        return _on_meta(b, kv, g, m, hd, smax, q8, v_cb, out_dtype)
     _build.check_smem("repro_pq_decode_attention_smem", g, m, hd, int(q8),
                       what=f"g={g}, M={m}, head_dim={hd}")
     _build.check_smem("repro_pq_decode_combine_smem", smax,

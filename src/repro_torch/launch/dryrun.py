@@ -1,0 +1,283 @@
+"""Dry-run of every (arch x shape) cell on one H100, counted on the meta
+device (the port of ``repro/launch/dryrun.py``).
+
+    python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
+    python -m repro_torch.launch.dryrun --all [--kv pq] [--out build/dryrun]
+
+The reference lowers and compiles each cell's step for a TPU pod on 512
+placeholder CPU devices. Here each cell's step runs on the **meta
+device** by design: its parameters, optimizer state, caches and batch are
+meta tensors (shapes and dtypes, no data), so the step allocates nothing
+and never touches a card, even where one is present. This is not a CPU
+fallback: nothing is computed. ``launch/cost_analysis.py`` counts the
+aten ops the step runs (FLOPs, bytes, launches, live storages), K8
+records its own cost through its meta branch, and ``launch/roofline.py``
+turns the counts into a roofline of one card. Each cell writes one JSON.
+
+A cell sized for the reference's 256 chips may not fit one 80 GB card
+(qwen3-1.7b's decode_32k exact cache alone is ~481 GB): it is still
+``status: "ok"``, with ``fits: false`` and ``cards_by_memory``, the
+cards its peak of live bytes would fill. The reference's ``--mesh pod |
+multipod`` has no counterpart: the port has no device mesh or sharding
+rules yet (ROADMAP), so it is refused.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import configs
+from repro_torch.data import tokens as tok
+from repro_torch.launch import cost_analysis as ca
+from repro_torch.launch import roofline as rl
+from repro_torch.models import layers as ll
+from repro_torch.models import model as model_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import train_loop
+
+MESH = "h100x1"
+META = torch.device("meta")
+MESH_MESSAGE = ("--mesh pod/multipod has no counterpart: the port has no "
+                "device mesh or sharding rules yet (ROADMAP, Queue 1: the "
+                "LM over four cards); the dry-run counts one H100")
+
+# (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+SUBQUADRATIC = ("mamba2", "rwkv6")  # block types allowed to run long_500k
+
+
+def cell_supported(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    if shape == "long_500k" and cfg.block_type not in SUBQUADRATIC:
+        return False, ("SKIP: long_500k needs sub-quadratic attention; "
+                       f"{cfg.name} is pure full-attention (see DESIGN.md)")
+    return True, ""
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Meta stand-ins of a training batch (with the frontend stub's
+    embeddings for the frontend archs)."""
+    specs = tok.input_specs_lm(cfg.vocab, seq, batch)
+    if cfg.frontend != "none":
+        specs["frontend_embeds"] = torch.empty(
+            (batch, cfg.frontend_len, cfg.d_model),
+            dtype=model_lib.model_dtype(cfg), device=META)
+    return specs
+
+
+class Cell(NamedTuple):
+    """A step ready to count: ``fn()`` runs it; ``live`` holds what is
+    alive when it starts; ``static`` the parameters, optimizer state and
+    caches among them; ``compulsory(result)`` the step's compulsory bytes
+    given what it returned; ``live_positions`` a decode step's."""
+    fn: Callable[[], object]
+    live: tuple
+    static: tuple
+    compulsory: Callable[[object], int]
+    live_positions: int | None
+
+
+# cache entries by their role: rows along a sequence axis (axis 2), read
+# only (codebooks), or states read and written whole
+_SEQ = ("k", "v", "k_codes", "v_codes", "attn_k", "attn_v", "attn_k_codes",
+        "attn_v_codes")
+_READ = ("k_cb", "v_cb", "attn_k_cb", "attn_v_cb")
+
+
+def _entries(cache) -> dict:
+    return cache._asdict() if hasattr(cache, "_asdict") else dict(cache)
+
+
+def decode_cache_bytes(cache, live: int) -> int:
+    """A decode step's compulsory cache traffic: each sequence store's
+    ``live`` rows read and the new row written, each codebook read, each
+    recurrent state read and written."""
+    total = 0
+    for name, t in _entries(cache).items():
+        nbytes = t.numel() * t.element_size()
+        if name in _SEQ:
+            row = nbytes // t.shape[2]
+            total += row * (min(live, t.shape[2]) + 1)
+        elif name in _READ:
+            total += nbytes
+        else:
+            total += 2 * nbytes
+    return total
+
+
+def build_cell(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
+               live: int | None = None, microbatches: int = 1) -> Cell:
+    """The cell's step on meta tensors. ``train``: ``loss_fn``, its
+    backward and ``apply_updates`` through ``make_train_step`` (trainable
+    parameters, f32 moments, ``microbatches`` as the loop takes them);
+    ``prefill``: exact, or PQ into a cache with meta codebooks;
+    ``decode``: one token against a ``seq``-position cache
+    (``init_cache``) whose first ``live`` positions (default all) are
+    live."""
+    params = model_lib.lm_shapes(cfg)
+    pbytes = ca.tree_bytes(params)
+    if kind == "train":
+        ll.set_trainable(params)
+        opt = opt_lib.state_shapes(params)
+        state = train_loop.TrainState(params, opt, None)
+        data = batch_specs(cfg, batch, seq)
+        step = train_loop.make_train_step(
+            cfg, opt_lib.AdamWConfig(total_steps=1000), microbatches)
+        obytes = ca.tree_bytes(opt)
+        # every parameter and moment read and written once, the batch read
+        need = 2 * pbytes + 2 * obytes + ca.tree_bytes(data)
+        return Cell(lambda: step(state, data), (params, opt, data),
+                    (params, opt), lambda _: need, None)
+
+    if kind == "prefill":
+        tokens = torch.empty((batch, seq), dtype=torch.int32, device=META)
+        pq = None
+        if cfg.kv_pq and (cfg.block_type == "attn" or cfg.shared_attn_every):
+            pq = model_lib.init_cache(cfg, batch, seq, device=META)
+
+        def compulsory(result):
+            # the parameters and prompt read, the logits and cache written
+            # (a PQ cache's codebooks read)
+            return pbytes + ca.tree_bytes(tokens) + ca.tree_bytes(result)
+
+        return Cell(lambda: model_lib.prefill(params, tokens, cfg,
+                                              max_seq=seq, pq_cache=pq),
+                    (params, tokens, pq), (params, pq), compulsory, None)
+
+    live = seq if live is None else live
+    cache = model_lib.init_cache(cfg, batch, seq, device=META)
+    tokens = torch.empty((batch,), dtype=torch.int32, device=META)
+    position = torch.empty((batch,), dtype=torch.int32, device=META)
+    need = (pbytes + decode_cache_bytes(cache, live)
+            + ca.tree_bytes(tokens, position))
+
+    def compulsory(result):
+        return need + result[0].numel() * result[0].element_size()
+
+    return Cell(lambda: model_lib.decode_step(params, cache, tokens,
+                                              position, cfg),
+                (params, cache, tokens, position), (params, cache),
+                compulsory, live)
+
+
+def count_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
+               **kw) -> ca.Costs:
+    """``build_cell``'s step counted: the op costs, the compulsory bytes
+    and the static bytes (parameters, optimizer state, caches)."""
+    cell = build_cell(cfg, kind, batch, seq, **kw)
+    result, costs = ca.count(cell.fn, live=cell.live,
+                             live_positions=cell.live_positions)
+    costs.min_bytes = cell.compulsory(result)
+    costs.static_bytes = ca.tree_bytes(*cell.static)
+    return costs
+
+
+def roofline(cfg: ModelConfig, arch: str, shape: str, kind: str, batch: int,
+             seq: int, costs: ca.Costs) -> rl.Roofline:
+    """One card's roofline of counted ``costs``: the counted FLOPs, the
+    compulsory bytes, no wire bytes."""
+    return rl.Roofline(
+        arch=arch, shape=shape, mesh=MESH, chips=1,
+        hlo_flops_per_dev=costs.flops, hlo_bytes_per_dev=costs.min_bytes,
+        wire_bytes_per_dev=0.0,
+        model_flops_total=rl.model_flops(cfg, kind, batch, seq),
+        collectives={})
+
+
+def run_cell(arch: str, shape_name: str, *, kv_override: str = "auto",
+             out_dir: str | None = None, verbose: bool = True) -> dict:
+    cfg = configs.get_config(arch)
+    if kv_override == "exact":
+        cfg = cfg.replace(kv_pq=False)
+    elif kv_override == "pq":
+        cfg = cfg.replace(kv_pq=True)
+    seq, batch, kind = SHAPES[shape_name]
+    ok, why = cell_supported(cfg, shape_name)
+    result = {"arch": arch, "shape": shape_name, "mesh": MESH,
+              "kind": kind, "seq": seq, "batch": batch,
+              "kv_override": None if kv_override == "auto" else kv_override,
+              "kv_pq": cfg.kv_pq and kind in ("decode", "prefill"),
+              "params": cfg.param_count(),
+              "active_params": cfg.active_param_count()}
+    if not ok:
+        result["status"] = "skipped"
+        result["reason"] = why
+        if verbose:
+            print(f"[dryrun] {arch} x {shape_name} x {MESH}: {why}")
+    else:
+        t0 = time.perf_counter()
+        costs = count_cell(cfg, kind, batch, seq)
+        roof = roofline(cfg, arch, shape_name, kind, batch, seq, costs)
+        peak = costs.peak_live_bytes
+        result.update(
+            status="ok", trace_s=round(time.perf_counter() - t0, 2),
+            **costs.to_dict(), fits=peak <= rl.HBM_BYTES,
+            cards_by_memory=math.ceil(peak / rl.HBM_BYTES),
+            roofline=roof.to_dict())
+        if verbose:
+            print(f"[dryrun] {arch} x {shape_name} x {MESH}: OK (trace "
+                  f"{result['trace_s']:.1f}s, {costs.launches} ops, "
+                  f"bottleneck={roof.bottleneck}, "
+                  f"t_bound={roof.t_bound * 1e3:.2f}ms, "
+                  f"mfu_bound={roof.mfu_bound:.3f}, peak "
+                  f"{peak / 1e9:.1f} GB, fits={result['fits']})")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        suffix = "" if kv_override == "auto" else f"_{kv_override}"
+        path = os.path.join(out_dir, f"{arch}_{shape_name}_{MESH}{suffix}.json")
+        with open(path, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
+    ap.add_argument("--mesh", default=None,
+                    help="pod, multipod or both: not ported (ROADMAP)")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--kv", default="auto", choices=["auto", "exact", "pq"])
+    ap.add_argument("--out", default="build/dryrun")
+    args = ap.parse_args(argv)
+    if args.mesh is not None and args.mesh != MESH:
+        print(f"[dryrun] {MESH_MESSAGE}", file=sys.stderr)
+        return 2
+
+    archs = (list(configs.ALIASES) if (args.all or not args.arch)
+             else [args.arch])
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            try:
+                r = run_cell(arch, shape, out_dir=args.out,
+                             kv_override=args.kv)
+                if r["status"] not in ("ok", "skipped"):
+                    failures.append((arch, shape))
+            except Exception as e:
+                traceback.print_exc()
+                failures.append((arch, shape, str(e)[:200]))
+    if failures:
+        print(f"[dryrun] FAILURES: {failures}")
+        return 1
+    print("[dryrun] all requested cells passed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,12 +16,18 @@ Runs on the CUDA card unless ``--device cpu``; on the card each decode step
 is one replay of a captured CUDA graph (``models/decode_graph.py``, the
 counterpart of the reference's ``jax.jit`` of the step), on the CPU the
 step runs eagerly. The weights are random, drawn from a seeded generator:
-no checkpoint is loaded. The reference's ``--dry-run`` (lowering for a TPU
-mesh) has no counterpart here.
+no checkpoint is loaded.
+
+``--dry-run [--shape decode_32k]`` counts the arch's cell on the meta
+device and prints its roofline on one H100 (``launch/dryrun.py``; no card
+needed, and none is touched), as the reference's lowers it for its TPU
+mesh. ``--multi-pod`` has no counterpart (no device mesh yet, ROADMAP)
+and is refused.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch import dryrun, report
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import model as model_lib
 from repro_torch.models.decode_graph import DecodeGraph
@@ -138,7 +145,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
     return tokens
 
 
-def main() -> None:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -147,8 +154,21 @@ def main() -> None:
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cpu, or the CUDA card when omitted")
-    args = ap.parse_args()
+    ap.add_argument("--dry-run", action="store_true",
+                    help="count the --shape cell on the meta device and "
+                    "print its roofline on one H100 instead of serving")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported (ROADMAP): refused")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=list(dryrun.SHAPES))
+    args = ap.parse_args(argv)
 
+    if args.multi_pod:
+        print(f"[serve] {dryrun.MESH_MESSAGE}", file=sys.stderr)
+        return 2
+    if args.dry_run:
+        print(report.roofline_table([dryrun.run_cell(args.arch, args.shape)]))
+        return 0
     dev = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -165,7 +185,8 @@ def main() -> None:
     print(f"[serve] generated {tuple(tokens.shape)} tokens in {dt:.2f}s "
           f"({args.batch * args.tokens / dt:.1f} tok/s) on {dev}")
     print(tokens.cpu().numpy())
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

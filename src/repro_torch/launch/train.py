@@ -13,10 +13,11 @@ trains whole at 8 x 2,048 tokens a step in 2 microbatches (the bf16
 parameters, f32 moments and f32 accumulator hold ~32.5 GB). The weights
 start random from seed 0, as the reference's do.
 
-The reference's ``--dry-run`` lowers the production-mesh step for a TPU
-mesh; the port has no counterpart yet (ROADMAP Queue 1, the H100 analogue
-of the analysis tools), so ``--dry-run`` exits with an error and runs
-nothing in its place. ``--multi-pod`` only goes with it.
+``--dry-run`` counts the arch's train_4k cell on the meta device and
+prints its roofline on one H100 (``launch/dryrun.py``; no card needed, and
+none is touched), as the reference's lowers it for its TPU mesh.
+``--multi-pod`` has no counterpart (no device mesh yet, ROADMAP) and is
+refused.
 """
 from __future__ import annotations
 
@@ -24,12 +25,9 @@ import argparse
 import sys
 
 from repro_torch import configs
+from repro_torch.launch import dryrun, report
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_loop
-
-DRY_RUN_MESSAGE = ("--dry-run is not ported: it waits for the H100 analogue "
-                   "of the analysis tools (ROADMAP Queue 1, item 2)")
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -44,15 +42,20 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported (ROADMAP Queue 1): exits with an error")
-    ap.add_argument("--multi-pod", action="store_true")
+                    help="count the train_4k cell on the meta device and "
+                    "print its roofline on one H100 instead of training")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported (ROADMAP): refused")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.dry_run:
-        print(f"[train] {DRY_RUN_MESSAGE}", file=sys.stderr)
+    if args.multi_pod:
+        print(f"[train] {dryrun.MESH_MESSAGE}", file=sys.stderr)
         return 2
+    if args.dry_run:
+        print(report.roofline_table([dryrun.run_cell(args.arch, "train_4k")]))
+        return 0
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))

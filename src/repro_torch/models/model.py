@@ -62,6 +62,14 @@ def lm_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def lm_shapes(cfg: ModelConfig, dtype: torch.dtype | None = None
+              ) -> ll.Params:
+    """The model's parameters as meta-device stand-ins (shapes and dtypes,
+    no data) for the dry-run."""
+    return ll.Params(lm_specs(cfg), dtype=dtype or model_dtype(cfg),
+                     device=torch.device("meta"))
+
+
 def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
             device: str | torch.device | None = None,
             dtype: torch.dtype | None = None) -> ll.Params:

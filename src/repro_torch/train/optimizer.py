@@ -15,8 +15,9 @@ order of rounding differ.
 state of several GB is not copied a step) and returns them with a new
 state holding the new step.
 
-The reference's ``state_shapes`` and ``state_axes`` serve only its TPU
-dry-run and are not ported.
+``state_shapes`` gives the state's shape stand-ins for the dry-run
+(meta-device tensors, ``launch/dryrun.py``). The reference's
+``state_axes`` serves only its TPU mesh and waits with it (ROADMAP).
 """
 from __future__ import annotations
 
@@ -57,6 +58,18 @@ def init_state(params: ll.Params) -> AdamWState:
     dev = named[0][1].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros(), nu=zeros())
+
+
+def state_shapes(params: ll.Params) -> AdamWState:
+    """Meta-device stand-ins of ``init_state(params)`` (no allocation)."""
+    meta = torch.device("meta")
+
+    def f32():
+        return {n: torch.empty(p.shape, dtype=torch.float32, device=meta)
+                for n, p in params.named_parameters()}
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device=meta),
+                      mu=f32(), nu=f32())
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

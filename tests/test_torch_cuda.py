@@ -1914,3 +1914,37 @@ def test_train_codec_on_the_card(dev):
                           / torch.linalg.vector_norm(x["w"])))
         assert stats["ratio"] > 7.5
     assert errs[1] < 1.25 * errs[0]
+
+
+@pytest.mark.parametrize("kind", ["exact", "pq"])
+def test_dryrun_count_of_the_smoke_decode_holds_on_the_card(dev, kind):
+    """The dry-run's count of qwen3-smoke's decode step on the meta device
+    against the same step replayed on the card: the replay never faster
+    than 0.95 x the count's t_bound, the counted static bytes the real
+    parameters' and cache's, one K8 a layer on the PQ cache."""
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch import dryrun
+    from repro_torch.models.decode_graph import DecodeGraph
+    cfg, params, prompts, caches = _lm_caches(dev, "qwen3-1.7b", kind,
+                                              torch.float32)
+    lg, cache = caches[0]
+    b, s = prompts.shape
+    graph = DecodeGraph(params, cache, cfg, b)
+    tok = torch.argmax(lg[:, :cfg.vocab], -1)
+    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    graph.step(tok, pos)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        graph.step(tok, pos)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 20
+    smax = cache.k.shape[2] if kind == "exact" else cache.k_codes.shape[2]
+    costs = dryrun.count_cell(cfg, "decode", b, smax, live=s + 1)
+    roof = dryrun.roofline(cfg, cfg.name, "smoke", "decode", b, s + 1, costs)
+    assert ms >= 0.95 * roof.t_bound * 1e3, (ms, roof.t_bound)
+    assert costs.static_bytes == ca.tree_bytes(params, cache)
+    assert costs.kernels.get("pq_decode_attention", 0) == (
+        cfg.n_layers if kind == "pq" else 0)

@@ -2,8 +2,9 @@
 at small sizes, each in a fresh interpreter that must load neither jax nor
 the JAX package: the two ANN examples (the flat fast-scan index beside
 naive PQ; the engine with HNSW coarse, re-rank, flat coarse and shards)
-the LM example on the MoE and frontend archs' smoke configs, and the
-training example and launcher on the smoke config."""
+the LM example on the MoE and frontend archs' smoke configs, the
+training example and launcher on the smoke config, and both launchers'
+``--dry-run`` (a cell counted on the meta device)."""
 import os
 import subprocess
 import sys
@@ -77,9 +78,10 @@ def test_train_lm_torch_on_the_cpu():
 
 LAUNCH = """
 import runpy, sys
-sys.argv = ["train"] + sys.argv[1:]
+module = "repro_torch.launch." + sys.argv[1]
+sys.argv = sys.argv[1:]
 try:
-    runpy.run_module("repro_torch.launch.train", run_name="__main__")
+    runpy.run_module(module, run_name="__main__")
 finally:
     bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')
            or k == 'repro' or k.startswith('repro.')]
@@ -87,9 +89,9 @@ finally:
 """
 
 
-def _launch(*args: str):
+def _launch(*args: str, launcher: str = "train"):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    return subprocess.run([sys.executable, "-c", LAUNCH, *args],
+    return subprocess.run([sys.executable, "-c", LAUNCH, launcher, *args],
                           capture_output=True, text=True, env=env,
                           timeout=300, cwd=ROOT)
 
@@ -108,8 +110,29 @@ def test_launch_train_smoke_on_the_cpu(tmp_path):
     assert "the checkpoint is at step 4 already" in again.stdout
 
 
-def test_launch_train_refuses_the_dry_run():
+def test_launch_train_dry_run_counts_the_train_4k_cell():
+    """``--dry-run`` counts the arch's train_4k cell on the meta device and
+    prints its roofline on one H100, loading no jax, training nothing."""
     out = _launch("--arch", "qwen3-1.7b", "--dry-run")
-    assert out.returncode != 0
-    assert "ROADMAP Queue 1" in out.stderr
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[dryrun] qwen3-1.7b x train_4k x h100x1: OK" in out.stdout
+    assert "| qwen3-1.7b | train_4k | ok |" in out.stdout
     assert "[train] step" not in out.stdout
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_launch_serve_dry_run_counts_its_cell(shape):
+    out = _launch("--arch", "rwkv6-3b", "--dry-run", "--shape", shape,
+                  launcher="serve")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"[dryrun] rwkv6-3b x {shape} x h100x1: OK" in out.stdout
+    assert f"| rwkv6-3b | {shape} | ok |" in out.stdout
+    assert "[serve] generated" not in out.stdout
+
+
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_launchers_refuse_multi_pod(launcher):
+    out = _launch("--arch", "qwen3-1.7b", "--dry-run", "--multi-pod",
+                  launcher=launcher)
+    assert out.returncode == 2
+    assert "ROADMAP" in out.stderr and "[dryrun]" not in out.stdout
