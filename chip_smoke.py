@@ -159,7 +159,18 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      width and depth, B 2 x 2,048: a finite loss and gradient norm, step
      ms and peak memory. It adds no kernel: none is on the training path.
 
-  13. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
+  13. the LM under a one-rank device mesh (``launch/mesh.py``,
+     ``launch/sharding.py``): a one-rank NCCL process group on a free
+     local port and ``make_host_mesh()``'s (1, 1) ``DeviceMesh`` on the
+     card; under ``use_mesh``, qwen3-1.7b's exact and PQ decode (eager
+     and as decode-graph replays, 8 steps at the LM phase's shapes) and
+     one training step at the training phase's, each equal to the
+     meshless run bit for bit, 28 K8 launches a PQ step; the eager step's
+     ms with and without the mesh; the per-device bytes of the card's
+     cells on the reference's pod and multipod meshes. The group is
+     destroyed before the examples.
+
+  14. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
      --shards 4`` once each, in their own processes.
 
 ``search_jit`` replays one captured CUDA graph per key, so the timed
@@ -4187,6 +4198,212 @@ def dryrun_phase(torch) -> None:
         raise AssertionError("dryrun: " + "; ".join(bad))
 
 
+# the mesh phase: qwen3-1.7b's decode steps a cache under the one-rank
+# mesh (eager, and replays of the decode graph), at the LM phase's shapes
+MESH_STEPS = 8
+# the cells of the arch-and-shape pairs the card runs, sized per device
+# on the reference's production meshes
+MESH_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
+              ("zamba2-2.7b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_decode(torch, params, cfg, prompts, pq, mesh, what: str) -> list:
+    """Four caches prefilled alike, two of them under ``mesh``; MESH_STEPS
+    decode steps fed the same tokens, eagerly without and with the mesh
+    (in turns, each timed on the host clock, synchronised) and as replays
+    of a decode graph captured without and with it. The prefill logits,
+    every step's logits and every cache tensor under the mesh equal the
+    meshless ones bit for bit. Returns the K8 launches of each step under
+    the mesh, eager and graph."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.decode_graph import DecodeGraph, cache_tensors
+    b, s = prompts.shape
+
+    def prefill(on_mesh):
+        if not on_mesh:
+            return model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ,
+                                     pq_cache=fresh_pq(torch, pq))
+        with shd.use_mesh(mesh):
+            return model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ,
+                                     pq_cache=fresh_pq(torch, pq))
+
+    (lg, eager), (lg_m, eager_m), (_, graphed), (_, graphed_m) = (
+        prefill(on) for on in (False, True, False, True))
+    if not torch.equal(lg, lg_m):
+        raise AssertionError(f"{what}: the prefill under the mesh differs")
+    graph = DecodeGraph(params, graphed, cfg, b)
+    graph_m = DecodeGraph(params, graphed_m, cfg, b)
+    tok = torch.argmax(lg[:, :cfg.vocab], -1)
+    t_plain, t_mesh, k8 = [], [], []
+    for i in range(MESH_STEPS):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = model_lib.decode_step(params, eager, tok, pos, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n0 = pqk.launches
+        with shd.use_mesh(mesh):
+            got, _ = model_lib.decode_step(params, eager_m, tok, pos, cfg)
+        torch.cuda.synchronize()
+        t_plain.append((t1 - t0) * 1e3)
+        t_mesh.append((time.perf_counter() - t1) * 1e3)
+        n1 = pqk.launches
+        replay = graph.step(tok, pos)
+        n2 = pqk.launches
+        with shd.use_mesh(mesh):
+            replay_m = graph_m.step(tok, pos)
+        k8.append((n1 - n0, pqk.launches - n2))
+        for name, a, c in (("eager", got, want), ("graph", replay_m, replay),
+                           ("graph vs eager", replay, want)):
+            if not torch.equal(a, c):
+                raise AssertionError(
+                    f"{what}: {name} under the mesh differs at step {i}: max"
+                    f" |difference| {float((a.float() - c.float()).abs().max())}")
+        tok = torch.argmax(want[:, :cfg.vocab], -1)
+    for a, c in zip(cache_tensors(eager_m) + cache_tensors(graphed_m),
+                    cache_tensors(eager) + cache_tensors(graphed)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{what}: a cache under the mesh differs")
+    log(f"{what}: prefill, {MESH_STEPS} decode steps eager and as graph "
+        f"replays under the (1, 1) mesh == without it bit for bit (logits, "
+        f"every cache tensor); eager step {float(np.median(t_plain[1:])):.3f}"
+        f" ms without the mesh, {float(np.median(t_mesh[1:])):.3f} ms under "
+        f"it (host clock, synchronised, in turns, median of steps 2-"
+        f"{MESH_STEPS}); K8 launches a step under the mesh (eager, graph): "
+        f"{k8}")
+    del graph, graph_m, eager, eager_m, graphed, graphed_m
+    return k8
+
+
+def mesh_phase(torch, args) -> None:
+    """The LM under a one-rank device mesh (``launch/mesh.py``,
+    ``launch/sharding.py``): a one-rank NCCL process group on a free local
+    port and ``make_host_mesh()``'s (1, 1) ``DeviceMesh`` on the card;
+    under ``use_mesh`` qwen3-1.7b's exact and PQ decode (``mesh_decode``)
+    and one training step at the training phase's shapes, each equal to
+    the meshless run bit for bit, 28 K8 launches a PQ step; a DTensor
+    through ``constrain``; the per-device bytes of MESH_CELLS on the
+    reference's pod and multipod meshes. The group is destroyed before
+    the phase returns."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.data import tokens as tok_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    port = free_port()
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        log(f"mesh: a one-rank NCCL group on 127.0.0.1:{port} and {mesh} "
+            f"({mesh.device_mesh}) in {time.perf_counter() - t0:.2f} s")
+        x = torch.randn((LM_BATCH, 2048), generator=torch.Generator(
+            device="cuda").manual_seed(args.seed + 60), device=dev)
+        full = distribute_tensor(x, mesh.device_mesh,
+                                 [Replicate(), Replicate()])
+        with shd.use_mesh(mesh):
+            y = shd.constrain(full, "batch", "embed")
+        if y.placements != (Shard(0), Replicate()) or \
+                not torch.equal(y.to_local(), x):
+            raise AssertionError(f"mesh: constrain gave {y.placements}")
+        log(f"mesh: a replicated DTensor through constrain('batch', "
+            f"'embed'): placements {y.placements}, its shard the tensor")
+
+        cfg = configs.get_config(LM_ARCH)
+        exact_cfg, pq_cfg = cfg.replace(kv_pq=False), cfg.replace(kv_pq=True)
+        params = model_lib.init_lm(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(args.seed), device=dev)
+        rng = np.random.default_rng(args.seed + 24)
+        prompts = torch.as_tensor(rng.integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32), device=dev)
+        pqc = serve.calibrate_pq_cache(torch.Generator().manual_seed(
+            args.seed), params, pq_cfg, LM_BATCH, LM_MAX_SEQ)
+        mesh_decode(torch, params, exact_cfg, prompts, None, mesh,
+                    "mesh: exact")
+        k8 = mesh_decode(torch, params, pq_cfg, prompts, pqc, mesh,
+                         "mesh: pq")
+        if any(e != cfg.n_layers or g < cfg.n_layers for e, g in k8):
+            raise AssertionError(f"mesh: K8 launches a PQ step {k8}, want "
+                                 f"{cfg.n_layers} each")
+        del params, pqc, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one training step at the training phase's shapes, without and
+        # with the mesh, under deterministic algorithms
+        ocfg = opt_lib.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=2)
+        pipe = tok_lib.TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH, seed=0)
+        batch = dict(tok_lib.batch_at_step(pipe, 0, dev)._asdict())
+        step_fn = train_loop.make_train_step(cfg, ocfg, TRAIN_MICRO)
+        runs = []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for on_mesh in (False, True):
+                state = train_loop.init_train_state(cfg, args.seed, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if on_mesh:
+                    with shd.use_mesh(mesh):
+                        state, m = step_fn(state, batch)
+                else:
+                    state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t, m["loss"].item(),
+                             host_bits(torch, state)))
+                del state, m
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (s0, l0, b0), (s1, l1, b1) = runs
+        differ = sorted(k for k in b0 if not torch.equal(b0[k], b1.get(k)))
+        log(f"mesh: one training step ({TRAIN_BATCH} x {TRAIN_SEQ} in "
+            f"{TRAIN_MICRO} microbatches): loss {l0:.6f} without the mesh, "
+            f"{l1:.6f} under it; {len(b0) - len(differ)} of {len(b0)} "
+            f"tensors (params, mu, nu, step) equal bit for bit; step "
+            f"{s0 * 1e3:.1f} / {s1 * 1e3:.1f} ms")
+        if differ or set(b0) != set(b1) or l0 != l1:
+            raise AssertionError(f"mesh: the training step differs: "
+                                 f"{differ[:5]}")
+        del runs, b0, b1, batch
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh: the process group destroyed; initialised "
+        f"{dist.is_initialized()}")
+    for arch, shape in MESH_CELLS:
+        for name in dryrun.POD_MESHES:
+            r = dryrun.run_cell(arch, shape, mesh=name, verbose=False)
+            pd = r["per_device"]
+            log(f"mesh: {arch} {shape} on {name} ({r['chips']} devices, the "
+                f"reference's rules): per device params {pd['param_bytes']},"
+                f" opt {pd['opt_bytes']}, cache {pd['cache_bytes']}, batch "
+                f"{pd['batch_bytes']} B; static {pd['static_bytes']} B "
+                f"(fits {pd['fits']}), replicated {pd['replicated_bytes']} B "
+                f"in {pd['replicated_leaves']} leaves; rules {pd['rules']}")
+
+
 def examples_phase(root: str) -> None:
     """The two ANN examples once on the card, each in its own process at
     its defaults (``--shards 4`` for the engine's): select equal to mxu
@@ -4427,6 +4644,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dryrun_phase(torch)
     log(f"dryrun: phase {time.perf_counter() - t0:.1f} s; the run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
+    # 15c. the LM under a one-rank device mesh, bit for bit
+    t0 = time.perf_counter()
+    mesh_phase(torch, args)
+    log(f"mesh: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
     # 16. the two ANN examples, each once in its own process
     t0 = time.perf_counter()

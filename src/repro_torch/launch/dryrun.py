@@ -1,8 +1,11 @@
 """Dry-run of every (arch x shape) cell on one H100, counted on the meta
-device (the port of ``repro/launch/dryrun.py``).
+device, and of every (arch x shape x mesh) cell on the reference's
+production meshes, sized per device (the port of
+``repro/launch/dryrun.py``).
 
     python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--kv pq] [--out build/dryrun]
+    python -m repro_torch.launch.dryrun --all --mesh both
 
 The reference lowers and compiles each cell's step for a TPU pod on 512
 placeholder CPU devices. Here each cell's step runs on the **meta
@@ -17,9 +20,18 @@ turns the counts into a roofline of one card. Each cell writes one JSON.
 A cell sized for the reference's 256 chips may not fit one 80 GB card
 (qwen3-1.7b's decode_32k exact cache alone is ~481 GB): it is still
 ``status: "ok"``, with ``fits: false`` and ``cards_by_memory``, the
-cards its peak of live bytes would fill. The reference's ``--mesh pod |
-multipod`` has no counterpart: the port has no device mesh or sharding
-rules yet (ROADMAP), so it is refused.
+cards its peak of live bytes would fill.
+
+``--mesh pod | multipod | both`` sizes a cell on the reference's (16, 16)
+or (2, 16, 16) mesh (``launch/mesh.py``, a description: the port has no
+pod) under the reference's rules (``cell_rules``): its meta parameters,
+optimizer state, caches and batch, each mapped with its logical axes
+through ``sharding.tree_shardings``, give ``per_device``: the bytes of
+one device's shards, the leaves placed whole on every device, the rules
+that depart from ``DEFAULT_RULES``, and whether the static bytes fit one
+card. Such a cell traces no step: its per-device FLOPs and collective
+bytes wait for the LM to run over several ranks (ROADMAP, Queue 1), so
+its ``roofline`` is null.
 """
 from __future__ import annotations
 
@@ -37,7 +49,9 @@ import torch
 from repro_torch import configs
 from repro_torch.data import tokens as tok
 from repro_torch.launch import cost_analysis as ca
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import sharding as shd
 from repro_torch.models import layers as ll
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -45,10 +59,12 @@ from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_loop
 
 MESH = "h100x1"
+# the reference's production meshes, sized per device
+POD_MESHES = ("pod", "multipod")
 META = torch.device("meta")
-MESH_MESSAGE = ("--mesh pod/multipod has no counterpart: the port has no "
-                "device mesh or sharding rules yet (ROADMAP, Queue 1: the "
-                "LM over four cards); the dry-run counts one H100")
+COUNTED_ON_A_MESH = ("bytes per device under the rules; per-device FLOPs "
+                     "and collective bytes wait for the LM over several "
+                     "ranks (ROADMAP, Queue 1)")
 
 # (seq_len, global_batch, kind)
 SHAPES = {
@@ -77,6 +93,104 @@ def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
             (batch, cfg.frontend_len, cfg.d_model),
             dtype=model_lib.model_dtype(cfg), device=META)
     return specs
+
+
+def batch_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``batch_specs``'s tensors."""
+    axes = {"tokens": ("batch", "seq"), "targets": ("batch", "seq"),
+            "mask": ("batch", "seq")}
+    if cfg.frontend != "none":
+        axes["frontend_embeds"] = ("batch", None, "embed")
+    return axes
+
+
+def serving_rules(cfg: ModelConfig, mesh: mesh_lib.Mesh) -> dict:
+    """Serving shards params TP-only (replicated over data) when they fit:
+    FSDP-style weight all-gathers are amortized over 1M tokens in training
+    but dominate a single decode step. Falls back to FSDP sharding when
+    bf16 params / model-axis exceed the HBM budget (dbrx-132b).
+
+    Archs whose head count does not divide the model axis (qwen1.5: 40H,
+    llama4: 40H, internvl2: 14H) would otherwise replicate ALL attention
+    weight+compute; for those we shard head_dim instead, and shard the
+    PQ-KV codes across sub-quantizers ("pq_m") — sub-space parallelism for
+    the paper's ADC: each chip scans its own nibble planes and one small
+    int32 partial-accumulation all-reduce merges them."""
+    rules = dict(shd.DEFAULT_RULES)
+    param_bytes = cfg.param_count() * 2  # bf16
+    model_size = mesh.shape.get("model", 1)
+    if param_bytes / model_size <= 12e9:
+        rules["embed"] = None
+    if cfg.n_heads and cfg.n_heads % model_size != 0:
+        rules["head_dim"] = "model"
+        if cfg.kv_pq:
+            rules["pq_m"] = "model"
+            rules["kv_seq"] = None
+    return rules
+
+
+def cell_rules(cfg: ModelConfig, shape_name: str, mesh: mesh_lib.Mesh
+               ) -> dict:
+    kind = SHAPES[shape_name][2]
+    return (dict(shd.DEFAULT_RULES) if kind == "train"
+            else serving_rules(cfg, mesh))
+
+
+def mesh_trees(cfg: ModelConfig, kind: str, batch: int, seq: int) -> dict:
+    """The cell's tensors on the meta device beside their logical axes, by
+    role, as the reference's ``build_cell`` shards them: the parameters;
+    training: the optimizer state and the batch; prefill: the prompt
+    (and with ``cfg.kv_pq`` the cache its codes fill); decode: the cache,
+    the tokens and the positions."""
+    params = model_lib.lm_shapes(cfg)
+    paxes = model_lib.lm_axes(cfg)
+    trees = {"param": (params, paxes)}
+    if kind == "train":
+        trees["opt"] = (opt_lib.state_shapes(params),
+                        opt_lib.state_axes(paxes))
+        trees["batch"] = (batch_specs(cfg, batch, seq), batch_axes(cfg))
+        return trees
+    if kind == "decode" or cfg.kv_pq:
+        trees["cache"] = (model_lib.init_cache(cfg, batch, seq, device=META),
+                          model_lib.cache_axes(cfg))
+    if kind == "prefill":
+        trees["batch"] = (
+            {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                   device=META)},
+            {"tokens": ("batch", "seq")})
+    else:
+        trees["batch"] = (
+            {n: torch.empty((batch,), dtype=torch.int32, device=META)
+             for n in ("tokens", "position")},
+            {"tokens": ("batch",), "position": ("batch",)})
+    return trees
+
+
+def per_device(cfg: ModelConfig, kind: str, batch: int, seq: int,
+               mesh: mesh_lib.Mesh, rules: dict) -> dict:
+    """One device's bytes of each role under ``rules`` on ``mesh``
+    (``param_bytes``, ``opt_bytes``, ``cache_bytes``, ``batch_bytes``;
+    ``static_bytes`` the first three), the leaves no mesh axis shards
+    (``replicated_leaves``, ``replicated_bytes``, parameters and state
+    alike), the rules that depart from ``DEFAULT_RULES``, and whether the
+    static bytes fit one card."""
+    out = {f"{role}_bytes": 0 for role in ("param", "opt", "cache", "batch")}
+    whole, whole_bytes = 0, 0
+    for role, (tensors, axes) in mesh_trees(cfg, kind, batch, seq).items():
+        shardings = shd.tree_shardings(tensors, axes, mesh, rules)
+        for _, t, sh in shd.sharded_leaves(tensors, shardings):
+            nbytes = math.prod(sh.shard_shape(t.shape)) * t.element_size()
+            out[f"{role}_bytes"] += nbytes
+            if all(e is None for e in sh.spec):
+                whole += 1
+                whole_bytes += nbytes
+    out["static_bytes"] = (out["param_bytes"] + out["opt_bytes"]
+                           + out["cache_bytes"])
+    out.update(replicated_leaves=whole, replicated_bytes=whole_bytes,
+               rules={k: v for k, v in rules.items()
+                      if shd.DEFAULT_RULES.get(k) != v},
+               fits=out["static_bytes"] <= rl.HBM_BYTES)
+    return out
 
 
 class Cell(NamedTuple):
@@ -198,8 +312,13 @@ def roofline(cfg: ModelConfig, arch: str, shape: str, kind: str, batch: int,
         collectives={})
 
 
-def run_cell(arch: str, shape_name: str, *, kv_override: str = "auto",
-             out_dir: str | None = None, verbose: bool = True) -> dict:
+def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
+             kv_override: str = "auto", out_dir: str | None = None,
+             verbose: bool = True) -> dict:
+    """One cell: on ``h100x1`` counted on the meta device as one card;
+    on ``pod`` or ``multipod`` sized per device (``per_device``)."""
+    if mesh != MESH and mesh not in POD_MESHES:
+        raise ValueError(f"mesh {mesh!r}: not one of {(MESH,) + POD_MESHES}")
     cfg = configs.get_config(arch)
     if kv_override == "exact":
         cfg = cfg.replace(kv_pq=False)
@@ -207,7 +326,7 @@ def run_cell(arch: str, shape_name: str, *, kv_override: str = "auto",
         cfg = cfg.replace(kv_pq=True)
     seq, batch, kind = SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape_name)
-    result = {"arch": arch, "shape": shape_name, "mesh": MESH,
+    result = {"arch": arch, "shape": shape_name, "mesh": mesh,
               "kind": kind, "seq": seq, "batch": batch,
               "kv_override": None if kv_override == "auto" else kv_override,
               "kv_pq": cfg.kv_pq and kind in ("decode", "prefill"),
@@ -217,7 +336,20 @@ def run_cell(arch: str, shape_name: str, *, kv_override: str = "auto",
         result["status"] = "skipped"
         result["reason"] = why
         if verbose:
-            print(f"[dryrun] {arch} x {shape_name} x {MESH}: {why}")
+            print(f"[dryrun] {arch} x {shape_name} x {mesh}: {why}")
+    elif mesh in POD_MESHES:
+        m = mesh_lib.make_production_mesh(multi_pod=mesh == "multipod")
+        pd = per_device(cfg, kind, batch, seq, m,
+                        cell_rules(cfg, shape_name, m))
+        result.update(status="ok", chips=m.size, per_device=pd,
+                      counted=COUNTED_ON_A_MESH, roofline=None)
+        if verbose:
+            print(f"[dryrun] {arch} x {shape_name} x {mesh}: OK (per device"
+                  f" of {m.size}: params {pd['param_bytes'] / 1e9:.2f} GB, "
+                  f"opt {pd['opt_bytes'] / 1e9:.2f} GB, cache "
+                  f"{pd['cache_bytes'] / 1e9:.2f} GB, replicated "
+                  f"{pd['replicated_bytes'] / 1e9:.2f} GB, fits="
+                  f"{pd['fits']}; rules {pd['rules']})")
     else:
         t0 = time.perf_counter()
         costs = count_cell(cfg, kind, batch, seq)
@@ -238,7 +370,7 @@ def run_cell(arch: str, shape_name: str, *, kv_override: str = "auto",
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         suffix = "" if kv_override == "auto" else f"_{kv_override}"
-        path = os.path.join(out_dir, f"{arch}_{shape_name}_{MESH}{suffix}.json")
+        path = os.path.join(out_dir, f"{arch}_{shape_name}_{mesh}{suffix}.json")
         with open(path, "w") as f:
             json.dump(result, f, indent=1)
     return result
@@ -248,30 +380,32 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
-    ap.add_argument("--mesh", default=None,
-                    help="pod, multipod or both: not ported (ROADMAP)")
+    ap.add_argument("--mesh", default=MESH,
+                    choices=[MESH, *POD_MESHES, "both"],
+                    help="one H100 counted on the meta device (default), or "
+                    "the reference's pod / multipod mesh sized per device "
+                    "(both: the two)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--kv", default="auto", choices=["auto", "exact", "pq"])
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
-    if args.mesh is not None and args.mesh != MESH:
-        print(f"[dryrun] {MESH_MESSAGE}", file=sys.stderr)
-        return 2
 
     archs = (list(configs.ALIASES) if (args.all or not args.arch)
              else [args.arch])
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = list(POD_MESHES) if args.mesh == "both" else [args.mesh]
     failures = []
     for arch in archs:
         for shape in shapes:
-            try:
-                r = run_cell(arch, shape, out_dir=args.out,
-                             kv_override=args.kv)
-                if r["status"] not in ("ok", "skipped"):
-                    failures.append((arch, shape))
-            except Exception as e:
-                traceback.print_exc()
-                failures.append((arch, shape, str(e)[:200]))
+            for mesh in meshes:
+                try:
+                    r = run_cell(arch, shape, mesh=mesh, out_dir=args.out,
+                                 kv_override=args.kv)
+                    if r["status"] not in ("ok", "skipped"):
+                        failures.append((arch, shape, mesh))
+                except Exception as e:
+                    traceback.print_exc()
+                    failures.append((arch, shape, mesh, str(e)[:200]))
     if failures:
         print(f"[dryrun] FAILURES: {failures}")
         return 1

@@ -7,7 +7,10 @@ The cells are the dry-run's, counted on the meta device by design (no
 card is touched). The reference's columns, over one H100: the collective
 column reads "—" (one card moves no bytes between cards), and a column
 gives each cell's peak of live bytes and whether it fits the card's
-memory (else the cards that peak would fill).
+memory (else the cards that peak would fill). The cells sized on the
+reference's pod and multipod meshes have a table of their own: one
+device's parameter, optimizer-state and cache bytes, the bytes placed
+whole on every device, and whether the static bytes fit one card.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import json
 import os
 import sys
 
-from repro_torch.launch.dryrun import MESH
+from repro_torch.launch.dryrun import MESH, POD_MESHES
 
 
 def load_cells(out_dir: str = "build/dryrun") -> list[dict]:
@@ -60,6 +63,32 @@ def roofline_table(cells: list[dict], mesh: str = MESH) -> str:
     return "\n".join(rows)
 
 
+def _gb(nbytes: int) -> str:
+    return f"{nbytes / 1e9:.2f}"
+
+
+def per_device_table(cells: list[dict]) -> str:
+    rows = ["| arch | shape | mesh | params GB | opt GB | cache GB | "
+            "replicated GB | static GB (fits) |",
+            "|---|---|---|---|---|---|---|---|"]
+    for c in cells:
+        if c["mesh"] not in POD_MESHES:
+            continue
+        kv = f" ({c['kv_override']})" if c.get("kv_override") else ""
+        if c["status"] == "skipped":
+            rows.append(f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | "
+                        "SKIP | — | — | — | — |")
+            continue
+        pd = c["per_device"]
+        fits = "fits" if pd["fits"] else "does not fit"
+        rows.append(
+            f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} "
+            f"| {_gb(pd['param_bytes'])} | {_gb(pd['opt_bytes'])} "
+            f"| {_gb(pd['cache_bytes'])} | {_gb(pd['replicated_bytes'])} "
+            f"| {_gb(pd['static_bytes'])} ({fits}) |")
+    return "\n".join(rows)
+
+
 def dryrun_table(cells: list[dict]) -> str:
     rows = ["| arch | shape | mesh | status | trace | params | "
             "collective ops | ops | peak live (fits) |",
@@ -69,6 +98,14 @@ def dryrun_table(cells: list[dict]) -> str:
         if c["status"] == "skipped":
             rows.append(f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | "
                         "SKIP | — | — | — | — | — |")
+            continue
+        if c["mesh"] in POD_MESHES:
+            pd = c["per_device"]
+            rows.append(
+                f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | "
+                f"{c['status']} | — | {c.get('params', 0)/1e9:.1f}B | not "
+                f"counted | — | {_gb(pd['static_bytes'])} GB a device ("
+                f"{'fits' if pd['fits'] else 'does not fit'}) |")
             continue
         rows.append(
             f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | {c['status']} "
@@ -82,6 +119,9 @@ def main(argv=None) -> int:
     cells = load_cells(*argv[:1])
     print(f"## Roofline (one {MESH.replace('x1', '')})\n")
     print(roofline_table(cells))
+    if any(c["mesh"] in POD_MESHES for c in cells):
+        print("\n## Per device on the pod meshes\n")
+        print(per_device_table(cells))
     print("\n## Dry-run matrix\n")
     print(dryrun_table(cells))
     return 0

@@ -21,8 +21,9 @@ no checkpoint is loaded.
 ``--dry-run [--shape decode_32k]`` counts the arch's cell on the meta
 device and prints its roofline on one H100 (``launch/dryrun.py``; no card
 needed, and none is touched), as the reference's lowers it for its TPU
-mesh. ``--multi-pod`` has no counterpart (no device mesh yet, ROADMAP)
-and is refused.
+mesh. With ``--multi-pod`` it sizes the cell per device on the
+reference's (2, 16, 16) mesh instead, as the reference's launcher lowers
+its multipod cell.
 """
 from __future__ import annotations
 
@@ -158,16 +159,19 @@ def main(argv=None) -> int:
                     help="count the --shape cell on the meta device and "
                     "print its roofline on one H100 instead of serving")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (ROADMAP): refused")
+                    help="with --dry-run: size the cell per device on the "
+                    "(2, 16, 16) mesh")
     ap.add_argument("--shape", default="decode_32k",
                     choices=list(dryrun.SHAPES))
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        print(f"[serve] {dryrun.MESH_MESSAGE}", file=sys.stderr)
-        return 2
     if args.dry_run:
-        print(report.roofline_table([dryrun.run_cell(args.arch, args.shape)]))
+        if args.multi_pod:
+            cell = dryrun.run_cell(args.arch, args.shape, mesh="multipod")
+            print(report.per_device_table([cell]))
+        else:
+            cell = dryrun.run_cell(args.arch, args.shape)
+            print(report.roofline_table([cell]))
         return 0
     dev = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke

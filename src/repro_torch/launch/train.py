@@ -15,9 +15,9 @@ start random from seed 0, as the reference's do.
 
 ``--dry-run`` counts the arch's train_4k cell on the meta device and
 prints its roofline on one H100 (``launch/dryrun.py``; no card needed, and
-none is touched), as the reference's lowers it for its TPU mesh.
-``--multi-pod`` has no counterpart (no device mesh yet, ROADMAP) and is
-refused.
+none is touched), as the reference's lowers it for its TPU mesh. With
+``--multi-pod`` it sizes the cell per device on the reference's (2, 16,
+16) mesh instead, as the reference's launcher lowers its multipod cell.
 """
 from __future__ import annotations
 
@@ -45,16 +45,19 @@ def main(argv=None) -> int:
                     help="count the train_4k cell on the meta device and "
                     "print its roofline on one H100 instead of training")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (ROADMAP): refused")
+                    help="with --dry-run: size the cell per device on the "
+                    "(2, 16, 16) mesh")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        print(f"[train] {dryrun.MESH_MESSAGE}", file=sys.stderr)
-        return 2
     if args.dry_run:
-        print(report.roofline_table([dryrun.run_cell(args.arch, "train_4k")]))
+        if args.multi_pod:
+            cell = dryrun.run_cell(args.arch, "train_4k", mesh="multipod")
+            print(report.per_device_table([cell]))
+        else:
+            cell = dryrun.run_cell(args.arch, "train_4k")
+            print(report.roofline_table([cell]))
         return 0
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke

@@ -28,6 +28,12 @@ from repro_torch.kernels import pq_decode_kernel as pqk
 from repro_torch.kernels.pq_decode_kernel import decode_kv  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
+# logical axes of the cache trees (for launch.sharding.tree_shardings); the
+# caches stack their layers on a leading axis, as the reference's do
+EXACT_KV_AXES = ("stack", "batch", "kv_seq", "kv_heads", "head_dim")
+PQ_CODE_AXES = ("stack", "batch", "kv_seq", "kv_heads", "pq_m")
+PQ_CB_AXES = ("stack", "kv_heads", "pq_m", None, None)
+
 
 class ExactKVCache(NamedTuple):
     k: torch.Tensor  # (L, B, Smax, KV, hd)
@@ -61,6 +67,14 @@ def init_pq(cfg: ModelConfig, batch: int, max_seq: int,
                      torch.zeros(lshape, dtype=torch.uint8, device=device),
                      torch.zeros(cbshape, dtype=torch.bfloat16, device=device),
                      torch.zeros(cbshape, dtype=torch.bfloat16, device=device))
+
+
+def exact_cache_axes() -> ExactKVCache:
+    return ExactKVCache(EXACT_KV_AXES, EXACT_KV_AXES)
+
+
+def pq_cache_axes() -> PQKVCache:
+    return PQKVCache(PQ_CODE_AXES, PQ_CODE_AXES, PQ_CB_AXES, PQ_CB_AXES)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,14 @@ The layer functions take such a module and read its tensors by name.
 Attention is plain torch matmul and softmax transcribed from the reference,
 in its casts (scores rounded to the working type before the f32 softmax,
 weights cast back before the value product); f32 products stay in full
-f32 (the package turns TF32 off on import). The reference's sharding
-constraints have no counterpart here.
+f32 (the package turns TF32 off on import).
+
+Each spec names its dimensions' logical sharding axes (``axes``, the
+reference's), and the layers pin their activations with
+``launch.sharding.constrain`` where the reference does. A stacked layer
+is a list entry here, not a leading axis, so its axes omit the
+reference's "stack" (replicated by every rules table) and ``tree_key``
+maps its name to the reference's path.
 """
 from __future__ import annotations
 
@@ -27,11 +33,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 
 
 class ParamSpec(NamedTuple):
     shape: tuple
+    axes: tuple | None = None  # logical axis names, len == ndim (or None)
     init: str = "normal"   # normal | zeros | ones
     scale: float = 1.0     # stddev multiplier for "normal"
 
@@ -114,6 +122,12 @@ def init_params(module: Params, specs, generator: torch.Generator) -> None:
             p.copy_((x * std).to(p.dtype))
 
 
+def param_axes(specs) -> dict:
+    """{dotted parameter name: its logical axes} of a spec tree, the keys
+    of ``Params(specs).named_parameters()``."""
+    return {name: s.axes for name, s in spec_items(specs)}
+
+
 def stacked(specs: dict, n: int) -> list:
     """The reference's stacked layer axis: one spec tree a layer."""
     return [specs for _ in range(n)]
@@ -131,8 +145,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps)).to(dt) * w
 
 
-def rmsnorm_spec(dim: int) -> ParamSpec:
-    return ParamSpec((dim,), "ones")
+def rmsnorm_spec(dim: int, axis: str | None = "embed") -> ParamSpec:
+    return ParamSpec((dim,), (axis,), "ones")
 
 
 # ---------------------------------------------------------------------------
@@ -161,18 +175,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def attn_specs(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = {
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, kv, hd)),
-        "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d)),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((h, hd), "zeros")
-        p["bk"] = ParamSpec((kv, hd), "zeros")
-        p["bv"] = ParamSpec((kv, hd), "zeros")
+        p["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), "zeros")
+        p["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
+        p["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_spec(hd)
-        p["k_norm"] = rmsnorm_spec(hd)
+        p["q_norm"] = rmsnorm_spec(hd, "head_dim")
+        p["k_norm"] = rmsnorm_spec(hd, "head_dim")
     return p
 
 
@@ -192,6 +206,9 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig,
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", None, "heads", "head_dim")
+    k = constrain(k, "batch", None, "kv_heads", "head_dim")
+    v = constrain(v, "batch", None, "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -275,7 +292,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Prefill self-attention over a full sequence."""
     q, k, v = qkv_project(p, x, cfg, positions)
     out = chunked_causal_attention(q, k, v, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return constrain(torch.einsum("bshk,hkd->bsd", out, p.wo),
+                     "batch", "seq", "embed")
 
 
 def decode_attention_scores(q: torch.Tensor, k_cache: torch.Tensor,
@@ -309,9 +327,11 @@ def decode_attention_scores(q: torch.Tensor, k_cache: torch.Tensor,
 def ffn_specs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_type == "swiglu":
-        return {"wi_gate": ParamSpec((d, f)), "wi_up": ParamSpec((d, f)),
-                "wo": ParamSpec((f, d))}
-    return {"wi": ParamSpec((d, f)), "wo": ParamSpec((f, d))}
+        return {"wi_gate": ParamSpec((d, f), ("embed", "mlp")),
+                "wi_up": ParamSpec((d, f), ("embed", "mlp")),
+                "wo": ParamSpec((f, d), ("mlp", "embed"))}
+    return {"wi": ParamSpec((d, f), ("embed", "mlp")),
+            "wo": ParamSpec((f, d), ("mlp", "embed"))}
 
 
 def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -323,4 +343,5 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = torch.square(F.relu(x @ p.wi))
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ p.wo
+    h = constrain(h, "batch", None, "mlp")
+    return constrain(h @ p.wo, "batch", "seq", "embed")

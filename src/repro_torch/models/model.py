@@ -22,12 +22,17 @@ Caches: the attention family's ``ExactKVCache`` / ``PQKVCache``; the
 recurrent families' dicts of the reference's keys (``h``, ``conv`` and the
 hybrid's ``attn_*`` entries; ``s``, ``tm_prev``, ``cm_prev``). A decode
 step updates its cache in place and returns it.
+
+``lm_axes`` and ``cache_axes`` give the logical sharding axes of the
+parameters (keyed by their dotted names) and of each cache kind, as the
+reference's do, for ``launch.sharding.tree_shardings``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import constrain
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer as tf
@@ -55,11 +60,16 @@ def lm_specs(cfg: ModelConfig) -> dict:
     if cfg.block_type not in STACK_SPECS:
         raise ValueError(cfg.block_type)
     return {
-        "embedding": ParamSpec((v, d), scale=1.0),
+        "embedding": ParamSpec((v, d), ("vocab", "embed"), scale=1.0),
         "ln_f": ll.rmsnorm_spec(d),
-        "lm_head": ParamSpec((d, v)),
+        "lm_head": ParamSpec((d, v), ("embed", "vocab")),
         "stack": STACK_SPECS[cfg.block_type](cfg),
     }
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """{dotted parameter name: logical axes}; a layer's omit "stack"."""
+    return ll.param_axes(lm_specs(cfg))
 
 
 def lm_shapes(cfg: ModelConfig, dtype: torch.dtype | None = None
@@ -96,7 +106,7 @@ def forward(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, Vpad), aux_loss scalar)."""
     h, aux = _hidden_states(params, tokens, cfg, frontend_embeds)
-    return h @ params.lm_head, aux
+    return constrain(h @ params.lm_head, "batch", "seq", "vocab"), aux
 
 
 def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -160,7 +170,8 @@ def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """forward() minus the lm_head: final-norm hidden states (B, S, D)."""
     b, s = tokens.shape
-    h = _embed(params, tokens, cfg, frontend_embeds)
+    h = constrain(_embed(params, tokens, cfg, frontend_embeds),
+                  "batch", "seq", "embed")
     stack = {"attn": tf.attn_stack, "mamba2": tf.mamba_stack,
              "rwkv6": tf.rwkv_stack}[cfg.block_type]
     h, aux = stack(params.stack, h, cfg, _positions(b, s, tokens.device))
@@ -189,6 +200,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return kvc.init_exact(cfg, batch, max_seq, dtype, dev)
 
 
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of ``init_cache(cfg, ...)``'s tree."""
+    if cfg.block_type == "attn":
+        return kvc.pq_cache_axes() if cfg.kv_pq else kvc.exact_cache_axes()
+    if cfg.block_type == "mamba2":
+        return tf.mamba_cache_axes(cfg)
+    return tf.rwkv_cache_axes()
+
+
 @torch.inference_mode()
 def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
                 position: torch.Tensor, cfg: ModelConfig):
@@ -197,6 +217,7 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
     Returns (logits (B, Vpad), cache), the cache updated in place.
     """
     h = params.embedding[tokens.long()]                       # (B, D)
+    h = constrain(h, "batch", "embed")
     if cfg.block_type == "attn":
         h, cache = tf.attn_stack_decode(params.stack, h, cfg, cache, position)
     elif cfg.block_type == "mamba2":
@@ -205,7 +226,7 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
     else:
         h, cache = tf.rwkv_stack_decode(params.stack, h, cfg, cache, position)
     h = ll.rmsnorm(h, params.ln_f, cfg.norm_eps)
-    return h @ params.lm_head, cache
+    return constrain(h @ params.lm_head, "batch", "vocab"), cache
 
 
 @torch.inference_mode()

@@ -8,11 +8,13 @@ drops, are the reference's. Every shape is static and no step reads a
 value back to the host, so a decode step through it captures as one CUDA
 graph.
 
-One card takes the reference's single-device path of ``_dispatch`` and
-``_combine`` (its ``shard_map`` bodies run only under a mesh with a
-"model" axis); the expert FFN and the router are GEMM glue, plain JAX in
-the reference and ``torch.bmm`` / matmul here. Tie orders follow the
-reference: ``jax.lax.top_k`` puts the lowest expert first among equal
+``_dispatch`` and ``_combine`` take the reference's single-device path
+(its ``shard_map`` bodies run only under a mesh with a "model" axis);
+expert parallelism is the next slice (ROADMAP.md, Queue 1). The
+activations are pinned with ``launch.sharding.constrain`` at the
+reference's six sites. The expert FFN and the router are GEMM glue,
+plain JAX in the reference and ``torch.bmm`` / matmul here. Tie orders
+follow the reference: ``jax.lax.top_k`` puts the lowest expert first among equal
 gates (a stable descending sort here; ``torch.topk`` promises no order),
 and ``jnp.argsort`` is stable (``stable=True``). The slot maps send
 dropped tokens to a trash row E at slot 0, whose colliding writes are
@@ -25,29 +27,36 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    p = {"router": ParamSpec((d, e), scale=0.1)}
+    up = ("experts", "embed", "expert_mlp")
+    p = {"router": ParamSpec((d, e), ("embed", None), scale=0.1)}
     if cfg.mlp_type == "swiglu":
-        p.update({"wi_gate": ParamSpec((e, d, f)),
-                  "wi_up": ParamSpec((e, d, f)),
-                  "wo": ParamSpec((e, f, d))})
+        p.update({"wi_gate": ParamSpec((e, d, f), up),
+                  "wi_up": ParamSpec((e, d, f), up),
+                  "wo": ParamSpec((e, f, d), ("experts", "expert_mlp",
+                                              "embed"))})
     else:
-        p.update({"wi": ParamSpec((e, d, f)), "wo": ParamSpec((e, f, d))})
+        p.update({"wi": ParamSpec((e, d, f), up),
+                  "wo": ParamSpec((e, f, d), ("experts", "expert_mlp",
+                                              "embed"))})
     if cfg.shared_expert:
-        p.update({"shared_gate": ParamSpec((d, f)),
-                  "shared_up": ParamSpec((d, f)),
-                  "shared_down": ParamSpec((f, d))})
+        p.update({"shared_gate": ParamSpec((d, f), ("embed", "mlp")),
+                  "shared_up": ParamSpec((d, f), ("embed", "mlp")),
+                  "shared_down": ParamSpec((f, d), ("mlp", "embed"))})
     return p
 
 
-def _expert_ffn(p, xb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """xb: (E, N, D) -> (E, N, D), one batched product an expert's weights
-    (the reference's (G, E, C, D) einsums with G x C flattened to N)."""
+def _expert_ffn(p, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """buf: (E, G, C, D) -> (E, G, C, D), one batched product an expert's
+    weights (the reference's (G, E, C, D) einsums, G x C flattened)."""
+    e, g, cap, d = buf.shape
+    xb = buf.reshape(e, g * cap, d)
     if cfg.mlp_type == "swiglu":
         h = F.silu(torch.bmm(xb, p.wi_gate), inplace=True)
         h.mul_(torch.bmm(xb, p.wi_up))
@@ -57,7 +66,9 @@ def _expert_ffn(p, xb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(torch.bmm(xb, p.wi), approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return torch.bmm(h, p.wo)
+    h = constrain(h.view(e, g, cap, -1), "experts", "batch", None,
+                  "expert_mlp")
+    return torch.bmm(h.view(e, g * cap, -1), p.wo).view(e, g, cap, d)
 
 
 def _num_groups(cfg: ModelConfig, t: int) -> int:
@@ -137,15 +148,39 @@ def route(gates_all: torch.Tensor, cfg: ModelConfig) -> Route:
                  back(keep), aux)
 
 
+def _dispatch(xg: torch.Tensor, r: Route) -> torch.Tensor:
+    """buf[e, g, c] = xg[g, tok_for_slot[g, e, c]] (masked), laid out
+    expert-major so that each expert's slots are one (G·C, D) block: the
+    reference's single-device path. Its ``shard_map`` over the experts'
+    shards waits for expert parallelism (ROADMAP.md, Queue 1)."""
+    g = xg.shape[0]
+    gid = torch.arange(g, device=xg.device)[None, :, None]
+    buf = xg[gid, r.tok_for_slot.transpose(0, 1)]            # (E, G, C, D)
+    return buf.masked_fill_(~r.slot_valid.transpose(0, 1)[..., None], 0)
+
+
+def _combine(yb: torch.Tensor, r: Route, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """out[g, t] = sum_k gate * yb[e_k, g, c_k] (masked); es is clamped to
+    E - 1 before the mask, as the reference clamps it: the reference's
+    single-device path. Its per-shard partial sums and their ``psum``
+    wait for expert parallelism (ROADMAP.md, Queue 1)."""
+    e, g = yb.shape[:2]
+    ysel = yb[torch.clamp_max(r.es_tok, e - 1),
+              torch.arange(g, device=yb.device)[:, None, None], r.ps_tok]
+    ysel.mul_(r.gate_k.to(dtype)[..., None])
+    ysel.masked_fill_(~r.keep_tok[..., None], 0)
+    return ysel.sum(dim=2)                                   # (G, Tg, D)
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
     b, s, d = x.shape
-    e = cfg.n_experts
     t = b * s
     g = _num_groups(cfg, t)
     tg = t // g
-    xg = x.reshape(g, tg, d)
+    xg = constrain(x.reshape(g, tg, d), "batch", None, None)
 
     logits = (xg @ p.router).float()
     if cfg.router_act == "sigmoid":                          # llama4-style
@@ -153,25 +188,16 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     else:
         gates_all = torch.softmax(logits, dim=-1)
     r = route(gates_all, cfg)
-    cap = r.tok_for_slot.shape[-1]
 
-    # dispatch: buf[e, g, c] = xg[g, tok_for_slot[g, e, c]] (masked), laid
-    # out expert-major so that each expert's slots are one (G·C, D) block
-    gid = torch.arange(g, device=x.device)[None, :, None]
-    buf = xg[gid, r.tok_for_slot.transpose(0, 1)]            # (E, G, C, D)
-    buf.masked_fill_(~r.slot_valid.transpose(0, 1)[..., None], 0)
-    yb = _expert_ffn(p, buf.reshape(e, g * cap, d), cfg).view(e, g, cap, d)
+    # the buffers are expert-major, (E, G, C, D): their logical axes in
+    # that order
+    buf = constrain(_dispatch(xg, r), "experts", "batch", None, None)
+    yb = constrain(_expert_ffn(p, buf, cfg), "experts", "batch", None, None)
     del buf
-
-    # combine: out[g, t] = sum_k gate * yb[e_k, g, c_k] (masked); es is
-    # clamped to E - 1 before the mask, as the reference clamps it
-    ysel = yb[torch.clamp_max(r.es_tok, e - 1),
-              torch.arange(g, device=x.device)[:, None, None], r.ps_tok]
-    ysel.mul_(r.gate_k.to(x.dtype)[..., None])
-    ysel.masked_fill_(~r.keep_tok[..., None], 0)
-    out = ysel.sum(dim=2)                                    # (G, Tg, D)
+    out = _combine(yb, r, x.dtype)                           # (G, Tg, D)
 
     if cfg.shared_expert:
         h = F.silu(xg @ p.shared_gate) * (xg @ p.shared_up)
+        h = constrain(h, "batch", None, "mlp")
         out = out + h @ p.shared_down
-    return out.reshape(b, s, d), r.aux
+    return constrain(out.reshape(b, s, d), "batch", "seq", "embed"), r.aux

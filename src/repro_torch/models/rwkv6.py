@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, ParamSpec, rmsnorm
 
@@ -29,26 +30,26 @@ def rwkv_specs(cfg: ModelConfig) -> dict:
     f = cfg.d_ff
     return {
         # time mix (the attention analogue)
-        "mu_base": ParamSpec((d,), "zeros"),
-        "mu": ParamSpec((5, d), "zeros"),
-        "lora_a": ParamSpec((d, 5 * r), scale=0.1),
-        "lora_b": ParamSpec((5, r, d), scale=0.1),
-        "decay_base": ParamSpec((d,), "zeros"),
-        "decay_a": ParamSpec((d, r), scale=0.1),
-        "decay_b": ParamSpec((r, d), scale=0.1),
-        "wr": ParamSpec((d, d)),
-        "wk": ParamSpec((d, d)),
-        "wv": ParamSpec((d, d)),
-        "wg": ParamSpec((d, d)),
-        "wo": ParamSpec((d, d)),
-        "u": ParamSpec((nh, hd), scale=0.5),
-        "ln_x": ParamSpec((d,), "ones"),
+        "mu_base": ParamSpec((d,), ("embed",), "zeros"),
+        "mu": ParamSpec((5, d), (None, "embed"), "zeros"),
+        "lora_a": ParamSpec((d, 5 * r), ("embed", "lora"), scale=0.1),
+        "lora_b": ParamSpec((5, r, d), (None, "lora", "embed"), scale=0.1),
+        "decay_base": ParamSpec((d,), ("embed",), "zeros"),
+        "decay_a": ParamSpec((d, r), ("embed", "lora"), scale=0.1),
+        "decay_b": ParamSpec((r, d), ("lora", "embed"), scale=0.1),
+        "wr": ParamSpec((d, d), ("embed", "heads")),
+        "wk": ParamSpec((d, d), ("embed", "heads")),
+        "wv": ParamSpec((d, d), ("embed", "heads")),
+        "wg": ParamSpec((d, d), ("embed", "heads")),
+        "wo": ParamSpec((d, d), ("heads", "embed")),
+        "u": ParamSpec((nh, hd), ("ssm_heads", None), scale=0.5),
+        "ln_x": ParamSpec((d,), ("embed",), "ones"),
         # channel mix (the FFN analogue)
-        "cm_mu_k": ParamSpec((d,), "zeros"),
-        "cm_mu_r": ParamSpec((d,), "zeros"),
-        "cm_wk": ParamSpec((d, f)),
-        "cm_wv": ParamSpec((f, d)),
-        "cm_wr": ParamSpec((d, d)),
+        "cm_mu_k": ParamSpec((d,), ("embed",), "zeros"),
+        "cm_mu_r": ParamSpec((d,), ("embed",), "zeros"),
+        "cm_wk": ParamSpec((d, f), ("embed", "mlp")),
+        "cm_wv": ParamSpec((f, d), ("mlp", "embed")),
+        "cm_wr": ParamSpec((d, d), ("embed", None)),
     }
 
 
@@ -146,11 +147,14 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     k = (mixes["k"] @ p.wk).reshape(b, s, nh, hd)
     v = (mixes["v"] @ p.wv).reshape(b, s, nh, hd)
     g = mixes["g"] @ p.wg
+    r = constrain(r, "batch", None, "ssm_heads", None)
+    k = constrain(k, "batch", None, "ssm_heads", None)
+    v = constrain(v, "batch", None, "ssm_heads", None)
     # data-dependent decay (Finch): w = exp(-exp(dd)) in (0, 1)
     log_w = -torch.exp(_decay_dd(p, mixes["w"]).float()).reshape(b, s, nh, hd)
     y, hs = wkv6_chunked(r, k, v, log_w, p.u, cfg.rwkv_chunk, s0)
     y = rmsnorm(y.reshape(b, s, d), p.ln_x, cfg.norm_eps) * F.silu(g)
-    return y @ p.wo, hs
+    return constrain(y @ p.wo, "batch", "seq", "embed"), hs
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor,
@@ -162,7 +166,9 @@ def _channel_mix(p: Params, x: torch.Tensor, sx: torch.Tensor
                  ) -> torch.Tensor:
     xk = x + sx * p.cm_mu_k
     xr = x + sx * p.cm_mu_r
-    k = torch.square(F.relu(xk @ p.cm_wk))
+    # (B, S, F) over a sequence; the decode step's (B, F) is left as it is,
+    # as the reference's step constrains nothing
+    k = constrain(torch.square(F.relu(xk @ p.cm_wk)), "batch", None, "mlp")
     return torch.sigmoid(xr @ p.cm_wr) * (k @ p.cm_wv)
 
 

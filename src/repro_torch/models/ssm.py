@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, ParamSpec, rmsnorm
 
@@ -26,14 +27,14 @@ def mamba_specs(cfg: ModelConfig) -> dict:
     g, ds, nh, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_conv
     conv_dim = di + 2 * g * ds
     return {
-        "in_proj": ParamSpec((d, 2 * di + 2 * g * ds + nh)),
-        "conv_w": ParamSpec((w, conv_dim), scale=0.5),
-        "conv_b": ParamSpec((conv_dim,), "zeros"),
-        "a_log": ParamSpec((nh,), "ones"),
-        "d_skip": ParamSpec((nh,), "ones"),
-        "dt_bias": ParamSpec((nh,), "zeros"),
-        "norm": ParamSpec((di,), "ones"),
-        "out_proj": ParamSpec((di, d)),
+        "in_proj": ParamSpec((d, 2 * di + 2 * g * ds + nh), ("embed", "mlp")),
+        "conv_w": ParamSpec((w, conv_dim), ("conv", "mlp"), scale=0.5),
+        "conv_b": ParamSpec((conv_dim,), ("mlp",), "zeros"),
+        "a_log": ParamSpec((nh,), ("ssm_heads",), "ones"),
+        "d_skip": ParamSpec((nh,), ("ssm_heads",), "ones"),
+        "dt_bias": ParamSpec((nh,), ("ssm_heads",), "zeros"),
+        "norm": ParamSpec((di,), ("mlp",), "ones"),
+        "out_proj": ParamSpec((di, d), ("mlp", "embed")),
     }
 
 
@@ -138,8 +139,9 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                              cm.reshape(b, s, g, ds), cfg.ssm_chunk)
     y = y + xc.reshape(b, s, nh, hd) * p.d_skip[None, None, :, None]
     y = y.reshape(b, s, cfg.d_inner)
-    y = rmsnorm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = y @ p.out_proj
+    y = constrain(rmsnorm(y * F.silu(z), p.norm, cfg.norm_eps),
+                  "batch", None, "mlp")
+    out = constrain(y @ p.out_proj, "batch", "seq", "embed")
     if return_state:
         w = p.conv_w.shape[0]
         return out, {"h": h_final, "conv": conv_in[:, s - (w - 1):, :]}

@@ -16,11 +16,16 @@ Decode writes every cache in place: the attention caches at the position
 state (Mamba ``h`` and ``conv``, RWKV ``s``, ``tm_prev`` and ``cm_prev``)
 with ``copy_`` once the layer has read it, where the reference returns new
 arrays. So a captured decode step replays against the same storage.
+
+The residual stream is pinned with ``launch.sharding.constrain`` after
+each unit where the reference pins it; ``mamba_cache_axes`` and
+``rwkv_cache_axes`` give the recurrent caches' logical axes.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.sharding import constrain
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
@@ -84,7 +89,7 @@ def attn_block(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
         out, aux = moe_mod.moe_ffn(p.moe, hn, cfg)
     else:
         out, aux = ll.ffn(p.ffn, hn, cfg), torch.zeros((), device=h.device)
-    return h + out, aux
+    return constrain(h + out, "batch", "seq", "embed"), aux
 
 
 def attn_stack_specs(cfg: ModelConfig) -> dict:
@@ -154,8 +159,8 @@ def mamba_stack_specs(cfg: ModelConfig) -> dict:
             "ffn": ll.ffn_specs(cfg),
         }
         # zamba2's per-invocation input projection of concat(h, h0)
-        specs["group_in"] = ll.stacked({"w": ParamSpec((2 * d, d))},
-                                       n_groups)
+        specs["group_in"] = ll.stacked(
+            {"w": ParamSpec((2 * d, d), ("embed", "embed"))}, n_groups)
     return specs
 
 
@@ -194,7 +199,7 @@ def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                              positions)
         x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
                        cfg)
-        return h + x
+        return constrain(h + x, "batch", "seq", "embed")
 
     body = _remat(cfg, group)
     h0 = h
@@ -235,6 +240,25 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                 cache[name] = torch.zeros((n_groups, batch, max_seq, kv, ahd),
                                           dtype=dtype, device=device)
     return cache
+
+
+def mamba_cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``mamba_cache_init``'s dict; the shared
+    attention's cache, exact or PQ, as the attention family's."""
+    axes = {
+        "h": ("stack", "batch", "ssm_heads", None, None),
+        "conv": ("stack", "batch", None, "mlp"),
+    }
+    if cfg.shared_attn_every:
+        if cfg.kv_pq:
+            axes.update({"attn_k_codes": kvc.PQ_CODE_AXES,
+                         "attn_v_codes": kvc.PQ_CODE_AXES,
+                         "attn_k_cb": kvc.PQ_CB_AXES,
+                         "attn_v_cb": kvc.PQ_CB_AXES})
+        else:
+            axes.update({"attn_k": kvc.EXACT_KV_AXES,
+                         "attn_v": kvc.EXACT_KV_AXES})
+    return axes
 
 
 def _mamba_decode_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
@@ -317,7 +341,7 @@ def _mamba_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
         x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
                        cfg)
         encode(gi, kk, vv)
-        h = h + x
+        h = constrain(h + x, "batch", "seq", "embed")
     return h
 
 
@@ -379,7 +403,7 @@ def _rwkv_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig):
     h = h + tm
     xn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
     h = h + rwkv_mod.rwkv_channel_mix(lp.rwkv, xn)
-    return h, s_final, x, xn
+    return constrain(h, "batch", "seq", "embed"), s_final, x, xn
 
 
 def rwkv_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
@@ -406,6 +430,12 @@ def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
         "tm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
         "cm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
     }
+
+
+def rwkv_cache_axes() -> dict:
+    return {"s": ("stack", "batch", "ssm_heads", None, None),
+            "tm_prev": ("stack", "batch", "embed"),
+            "cm_prev": ("stack", "batch", "embed")}
 
 
 def rwkv_stack_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig

@@ -16,8 +16,9 @@ state of several GB is not copied a step) and returns them with a new
 state holding the new step.
 
 ``state_shapes`` gives the state's shape stand-ins for the dry-run
-(meta-device tensors, ``launch/dryrun.py``). The reference's
-``state_axes`` serves only its TPU mesh and waits with it (ROADMAP).
+(meta-device tensors, ``launch/dryrun.py``) and ``state_axes`` their
+logical sharding axes: the moments take their parameters' axes, the step
+is replicated.
 """
 from __future__ import annotations
 
@@ -70,6 +71,10 @@ def state_shapes(params: ll.Params) -> AdamWState:
 
     return AdamWState(step=torch.empty((), dtype=torch.int32, device=meta),
                       mu=f32(), nu=f32())
+
+
+def state_axes(param_axes: dict) -> AdamWState:
+    return AdamWState(step=None, mu=param_axes, nu=param_axes)
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,26 @@
-"""Subprocess body for ``test_torch_sharded.py``'s ``torch.distributed``
-test: one rank of a gloo group on the CPU.
+"""Subprocess body for the ``torch.distributed`` tests of
+``test_torch_sharded.py`` and ``test_torch_sharding.py``: one rank of a
+gloo group on the CPU.
 
     python tests/_torch_dist_harness.py <rank> <world size> <port>
+    python tests/_torch_dist_harness.py <rank> 4 <port> constrain
 
 Every rank builds the same engine from a seed, wraps it in a
 ``ShardedEngine`` of ``world size`` shards and checks that the
 process-group path (this rank runs its own shard; results all-gathered,
 stats all-reduced) equals the in-turn path bit for bit (dists, ids, all
 seven ``QueryStats``), unfiltered, filtered and namespaced, then again
-after a delete, an upsert and a compaction. Prints OK and exits 0; any
-failure exits non-zero.
+after a delete, an upsert and a compaction.
+
+With ``constrain``, the four ranks form a (2, 2) ``("data", "model")``
+CPU mesh (``launch.mesh.make_host_mesh(model=2)``), and
+``launch.sharding.constrain`` redistributes a replicated DTensor under
+``use_mesh``: each rank's shard is the slice numpy gives for its mesh
+coordinate, a dimension the divisibility fallback replicates stays whole,
+a rules table that replicates everything gathers the shards back, and a
+plain tensor under the mesh raises.
+
+Prints OK and exits 0; any failure exits non-zero.
 """
 import os
 import sys
@@ -21,15 +32,55 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-from repro_torch.data.vectors import make_sift_like  # noqa: E402
-from repro_torch.engine import (EngineConfig, SearchEngine,  # noqa: E402
-                                ShardedEngine)
+
+def constrain_body() -> None:
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    mesh = mesh_lib.make_host_mesh(model=2, device="cpu")
+    assert mesh.shape == {"data": 2, "model": 2}, mesh
+    di, mi = mesh.device_mesh.get_coordinate()
+    x = np.random.default_rng(7).normal(size=(8, 6, 5)).astype(np.float32)
+    full = distribute_tensor(torch.from_numpy(x), mesh.device_mesh,
+                             [Replicate(), Replicate()])
+    with shd.use_mesh(mesh):
+        # batch -> ("pod", "data") -> "data" here; mlp -> "model"; the
+        # last dim's 5 does not divide "model"'s 2, so it stays whole
+        y = shd.constrain(full, "batch", "mlp", None)
+        assert np.array_equal(y.to_local().numpy(),
+                              x[di * 4:(di + 1) * 4, mi * 3:(mi + 1) * 3])
+        z = shd.constrain(full, "batch", None, "mlp")
+        assert tuple(z.to_local().shape) == (4, 6, 5)
+        assert np.array_equal(z.to_local().numpy(), x[di * 4:(di + 1) * 4])
+        # a plain tensor under a mesh of four ranks raises
+        try:
+            shd.constrain(torch.from_numpy(x), "batch", "mlp", None)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("a plain tensor under the mesh passed")
+    with shd.use_mesh(mesh, {"batch": None, None: None}):
+        back = shd.constrain(y, "batch", "mlp", None)
+        assert np.array_equal(back.to_local().numpy(), x)
 
 
 def main() -> int:
     rank, world, port = (int(a) for a in sys.argv[1:4])
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
+    if sys.argv[4:] == ["constrain"]:
+        try:
+            constrain_body()
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        print("OK")
+        return 0
+    # the engine's modules only where they run (the constrain ranks start
+    # sooner without them)
+    from repro_torch.data.vectors import make_sift_like
+    from repro_torch.engine import EngineConfig, SearchEngine, ShardedEngine
     try:
         ds = make_sift_like(n=2400, nt=1200, nq=6, d=32, ncl=16, seed=3,
                             device="cpu")

@@ -528,10 +528,22 @@ def _launch(module: str, *args: str):
                           timeout=300, cwd=ROOT)
 
 
-def test_dryrun_cli_refuses_a_pod_mesh():
+def test_dryrun_cli_refuses_a_pod_mesh(tmp_path):
+    """``--mesh pod`` no longer refuses: ``both`` sizes the cell per
+    device on the (16, 16) and (2, 16, 16) meshes, loading no jax
+    (``test_torch_sharding.py`` holds the bytes); a mesh the dry-run does
+    not know is refused."""
     out = _launch("repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
-                  "--shape", "decode_32k", "--mesh", "pod")
-    assert out.returncode == 2 and "ROADMAP" in out.stderr
+                  "--shape", "decode_32k", "--mesh", "both", "--out",
+                  str(tmp_path))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "all requested cells passed" in out.stdout
+    assert sorted(os.listdir(tmp_path)) == [
+        "qwen3-1.7b_decode_32k_multipod.json",
+        "qwen3-1.7b_decode_32k_pod.json"]
+    out = _launch("repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
+                  "--mesh", "h100x4")
+    assert out.returncode == 2 and "invalid choice" in out.stderr
 
 
 def test_dryrun_cli_writes_a_cell_and_loads_no_jax(tmp_path):

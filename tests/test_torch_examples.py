@@ -132,7 +132,13 @@ def test_launch_serve_dry_run_counts_its_cell(shape):
 
 @pytest.mark.parametrize("launcher", ["train", "serve"])
 def test_launchers_refuse_multi_pod(launcher):
+    """``--dry-run --multi-pod`` no longer refuses: it sizes the cell per
+    device on the (2, 16, 16) mesh, as the reference's launchers lower
+    their multipod cell, loading no jax."""
     out = _launch("--arch", "qwen3-1.7b", "--dry-run", "--multi-pod",
                   launcher=launcher)
-    assert out.returncode == 2
-    assert "ROADMAP" in out.stderr and "[dryrun]" not in out.stdout
+    assert out.returncode == 0, out.stderr[-3000:]
+    shape = "train_4k" if launcher == "train" else "decode_32k"
+    assert f"[dryrun] qwen3-1.7b x {shape} x multipod: OK" in out.stdout
+    assert f"| qwen3-1.7b | {shape} | multipod |" in out.stdout
+    assert f"[{launcher}] " not in out.stdout
