@@ -166,9 +166,20 @@ Q in {1, 8, 32, 128} plus one batch with a filter bitmap, on two paths:
      and as decode-graph replays, 8 steps at the LM phase's shapes) and
      one training step at the training phase's, each equal to the
      meshless run bit for bit, 28 K8 launches a PQ step; the eager step's
-     ms with and without the mesh; the per-device bytes of the card's
-     cells on the reference's pod and multipod meshes. The group is
-     destroyed before the examples.
+     ms with and without the mesh; qwen3-1.7b's prefill and 8 eager
+     decode steps through ``launch.dryrun.mesh_cell`` with parameters,
+     caches and batch as DTensors, exact and PQ, bit for bit the meshless
+     steps, 28 K8 launches a PQ step; K8's sharded mode (its split pass
+     over each of 2 and 4 shards of qwen3's PQ cache at their offsets,
+     the combine pass over the partials) bit for bit the one-rank K8,
+     each pass timed; the per-device bytes of the card's cells on the
+     reference's pod and multipod meshes. The group is destroyed before
+     the examples. Then dbrx-132b's expert-parallel bodies over 2 and 4
+     shards of one full-width layer, in turn. The machine has one card:
+     a mesh of several ranks runs as gloo ranks on the CPU (the tests).
+     K8's launches on the mesh cells' PQ path and in the sharded runs
+     are printed on ``mesh:`` lines of their own; the kernels line counts
+     the LM phase's PQ path alone.
 
   14. ``examples/quickstart_torch.py`` and ``examples/ann_search_torch.py
      --shards 4`` once each, in their own processes.
@@ -4201,6 +4212,10 @@ def dryrun_phase(torch) -> None:
 # the mesh phase: qwen3-1.7b's decode steps a cache under the one-rank
 # mesh (eager, and replays of the decode graph), at the LM phase's shapes
 MESH_STEPS = 8
+# the expert shards' summed partials against the single device's moe_ffn,
+# in bf16: each shard's partial and each sum of two rounded to bf16 (four
+# units in the last place at a row's largest |value|)
+MOE_SHARD_RTOL = 2.0 ** -5
 # the cells of the arch-and-shape pairs the card runs, sized per device
 # on the reference's production meshes
 MESH_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
@@ -4285,6 +4300,234 @@ def mesh_decode(torch, params, cfg, prompts, pq, mesh, what: str) -> list:
     return k8
 
 
+def mesh_cells(torch, params, cfg, prompts, pq, mesh, what: str):
+    """The prefill and MESH_STEPS eager decode steps of ``launch.dryrun.
+    mesh_cell`` under ``mesh`` (parameters, cache and batch placed as
+    DTensors by the reference's serving rules) against the meshless eager
+    steps fed the same tokens: prefill logits, every step's logits and
+    every cache tensor bit for bit, every leaf a DTensor. Returns (the K8
+    launches of each step of the cell, the meshless cache after the
+    steps)."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as model_lib
+    b, s = prompts.shape
+    rules = dryrun.cell_rules(cfg, "decode_32k", mesh)
+    want, wcache = model_lib.prefill(params, prompts, cfg, max_seq=LM_MAX_SEQ,
+                                     pq_cache=fresh_pq(torch, pq))
+    t0 = time.perf_counter()
+    cell = dryrun.mesh_cell(cfg, "prefill", mesh, rules, params,
+                            tokens=prompts, cache=fresh_pq(torch, pq),
+                            max_seq=LM_MAX_SEQ)
+    t_place = time.perf_counter() - t0
+    got, cache = cell.step()
+    if not torch.equal(got.full_tensor(), want):
+        raise AssertionError(f"{what}: the prefill cell differs")
+    tok = torch.argmax(want[:, :cfg.vocab], -1)
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    dc = dryrun.mesh_cell(cfg, "decode", mesh, rules, params, tokens=tok,
+                          cache=cache, position=pos)
+    t_plain, t_cell, k8 = [], [], []
+    for i in range(MESH_STEPS):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, wcache = model_lib.decode_step(params, wcache, tok, pos, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pqk.launches = 0
+        got, _ = dc.step(tok, pos)
+        torch.cuda.synchronize()
+        k8.append(pqk.launches)
+        t_plain.append((t1 - t0) * 1e3)
+        t_cell.append((time.perf_counter() - t1) * 1e3)
+        got = got.full_tensor()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what}: decode step {i} of the cell differs: max "
+                f"|difference| {float((got.float() - want.float()).abs().max())}")
+        tok = torch.argmax(want[:, :cfg.vocab], -1)
+    for name, a, c in zip(wcache._fields, dc.cache, wcache):
+        if not shd.is_placed(a) or not torch.equal(a.full_tensor(), c):
+            raise AssertionError(f"{what}: the cell's cache {name} differs")
+    if not all(shd.is_placed(p) for p in dc.params.parameters()):
+        raise AssertionError(f"{what}: a parameter left its placement")
+    log(f"{what}: mesh_cell's prefill and {MESH_STEPS} eager decode steps "
+        f"(parameters, cache and batch DTensors on the (1, 1) mesh, "
+        f"placed in {t_place:.2f} s; cache at "
+        f"{tuple(dc.cache[0].placements)}) == the meshless steps bit for "
+        f"bit (logits, every cache tensor); eager step "
+        f"{float(np.median(t_plain[1:])):.3f} ms meshless, "
+        f"{float(np.median(t_cell[1:])):.3f} ms through the cell (host "
+        f"clock, synchronised, in turns, median of steps 2-{MESH_STEPS}); "
+        f"K8 launches a step of the cell: {k8}")
+    del cell, dc, cache
+    return k8, wcache
+
+
+def k8_sharded(torch, args, cache, cfg) -> None:
+    """K8's sharded mode on qwen3-1.7b's PQ cache (layer 0's codes and
+    codebooks, B LM_BATCH, Smax LM_MAX_SEQ, about 2,070 live positions a
+    row, a random query) over 2 and 4 shards of the positions, in turn on
+    the one card: each shard's split pass at its offset, the partials
+    concatenated in shard order, the combine pass. Equal to the one-rank
+    K8 bit for bit (the shards' lengths are multiples of its 256-position
+    splits) and within K8_RTOL of ``pq_decode_plain(split=256)``; each
+    pass timed by CUDA events, its bound at the local shapes; each run's
+    launches on a ``mesh:`` line of its own."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    b, h, hd = LM_BATCH, cfg.n_heads, cfg.resolved_head_dim
+    kc, vc, kcb, vcb = (t[0] for t in cache)
+    kv, m = kcb.shape[0], kcb.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 90)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    positions = [2069 - 7 * r for r in range(b)]
+    path = k8_glue(torch, q, kc, vc, kcb, vcb, positions, True)
+    table, scale, bias, _, _, _, pos = path
+    out = torch.bfloat16
+    n0 = pqk.launches
+    one = pqk.pq_decode(*path, chunk=2048, out_dtype=out)
+    twin = pqk.pq_decode_plain(*path, chunk=2048, out_dtype=out,
+                               split=pqk.SPLIT)
+    pqk.launches = n0
+    row = twin.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    for n in (2, 4):
+        sl = LM_MAX_SEQ // n
+        shards = [(kc[:, r * sl:(r + 1) * sl].contiguous(),
+                   vc[:, r * sl:(r + 1) * sl].contiguous()) for r in range(n)]
+
+        def split(r):
+            return pqk.pq_decode_split(table, scale, bias, *shards[r], vcb,
+                                       pos, pos_offset=r * sl)
+
+        pqk.launches = 0
+        work = torch.cat([split(r) for r in range(n)], dim=3)
+        got = pqk.pq_decode_combine(work, out_dtype=out)
+        torch.cuda.synchronize()
+        launched = pqk.launches
+        if launched != n + 1:
+            raise AssertionError(f"mesh: K8 sharded over {n}: {launched} "
+                                 "launches")
+        err = float(((got.float() - twin.float()).abs() / row).max())
+        if not torch.equal(got, one) or err > K8_RTOL["bfloat16"]:
+            raise AssertionError(
+                f"mesh: K8 sharded over {n} shards != the one-rank K8 (max "
+                f"|difference| {float((got.float() - one.float()).abs().max())}"
+                f", against the split-order plain {err})")
+        n1 = pqk.launches
+        split_ms = [event_ms(torch, lambda r=r: split(r), 20)
+                    for r in range(n)]
+        comb_ms = event_ms(torch, lambda: pqk.pq_decode_combine(
+            work, out_dtype=out), 20)
+        pqk.launches = n1
+        # each row's live positions in the shard, and its live splits
+        costs = []
+        for r in range(n):
+            live = [max(0, min(sl, p + 1 - r * sl)) for p in positions]
+            costs.append(kernel_bound(
+                f"mesh: K8 split pass, shard {r} of {n}", "pq_decode_split",
+                b=b, kv=kv, g=h // kv, m=m, head_dim=hd, live=live,
+                nsplit=pqk.n_splits(sl), q8=True, cb_itemsize=2))
+        cb = kernel_bound(f"mesh: K8 combine pass over {n} shards",
+                          "pq_decode_combine", b=b, kv=kv, g=h // kv,
+                          head_dim=hd, nsplit=work.shape[3],
+                          live_splits=[pqk.n_splits(p + 1) for p in positions],
+                          out_itemsize=2)
+        log(f"mesh: K8 sharded mode over {n} shards of {sl} positions "
+            f"(positions {positions[-1]}-{positions[0]}): == the one-rank K8 "
+            f"bit for bit, {err:.3e} of the row's largest |value| from "
+            f"pq_decode_plain(split=256) (tolerance {K8_RTOL['bfloat16']}); "
+            f"{launched} launches ({n} split, 1 combine); split pass ms a "
+            f"shard (events, 20 calls) "
+            f"{[round(t, 6) for t in split_ms]} (bounds "
+            f"{[round(c[2], 6) for c in costs]}), combine {comb_ms:.6f} ms "
+            f"(bound {cb[2]:.6f}); the one-rank call's two passes "
+            f"{event_ms(torch, lambda: pqk.pq_decode(*path, chunk=2048, out_dtype=out), 20):.6f} ms")
+        pqk.launches = n1
+
+
+def moe_shards(torch, args) -> None:
+    """dbrx-132b's expert-parallel bodies at full width (one layer's MoE,
+    the MoE phase's B 8 x 2,048 prompt tokens), over 2 and 4 expert
+    shards in turn on the one card: each shard routes the same gates
+    (its maps equal the single device's bit for bit), fills its experts'
+    slots (``moe.dispatch_shard``), runs its experts and takes its partial
+    (``moe.combine_shard``); the partials summed in shard order are held
+    within MOE_SHARD_RTOL of each row's largest |value| of the single
+    device's ``moe_ffn``."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.models import layers as ll
+    from repro_torch.models import moe
+    cfg = configs.get_config("dbrx-132b")
+    specs = moe.moe_specs(cfg)
+    p = ll.Params(specs, dtype=torch.bfloat16, device=torch.device("cuda"))
+    ll.init_params(p, specs, torch.Generator(device="cuda").manual_seed(
+        args.seed + 91))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 92)
+    b, s, d = LM_BATCH, LM_PROMPT, cfg.d_model
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    maps = []
+    real = moe.route
+
+    def route(gates, c):
+        maps.append(real(gates, c))
+        return maps[-1]
+
+    moe.route = route
+    try:
+        want, _ = moe.moe_ffn(p, x, cfg)
+    finally:
+        moe.route = real
+    want = want.reshape(-1, d)
+    single = maps[0]
+    g = moe._num_groups(cfg, b * s)
+    xg = x.reshape(g, -1, d)
+    gates = torch.softmax((xg @ p.router).float(), dim=-1)
+    e = cfg.n_experts
+    row = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    for n in (2, 4):
+        e_l = e // n
+        total = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            r = moe.route(gates, cfg)
+            for name in r._fields:
+                if not torch.equal(getattr(r, name), getattr(single, name)):
+                    raise AssertionError(f"mesh: dbrx shard {k} of {n}: the "
+                                         f"map {name} differs")
+            lo = k * e_l
+            buf = moe.dispatch_shard(xg, r.tok_for_slot[:, lo:lo + e_l],
+                                     r.slot_valid[:, lo:lo + e_l])
+            ps = SimpleNamespace(**{w: getattr(p, w)[lo:lo + e_l]
+                                    for w in ("wi_gate", "wi_up", "wo")})
+            yb = moe._expert_ffn(ps, buf, cfg)
+            part = moe.combine_shard(yb, r.es_tok, r.ps_tok, r.keep_tok,
+                                     r.gate_k, lo, x.dtype)
+            total = part if total is None else total + part
+            del buf, yb, part
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float(((total.reshape(-1, d).float() - want.float()).abs()
+                     / row).max())
+        log(f"mesh: dbrx-132b expert parallelism over {n} shards of {e_l} "
+            f"experts (one layer, {b} x {s} tokens, {g} groups): the maps "
+            f"== the single device's bit for bit on every shard; the "
+            f"partials' sum {err:.3e} of each row's largest |value| from "
+            f"the single device's moe_ffn (tolerance {MOE_SHARD_RTOL}); "
+            f"{ms:.1f} ms for the shards in turn (host clock)")
+        if err > MOE_SHARD_RTOL:
+            raise AssertionError(f"mesh: dbrx over {n} expert shards: "
+                                 f"{err} > {MOE_SHARD_RTOL}")
+    del p, x, want, xg, gates, total
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def mesh_phase(torch, args) -> None:
     """The LM under a one-rank device mesh (``launch/mesh.py``,
     ``launch/sharding.py``): a one-rank NCCL process group on a free local
@@ -4292,9 +4535,17 @@ def mesh_phase(torch, args) -> None:
     under ``use_mesh`` qwen3-1.7b's exact and PQ decode (``mesh_decode``)
     and one training step at the training phase's shapes, each equal to
     the meshless run bit for bit, 28 K8 launches a PQ step; a DTensor
-    through ``constrain``; the per-device bytes of MESH_CELLS on the
-    reference's pod and multipod meshes. The group is destroyed before
-    the phase returns."""
+    through ``constrain``; the serving cells through ``mesh_cell`` with
+    every tensor a DTensor (``mesh_cells``), bit for bit, 28 K8 launches
+    a PQ step; K8's sharded mode over 2 and 4 shards of the PQ cache
+    (``k8_sharded``); the per-device bytes of MESH_CELLS on the
+    reference's pod and multipod meshes; dbrx-132b's expert-parallel
+    bodies over 2 and 4 shards (``moe_shards``). The card machine has one
+    H100: a mesh of several ranks runs as gloo ranks on the CPU (the
+    tests), and here the shards run in turn. The group is destroyed
+    before the phase returns. K8's launches on the mesh cell's PQ path
+    and in the sharded runs are printed on ``mesh:`` lines of their own,
+    apart from the kernels line's."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -4346,7 +4597,17 @@ def mesh_phase(torch, args) -> None:
         if any(e != cfg.n_layers or g < cfg.n_layers for e, g in k8):
             raise AssertionError(f"mesh: K8 launches a PQ step {k8}, want "
                                  f"{cfg.n_layers} each")
-        del params, pqc, prompts
+        mesh_cells(torch, params, exact_cfg, prompts, None, mesh,
+                   "mesh: exact cell")
+        k8, pq_cache = mesh_cells(torch, params, pq_cfg, prompts, pqc, mesh,
+                                  "mesh: pq cell")
+        if any(n != cfg.n_layers for n in k8):
+            raise AssertionError(f"mesh: K8 launches a step of the PQ cell "
+                                 f"{k8}, want {cfg.n_layers} each")
+        log(f"mesh: K8 launches on the PQ cell's {MESH_STEPS} decode "
+            f"steps: {sum(k8)} ({cfg.n_layers} a step)")
+        k8_sharded(torch, args, pq_cache, cfg)
+        del params, pqc, prompts, pq_cache
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4402,6 +4663,7 @@ def mesh_phase(torch, args) -> None:
                 f"{pd['batch_bytes']} B; static {pd['static_bytes']} B "
                 f"(fits {pd['fits']}), replicated {pd['replicated_bytes']} B "
                 f"in {pd['replicated_leaves']} leaves; rules {pd['rules']}")
+    moe_shards(torch, args)
 
 
 def examples_phase(root: str) -> None:

@@ -55,12 +55,14 @@ _SIGNATURES = {
     "repro_fastscan_onehot_mma_flat": [_VP] * 2 + [_I] * 3 + [_VP] * 2,
     "repro_fastscan_blockmin": [_VP] * 2 + [_I] * 4 + [_VP] * 3,
     "repro_pq_decode_attention": [_VP] * 7 + [_I] * 9 + [_VP] * 4,
+    "repro_pq_decode_split": [_VP] * 7 + [_I] * 9 + [_VP] * 2,
+    "repro_pq_decode_combine": [_VP] + [_I] * 6 + [_VP] * 2,
 }
 # each kernel's shared memory a CTA needs, as its source computes it (the
 # one place the CTA shape lives), by its int arguments: M for K3, K5, K6
 # and K7a-K7c, (tile_n, kc, M) for K1 and K4, (D, tile_r, k) for K2,
-# (g, M, head_dim, quantize_q8) for K8's split pass and Smax for its
-# combine pass
+# (g, M, head_dim, quantize_q8) for K8's split pass and Smax (or the
+# count of gathered splits) for its combine pass
 SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
             "repro_rerank_stream_topk_smem": 3,
             "repro_fastscan_stream_grouped_smem": 1,
@@ -71,7 +73,8 @@ SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
             "repro_fastscan_blockmin_smem": 1,
             "repro_fastscan_stream_topk_prune_smem": 3,
             "repro_pq_decode_attention_smem": 4,
-            "repro_pq_decode_combine_smem": 1}
+            "repro_pq_decode_combine_smem": 1,
+            "repro_pq_decode_combine_splits_smem": 1}
 
 
 def build_dir() -> Path:
@@ -176,7 +179,7 @@ def check_smem(fn: str, *args: int, what: str = "") -> None:
     """Raise ``ValueError`` when a CTA of the kernel whose source exports
     ``fn`` needs more shared memory at ``args`` (M, K1's and K4's (tile_n,
     kc, M), K2's (D, tile_r, k), K8's (g, M, head_dim, quantize_q8) or its
-    combine pass's Smax) than a block can get."""
+    combine pass's Smax or splits) than a block can get."""
     need = getattr(load_library(), fn)(*args)
     if need > SMEM_LIMIT:
         raise ValueError(f"{what or f'M={args[0]}'} needs {need} B of shared "

@@ -74,12 +74,14 @@
 //      The per-head registers are arrays of G = 1 where g = 1, else of
 //      kMaxG (launch_split_g says why).
 //   2. Combine pass, one CTA of 128 threads a (b, KV head, query head):
-//      one warp reads the live splits' maxima and sums (their count from
-//      position[b], the same rule as the split pass), m* = max m_j, the
-//      weights e^{m_j - m*} and L = sum e^{m_j - m*} l_j; then each thread
-//      sums its dims' e^{m_j - m*} acc_j in split order and writes
-//      acc / max(L, 1e-20) in the output type. Nothing live gives 0, and
-//      no -inf - -inf is ever taken.
+//      one warp reads the splits' maxima, m* = max m_j, the weights
+//      e^{m_j - m*} (0 for a dead split, m_j = -inf, whose sum is not
+//      read) and L = sum e^{m_j - m*} l_j; then each thread sums its dims'
+//      e^{m_j - m*} acc_j in split order over the splits of weight other
+//      than 0 and writes acc / max(L, 1e-20) in the output type. Nothing
+//      live gives 0, and no -inf - -inf is ever taken. It reads no
+//      position: the same pass combines the shards' partials of the
+//      sharded mode, concatenated in position order.
 // The zamba2 hybrid's shared attention (head_dim 80, M = 40, g = 1, KV =
 // 32) reads its 20-byte rows 4 bytes at a copy, and 240 of 256 threads
 // sum its 40 units in 6 groups. Measured (tools/time_k8.py, H100, 700 W):
@@ -154,8 +156,12 @@ __host__ __device__ inline Layout layout(int g, int m, int hd, bool q8) {
   return l;
 }
 
+__host__ __device__ inline size_t combine_splits_smem(int nsplit) {
+  return align16(static_cast<size_t>(nsplit + 1) * 4);
+}
+
 __host__ __device__ inline size_t combine_smem(int smax) {
-  return align16(static_cast<size_t>(n_splits(smax) + 1) * 4);
+  return combine_splits_smem(n_splits(smax));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -255,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
     const float* __restrict__ bias, const uint8_t* __restrict__ k_codes,
     const uint8_t* __restrict__ v_codes, const CB* __restrict__ v_cb,
     const int32_t* __restrict__ position, int kv, int g, int m, int dsub,
-    int smax, int width, float* __restrict__ work,
+    int smax, int pos_offset, int width, float* __restrict__ work,
     float* __restrict__ scores) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int hd = m * dsub, mh = m / 2;
@@ -263,7 +269,10 @@ __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
   const int bk = blockIdx.x, b = bk / kv, kh = bk % kv;
   const int split = blockIdx.y, nsplit = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int live = min(max(position[b] + 1, 0), smax);
+  // local positions [0, live) are live: global pos_offset + i <= position
+  const int live = static_cast<int>(min(
+      max(static_cast<long long>(position[b]) + 1 - pos_offset, 0LL),
+      static_cast<long long>(smax)));
   const int s0 = split * kSplit;
   // head h's partial: (m_j, l_j, acc_j[hd]) at part + h * hstride
   const size_t hstride = static_cast<size_t>(nsplit) * (hd + 2);
@@ -467,25 +476,33 @@ __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
   }
 }
 
+// The combine pass over nsplit splits in split order: the split pass's
+// own, or the shards' concatenated (the sharded mode). A dead split (m_j =
+// -inf, its acc_j never written) gets weight 0 and is skipped, as is a
+// live one whose weight underflows to 0 (it would add exactly 0), so the
+// live splits are summed in the same order, and to the same bits, however
+// many dead ones lie around them.
 template <typename OUT>
 __global__ void __launch_bounds__(kCombineThreads) pq_decode_kernel_combine(
-    const float* __restrict__ work, const int32_t* __restrict__ position,
-    int kvg, int hd, int smax, OUT* __restrict__ out) {
+    const float* __restrict__ work, int kvg, int hd, int nsplit,
+    OUT* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   float* wts = reinterpret_cast<float*>(smem);  // e^{m_j - m*}, then L
-  const int r = blockIdx.x, b = r / kvg, tid = threadIdx.x;
-  const int nsplit = n_splits(smax);
-  const int live = min(max(position[b] + 1, 0), smax);
-  const int nl = (live + kSplit - 1) / kSplit;
+  const int r = blockIdx.x, tid = threadIdx.x;
   const size_t ps = static_cast<size_t>(hd) + 2;
   const float* part = work + static_cast<size_t>(r) * nsplit * ps;
   if (tid < 32) {
     float mx = -INFINITY;
-    for (int j = tid; j < nl; j += 32) mx = fmaxf(mx, part[j * ps]);
+    for (int j = tid; j < nsplit; j += 32) mx = fmaxf(mx, part[j * ps]);
     mx = warp_max(mx);
     float l = 0.f;
-    for (int j = tid; j < nl; j += 32) {
-      const float e = expf(part[j * ps] - mx);
+    for (int j = tid; j < nsplit; j += 32) {
+      const float mj = part[j * ps];
+      if (mj == -INFINITY) {
+        wts[j] = 0.f;
+        continue;
+      }
+      const float e = expf(mj - mx);
       wts[j] = e;
       l += e * part[j * ps + 1];
     }
@@ -496,8 +513,10 @@ __global__ void __launch_bounds__(kCombineThreads) pq_decode_kernel_combine(
   const float den = fmaxf(wts[nsplit], 1e-20f);
   for (int d = tid; d < hd; d += kCombineThreads) {
     float a = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < nl; ++j) a = fmaf(wts[j], part[j * ps + 2 + d], a);
+    for (int j = 0; j < nsplit; ++j) {
+      const float w = wts[j];
+      if (w != 0.f) a = fmaf(w, part[j * ps + 2 + d], a);
+    }
     out[static_cast<size_t>(r) * hd + d] = from_float<OUT>(a / den);
   }
 }
@@ -517,8 +536,8 @@ cudaError_t launch_split(const void* table, const float* scale,
                          const float* bias, const uint8_t* k_codes,
                          const uint8_t* v_codes, const void* v_cb,
                          const int32_t* position, int b, int kv, int g, int m,
-                         int dsub, int smax, float* work, float* scores,
-                         cudaStream_t stream) {
+                         int dsub, int smax, int pos_offset, float* work,
+                         float* scores, cudaStream_t stream) {
   const size_t smem = layout(g, m, m * dsub, Q8).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   auto* kernel = pq_decode_kernel_split<CB, Q8, G>;
@@ -529,8 +548,8 @@ cudaError_t launch_split(const void* table, const float* scale,
   const dim3 grid(b * kv, n_splits(smax));
   kernel<<<grid, kThreads, smem, stream>>>(
       table, scale, bias, k_codes, v_codes, static_cast<const CB*>(v_cb),
-      position, kv, g, m, dsub, smax, copy_width(k_codes, v_codes, m / 2),
-      work, scores);
+      position, kv, g, m, dsub, smax, pos_offset,
+      copy_width(k_codes, v_codes, m / 2), work, scores);
   return cudaGetLastError();
 }
 
@@ -545,21 +564,21 @@ cudaError_t launch_split_g(const void* table, const float* scale,
                            const float* bias, const uint8_t* k_codes,
                            const uint8_t* v_codes, const void* v_cb,
                            const int32_t* position, int b, int kv, int g,
-                           int m, int dsub, int smax, float* work,
-                           float* scores, cudaStream_t stream) {
-#define REPRO_K8_SPLIT(G)                                                   \
-  launch_split<CB, Q8, G>(table, scale, bias, k_codes, v_codes, v_cb,       \
-                          position, b, kv, g, m, dsub, smax, work, scores, \
-                          stream)
+                           int m, int dsub, int smax, int pos_offset,
+                           float* work, float* scores, cudaStream_t stream) {
+#define REPRO_K8_SPLIT(G)                                                \
+  launch_split<CB, Q8, G>(table, scale, bias, k_codes, v_codes, v_cb,    \
+                          position, b, kv, g, m, dsub, smax, pos_offset, \
+                          work, scores, stream)
   return g == 1 ? REPRO_K8_SPLIT(1) : REPRO_K8_SPLIT(kMaxG);
 #undef REPRO_K8_SPLIT
 }
 
+// The combine pass over nsplit splits.
 template <typename OUT>
-cudaError_t launch_combine(const float* work, const int32_t* position, int b,
-                           int kv, int g, int hd, int smax, void* out,
-                           cudaStream_t stream) {
-  const size_t smem = combine_smem(smax);
+cudaError_t launch_combine(const float* work, int b, int kv, int g, int hd,
+                           int nsplit, void* out, cudaStream_t stream) {
+  const size_t smem = combine_splits_smem(nsplit);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   auto* kernel = pq_decode_kernel_combine<OUT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -567,8 +586,45 @@ cudaError_t launch_combine(const float* work, const int32_t* position, int b,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<b * kv * g, kCombineThreads, smem, stream>>>(
-      work, position, kv * g, hd, smax, static_cast<OUT*>(out));
+      work, kv * g, hd, nsplit, static_cast<OUT*>(out));
   return cudaGetLastError();
+}
+
+// The combine pass in the output type.
+cudaError_t launch_combine_any(const float* work, int b, int kv, int g,
+                               int hd, int nsplit, int out_bf16, void* out,
+                               cudaStream_t s) {
+  return out_bf16
+             ? launch_combine<__nv_bfloat16>(work, b, kv, g, hd, nsplit, out, s)
+             : launch_combine<float>(work, b, kv, g, hd, nsplit, out, s);
+}
+
+// The split pass of either codebook type and LUT kind.
+cudaError_t launch_split_any(const void* table, const void* scale,
+                             const void* bias, const void* k_codes,
+                             const void* v_codes, const void* v_cb,
+                             const void* position, int b, int kv, int g,
+                             int m, int dsub, int smax, int pos_offset,
+                             int q8, int cb_bf16, float* work, float* scores,
+                             cudaStream_t s) {
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  const auto* kc = static_cast<const uint8_t*>(k_codes);
+  const auto* vc = static_cast<const uint8_t*>(v_codes);
+  const auto* pos = static_cast<const int32_t*>(position);
+#define REPRO_K8_ANY(CB, Q)                                                 \
+  launch_split_g<CB, Q>(table, sc, bi, kc, vc, v_cb, pos, b, kv, g, m, dsub, \
+                        smax, pos_offset, work, scores, s)
+  if (cb_bf16)
+    return q8 ? REPRO_K8_ANY(__nv_bfloat16, true)
+              : REPRO_K8_ANY(__nv_bfloat16, false);
+  return q8 ? REPRO_K8_ANY(float, true) : REPRO_K8_ANY(float, false);
+#undef REPRO_K8_ANY
+}
+
+inline bool dims_ok(int b, int kv, int g, int m, int dsub, int smax) {
+  return g >= 1 && g <= kMaxG && m >= 2 && m % 2 == 0 && dsub >= 1 &&
+         m * dsub <= kThreads && b >= 1 && kv >= 1 && smax >= 1;
 }
 
 }  // namespace
@@ -586,6 +642,12 @@ extern "C" long long repro_pq_decode_combine_smem(int smax) {
   return static_cast<long long>(combine_smem(smax));
 }
 
+// Shared memory (bytes) one CTA of the combine pass needs over nsplit
+// gathered splits (the sharded mode).
+extern "C" long long repro_pq_decode_combine_splits_smem(int nsplit) {
+  return static_cast<long long>(combine_splits_smem(nsplit));
+}
+
 // Launch both passes on `stream`; returns the first cudaGetLastError()
 // that is not 0 (0 = ok). table: (B, KV, g, M, 16) u8 with scale and
 // summed bias (B, KV, g) f32 when q8, else f32 (scale and bias unused);
@@ -600,34 +662,46 @@ extern "C" int repro_pq_decode_attention(
     const void* position, int b, int kv, int g, int m, int dsub, int smax,
     int q8, int cb_bf16, int out_bf16, void* out, void* scores, void* work,
     void* stream) {
-  if (g < 1 || g > kMaxG || m < 2 || m % 2 || dsub < 1 ||
-      m * dsub > kThreads || b < 1 || kv < 1 || smax < 1)
+  if (!dims_ok(b, kv, g, m, dsub, smax))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* kc = static_cast<const uint8_t*>(k_codes);
-  const auto* vc = static_cast<const uint8_t*>(v_codes);
-  const auto* pos = static_cast<const int32_t*>(position);
-  auto* sco = static_cast<float*>(scores);
   auto* wk = static_cast<float*>(work);
   auto* s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (cb_bf16)
-    err = q8 ? launch_split_g<__nv_bfloat16, true>(table, sc, bi, kc, vc, v_cb,
-                                                 pos, b, kv, g, m, dsub, smax,
-                                                 wk, sco, s)
-             : launch_split_g<__nv_bfloat16, false>(table, sc, bi, kc, vc, v_cb,
-                                                  pos, b, kv, g, m, dsub,
-                                                  smax, wk, sco, s);
-  else
-    err = q8 ? launch_split_g<float, true>(table, sc, bi, kc, vc, v_cb, pos, b,
-                                         kv, g, m, dsub, smax, wk, sco, s)
-             : launch_split_g<float, false>(table, sc, bi, kc, vc, v_cb, pos, b,
-                                          kv, g, m, dsub, smax, wk, sco, s);
+  cudaError_t err = launch_split_any(
+      table, scale, bias, k_codes, v_codes, v_cb, position, b, kv, g, m, dsub,
+      smax, 0, q8, cb_bf16, wk, static_cast<float*>(scores), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = out_bf16 ? launch_combine<__nv_bfloat16>(wk, pos, b, kv, g, m * dsub,
-                                                 smax, out, s)
-                 : launch_combine<float>(wk, pos, b, kv, g, m * dsub, smax,
-                                         out, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_combine_any(wk, b, kv, g, m * dsub,
+                                             n_splits(smax), out_bf16, out,
+                                             s));
+}
+
+// The split pass alone over a shard of the cache (K8's sharded mode):
+// k_codes, v_codes (B, Smax, KV, M/2) are the shard's positions, local
+// position i being global position pos_offset + i; work (B, KV, g,
+// ceil(Smax / 256), M * dsub + 2) f32 gets the shard's partials. Other
+// arguments as repro_pq_decode_attention's.
+extern "C" int repro_pq_decode_split(
+    const void* table, const void* scale, const void* bias,
+    const void* k_codes, const void* v_codes, const void* v_cb,
+    const void* position, int b, int kv, int g, int m, int dsub, int smax,
+    int pos_offset, int q8, int cb_bf16, void* work, void* stream) {
+  if (!dims_ok(b, kv, g, m, dsub, smax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_split_any(
+      table, scale, bias, k_codes, v_codes, v_cb, position, b, kv, g, m, dsub,
+      smax, pos_offset, q8, cb_bf16, static_cast<float*>(work), nullptr,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The combine pass alone over work (B, KV, g, nsplit, hd + 2) f32, the
+// shards' partials concatenated on the split axis in position order; out
+// (B, KV * g, hd) bf16 or f32.
+extern "C" int repro_pq_decode_combine(const void* work, int b, int kv, int g,
+                                       int hd, int nsplit, int out_bf16,
+                                       void* out, void* stream) {
+  if (b < 1 || kv < 1 || g < 1 || hd < 1 || nsplit < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_combine_any(
+      static_cast<const float*>(work), b, kv, g, hd, nsplit, out_bf16, out,
+      static_cast<cudaStream_t>(stream)));
 }

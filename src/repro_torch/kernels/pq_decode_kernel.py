@@ -23,12 +23,24 @@ the result is deterministic. The bound is bytes, but what sets the time
 is latency: the split gives every SM CTAs to switch between, and no CTA
 walks more than one 256-position tile.
 
+The two passes are also entry points of their own, K8's sharded mode
+for a cache sharded on its positions over several ranks
+(``models/kvcache.py``): ``pq_decode_split`` runs the split pass over a
+rank's local positions, its live mask at ``pos_offset + local index``,
+and returns the rank's partials; ``pq_decode_combine`` runs the combine
+pass over partials concatenated along the split axis, skipping the dead
+splits (it reads no position). Where every rank's length is a multiple
+of ``SPLIT``, the ranks' partials in rank order are the one-rank call's
+live ones, and the combine's output is ``pq_decode``'s bit for bit.
+
 Beside the kernel: ``pq_decode_plain``, the same function in plain
 PyTorch in the reference's chunked order and casts (the CPU path and the
 on-card reference) or, with ``split=``, in the kernel's split-and-combine
-order; the integer and float ADC stages it is built from (``adc_sums``,
-``adc_scores``), ``decode_kv``, and ``launches``, the count of kernel
-calls (one a call, both passes together).
+order (``plain_partials`` then ``plain_combine``, the two passes' plain
+versions); the integer and float ADC stages it is built from
+(``adc_sums``, ``adc_scores``), ``decode_kv``, and ``launches``, the
+count of kernel calls (one a ``pq_decode`` call, both passes together;
+one a ``pq_decode_split`` and one a ``pq_decode_combine`` call).
 """
 from __future__ import annotations
 
@@ -70,10 +82,17 @@ def smem_bytes(g: int, m: int, hd: int, q8: bool) -> int:
             + _align16(2 * _WARPS * g * 4))
 
 
+def combine_splits_smem_bytes(nsplit: int) -> int:
+    """Shared memory one CTA of the combine pass needs over ``nsplit``
+    splits (mirrors the .cu's ``repro_pq_decode_combine_splits_smem``): a
+    weight a split and the sum."""
+    return _align16((nsplit + 1) * 4)
+
+
 def combine_smem_bytes(smax: int) -> int:
-    """Shared memory one CTA of the combine pass needs (mirrors the .cu's
-    ``repro_pq_decode_combine_smem``): a weight a split and the sum."""
-    return _align16((n_splits(smax) + 1) * 4)
+    """The combine pass's shared memory over the splits of Smax (mirrors
+    ``repro_pq_decode_combine_smem``)."""
+    return combine_splits_smem_bytes(n_splits(smax))
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
@@ -208,54 +227,106 @@ def pq_decode_plain(table, scale, bias, k_codes, v_codes, v_cb, position,
 
 def _plain_split(table, scale, bias, k_codes, v_codes, v_cb, position,
                  split: int, out_dtype: torch.dtype) -> torch.Tensor:
+    return plain_combine(plain_partials(table, scale, bias, k_codes, v_codes,
+                                        v_cb, position, split=split),
+                         out_dtype=out_dtype)
+
+
+def plain_partials(table, scale, bias, k_codes, v_codes, v_cb, position, *,
+                   split: int = SPLIT, pos_offset: int = 0) -> torch.Tensor:
+    """The split pass in plain PyTorch: (B, KV, g, ceil(Smax / split), hd
+    + 2) f32, each ``split``-position split's max m_j (-inf where no
+    position is live), sum l_j and value sum acc_j a (row, KV head, query
+    head), as the kernel writes them; p rounded to the codebook's type at
+    m_j, the product in f32. Local position i is global position
+    ``pos_offset + i`` (a rank's shard of the cache)."""
     b, smax, kv, _ = k_codes.shape
-    g = table.shape[2]
-    hd = v_cb.shape[1] * v_cb.shape[3]
     dev = table.device
-    ms, ls, accs = [], [], []
+    parts = []
     for s0 in range(0, smax, split):
         kc = k_codes[:, s0:s0 + split]
         vc = v_codes[:, s0:s0 + split]
         s = adc_scores(table, scale, bias, kc)              # (B, KV, g, C)
-        pos = s0 + torch.arange(kc.shape[1], device=dev)
+        pos = pos_offset + s0 + torch.arange(kc.shape[1], device=dev)
         valid = pos[None, :] <= position[:, None].long()     # (B, C)
         s = torch.where(valid[:, None, None, :], s, float("-inf"))
         mj = s.amax(-1)                          # -inf for a dead split
         p = torch.exp(s - torch.where(torch.isfinite(mj), mj, 0.0)[..., None])
         vh = decode_kv(vc, v_cb)                             # (B, C, KV, hd)
-        ms.append(mj)
-        ls.append(p.sum(-1))
-        accs.append(torch.einsum("bkgc,bckp->bkgp", p.to(vh.dtype).float(),
-                                 vh.float()))
-    m = torch.stack(ms)                                  # (n, B, KV, g)
+        acc = torch.einsum("bkgc,bckp->bkgp", p.to(vh.dtype).float(),
+                           vh.float())
+        parts.append(torch.cat([mj[..., None], p.sum(-1)[..., None], acc],
+                               dim=-1))
+    return torch.stack(parts, dim=3)
+
+
+def plain_combine(work: torch.Tensor, *, out_dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The combine pass in plain PyTorch over (B, KV, g, n, hd + 2)
+    partials: the splits scaled to their common max m*, ``sum e^(m_j -
+    m*) acc_j / max(sum e^(m_j - m*) l_j, 1e-20)``, in split order; (B, KV
+    * g, hd) in ``out_dtype``."""
+    b, kv, g, _, hd2 = work.shape
+    m = work[..., 0].movedim(3, 0).contiguous()          # (n, B, KV, g)
+    ls = work[..., 1].movedim(3, 0).contiguous()
+    accs = work[..., 2:].movedim(3, 0).contiguous()
     top = m.amax(0)
     w = torch.exp(m - torch.where(torch.isfinite(top), top, 0.0))
-    l = (w * torch.stack(ls)).sum(0)
-    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    l = (w * ls).sum(0)
+    acc = (w[..., None] * accs).sum(0)
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
-    return out.reshape(b, kv * g, hd).to(out_dtype)
+    return out.reshape(b, kv * g, hd2 - 2).to(out_dtype)
 
 
 def _on_meta(b, kv, g, m, hd, smax, q8, v_cb, out_dtype) -> torch.Tensor:
     """The dry-run's K8: the shared-memory checks by the mirrors, one
     launch's cost recorded, an empty (B, KV * g, hd) output on meta."""
     from repro_torch.launch import cost_analysis
-    for what, need in ((f"g={g}, M={m}, head_dim={hd}",
-                        smem_bytes(g, m, hd, q8)),
-                       (f"Smax={smax}", combine_smem_bytes(smax))):
+    _meta_smem((f"g={g}, M={m}, head_dim={hd}", smem_bytes(g, m, hd, q8)),
+               (f"Smax={smax}", combine_smem_bytes(smax)))
+    cost_analysis.record_kernel(
+        "pq_decode_attention", b=b, kv=kv, g=g, m=m, head_dim=hd,
+        live=_meta_live(smax), q8=q8, cb_itemsize=v_cb.element_size(),
+        out_itemsize=out_dtype.itemsize)
+    return torch.empty((b, kv * g, hd), dtype=out_dtype, device="meta")
+
+
+def _meta_smem(*needs) -> None:
+    """The Python mirrors' check on meta: each (what, bytes) a CTA needs
+    within what a block can get."""
+    for what, need in needs:
         if need > _build.SMEM_LIMIT:
             raise ValueError(f"{what} needs {need} B of shared memory, more "
                              f"than the {_build.SMEM_LIMIT} B a block can "
                              "get")
+
+
+def _meta_live(smax: int, offset: int = 0) -> int:
+    """The live positions of the active counter among the ``smax`` from
+    global position ``offset`` on (all ``smax`` without a count)."""
+    from repro_torch.launch import cost_analysis
     counter = cost_analysis.active()
-    live = smax
     if counter is not None and counter.live_positions is not None:
-        live = min(counter.live_positions, smax)
-    cost_analysis.record_kernel(
-        "pq_decode_attention", b=b, kv=kv, g=g, m=m, head_dim=hd, live=live,
-        q8=q8, cb_itemsize=v_cb.element_size(),
-        out_itemsize=out_dtype.itemsize)
-    return torch.empty((b, kv * g, hd), dtype=out_dtype, device="meta")
+        return max(0, min(counter.live_positions - offset, smax))
+    return smax
+
+
+def _check_card(dev: torch.device, out_dtype: torch.dtype) -> None:
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"unsupported device {dev}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype: want f32 or bf16, got {out_dtype}")
+
+
+def _dims(table, k_codes, v_cb):
+    """(b, kv, g, m, hd, smax, q8) of a checked call, within the
+    kernel's limits."""
+    b, kv, g, m, _ = table.shape
+    hd = m * v_cb.shape[3]
+    if g > MAX_G or hd > THREADS:
+        raise ValueError(f"g={g} (at most {MAX_G}) and head_dim={hd} (at "
+                         f"most {THREADS}) exceed what the kernel takes")
+    return b, kv, g, m, hd, k_codes.shape[1], table.dtype == torch.uint8
 
 
 def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
@@ -290,18 +361,8 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             raise ValueError("scores is an output of the CUDA kernel only")
         return pq_decode_plain(table, scale, bias, k_codes, v_codes, v_cb,
                                position, chunk=chunk, out_dtype=out_dtype)
-    if dev.type not in ("cuda", "meta"):
-        raise ValueError(f"unsupported device {dev}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype: want f32 or bf16, got {out_dtype}")
-    b, kv, g, m, _ = table.shape
-    smax = k_codes.shape[1]
-    dsub = v_cb.shape[3]
-    hd = m * dsub
-    q8 = table.dtype == torch.uint8
-    if g > MAX_G or hd > THREADS:
-        raise ValueError(f"g={g} (at most {MAX_G}) and head_dim={hd} (at "
-                         f"most {THREADS}) exceed what the kernel takes")
+    _check_card(dev, out_dtype)
+    b, kv, g, m, hd, smax, q8 = _dims(table, k_codes, v_cb)
     if dev.type == "meta":
         if scores is not None:
             raise ValueError("scores is an output of the CUDA kernel only")
@@ -326,10 +387,98 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             table.data_ptr(), scale.data_ptr() if q8 else None,
             bias.data_ptr() if q8 else None, k_codes.data_ptr(),
             v_codes.data_ptr(), v_cb.data_ptr(), position.data_ptr(), b, kv,
-            g, m, dsub, smax, int(q8), int(v_cb.dtype == torch.bfloat16),
+            g, m, v_cb.shape[3], smax, int(q8),
+            int(v_cb.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), out.data_ptr(),
             scores.data_ptr() if scores is not None else None,
             work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pq_decode_attention")
+    launches += 1
+    return out
+
+
+def pq_decode_split(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
+                    v_codes: torch.Tensor, v_cb: torch.Tensor,
+                    position: torch.Tensor, *, pos_offset: int = 0
+                    ) -> torch.Tensor:
+    """K8's split pass alone over a shard of the cache whose local
+    position i is global position ``pos_offset + i``: (B, KV, g,
+    ceil(Smax_local / SPLIT), hd + 2) f32 partials (m_j, l_j, acc_j); a
+    split with no live position has m_j = -inf and l_j = 0, and its acc_j
+    is not written on the card. Arguments as ``pq_decode``'s, the codes
+    the shard's. CPU tensors take ``plain_partials``; CUDA tensors launch
+    the split pass or raise; meta tensors record the pass's cost."""
+    global launches
+    _check(table, scale, bias, k_codes, v_codes, v_cb, position)
+    dev = table.device
+    if dev.type == "cpu":
+        return plain_partials(table, scale, bias, k_codes, v_codes, v_cb,
+                              position, pos_offset=pos_offset)
+    _check_card(dev, torch.float32)
+    b, kv, g, m, hd, smax, q8 = _dims(table, k_codes, v_cb)
+    shape = (b, kv, g, n_splits(smax), hd + 2)
+    if dev.type == "meta":
+        from repro_torch.launch import cost_analysis
+        _meta_smem((f"g={g}, M={m}, head_dim={hd}",
+                    smem_bytes(g, m, hd, q8)))
+        cost_analysis.record_kernel(
+            "pq_decode_split", b=b, kv=kv, g=g, m=m, head_dim=hd,
+            live=_meta_live(smax, pos_offset), nsplit=shape[3], q8=q8,
+            cb_itemsize=v_cb.element_size())
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    _build.check_smem("repro_pq_decode_attention_smem", g, m, hd, int(q8),
+                      what=f"g={g}, M={m}, head_dim={hd}")
+    work = torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_pq_decode_split(
+            table.data_ptr(), scale.data_ptr() if q8 else None,
+            bias.data_ptr() if q8 else None, k_codes.data_ptr(),
+            v_codes.data_ptr(), v_cb.data_ptr(), position.data_ptr(), b, kv,
+            g, m, v_cb.shape[3], smax, int(pos_offset), int(q8),
+            int(v_cb.dtype == torch.bfloat16), work.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pq_decode_split")
+    launches += 1
+    return work
+
+
+def pq_decode_combine(work: torch.Tensor, *, out_dtype: torch.dtype
+                      ) -> torch.Tensor:
+    """K8's combine pass alone over (B, KV, g, n, hd + 2) f32 partials
+    (``pq_decode_split``'s, of one or several shards concatenated on the
+    split axis in position order): (B, KV * g, hd) in ``out_dtype``. The
+    dead splits (m_j = -inf) are skipped. CPU tensors take
+    ``plain_combine``; CUDA tensors launch the combine pass or raise; meta
+    tensors record the pass's cost."""
+    global launches
+    _build.check_args({"work": (work, torch.float32, 5)}, work.device)
+    b, kv, g, nsplit, hd2 = work.shape
+    if hd2 < 3:
+        raise ValueError(f"work {tuple(work.shape)}: want (B, KV, g, n, hd "
+                         "+ 2)")
+    dev = work.device
+    if dev.type == "cpu":
+        return plain_combine(work, out_dtype=out_dtype)
+    _check_card(dev, out_dtype)
+    out_shape = (b, kv * g, hd2 - 2)
+    if dev.type == "meta":
+        from repro_torch.launch import cost_analysis
+        _meta_smem((f"{nsplit} splits", combine_splits_smem_bytes(nsplit)))
+        cost_analysis.record_kernel(
+            "pq_decode_combine", b=b, kv=kv, g=g, head_dim=hd2 - 2,
+            nsplit=nsplit, live_splits=n_splits(_meta_live(nsplit * SPLIT)),
+            out_itemsize=out_dtype.itemsize)
+        return torch.empty(out_shape, dtype=out_dtype, device="meta")
+    _build.check_smem("repro_pq_decode_combine_splits_smem", nsplit,
+                      what=f"{nsplit} splits")
+    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_pq_decode_combine(
+            work.data_ptr(), b, kv, g, hd2 - 2, nsplit,
+            int(out_dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pq_decode_combine")
     launches += 1
     return out

@@ -29,9 +29,15 @@ optimizer state, caches and batch, each mapped with its logical axes
 through ``sharding.tree_shardings``, give ``per_device``: the bytes of
 one device's shards, the leaves placed whole on every device, the rules
 that depart from ``DEFAULT_RULES``, and whether the static bytes fit one
-card. Such a cell traces no step: its per-device FLOPs and collective
-bytes wait for the LM to run over several ranks (ROADMAP, Queue 1), so
-its ``roofline`` is null.
+card. Such a cell traces no step: counting a step per device (its FLOPs
+and collective bytes) is the next item of ROADMAP's Queue 1, so its
+``roofline`` is null.
+
+``mesh_cell`` is the counterpart of the reference's ``build_cell`` with
+its ``in_shardings`` for the serving cells of the attention family: it
+places the parameters, the cache and the batch as DTensors over a
+``DeviceMesh`` of the process group's ranks by ``cell_rules`` and runs
+the prefill or decode step over them (gloo ranks on the CPU, or NCCL).
 """
 from __future__ import annotations
 
@@ -63,8 +69,8 @@ MESH = "h100x1"
 POD_MESHES = ("pod", "multipod")
 META = torch.device("meta")
 COUNTED_ON_A_MESH = ("bytes per device under the rules; per-device FLOPs "
-                     "and collective bytes wait for the LM over several "
-                     "ranks (ROADMAP, Queue 1)")
+                     "and collective bytes wait for the step over a mesh to "
+                     "be counted (ROADMAP, Queue 1)")
 
 # (seq_len, global_batch, kind)
 SHAPES = {
@@ -310,6 +316,91 @@ def roofline(cfg: ModelConfig, arch: str, shape: str, kind: str, batch: int,
         wire_bytes_per_dev=0.0,
         model_flops_total=rl.model_flops(cfg, kind, batch, seq),
         collectives={})
+
+
+class MeshCell(NamedTuple):
+    """A prefill or decode cell over a mesh of ranks (``mesh_cell``):
+    ``step(tokens=None, position=None)`` places full tokens (and
+    positions) and runs the step under the mesh, returning its (logits,
+    cache), both placed; the cell's own inputs when called without
+    them. ``params`` and ``cache`` are the placed parameters and cache
+    (a decode step writes the cache in place)."""
+    step: Callable
+    params: object
+    cache: object
+
+
+def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
+              params, *, tokens: torch.Tensor, cache=None,
+              position: torch.Tensor | None = None,
+              max_seq: int | None = None,
+              frontend_embeds: torch.Tensor | None = None) -> MeshCell:
+    """The counterpart of the reference's ``build_cell`` with its
+    ``in_shardings``, run over ``mesh`` (its ``DeviceMesh`` over the
+    process group's ranks): the parameters, the cache (exact, or PQ with
+    its codebooks) and the tokens placed as DTensors by ``rules`` (the
+    reference's ``cell_rules``) through ``sharding.shard_tree``, each
+    full tensor the same on every rank. ``kind`` "prefill": ``tokens``
+    (B, S), the exact cache of ``max_seq`` positions made placed (or the
+    PQ ``cache``'s codes filled in place); "decode": ``tokens`` and
+    ``position`` (B,) against ``cache`` (full tensors, or a prefill cell's
+    placed cache). Decode runs eagerly (no graph over collectives).
+
+    Training, the recurrent families and a PQ cache sharded on "pq_m"
+    over several ranks raise (``sharding.NEXT_SLICE``)."""
+    if kind == "train" or cfg.block_type != "attn":
+        raise NotImplementedError(
+            f"mesh_cell: {cfg.name} {kind} over ranks; {shd.NEXT_SLICE}")
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind {kind!r}: want prefill or decode")
+    if mesh.device_mesh is None:
+        raise ValueError(f"mesh_cell: {mesh} has no DeviceMesh")
+    if cfg.kv_pq and shd._axis_size(mesh, shd._resolve_axis(
+            mesh, rules, "pq_m")) > 1:
+        raise NotImplementedError(
+            f"mesh_cell: a PQ cache sharded on pq_m; {shd.NEXT_SLICE}")
+    if kind == "decode" and (cache is None or position is None):
+        raise ValueError("a decode cell needs a cache and positions")
+    if kind == "prefill" and cfg.kv_pq and cache is None:
+        raise ValueError("a PQ prefill cell needs a cache with codebooks")
+    # placed as inference tensors, as the steps' own are (a DTensor view
+    # of a tensor made outside inference mode fails inside it)
+    with torch.inference_mode():
+        pp = shd.shard_tree(params, model_lib.lm_axes(cfg), mesh, rules)
+        pc = None if cache is None else shd.shard_tree(
+            cache, model_lib.cache_axes(cfg), mesh, rules)
+    baxes = serving_batch_axes(cfg, kind)
+
+    @torch.inference_mode()
+    def step(tokens=tokens, position=position):
+        batch = {"tokens": tokens}
+        if kind == "decode":
+            batch["position"] = position
+        if frontend_embeds is not None:
+            batch["frontend_embeds"] = frontend_embeds
+        placed = shd.shard_tree(batch, {k: baxes[k] for k in batch}, mesh,
+                                rules)
+        with shd.use_mesh(mesh, rules):
+            if kind == "prefill":
+                return model_lib.prefill(
+                    pp, placed["tokens"], cfg, max_seq=max_seq, pq_cache=pc,
+                    frontend_embeds=placed.get("frontend_embeds"))
+            return model_lib.decode_step(pp, pc, placed["tokens"],
+                                         placed["position"], cfg)
+
+    return MeshCell(step, pp, pc)
+
+
+def serving_batch_axes(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of a serving cell's batch tensors: the prompt (and
+    the frontend stub's embeddings), or a decode step's tokens and
+    positions."""
+    if kind == "prefill":
+        axes = {"tokens": ("batch", "seq")}
+        if cfg.frontend != "none":
+            axes["frontend_embeds"] = ("batch", None, "embed")
+        return axes
+    return {"tokens": ("batch",), "position": ("batch",)}
 
 
 def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,

@@ -221,6 +221,60 @@ def _k8(*, b, kv, g, m, head_dim, live, q8=True, cb_itemsize=2,
     return nbytes, ops, (ops / seconds if seconds else PEAK_F32_FLOPS)
 
 
+K8_SPLIT = 256     # positions a split of K8's split pass
+
+
+def _rows(live, b: int) -> list[int]:
+    # one count for every batch row, or one a row
+    rows = [live] * b if isinstance(live, int) else [int(n) for n in live]
+    if len(rows) != b:
+        raise ValueError(f"{len(rows)} live counts for {b} rows")
+    return rows
+
+
+def _k8_split(*, b, kv, g, m, head_dim, live, nsplit, q8=True,
+              cb_itemsize=2):
+    # K8's split pass alone (its sharded mode, over one rank's nsplit
+    # splits): ``live`` the local live positions, one count for all rows or
+    # one a row. A row's live splits read their codes, and the row its LUTs
+    # (with a scale and a summed bias) and the codebook, and write a head's
+    # (m_j, l_j, acc_j[hd]) f32; its dead splits read nothing and write
+    # (m_j, l_j) alone; each row's position is read. Work as _k8's.
+    rows = _rows(live, b)
+    live_rows = sum(1 for n in rows if n > 0)
+    total = sum(rows)
+    live_splits = sum(-(-n // K8_SPLIT) for n in rows)
+    heads = kv * g
+    dsub = head_dim // m
+    nbytes = (2 * total * kv * (m // 2)
+              + live_rows * heads * m * 16 * (1 if q8 else 4)
+              + (2 * 4 * live_rows * heads if q8 else 0)
+              + (kv * m * 16 * dsub * cb_itemsize if live_rows else 0)
+              + 4 * b
+              + heads * (live_splits * (head_dim + 2) * 4
+                         + (b * nsplit - live_splits) * 2 * 4))
+    int_ops = heads * total * m * 2
+    flops = heads * total * head_dim * 2
+    ops = int_ops + flops
+    seconds = int_ops / PEAK_INT8_OPS + flops / PEAK_F32_FLOPS
+    return nbytes, ops, (ops / seconds if seconds else PEAK_F32_FLOPS)
+
+
+def _k8_combine(*, b, kv, g, head_dim, nsplit, live_splits=None,
+                out_itemsize=2):
+    # K8's combine pass over nsplit gathered splits, ``live_splits`` of
+    # them live (a count for every row, or one a row; all by default): a
+    # (row, head) reads every split's m_j and its live splits' l_j and
+    # acc_j, and writes its output; a weight and a multiply-add a (row,
+    # head, live split, dim) in f32
+    rows = _rows(nsplit if live_splits is None else live_splits, b)
+    heads = kv * g
+    live = sum(rows)
+    return (heads * (b * nsplit * 4 + live * (head_dim + 1) * 4
+                     + b * head_dim * out_itemsize),
+            heads * live * head_dim * 2, PEAK_F32_FLOPS)
+
+
 KERNEL_COSTS = {
     "fastscan_stream_topk": _k1,
     "rerank_stream_topk": _k2,
@@ -232,6 +286,8 @@ KERNEL_COSTS = {
     "fastscan_onehot_mma_flat": _flat,
     "fastscan_blockmin": _k7c,
     "pq_decode_attention": _k8,
+    "pq_decode_split": _k8_split,
+    "pq_decode_combine": _k8_combine,
 }
 
 

@@ -64,9 +64,9 @@ DEFAULT_RULES: dict[str, Any] = {
     None: None,
 }
 
-# what a plain tensor under a mesh of several ranks waits for
-NEXT_SLICE = ("the LM's tensors placed over several ranks (ROADMAP.md, "
-              "Queue 1, item 1: the sharded LM)")
+# what is not placed over several ranks yet, named where it raises
+NEXT_SLICE = ("ROADMAP.md, Queue 1: the recurrent families, training and "
+              "a PQ cache sharded on pq_m over several ranks")
 
 _ctx = threading.local()
 
@@ -191,8 +191,9 @@ def constrain(x, *logical_axes: str | None):
     axes, as in the reference. A DTensor is redistributed to the spec's
     placements on the mesh's ``DeviceMesh``. A plain tensor under a mesh
     of one rank is returned as it is (one rank shards nothing); under a
-    larger mesh it raises, since nothing places the LM's tensors over
-    several ranks yet."""
+    larger mesh it raises: the program over several ranks places every
+    tensor (``shard_tree``, ``launch.dryrun.mesh_cell``), so a plain
+    activation there escaped placement."""
     mesh, rules = _get_ctx()
     if mesh is None or x.ndim != len(logical_axes):
         return x
@@ -206,8 +207,141 @@ def constrain(x, *logical_axes: str | None):
     if mesh.size == 1:
         return x
     raise NotImplementedError(
-        f"constrain: a plain tensor of shape {tuple(x.shape)} under {mesh}; "
-        f"this waits for {NEXT_SLICE}")
+        f"constrain: a plain tensor of shape {tuple(x.shape)} under {mesh}: "
+        f"nothing placed it (shard_tree places the model's tensors; "
+        f"{NEXT_SLICE})")
+
+
+# ---------------------------------------------------------------------------
+# the program over placed tensors: index tensors, local steps
+# ---------------------------------------------------------------------------
+
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor (the model runs over a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def lift(t, like):
+    """``t``, a plain tensor made inside the model (a table of
+    frequencies, a mask), replicated on the mesh of ``like`` when that is
+    a DTensor; else ``t`` itself. Each rank made the same ``t``."""
+    if not is_placed(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = like.device_mesh
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
+def placed_like(t, like):
+    """``t``, a plain full tensor of ``like``'s shape made the same on
+    every rank (positions from the tokens), at ``like``'s placements when
+    that is a DTensor (each rank keeps its slice); else ``t`` itself."""
+    if not is_placed(like):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+def _active_device_mesh():
+    mesh, rules = _get_ctx()
+    if mesh is None or mesh.device_mesh is None:
+        raise ValueError("no mesh with a DeviceMesh is active (use_mesh)")
+    return mesh, rules
+
+
+def placements(shape: Sequence[int], logical_axes: Sequence[str | None]
+               ) -> tuple:
+    """The active mesh's DTensor placements of a ``shape`` tensor on its
+    logical axes under the active rules."""
+    mesh, rules = _active_device_mesh()
+    return named_sharding(shape, logical_axes, mesh, rules).placements()
+
+
+def placed_zeros(shape: Sequence[int], logical_axes, dtype, device):
+    """Zeros of ``shape`` placed on the active mesh at its axes'
+    placements, each rank allocating only its shard."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    mesh, rules = _active_device_mesh()
+    sharding = named_sharding(shape, logical_axes, mesh, rules)
+    local = torch.zeros(sharding.shard_shape(shape), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh.device_mesh, sharding.placements(),
+                              run_check=False, shape=tuple(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape: Sequence[int]) -> tuple[int, ...]:
+    out, acc = [], 1
+    for dim in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= dim
+    return tuple(reversed(out))
+
+
+def shard_offset(x, dim: int) -> tuple[int, int | None]:
+    """(the global offset of this rank's shard along ``dim``, the mesh
+    dimension that shards it, or None where no mesh dimension of more
+    than one rank does) of the DTensor ``x``, evenly sharded; a dimension
+    sharded over several mesh axes is refused."""
+    dims = [i for i, p in enumerate(x.placements)
+            if p.is_shard(dim) and x.device_mesh.size(i) > 1]
+    if not dims:
+        return 0, None
+    if len(dims) > 1:
+        raise NotImplementedError(f"dim {dim} sharded over the mesh "
+                                  f"dimensions {dims}")
+    i = dims[0]
+    coord = x.device_mesh.get_coordinate()[i]
+    return coord * (x.shape[dim] // x.device_mesh.size(i)), i
+
+
+def keep_shard(placements: Sequence, dim: int) -> tuple:
+    """``placements`` with every entry that is not ``Shard(dim)`` made
+    ``Replicate()``: a tensor whole but for its ``dim``."""
+    from torch.distributed.tensor import Replicate
+    return tuple(p if p.is_shard(dim) else Replicate() for p in placements)
+
+
+def replicate(x) -> tuple:
+    """``Replicate()`` on every mesh dimension of the DTensor ``x``'s mesh
+    (the placements of a tensor whole on every rank)."""
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * x.device_mesh.ndim
+
+
+def all_gather(t, dim: int, device_mesh, mesh_dim: int):
+    """The ranks' ``t`` along mesh dimension ``mesh_dim`` concatenated on
+    ``dim`` in rank order (one all-gather)."""
+    import torch.distributed._functional_collectives as fc
+    # all_gather_single where this torch has it (all_gather_tensor's name
+    # from 2.12 on; the two are one function)
+    gather = getattr(fc, "all_gather_single", fc.all_gather_tensor)
+    return fc.wait_tensor(gather(t, dim, (device_mesh, mesh_dim)))
+
+
+def all_reduce(t, device_mesh, mesh_dim: int):
+    """The sum of the ranks' ``t`` along mesh dimension ``mesh_dim`` (one
+    all-reduce)."""
+    import torch.distributed._functional_collectives as fc
+    return fc.wait_tensor(fc.all_reduce(t, "sum", (device_mesh, mesh_dim)))
+
+
+def local_map(fn, out_placements, in_placements, *args):
+    """``fn`` on the local shards of ``args`` (DTensors redistributed to
+    ``in_placements`` first, one entry a flattened argument, None for a
+    plain one), its output wrapped at ``out_placements`` (one output's
+    placements, or a tuple of them for several outputs)
+    (``torch.distributed.tensor.experimental.local_map``)."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map as lm
+    if all(isinstance(p, Placement) for p in out_placements):
+        out_placements = list(out_placements)   # one output
+    return lm(fn, out_placements=out_placements, in_placements=in_placements,
+              redistribute_inputs=True)(*args)
 
 
 def _axes_leaf(x) -> bool:
@@ -251,6 +385,84 @@ def tree_shardings(shapes_tree: Any, axes_tree: Any, mesh: Mesh,
         return kids if isinstance(axes, dict) else type(axes)(**kids)
 
     return one(shapes_tree, axes_tree, "")
+
+
+def _map_tree(tensors: Any, axes: Any, fn, path: str = "") -> Any:
+    """``fn(tensor, axes)`` at every leaf of ``tensors`` beside its axes
+    tree, in the tree's structure. A module (its axes keyed by dotted
+    parameter names) comes back as a new module of the same classes
+    holding the results as frozen parameters; the given one is left as
+    it was."""
+    if _axes_leaf(axes):
+        return fn(tensors, axes)
+    if hasattr(tensors, "named_parameters"):
+        names = {n for n, _ in tensors.named_parameters()}
+        if names != set(axes):
+            raise ValueError(f"{path or 'root'}: the axes and the "
+                             f"parameters differ in "
+                             f"{sorted(names ^ set(axes))}")
+        return _map_module(tensors, axes, fn, "")
+    kids = {k: _map_tree(t, a, fn, f"{path}/{k}")
+            for k, t, a in _children(tensors, axes, path)}
+    return kids if isinstance(axes, dict) else type(axes)(**kids)
+
+
+def _map_module(module, axes: dict, fn, prefix: str):
+    from torch import nn
+    new = type(module).__new__(type(module))
+    nn.Module.__init__(new)
+    for name, p in module._parameters.items():
+        new.register_parameter(name, nn.Parameter(
+            fn(p, axes[prefix + name]), requires_grad=False))
+    for name, child in module._modules.items():
+        new.add_module(name, _map_module(child, axes, fn,
+                                         f"{prefix}{name}."))
+    return new
+
+
+def shard_tree(tensors: Any, axes: Any, mesh: Mesh,
+               rules: Mapping[str, Any] | None = None) -> Any:
+    """Place a tree of full tensors, the same on every rank of ``mesh``,
+    as DTensors on its ``DeviceMesh``, each leaf at its axes' placements
+    (``tree_shardings``); each rank keeps its own slice, so nothing is
+    sent. A module comes back as a copy whose parameters are DTensors. A
+    leaf that is a DTensor at its placements already stays as it is."""
+    from torch.distributed.tensor import distribute_tensor
+    if mesh.device_mesh is None:
+        raise ValueError(f"shard_tree: {mesh} has no DeviceMesh")
+    rules = rules or DEFAULT_RULES
+
+    def place(t, leaf_axes):
+        spec = (NamedSharding(mesh, ()) if leaf_axes is None else
+                named_sharding(t.shape, leaf_axes, mesh, rules))
+        if is_placed(t):  # placed already (a prefill's cache): as it is
+            if t.device_mesh != mesh.device_mesh or \
+                    tuple(t.placements) != spec.placements():
+                raise ValueError(f"a DTensor at {t.placements} where its "
+                                 f"axes {leaf_axes} give {spec.placements()}")
+            return t
+        return distribute_tensor(t.detach(), mesh.device_mesh,
+                                 spec.placements(), src_data_rank=None)
+
+    return _map_tree(tensors, axes, place)
+
+
+def gather_tree(tree: Any) -> Any:
+    """Each DTensor leaf of a dict, NamedTuple or module tree as its full
+    tensor (``full_tensor()``, a collective), a plain leaf as it is:
+    for checks. A module comes back as a dict of its dotted names."""
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    if hasattr(tree, "named_parameters"):
+        return {n: full(p) for n, p in tree.named_parameters()}
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(gather_tree(v) for v in tree))
+    return full(tree)
 
 
 def sharded_leaves(shapes_tree: Any, shardings_tree: Any,

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.engine.graphs import GraphCache, state_identity
+from repro_torch.launch import sharding as shd
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -65,6 +66,10 @@ class DecodeGraph:
         dev = params.embedding.device
         if dev.type != "cuda":
             raise ValueError(f"a decode graph needs the CUDA card, not {dev}")
+        if shd.is_placed(params.embedding):
+            raise NotImplementedError(
+                "a decode graph over placed tensors: the decode over a mesh "
+                "runs eagerly (launch.dryrun.mesh_cell)")
         self.params, self.cache, self.cfg = params, cache, cfg
         self.graphs = GraphCache(dev)
         self._state = tuple(params.parameters()) + tuple(cache_tensors(cache))
@@ -89,7 +94,14 @@ class DecodeGraph:
     def step(self, tokens: torch.Tensor, position: torch.Tensor
              ) -> torch.Tensor:
         """One decode step through the graph: (B, Vpad) logits (a clone);
-        the cache is updated in place."""
+        the cache is updated in place. Under a mesh of several ranks it
+        raises: a graph over collectives is not captured, the decode there
+        runs eagerly."""
+        mesh, _ = shd._get_ctx()
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"a decode graph under {mesh}: the decode over several ranks "
+                "runs eagerly (launch.dryrun.mesh_cell)")
         return self.graphs.run(self.key, self._state, self._step,
                                (tokens, position))
 

@@ -13,7 +13,15 @@ calibrated on activation samples (``calibrate_kv_codebooks``).
 
 The caches are updated in place: ``update_exact`` and ``update_pq`` write
 the new token's row into the given tensors (the reference returns new
-arrays) and return them.
+arrays) and return them; ``write_prompt`` writes a prefill's rows.
+
+Over a mesh of several ranks the caches are DTensors sharded on "batch"
+and "kv_seq" (the rules' ``PQ_CODE_AXES`` and ``EXACT_KV_AXES``: "model"
+goes to the context first, so the heads and sub-spaces stay whole). Each
+write runs on the local shards (``launch.sharding.local_map``): only the
+rank whose positions hold the row writes it, in place, and nothing is
+gathered but the new rows over the heads. ``pq_decode_attention`` runs
+K8's sharded mode there (``_pq_decode_over_ranks``).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from repro_torch.core.fastscan import quantize_lut
 from repro_torch.core.kmeans import kmeans_multi
 from repro_torch.kernels import pq_decode_kernel as pqk
 from repro_torch.kernels.pq_decode_kernel import decode_kv  # noqa: F401
+from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 # logical axes of the cache trees (for launch.sharding.tree_shardings); the
@@ -159,22 +168,75 @@ def pq_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
     (KV, M, 16, dsub); position: (B,) current positions. Returns (B, H, hd)
     in q's dtype. CUDA tensors go to K8, CPU tensors to its plain version
     (the reference's online softmax over ``chunk``-position chunks).
+    DTensors (a mesh) go to ``_pq_decode_over_ranks``.
     """
+    if shd.is_placed(k_codes):
+        return _pq_decode_over_ranks(q, k_codes, v_codes, k_cb, v_cb,
+                                     position, chunk, quantize_q8)
     b, h, hd = q.shape
     kv = k_codes.shape[2]
     g = h // kv
     smax = k_codes.shape[1]
     chunk = min(chunk, smax)
     assert smax % chunk == 0, (smax, chunk)
-    lut = _build_ip_lut(q.reshape(b, kv, g, hd), k_cb) / math.sqrt(hd)
-    if quantize_q8:
-        table, scale, bias = _quantize(lut)
-    else:
-        table, scale, bias = lut.contiguous(), None, None
+    table, scale, bias = _luts(q.reshape(b, kv, g, hd), k_cb, quantize_q8)
     return pqk.pq_decode(table, scale, bias, k_codes.contiguous(),
                          v_codes.contiguous(), v_cb.contiguous(),
                          position.to(torch.int32), chunk=chunk,
                          out_dtype=q.dtype)
+
+
+def _luts(qg: torch.Tensor, k_cb: torch.Tensor, quantize_q8: bool):
+    """K8's (table, scale, bias) of the (B, KV, g, hd) queries: the
+    inner-product LUTs over sqrt(hd), u8-quantized or f32."""
+    lut = _build_ip_lut(qg, k_cb) / math.sqrt(qg.shape[-1])
+    if quantize_q8:
+        return _quantize(lut)
+    return lut.contiguous(), None, None
+
+
+def rows_whole(cache: torch.Tensor) -> None:
+    """A placed (B, Smax, KV, ·) cache must be sharded on its batch and
+    positions only (K8 over sub-spaces waits: ``NEXT_SLICE``)."""
+    if any(p.is_shard() and p.dim not in (0, 1) for p in cache.placements):
+        raise NotImplementedError(
+            f"a cache at {cache.placements}: sharded past its batch and "
+            f"positions; {shd.NEXT_SLICE}")
+
+
+def _pq_decode_over_ranks(q, k_codes, v_codes, k_cb, v_cb, position,
+                          chunk: int, quantize_q8: bool) -> torch.Tensor:
+    """K8 over a PQ cache sharded on "kv_seq": the queries (sharded on
+    heads) and codebooks (on KV heads) are all-gathered over "model", so
+    each rank builds the same LUTs; each runs K8's split pass over its
+    own positions at its offset (``pq_decode_split``); the partials are
+    all-gathered over "model" in rank order (the collective this step
+    adds) and each rank runs the combine pass over them. Where the
+    positions are not sharded (one rank, or "kv_seq" replicated) it is
+    the one-rank call on the local rows."""
+    rows_whole(k_codes)
+    offset, mdim = shd.shard_offset(k_codes, 1)
+    rows = shd.keep_shard(k_codes.placements, 0)
+    whole = shd.replicate(k_codes)
+    dm = k_codes.device_mesh
+
+    def body(ql, kc, vc, kcb, vcb, pos):
+        if mdim is None:
+            return pq_decode_attention(ql, kc, vc, kcb, vcb, pos,
+                                       chunk=chunk, quantize_q8=quantize_q8)
+        b, h, hd = ql.shape
+        kv = kc.shape[2]
+        table, scale, bias = _luts(ql.reshape(b, kv, h // kv, hd), kcb,
+                                   quantize_q8)
+        work = pqk.pq_decode_split(table, scale, bias, kc.contiguous(),
+                                   vc.contiguous(), vcb.contiguous(),
+                                   pos.to(torch.int32), pos_offset=offset)
+        return pqk.pq_decode_combine(shd.all_gather(work, 3, dm, mdim),
+                                     out_dtype=ql.dtype)
+
+    return shd.local_map(body, rows, (rows, k_codes.placements,
+                                      v_codes.placements, whole, whole, rows),
+                         q, k_codes, v_codes, k_cb, v_cb, position)
 
 
 def _at(pos, like: torch.Tensor) -> torch.Tensor:
@@ -183,10 +245,75 @@ def _at(pos, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(pos, device=like.device).reshape(1).long()
 
 
+def _write_row(cache: torch.Tensor, row: torch.Tensor, pos, cb=None):
+    """Write the (B, KV, ·) ``row`` (``cb``: K/V rows to encode first) at
+    scalar position ``pos`` of the placed (B, Smax, KV, ·) ``cache``, in
+    place on the local shards: each rank takes the new rows whole over
+    the heads (an all-gather over "model" where they are sharded on KV
+    heads, the codebooks likewise) and the rank whose positions hold
+    ``pos`` writes them; the others rewrite their own row there (no host
+    sync, no branch on a value)."""
+    rows_whole(cache)
+    offset, mdim = shd.shard_offset(cache, 1)
+    rows = shd.keep_shard(cache.placements, 0)
+    whole = shd.replicate(cache)
+
+    def body(c, r, p, *cbl):
+        if cbl:
+            r = encode_kv(r, cbl[0])
+        r = r[:, None].to(c.dtype)
+        j = p.reshape(1).long() - offset
+        if mdim is not None:
+            inside = (j >= 0) & (j < c.shape[1])
+            j = j.clamp(0, c.shape[1] - 1)
+            r = torch.where(inside, r, c.index_select(1, j))
+        return c.index_copy_(1, j, r)
+
+    extra = () if cb is None else (cb,)
+    shd.local_map(body, cache.placements,
+                  (cache.placements, rows,
+                   whole if shd.is_placed(pos) else None)
+                  + (whole,) * len(extra), cache, row, pos, *extra)
+    return cache
+
+
+def write_prompt(cache: torch.Tensor, x: torch.Tensor, cb=None):
+    """Write a prompt's (B, S, KV, hd) rows ``x`` into positions [0, S) of
+    the (B, Smax, KV, ·) ``cache`` in place: as they are, or as 4-bit
+    codes under the (KV, M, 16, dsub) codebooks ``cb``. Placed: each rank
+    takes ``x`` whole over the heads (an all-gather over "model" where
+    they are sharded) and writes (encodes) only the positions of its own
+    shard."""
+    s = x.shape[1]
+    if not shd.is_placed(cache):
+        cache[:, :s] = x if cb is None else encode_kv(x, cb)
+        return cache
+    rows_whole(cache)
+    offset, _ = shd.shard_offset(cache, 1)
+    rows = shd.keep_shard(cache.placements, 0)
+    whole = shd.replicate(cache)
+
+    def body(c, xl, *cbl):
+        hi = min(offset + c.shape[1], s)
+        if hi > offset:
+            part = xl[:, offset:hi]
+            c[:, :hi - offset] = part if not cbl else encode_kv(part, cbl[0])
+        return c
+
+    extra = () if cb is None else (cb,)
+    shd.local_map(body, cache.placements,
+                  (cache.placements, rows) + (whole,) * len(extra),
+                  cache, x, *extra)
+    return cache
+
+
 def update_exact(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, pos):
     """Write one token at scalar position ``pos`` (an int or a 0-d tensor)
     for the whole batch, in place. caches: (B, Smax, KV, hd)."""
+    if shd.is_placed(k_cache):
+        return (_write_row(k_cache, k_new, pos),
+                _write_row(v_cache, v_new, pos))
     idx = _at(pos, k_cache)
     k_cache.index_copy_(1, idx, k_new[:, None].to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v_new[:, None].to(v_cache.dtype))
@@ -198,6 +325,9 @@ def update_pq(k_codes: torch.Tensor, v_codes: torch.Tensor,
               v_cb: torch.Tensor, pos):
     """Encode one token's K/V to 4-bit codes and write them at ``pos`` for
     the whole batch, in place."""
+    if shd.is_placed(k_codes):
+        return (_write_row(k_codes, k_new, pos, k_cb),
+                _write_row(v_codes, v_new, pos, v_cb))
     idx = _at(pos, k_codes)
     k_codes.index_copy_(1, idx, encode_kv(k_new, k_cb)[:, None])
     v_codes.index_copy_(1, idx, encode_kv(v_new, v_cb)[:, None])

@@ -22,6 +22,17 @@ reference's), and the layers pin their activations with
 is a list entry here, not a leading axis, so its axes omit the
 reference's "stack" (replicated by every rules table) and ``tree_key``
 maps its name to the reference's path.
+
+Over a mesh of several ranks the parameters and activations are
+DTensors and the GEMM glue runs on DTensor's own rules: a projection onto
+sharded heads or FFN columns needs no collective, and the product that
+contracts them (``wo``, the FFN's second matrix) is a partial sum that
+the next ``constrain`` all-reduces over "model". The attention itself
+runs on each rank's heads (``_over_heads``: the keys and values taken
+whole over the heads first, an all-gather over "model" where the KV heads
+are sharded and the query heads are not), and the decode step over a
+cache sharded on its positions combines per-rank softmax partials
+(``_decode_over_ranks``).
 """
 from __future__ import annotations
 
@@ -33,7 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
+from repro_torch.models import kvcache as kvc
 from repro_torch.models.config import ModelConfig
 
 
@@ -158,8 +171,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """x: (B, S, H, hd); positions: (B, S) int. Rotates the two halves."""
     hd = x.shape[-1]
     half = hd // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = shd.lift(theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                            device=x.device) / half),
+                    positions)
     ang = positions.float()[:, :, None] * freq[None, None, :]   # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -190,13 +204,28 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) times w (D, H, hd) -> (..., H, hd), the reference's
+    ``einsum("bsd,dhk->bshk")``, as one matmul over w's trailing dims
+    flattened (over a mesh, DTensor takes a matmul's rule from its cache;
+    an einsum it derives anew through its decomposition at every call)."""
+    out = x @ w.reshape(w.shape[0], -1)
+    return out.view(*out.shape[:-1], *w.shape[1:])
+
+
+def unproject(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y (..., H, hd) times w (H, hd, D) -> (..., D), the reference's
+    ``einsum("bshk,hkd->bsd")``, as one matmul (``project``'s reason)."""
+    return y.reshape(*y.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+
+
 def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope/norm applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q = project(x, p.wq)
+    k = project(x, p.wk)
+    v = project(x, p.wv)
     if cfg.qkv_bias:
         q = q + p.bq
         k = k + p.bk
@@ -242,6 +271,8 @@ def chunked_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     ``lax.cond`` does; no O(S^2) buffer. Falls back to the full path under
     the reference's own condition.
     """
+    if shd.is_placed(q):
+        return _over_heads(chunked_causal_attention, q, k, v, cfg)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -287,13 +318,45 @@ def chunked_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     return torch.stack(outs, dim=1).reshape(b, s, h, hd)
 
 
+def _over_heads(fn, q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """``fn(q, k, v, cfg)`` (an attention over whole sequences) on each
+    rank's query heads: q (B, S, H, hd) keeps its batch and heads
+    placements; k and v are sharded on their KV heads alike where those
+    divide as the query heads do, else taken whole over the heads (an
+    all-gather over "model") and sliced to the rank's KV heads; all else
+    is whole. The output is placed as q."""
+    rep = shd.replicate(q)
+    qp = tuple(p if p.is_shard(0) or p.is_shard(2) else rep[i]
+               for i, p in enumerate(q.placements))
+    heads = [i for i, p in enumerate(qp) if p.is_shard(2)]
+    if len(heads) > 1:
+        raise NotImplementedError(f"heads sharded over the mesh dims {heads}")
+    n = q.device_mesh.size(heads[0]) if heads else 1
+    h, kvh = q.shape[2], k.shape[2]
+    g, hl = h // kvh, h // n
+    kv_split = kvh % n == 0
+    kp = tuple(p if p.is_shard(0) or (kv_split and p.is_shard(2)) else rep[i]
+               for i, p in enumerate(qp))
+    if not kv_split and hl % g and g % hl:
+        raise NotImplementedError(f"{h} query heads over {n} ranks split "
+                                  f"their groups of {g}")
+    r = q.device_mesh.get_coordinate()[heads[0]] if heads else 0
+
+    def body(ql, kl, vl):
+        if not kv_split:
+            lo, hi = r * hl // g, ((r + 1) * hl - 1) // g + 1
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl, cfg)
+
+    return shd.local_map(body, qp, (qp, kp, kp), q, k, v)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor) -> torch.Tensor:
     """Prefill self-attention over a full sequence."""
     q, k, v = qkv_project(p, x, cfg, positions)
     out = chunked_causal_attention(q, k, v, cfg)
-    return constrain(torch.einsum("bshk,hkd->bsd", out, p.wo),
-                     "batch", "seq", "embed")
+    return constrain(unproject(out, p.wo), "batch", "seq", "embed")
 
 
 def decode_attention_scores(q: torch.Tensor, k_cache: torch.Tensor,
@@ -305,6 +368,8 @@ def decode_attention_scores(q: torch.Tensor, k_cache: torch.Tensor,
     (inclusive: the token attends to itself, so the caller writes the new
     K/V into the cache before scoring). Returns (B, H, hd).
     """
+    if shd.is_placed(k_cache):
+        return _decode_over_ranks(q, k_cache, v_cache, cfg, position)
     b, h, hd = q.shape
     kvh = k_cache.shape[2]
     g = h // kvh
@@ -318,6 +383,50 @@ def decode_attention_scores(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v_cache)
     return out.reshape(b, h, hd)
+
+
+def _decode_over_ranks(q, k_cache, v_cache, cfg: ModelConfig, position
+                       ) -> torch.Tensor:
+    """``decode_attention_scores`` over a placed cache (sharded on its
+    batch and positions, the heads whole). q is taken whole over the
+    heads (an all-gather over "model"). Where the positions are sharded,
+    each rank takes the softmax's partials over its own positions, their
+    max m_r, sum l_r and value sum acc_r (f32, p rounded to q's type for
+    the product); one all-gather over the positions' mesh axis brings
+    every rank's, and each rank combines them in rank order, ``sum
+    e^(m_r - m*) acc_r / sum e^(m_r - m*) l_r``. Unsharded positions
+    (one rank) run the one-rank function on the local rows."""
+    kvc.rows_whole(k_cache)
+    offset, mdim = shd.shard_offset(k_cache, 1)
+    rows = shd.keep_shard(k_cache.placements, 0)
+    dm = k_cache.device_mesh
+
+    def body(ql, kl, vl, pos):
+        if mdim is None:
+            return decode_attention_scores(ql, kl, vl, cfg, pos)
+        b, h, hd = ql.shape
+        kvh = kl.shape[2]
+        qg = ql.reshape(b, 1, kvh, h // kvh, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kl).float()
+        s = _softcap(s / math.sqrt(hd), cfg.attn_logit_softcap)
+        valid = (offset + torch.arange(kl.shape[1], device=ql.device)[None]
+                 <= pos[:, None].long())
+        s = torch.where(valid[:, None, None, None, :], s, float("-inf"))
+        m = s.amax(-1)                             # (B, KV, g, 1)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(ql.dtype), vl).float()
+        part = torch.cat([m[..., None], p.sum(-1)[..., None], acc], -1)
+        parts = shd.all_gather(part[None], 0, dm, mdim)
+        top = parts[..., 0].amax(0)
+        w = torch.exp(parts[..., 0] - torch.where(torch.isfinite(top), top,
+                                                  0.0))
+        den = (w * parts[..., 1]).sum(0).clamp_min(1e-20)
+        out = (w[..., None] * parts[..., 2:]).sum(0) / den[..., None]
+        return out.to(ql.dtype).reshape(b, h, hd)
+
+    return shd.local_map(body, rows, (rows, k_cache.placements,
+                                      v_cache.placements, rows),
+                         q, k_cache, v_cache, position)
 
 
 # ---------------------------------------------------------------------------

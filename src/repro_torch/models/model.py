@@ -30,8 +30,10 @@ reference's do, for ``launch.sharding.tree_shardings``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
@@ -92,8 +94,12 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     return model
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 positions 0 .. S - 1 a row, placed as the (B, S)
+    ``tokens`` are where those are a DTensor."""
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    return shd.placed_like(pos[None].expand(b, s).contiguous(), tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +164,16 @@ def loss_fn(params: ll.Params, batch: dict, cfg: ModelConfig
 def _embed(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
            frontend_embeds: torch.Tensor | None) -> torch.Tensor:
     """Token embeddings (B, S, D), the first F positions overwritten by the
-    frontend stub's (B, F, D) embeddings when the config has a frontend."""
-    h = params.embedding[tokens.long()]
+    frontend stub's (B, F, D) embeddings when the config has a frontend.
+
+    ``F.embedding``, not ``embedding[tokens]``: over a vocab-sharded table
+    its rule is exact (each rank looks up its rows, one rank's row is
+    non-zero, an all-reduce over "model" sums them), where indexing would
+    gather the table. The lookup is constrained at once, so that over a
+    mesh what follows (the overwrite, the residual adds) meets placed
+    rows, not partial sums."""
+    h = constrain(F.embedding(tokens.long(), params.embedding),
+                  "batch", "seq", "embed")
     if cfg.frontend != "none" and frontend_embeds is not None:
         h[:, :frontend_embeds.shape[1]] = frontend_embeds.to(h.dtype)
     return h
@@ -169,12 +183,11 @@ def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
                    frontend_embeds: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """forward() minus the lm_head: final-norm hidden states (B, S, D)."""
-    b, s = tokens.shape
     h = constrain(_embed(params, tokens, cfg, frontend_embeds),
                   "batch", "seq", "embed")
     stack = {"attn": tf.attn_stack, "mamba2": tf.mamba_stack,
              "rwkv6": tf.rwkv_stack}[cfg.block_type]
-    h, aux = stack(params.stack, h, cfg, _positions(b, s, tokens.device))
+    h, aux = stack(params.stack, h, cfg, _positions(tokens))
     return ll.rmsnorm(h, params.ln_f, cfg.norm_eps), aux
 
 
@@ -216,7 +229,7 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
 
     Returns (logits (B, Vpad), cache), the cache updated in place.
     """
-    h = params.embedding[tokens.long()]                       # (B, D)
+    h = F.embedding(tokens.long(), params.embedding)          # (B, D)
     h = constrain(h, "batch", "embed")
     if cfg.block_type == "attn":
         h, cache = tf.attn_stack_decode(params.stack, h, cfg, cache, position)
@@ -248,9 +261,9 @@ def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
     b, s = tokens.shape
     max_seq = max_seq or s
     if cfg.block_type != "attn":
-        h = params.embedding[tokens.long()]
+        h = F.embedding(tokens.long(), params.embedding)
         if cfg.block_type == "mamba2":
-            positions = _positions(b, s, tokens.device)
+            positions = _positions(tokens)
             if cfg.kv_pq and cfg.shared_attn_every:
                 assert pq_cache is not None, \
                     "PQ prefill needs calibrated codebooks"
@@ -269,12 +282,18 @@ def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
         return encode_pq_cache(params, tokens, cfg, pq_cache)
 
     h = _embed(params, tokens, cfg, frontend_embeds)
-    positions = _positions(b, s, tokens.device)
-    cache = kvc.init_exact(cfg, b, max_seq, h.dtype, h.device)
+    positions = _positions(tokens)
+    if shd.is_placed(h):
+        cache = kvc.ExactKVCache(*(
+            shd.placed_zeros((cfg.n_layers, b, max_seq, cfg.n_kv_heads,
+                              cfg.resolved_head_dim), kvc.EXACT_KV_AXES,
+                             h.dtype, h.device) for _ in range(2)))
+    else:
+        cache = kvc.init_exact(cfg, b, max_seq, h.dtype, h.device)
     for i, lp in enumerate(params.stack.blocks):
         h, k, v = _prefill_layer(lp, h, cfg, positions)
-        cache.k[i, :, :s] = k
-        cache.v[i, :, :s] = v
+        kvc.write_prompt(cache.k[i], k)
+        kvc.write_prompt(cache.v[i], v)
     h = ll.rmsnorm(h, params.ln_f, cfg.norm_eps)
     return h[:, -1] @ params.lm_head, cache
 
@@ -285,7 +304,8 @@ def _prefill_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
     x = ll.rmsnorm(h, lp.ln1, cfg.norm_eps)
     q, k, v = ll.qkv_project(lp.attn, x, cfg, positions)
     out = ll.chunked_causal_attention(q, k, v, cfg)
-    h = h + torch.einsum("bshk,hkd->bsd", out, lp.attn.wo)
+    h = h + constrain(ll.unproject(out, lp.attn.wo), "batch", "seq",
+                      "embed")
     h = h + tf.block_ffn(lp, ll.rmsnorm(h, lp.ln2, cfg.norm_eps), cfg)
     return h, k, v
 
@@ -295,14 +315,13 @@ def encode_pq_cache(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
                     cache: kvc.PQKVCache):
     """Prefill into a PQ cache whose codebooks are already calibrated: its
     code tensors are filled in place (zero past the prompt)."""
-    b, s = tokens.shape
-    h = params.embedding[tokens.long()]
-    positions = _positions(b, s, tokens.device)
+    h = _embed(params, tokens, cfg, None)
+    positions = _positions(tokens)
     cache.k_codes.zero_()
     cache.v_codes.zero_()
     for i, lp in enumerate(params.stack.blocks):
         h, k, v = _prefill_layer(lp, h, cfg, positions)
-        cache.k_codes[i, :, :s] = kvc.encode_kv(k, cache.k_cb[i])
-        cache.v_codes[i, :, :s] = kvc.encode_kv(v, cache.v_cb[i])
+        kvc.write_prompt(cache.k_codes[i], k, cache.k_cb[i])
+        kvc.write_prompt(cache.v_codes[i], v, cache.v_cb[i])
     h = ll.rmsnorm(h, params.ln_f, cfg.norm_eps)
     return h[:, -1] @ params.lm_head, cache

@@ -8,17 +8,25 @@ drops, are the reference's. Every shape is static and no step reads a
 value back to the host, so a decode step through it captures as one CUDA
 graph.
 
-``_dispatch`` and ``_combine`` take the reference's single-device path
-(its ``shard_map`` bodies run only under a mesh with a "model" axis);
-expert parallelism is the next slice (ROADMAP.md, Queue 1). The
-activations are pinned with ``launch.sharding.constrain`` at the
-reference's six sites. The expert FFN and the router are GEMM glue,
-plain JAX in the reference and ``torch.bmm`` / matmul here. Tie orders
-follow the reference: ``jax.lax.top_k`` puts the lowest expert first among equal
-gates (a stable descending sort here; ``torch.topk`` promises no order),
-and ``jnp.argsort`` is stable (``stable=True``). The slot maps send
-dropped tokens to a trash row E at slot 0, whose colliding writes are
-sliced away, as the reference's are.
+``_dispatch`` and ``_combine`` are the reference's ``shard_map`` bodies.
+Over a mesh whose "model" axis shards the experts (the parameters and
+buffers DTensors), each rank runs them on its own experts: ``_dispatch``
+fills its experts' slots from the batch rows it holds, with no
+collective (its slice of the replicated slot maps is local), and
+``_combine`` gathers its experts' outputs, masks the (token, k) pairs
+routed elsewhere, sums over k and makes one all-reduce over "model" of
+the (G, Tg, D) partial in the model dtype, as the reference's ``psum``
+does. ``route`` runs on every rank's batch rows alike (replicated over
+"model"), its maps the single device's bit for bit for the same gates.
+Without such a mesh the single-device path runs. The activations are
+pinned with ``launch.sharding.constrain`` at the reference's six sites.
+The expert FFN and the router are GEMM glue, plain JAX in the reference
+and ``torch.bmm`` / matmul here (DTensor's rules over a mesh). Tie
+orders follow the reference: ``jax.lax.top_k`` puts the lowest expert
+first among equal gates (a stable descending sort here; ``torch.topk``
+promises no order), and ``jnp.argsort`` is stable (``stable=True``). The
+slot maps send dropped tokens to a trash row E at slot 0, whose
+colliding writes are sliced away, as the reference's are.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
@@ -148,28 +157,91 @@ def route(gates_all: torch.Tensor, cfg: ModelConfig) -> Route:
                  back(keep), aux)
 
 
+def _route_placed(gates_all: torch.Tensor, cfg: ModelConfig) -> Route:
+    """``route`` on each rank's groups of a placed (G, Tg, E) gates tensor
+    (taken whole over "model"): the maps placed as the gates' groups, the
+    aux loss the mean of the ranks' over the groups' mesh axes."""
+    from torch.distributed.tensor import Partial
+    rows = shd.keep_shard(gates_all.placements, 0)
+    aux = tuple(Partial("avg") if p.is_shard(0) else p for p in rows)
+    return shd.local_map(lambda gl: route(gl, cfg), (rows,) * 7 + (aux,),
+                         (rows,), gates_all)
+
+
 def _dispatch(xg: torch.Tensor, r: Route) -> torch.Tensor:
     """buf[e, g, c] = xg[g, tok_for_slot[g, e, c]] (masked), laid out
-    expert-major so that each expert's slots are one (G·C, D) block: the
-    reference's single-device path. Its ``shard_map`` over the experts'
-    shards waits for expert parallelism (ROADMAP.md, Queue 1)."""
+    expert-major so that each expert's slots are one (G·C, D) block.
+    Placed: each rank fills its experts' slots (the slot maps sliced on
+    their experts, a local slice) from its batch rows; no collective."""
+    if not shd.is_placed(xg):
+        return dispatch_shard(xg, r.tok_for_slot, r.slot_valid)
+    from torch.distributed.tensor import Shard
+    g, e, c = r.tok_for_slot.shape
+    bp = shd.placements((e, g, c, xg.shape[-1]),
+                        ("experts", "batch", None, None))
+    rows = shd.keep_shard(xg.placements, 0)
+    slots = tuple(Shard(1) if p.is_shard(0) else rows[i]
+                  for i, p in enumerate(bp))
+    return shd.local_map(dispatch_shard, bp, (rows, slots, slots), xg,
+                         r.tok_for_slot, r.slot_valid)
+
+
+def dispatch_shard(xg, tok_for_slot, slot_valid) -> torch.Tensor:
+    """The dispatch of the experts whose (G, E_l, C) slot maps are given
+    (all of them on a single device; one shard's slice of the experts
+    axis over a mesh): the reference's ``shard_map`` body."""
     g = xg.shape[0]
     gid = torch.arange(g, device=xg.device)[None, :, None]
-    buf = xg[gid, r.tok_for_slot.transpose(0, 1)]            # (E, G, C, D)
-    return buf.masked_fill_(~r.slot_valid.transpose(0, 1)[..., None], 0)
+    buf = xg[gid, tok_for_slot.transpose(0, 1)]              # (E, G, C, D)
+    return buf.masked_fill_(~slot_valid.transpose(0, 1)[..., None], 0)
 
 
 def _combine(yb: torch.Tensor, r: Route, dtype: torch.dtype
              ) -> torch.Tensor:
     """out[g, t] = sum_k gate * yb[e_k, g, c_k] (masked); es is clamped to
-    E - 1 before the mask, as the reference clamps it: the reference's
-    single-device path. Its per-shard partial sums and their ``psum``
-    wait for expert parallelism (ROADMAP.md, Queue 1)."""
+    E - 1 before the mask, as the reference clamps it. Placed with the
+    experts sharded: each rank clamps the expert ids into its own range,
+    masks the pairs routed to other ranks, sums its (G, Tg, D) partial
+    over k, and one all-reduce over the experts' mesh axis ("model") sums
+    the ranks' partials in ``dtype``."""
+    args = (r.es_tok, r.ps_tok, r.keep_tok, r.gate_k)
+    if not shd.is_placed(yb):
+        return _combine_local(yb, *args, dtype)
+    lo, mdim = shd.shard_offset(yb, 0)      # this rank's first expert
+    rows = shd.keep_shard(r.es_tok.placements, 0)
+    dm = yb.device_mesh
+
+    def body(yl, es, ps, keep, gate):
+        if mdim is None:
+            return _combine_local(yl, es, ps, keep, gate, dtype)
+        return shd.all_reduce(combine_shard(yl, es, ps, keep, gate, lo,
+                                            dtype), dm, mdim)
+
+    return shd.local_map(body, rows, (yb.placements,) + (rows,) * 4, yb,
+                         *args)
+
+
+def combine_shard(yb, es_tok, ps_tok, keep_tok, gate_k, lo: int, dtype
+                  ) -> torch.Tensor:
+    """One expert shard's (G, Tg, D) partial of ``_combine``: ``yb`` holds
+    experts [lo, lo + E_l); the expert ids are clamped into that range and
+    the (token, k) pairs routed elsewhere masked (the reference's
+    ``shard_map`` body before its ``psum``). At lo 0 over every expert it
+    is the single device's combine bit for bit."""
+    e_l = yb.shape[0]
+    mine = keep_tok & (es_tok >= lo) & (es_tok < lo + e_l)
+    return _combine_local(yb, (es_tok - lo).clamp(0, e_l - 1), ps_tok, mine,
+                          gate_k, dtype)
+
+
+def _combine_local(yb, es_tok, ps_tok, keep_tok, gate_k, dtype
+                   ) -> torch.Tensor:
+    """The single device's combine (the reference's ``local_ref``)."""
     e, g = yb.shape[:2]
-    ysel = yb[torch.clamp_max(r.es_tok, e - 1),
-              torch.arange(g, device=yb.device)[:, None, None], r.ps_tok]
-    ysel.mul_(r.gate_k.to(dtype)[..., None])
-    ysel.masked_fill_(~r.keep_tok[..., None], 0)
+    ysel = yb[torch.clamp_max(es_tok, e - 1),
+              torch.arange(g, device=yb.device)[:, None, None], ps_tok]
+    ysel.mul_(gate_k.to(dtype)[..., None])
+    ysel.masked_fill_(~keep_tok[..., None], 0)
     return ysel.sum(dim=2)                                   # (G, Tg, D)
 
 
@@ -187,7 +259,8 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
         gates_all = torch.sigmoid(logits)
     else:
         gates_all = torch.softmax(logits, dim=-1)
-    r = route(gates_all, cfg)
+    r = (_route_placed if shd.is_placed(gates_all) else route)(gates_all,
+                                                                  cfg)
 
     # the buffers are expert-major, (E, G, C, D): their logical axes in
     # that order

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as ll
@@ -117,6 +118,10 @@ def attn_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
     paper's technique), updated in place at ``position[0]`` before each
     layer scores (the current token attends to itself)."""
     pq = isinstance(cache, kvc.PQKVCache)
+    # the batch's write position, read once a step (placed: taken whole
+    # over the batch first, an all-gather of B ints)
+    pos0 = (position.redistribute(placements=shd.replicate(position))
+            if shd.is_placed(position) else position)[0]
     for i, lp in enumerate(p.blocks):
         x = ll.rmsnorm(h, lp.ln1, cfg.norm_eps)
         q, k_new, v_new = ll.qkv_project(lp.attn, x[:, None], cfg,
@@ -124,16 +129,15 @@ def attn_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
         if pq:
             kcod, vcod = kvc.update_pq(cache.k_codes[i], cache.v_codes[i],
                                        k_new[:, 0], v_new[:, 0],
-                                       cache.k_cb[i], cache.v_cb[i],
-                                       position[0])
+                                       cache.k_cb[i], cache.v_cb[i], pos0)
             out = kvc.pq_decode_attention(q[:, 0], kcod, vcod, cache.k_cb[i],
                                           cache.v_cb[i], position,
                                           quantize_q8=True)
         else:
             kc, vc = kvc.update_exact(cache.k[i], cache.v[i], k_new[:, 0],
-                                      v_new[:, 0], position[0])
+                                      v_new[:, 0], pos0)
             out = ll.decode_attention_scores(q[:, 0], kc, vc, cfg, position)
-        h = h + torch.einsum("bhk,hkd->bd", out, lp.attn.wo)
+        h = h + constrain(ll.unproject(out, lp.attn.wo), "batch", "embed")
         hn = ll.rmsnorm(h, lp.ln2, cfg.norm_eps)
         h = h + block_ffn(lp, hn[:, None], cfg)[:, 0]
     return h, cache

@@ -1948,3 +1948,82 @@ def test_dryrun_count_of_the_smoke_decode_holds_on_the_card(dev, kind):
     assert costs.static_bytes == ca.tree_bytes(params, cache)
     assert costs.kernels.get("pq_decode_attention", 0) == (
         cfg.n_layers if kind == "pq" else 0)
+
+
+# K8's sharded mode (a cache sharded on its positions over several ranks):
+# (b, smax, kv, g, m, dsub, positions): qwen3-1.7b's decode shapes at the
+# LM path's positions, zamba2-2.7b's g = 1 / M 40 / hd 80, starcoder2's g
+# = 12, a row with nothing live, rows whose live range ends inside the
+# first shard, at a shard's boundary and past Smax
+K8_SHARDED_CASES = [(8, 4096, 8, 2, 64, 2, [2069 - 7 * r for r in range(8)]),
+                    (4, 4096, 32, 1, 40, 2, [2047, 2048, 3071, 4095]),
+                    (2, 4096, 4, 12, 64, 2, [1023, 1024]),
+                    (3, 4096, 2, 2, 16, 2, [-1, 100, 5000])]
+
+
+@pytest.mark.parametrize("n", [2, 4, 16])
+@pytest.mark.parametrize("q8, dtype", [(True, torch.bfloat16),
+                                       (False, torch.float32)])
+@pytest.mark.parametrize("case", range(len(K8_SHARDED_CASES)))
+def test_k8_sharded_mode_equals_one_rank_k8(dev, case, q8, dtype, n):
+    """The split pass over each of n shards of the positions at its offset,
+    the partials concatenated in shard order, the combine pass: the one-
+    rank K8 bit for bit (every shard a multiple of 256 positions), one
+    launch a pass; the plain versions of the same steps equal
+    ``pq_decode_plain(split=256)`` bit for bit on the host."""
+    b, smax, kv, g, m, dsub, positions = K8_SHARDED_CASES[case]
+    args = _k8_inputs(100 + case, dev, b=b, smax=smax, kv=kv, g=g, m=m,
+                      dsub=dsub, positions=positions, q8=q8, cb_dtype=dtype,
+                      out_dtype=dtype)
+    table, scale, bias, k_codes, v_codes, v_cb, position = args
+    one = pqk.pq_decode(*args, chunk=smax, out_dtype=dtype)
+    sl = smax // n
+    before = pqk.launches
+    work = torch.cat([pqk.pq_decode_split(
+        table, scale, bias, k_codes[:, r * sl:(r + 1) * sl].contiguous(),
+        v_codes[:, r * sl:(r + 1) * sl].contiguous(), v_cb, position,
+        pos_offset=r * sl) for r in range(n)], dim=3)
+    got = pqk.pq_decode_combine(work, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert pqk.launches == before + n + 1
+    assert torch.equal(got, one), float((got.float() - one.float()).abs().max())
+    host = [t.cpu() if t is not None else None for t in args]
+    plain = torch.cat([pqk.plain_partials(
+        *host[:3], host[3][:, r * sl:(r + 1) * sl], host[4][:, r * sl:(r + 1)
+                                                            * sl],
+        host[5], host[6], pos_offset=r * sl) for r in range(n)], dim=3)
+    assert torch.equal(pqk.plain_combine(plain, out_dtype=dtype),
+                       pqk.pq_decode_plain(*host, chunk=smax, out_dtype=dtype,
+                                           split=pqk.SPLIT))
+    _k8_close(got, pqk.pq_decode_plain(*args, chunk=smax, out_dtype=dtype,
+                                       split=pqk.SPLIT), dtype)
+
+
+def test_k8_sharded_mode_at_ragged_shards_matches_plain(dev):
+    """Shards of 64 positions (not a multiple of the 256-position split):
+    the kernel's passes against their plain versions over the same shards
+    and against the one-rank K8, within K8's tolerance."""
+    for q8, dtype in ((True, torch.bfloat16), (False, torch.float32)):
+        args = _k8_inputs(120, dev, b=3, smax=1024, kv=2, g=3, m=32, dsub=2,
+                          positions=[63, 500, 1023], q8=q8, cb_dtype=dtype,
+                          out_dtype=dtype)
+        table, scale, bias, k_codes, v_codes, v_cb, position = args
+        sl = 64
+        shards = [(k_codes[:, r * sl:(r + 1) * sl].contiguous(),
+                   v_codes[:, r * sl:(r + 1) * sl].contiguous())
+                  for r in range(16)]
+        got = pqk.pq_decode_combine(torch.cat([pqk.pq_decode_split(
+            table, scale, bias, *shards[r], v_cb, position, pos_offset=r * sl)
+            for r in range(16)], dim=3), out_dtype=dtype)
+        plain = pqk.plain_combine(torch.cat([pqk.plain_partials(
+            table, scale, bias, *shards[r], v_cb, position, pos_offset=r * sl)
+            for r in range(16)], dim=3), out_dtype=dtype)
+        _k8_close(got, plain, dtype)
+        _k8_close(got, pqk.pq_decode(*args, chunk=1024, out_dtype=dtype),
+                  dtype)
+
+
+def test_k8_combine_splits_smem_mirror_equals_the_kernels_export(dev):
+    fn = _build.load_library().repro_pq_decode_combine_splits_smem
+    for nsplit in (1, 2, 16, 17, 64, 4097):
+        assert fn(nsplit) == pqk.combine_splits_smem_bytes(nsplit)
