@@ -4448,6 +4448,209 @@ def k8_sharded(torch, args, cache, cfg) -> None:
         pqk.launches = n1
 
 
+def in_lockstep(torch, ranks) -> tuple[list, dict]:
+    """Run generators of ``kvcache.subspace_rank``'s kind, the shards of one
+    device, in lockstep, each collective done across the shards as the
+    mesh's is: "max" their elementwise largest, "gather" their tensors
+    concatenated along the last dim in shard order, "sum" their sum.
+    Returns their results in shard order and each collective's result by
+    its op."""
+    reduce = {"max": lambda xs: torch.stack(xs).amax(0),
+              "gather": lambda xs: torch.cat(xs, dim=-1),
+              "sum": lambda xs: sum(xs[1:], xs[0])}
+    seen, results = {}, [None] * len(ranks)
+    asked = [next(r) for r in ranks]
+    while asked:
+        ops = {op for op, _ in asked}
+        if len(ops) != 1 or len(asked) != len(ranks):
+            raise AssertionError(f"the shards left lockstep: {ops}")
+        op = ops.pop()
+        seen[op] = got = reduce[op]([x for _, x in asked])
+        asked = []
+        for i, r in enumerate(ranks):
+            try:
+                asked.append(r.send(got))
+            except StopIteration as done:
+                results[i] = done.value
+    return results, seen
+
+
+def k8_subspaces(torch, args, cache, cfg) -> tuple[dict, dict]:
+    """K8's sub-space mode on qwen3-1.7b's PQ cache (layer 0's codes and
+    codebooks, B LM_BATCH, Smax LM_MAX_SEQ, about 2,070 live positions a
+    row, a random query) over 2 and then 4 shards of its M = 64
+    sub-spaces, in turn on the one card: each shard runs the port's own
+    rank body (``kvcache.subspace_rank``: its head_dim slice of q and its
+    sub-spaces' codes and codebooks, as views) and the shards run in
+    lockstep, each collective done across them (``in_lockstep``). Held:
+    the all-reduced i32 sums equal the plain sums of the one-rank table
+    bit for bit, the scale from the MAX all-reduce and the summed
+    gathered biases equal the one-rank quantizer's, so the scores are the
+    one-rank K8's bit for bit; the concatenated slices within K8_RTOL of
+    the one-rank K8. The launches of these runs (counted from 0) are the
+    two passes' entries of the kernels line; each pass is then timed by
+    CUDA events beside its plain version and its bound, with a ``cost:``
+    line. Returns the two entries."""
+    from repro_torch.kernels import pq_decode_kernel as pqk
+    from repro_torch.models import kvcache as kvc
+    b, h, hd = LM_BATCH, cfg.n_heads, cfg.resolved_head_dim
+    kc, vc, kcb, vcb = (t[0] for t in cache)
+    kv, m = kcb.shape[0], kcb.shape[1]
+    g = h // kv
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 93)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    positions = [2069 - 7 * r for r in range(b)]
+    path = k8_glue(torch, q, kc, vc, kcb, vcb, positions, True)
+    table, scale, bias, _, _, _, pos = path
+    out = torch.bfloat16
+    n0, by0 = pqk.launches, dict(pqk.launches_by)
+    scores = torch.full((b, kv, g, LM_MAX_SEQ), float("-inf"), device="cuda")
+    one = pqk.pq_decode(*path, chunk=2048, out_dtype=out, scores=scores)
+    pqk.launches, pqk.launches_by = n0, by0
+    live = (torch.arange(LM_MAX_SEQ, device="cuda")[None]
+            <= pos[:, None].long())[:, None, None].expand_as(scores)
+    want_sums = pqk.plain_scores(table, kc, pos)
+    row = one.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    name = ("pq_decode_scores", "pq_decode_values")
+    for k in name:
+        pqk.launches_by[k] = 0
+    runs = {}
+    for n in (2, 4):
+        ml, dl = m // n, hd // n
+        outs, seen = in_lockstep(torch, [kvc.subspace_rank(
+            q[..., r * dl:(r + 1) * dl],
+            kc[..., r * ml // 2:(r + 1) * ml // 2],
+            vc[..., r * ml // 2:(r + 1) * ml // 2],
+            kcb[:, r * ml:(r + 1) * ml], vcb[:, r * ml:(r + 1) * ml],
+            pos, hd) for r in range(n)])
+        got = torch.cat(outs, dim=-1)
+        sums = seen["sum"]
+        torch.cuda.synchronize()
+        held = {
+            "sums": torch.equal(sums, want_sums),
+            "scale": torch.equal(torch.clamp_min(seen["max"], 1e-20)
+                                 / 255.0, scale),
+            "bias": torch.equal(seen["gather"].sum(-1), bias)}
+        got_scores = scale[..., None] * sums.float() + bias[..., None]
+        held["scores"] = torch.equal(got_scores[live], scores[live])
+        err = float(((got.float() - one.float()).abs() / row).max())
+        if not all(held.values()) or err > K8_RTOL["bfloat16"]:
+            raise AssertionError(
+                f"mesh: K8's sub-space mode over {n} shards: equal to the "
+                f"one-rank K8's {held}, output {err} of the row's largest "
+                f"|value| from the one-rank K8")
+        runs[n] = (sums, err)
+    launched = {k: pqk.launches_by[k] for k in name}
+    if launched != {k: 2 + 4 for k in name}:
+        raise AssertionError(f"mesh: K8's sub-space mode launched {launched}")
+    # the passes against their plain versions and timed, at 4 shards (not
+    # counted as launches of the path)
+    n1, by1 = pqk.launches, dict(pqk.launches_by)
+    sums, err4 = runs[4]
+    ml = m // 4
+    t4, k4, v4, cb4 = (table[..., :ml, :].contiguous(),
+                       kc[..., :ml // 2].contiguous(),
+                       vc[..., :ml // 2].contiguous(),
+                       vcb[:, :ml].contiguous())
+    plain_s = pqk.plain_scores(t4, k4, pos)
+    got_s = pqk.pq_decode_scores(t4, k4, pos)
+    plain_v = pqk.plain_values(sums, scale, bias, v4, cb4, pos)
+    got_v = pqk.pq_decode_values(sums, scale, bias, v4, cb4, pos)
+    torch.cuda.synchronize()
+    s_err = float((got_s - plain_s).abs().max())
+    # the partials' maxima m_j bit for bit; their sums l_j and value sums
+    # (a dead split's are not written) through the combine pass in f32,
+    # against the plain partials' within K8_RTOL["float32"] of each row's
+    # largest |value|: both sums add in another order
+    vo = pqk.pq_decode_combine(got_v, out_dtype=torch.float32)
+    vw = pqk.pq_decode_combine(plain_v, out_dtype=torch.float32)
+    v_err = float(((vo - vw).abs() / vw.abs().amax(-1, keepdim=True)
+                   .clamp_min(1e-30)).max())
+    if s_err != 0 or not torch.equal(got_v[..., 0], plain_v[..., 0]) \
+            or v_err > K8_RTOL["float32"]:
+        raise AssertionError(f"mesh: K8's sub-space passes against their "
+                             f"plain versions: {s_err}, {v_err}")
+    ms_s = event_ms(torch, lambda: pqk.pq_decode_scores(t4, k4, pos), 20)
+    plain_ms_s = event_ms(torch, lambda: pqk.plain_scores(t4, k4, pos), 5)
+    ms_v = event_ms(torch, lambda: pqk.pq_decode_values(
+        sums, scale, bias, v4, cb4, pos), 20)
+    plain_ms_v = event_ms(torch, lambda: pqk.plain_values(
+        sums, scale, bias, v4, cb4, pos), 5)
+    one_ms = event_ms(torch, lambda: pqk.pq_decode(*path, chunk=2048,
+                                                   out_dtype=out), 20)
+    pqk.launches, pqk.launches_by = n1, by1
+    live_rows = [min(p + 1, LM_MAX_SEQ) for p in positions]
+    _, _, bs, bys = kernel_bound(
+        "mesh: K8 scoring pass, shard 0 of 4 sub-space shards",
+        "pq_decode_scores", b=b, kv=kv, g=g, m=ml, smax=LM_MAX_SEQ,
+        live=live_rows)
+    _, _, bv, byv = kernel_bound(
+        "mesh: K8 value pass, shard 0 of 4 sub-space shards",
+        "pq_decode_values", b=b, kv=kv, g=g, m=ml, head_dim=hd // 4,
+        live=live_rows, nsplit=pqk.n_splits(LM_MAX_SEQ), cb_itemsize=2)
+    log(f"mesh: K8's sub-space mode over 2 and 4 shards of M {m} "
+        f"(positions {positions[-1]}-{positions[0]}) through "
+        f"kvcache.subspace_rank in lockstep: the all-reduced i32 sums == "
+        f"the plain sums, the scale and summed bias the one-rank "
+        f"quantizer's and the one-rank K8's scores bit for bit; the "
+        f"concatenated slices {runs[2][1]:.3e} and {err4:.3e} of the row's "
+        f"largest |value| from the one-rank K8 (tolerance "
+        f"{K8_RTOL['bfloat16']}); launches {launched} (and "
+        f"{2 + 4} combines); at 4 shards (M {ml}, head_dim {hd // 4}) the "
+        f"scoring pass {ms_s:.6f} ms (plain {plain_ms_s:.5f}, bound "
+        f"{bs:.6f} {bys}), the value pass {ms_v:.6f} ms (plain "
+        f"{plain_ms_v:.5f}, bound {bv:.6f} {byv}), against their plain "
+        f"versions: sums bit for bit, the splits' maxima bit for bit, the "
+        f"combined partials {v_err:.3e} of the row's largest |value| "
+        f"(tolerance "
+        f"{K8_RTOL['float32']}); the one-rank "
+        f"K8's two passes {one_ms:.6f} ms (events, 20 calls)")
+    src = "src/repro_torch/kernels/csrc/pq_decode_attention.cu"
+    return tuple(dict(name=k, route="cuda", source=src,
+                      replaces="src/repro/models/kvcache.py:156",
+                      launches=launched[k], max_abs_err=e, ms=t,
+                      plain_ms=pt, bound_ms=bd, bound_by=bb,
+                      library_ms=None)
+                 for k, e, t, pt, bd, bb in (
+                     (name[0], s_err, ms_s, plain_ms_s, bs, bys),
+                     (name[1], v_err, ms_v, plain_ms_v, bv, byv)))
+
+
+def mesh_count(torch, mesh) -> None:
+    """qwen3-1.7b's exact and PQ decode cells at B LM_BATCH x LM_MAX_SEQ
+    counted on the meta device over the one-rank NCCL mesh
+    (``dryrun.count_mesh_cell``: DTensors on the card's ``DeviceMesh``)
+    against the one-card count (``count_cell``): matmul FLOPs, compulsory
+    bytes, peak of live bytes and K8 launches equal, no wire bytes, the
+    FLOPs within the placed cache write's index arithmetic (3 a layer)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    for pq in (False, True):
+        cfg = configs.get_config(LM_ARCH).replace(kv_pq=pq)
+        t0 = time.perf_counter()
+        got = dryrun.count_mesh_cell(cfg, "decode", LM_BATCH, LM_MAX_SEQ,
+                                     mesh, dryrun.cell_rules(
+                                         cfg, "decode_32k", mesh))
+        t1 = time.perf_counter()
+        want = dryrun.count_cell(cfg, "decode", LM_BATCH, LM_MAX_SEQ)
+        what = f"mesh: count {'pq' if pq else 'exact'}"
+        log(f"{what}: decode at B {LM_BATCH} x {LM_MAX_SEQ} over the (1, 1) "
+            f"NCCL mesh in {t1 - t0:.2f} s: {got.flops:.0f} FLOPs "
+            f"({got.matmul_flops:.0f} matmul), {got.min_bytes} compulsory B, "
+            f"peak {got.peak_live_bytes} B, wire {got.wire_bytes} B, "
+            f"kernels {got.kernels}; one card: {want.flops:.0f} "
+            f"({want.matmul_flops:.0f}), {want.min_bytes}, peak "
+            f"{want.peak_live_bytes}, kernels {want.kernels}")
+        if (got.matmul_flops != want.matmul_flops
+                or got.min_bytes != want.min_bytes
+                or got.peak_live_bytes != want.peak_live_bytes
+                or got.wire_bytes != 0 or got.kernels != want.kernels
+                or not 0 <= got.flops - want.flops <= 3 * cfg.n_layers):
+            raise AssertionError(f"{what}: the one-rank mesh count differs "
+                                 "from the one-card count")
+
+
 def moe_shards(torch, args) -> None:
     """dbrx-132b's expert-parallel bodies at full width (one layer's MoE,
     the MoE phase's B 8 x 2,048 prompt tokens), over 2 and 4 expert
@@ -4528,7 +4731,7 @@ def moe_shards(torch, args) -> None:
     torch.cuda.empty_cache()
 
 
-def mesh_phase(torch, args) -> None:
+def mesh_phase(torch, args) -> tuple[dict, dict]:
     """The LM under a one-rank device mesh (``launch/mesh.py``,
     ``launch/sharding.py``): a one-rank NCCL process group on a free local
     port and ``make_host_mesh()``'s (1, 1) ``DeviceMesh`` on the card;
@@ -4538,7 +4741,11 @@ def mesh_phase(torch, args) -> None:
     through ``constrain``; the serving cells through ``mesh_cell`` with
     every tensor a DTensor (``mesh_cells``), bit for bit, 28 K8 launches
     a PQ step; K8's sharded mode over 2 and 4 shards of the PQ cache
-    (``k8_sharded``); the per-device bytes of MESH_CELLS on the
+    (``k8_sharded``) and its sub-space mode over 2 and 4 shards of the
+    sub-spaces (``k8_subspaces``, whose two passes' entries of the kernels
+    line it returns); qwen3-1.7b's decode counted over the one-rank NCCL
+    mesh against the one-card count (``mesh_count``); the per-device
+    bytes of MESH_CELLS on the
     reference's pod and multipod meshes; dbrx-132b's expert-parallel
     bodies over 2 and 4 shards (``moe_shards``). The card machine has one
     H100: a mesh of several ranks runs as gloo ranks on the CPU (the
@@ -4607,6 +4814,8 @@ def mesh_phase(torch, args) -> None:
         log(f"mesh: K8 launches on the PQ cell's {MESH_STEPS} decode "
             f"steps: {sum(k8)} ({cfg.n_layers} a step)")
         k8_sharded(torch, args, pq_cache, cfg)
+        subspace = k8_subspaces(torch, args, pq_cache, cfg)
+        mesh_count(torch, mesh)
         del params, pqc, prompts, pq_cache
         gc.collect()
         torch.cuda.empty_cache()
@@ -4663,7 +4872,21 @@ def mesh_phase(torch, args) -> None:
                 f"{pd['batch_bytes']} B; static {pd['static_bytes']} B "
                 f"(fits {pd['fits']}), replicated {pd['replicated_bytes']} B "
                 f"in {pd['replicated_leaves']} leaves; rules {pd['rules']}")
+            roof = r["roofline"]
+            if roof is not None:
+                bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                            roof["t_collective_s"])
+                log(f"mesh: {arch} {shape} on {name} counted per device "
+                    f"(a fake group of {r['chips']} ranks on meta): "
+                    f"{r['flops']:.6e} FLOPs, {r['min_bytes']} compulsory "
+                    f"B, collectives {r['collectives']['ops']}, "
+                    f"{r['collectives']['wire_bytes_per_dev']:.0f} wire B; "
+                    f"bound {bound * 1e3:.6f} ms "
+                    f"({roof['bottleneck']}), MFU bound "
+                    f"{roof['mfu_bound']:.4f} at {rl.LINK_BW:.3e} B/s a "
+                    f"link; [{r['trace_s']} s]")
     moe_shards(torch, args)
+    return subspace
 
 
 def examples_phase(root: str) -> None:
@@ -4909,7 +5132,7 @@ def main() -> int:
         f"{time.perf_counter() - t_main:.1f} s")
     # 15c. the LM under a one-rank device mesh, bit for bit
     t0 = time.perf_counter()
-    mesh_phase(torch, args)
+    k8s, k8v = mesh_phase(torch, args)
     log(f"mesh: phase {time.perf_counter() - t0:.1f} s; the run so far "
         f"{time.perf_counter() - t_main:.1f} s")
     # 16. the two ANN examples, each once in its own process
@@ -4919,7 +5142,7 @@ def main() -> int:
         f"{time.perf_counter() - t_main:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c, k8)
+    kernels = (k1, k2, k3, k4, k5, k6, k7a, k7b, k7c, k8, k8s, k8v)
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel was not launched on its path")
     # the next slice's order of work (no kernel has a library call yet):

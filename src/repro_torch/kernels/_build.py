@@ -57,12 +57,15 @@ _SIGNATURES = {
     "repro_pq_decode_attention": [_VP] * 7 + [_I] * 9 + [_VP] * 4,
     "repro_pq_decode_split": [_VP] * 7 + [_I] * 9 + [_VP] * 2,
     "repro_pq_decode_combine": [_VP] + [_I] * 6 + [_VP] * 2,
+    "repro_pq_decode_scores": [_VP] * 3 + [_I] * 5 + [_VP] * 2,
+    "repro_pq_decode_values": [_VP] * 6 + [_I] * 7 + [_VP] * 2,
 }
 # each kernel's shared memory a CTA needs, as its source computes it (the
 # one place the CTA shape lives), by its int arguments: M for K3, K5, K6
 # and K7a-K7c, (tile_n, kc, M) for K1 and K4, (D, tile_r, k) for K2,
-# (g, M, head_dim, quantize_q8) for K8's split pass and Smax (or the
-# count of gathered splits) for its combine pass
+# (g, M, head_dim, quantize_q8) for K8's split pass (and its value pass),
+# (g, M) for its scoring pass and Smax (or the count of gathered splits)
+# for its combine pass
 SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
             "repro_rerank_stream_topk_smem": 3,
             "repro_fastscan_stream_grouped_smem": 1,
@@ -74,7 +77,8 @@ SMEM_FNS = {"repro_fastscan_stream_topk_smem": 3,
             "repro_fastscan_stream_topk_prune_smem": 3,
             "repro_pq_decode_attention_smem": 4,
             "repro_pq_decode_combine_smem": 1,
-            "repro_pq_decode_combine_splits_smem": 1}
+            "repro_pq_decode_combine_splits_smem": 1,
+            "repro_pq_decode_scores_smem": 2}
 
 
 def build_dir() -> Path:

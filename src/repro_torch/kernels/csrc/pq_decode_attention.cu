@@ -82,6 +82,22 @@
 //      live gives 0, and no -inf - -inf is ever taken. It reads no
 //      position: the same pass combines the shards' partials of the
 //      sharded mode, concatenated in position order.
+//   3. Sub-space mode (a cache sharded on its sub-spaces over n ranks; each
+//      rank holds M / n sub-spaces' codes and codebooks and its head_dim
+//      slice of q). The scoring pass, grid (B * KV, ceil(Smax / 256)) as
+//      the split pass's, stages the g u8 LUTs of the rank's sub-spaces and
+//      its split's K code rows with cp.async and writes each live
+//      position's i32 sum over them, K1's sum_word as the split pass does
+//      (0 at a dead position, so the output is whole). The caller
+//      all-reduces the ranks' sums, exactly: the one-rank kernel's integer
+//      sums. The value pass is the split pass itself (Sums = true) fed
+//      those sums in place of the LUTs and K codes: score = scale * sum +
+//      bias as the split pass computes it, so the softmax and p are the
+//      one-rank K8's bit for bit; its product walks the rank's hd / n dims
+//      (its codebooks), in more groups a dim than at full head_dim, so the
+//      value sums add in another order. Bound: bytes, as the split pass
+//      (the live codes; in the value pass also the live i32 sums, 4 bytes
+//      a (row, query head, position) against M / 2n of codes).
 // The zamba2 hybrid's shared attention (head_dim 80, M = 40, g = 1, KV =
 // 32) reads its 20-byte rows 4 bytes at a copy, and 240 of 256 threads
 // sum its 40 units in 6 groups. Measured (tools/time_k8.py, H100, 700 W):
@@ -255,14 +271,17 @@ __device__ __forceinline__ void add_byte_f32(float& acc, uint32_t b,
   acc += lut[(2 * byte + 1) * 16 + (b >> 4)];
 }
 
-template <typename CB, bool Q8, int G>
+// The split pass; with Sums (the sub-space mode's value pass), the scores
+// come from the reduced i32 sums `isums` (B, KV, g, Smax) in place of the
+// LUTs and K codes, which are neither read nor staged.
+template <typename CB, bool Q8, int G, bool Sums>
 __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
     const void* __restrict__ table, const float* __restrict__ scale,
     const float* __restrict__ bias, const uint8_t* __restrict__ k_codes,
     const uint8_t* __restrict__ v_codes, const CB* __restrict__ v_cb,
     const int32_t* __restrict__ position, int kv, int g, int m, int dsub,
     int smax, int pos_offset, int width, float* __restrict__ work,
-    float* __restrict__ scores) {
+    float* __restrict__ scores, const int32_t* __restrict__ isums) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int hd = m * dsub, mh = m / 2;
   const Layout lay = layout(g, m, hd, Q8);
@@ -292,13 +311,15 @@ __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
 
   // the LUTs and the split's code rows, in flight while the codebook is
   // staged
-  const size_t lut_bytes = static_cast<size_t>(g) * m * 16 * (Q8 ? 1 : 4);
-  copy_async<kThreads>(smem + lay.lut,
-                       static_cast<const uint8_t*>(table) + bk * lut_bytes,
-                       lut_bytes);
   const size_t row_stride = static_cast<size_t>(kv) * mh;
   const size_t first = ((static_cast<size_t>(b) * smax + s0) * kv + kh) * mh;
-  copy_rows_any(kcs, k_codes + first, n, mh, row_stride, cs, width);
+  if constexpr (!Sums) {
+    const size_t lut_bytes = static_cast<size_t>(g) * m * 16 * (Q8 ? 1 : 4);
+    copy_async<kThreads>(smem + lay.lut,
+                         static_cast<const uint8_t*>(table) + bk * lut_bytes,
+                         lut_bytes);
+    copy_rows_any(kcs, k_codes + first, n, mh, row_stride, cs, width);
+  }
   copy_rows_any(vcs, v_codes + first, n, mh, row_stride, cs, width);
   cp_async_commit();
   float* cbs = reinterpret_cast<float*>(smem + lay.cb);
@@ -320,9 +341,18 @@ __global__ void __launch_bounds__(kThreads) pq_decode_kernel_split(
   cp_async_wait<0>();
   __syncthreads();
 
-  // scores: position s0 + tid, each K word read once for all heads
+  // scores: position s0 + tid, each K word read once for all heads (or
+  // the reduced sums of the sub-space mode)
   float s[G];
-  if (tid < n) {
+  if (Sums && tid < n) {
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      s[h] = -INFINITY;
+      if (h >= g) break;
+      const int a = isums[(static_cast<size_t>(bk) * g + h) * smax + s0 + tid];
+      s[h] = __fadd_rn(__fmul_rn(sc[h], static_cast<float>(a)), bi[h]);
+    }
+  } else if (tid < n) {
     const uint8_t* row = kcs + tid * cs;
     const int words = mh / 4;
     if (Q8) {
@@ -521,6 +551,81 @@ __global__ void __launch_bounds__(kCombineThreads) pq_decode_kernel_combine(
   }
 }
 
+// Shared memory of the scoring pass: the g u8 LUTs of its M sub-spaces,
+// then the split's K code rows.
+__host__ __device__ inline size_t scores_smem(int g, int m) {
+  return align16(static_cast<size_t>(g) * m * 16) +
+         align16(static_cast<size_t>(kSplit) * code_stride(m / 2));
+}
+
+// The sub-space mode's scoring pass: sums[b, kh, h, s] = sum over the M
+// sub-spaces given of LUT_q8[b, kh, h, m, code_m(K[b, s, kh])] for the live
+// positions s <= position[b], 0 past them; one CTA a (b, KV head, split).
+template <int G>
+__global__ void __launch_bounds__(kThreads) pq_decode_kernel_scores(
+    const uint8_t* __restrict__ table, const uint8_t* __restrict__ k_codes,
+    const int32_t* __restrict__ position, int kv, int g, int m, int smax,
+    int width, int32_t* __restrict__ sums) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int mh = m / 2;
+  const int bk = blockIdx.x, b = bk / kv, kh = bk % kv;
+  const int s0 = blockIdx.y * kSplit, tid = threadIdx.x;
+  const int live = static_cast<int>(
+      min(max(static_cast<long long>(position[b]) + 1, 0LL),
+          static_cast<long long>(smax)));
+  int32_t* out = sums + static_cast<size_t>(bk) * g * smax;
+  const bool in = s0 + tid < smax;
+  if (s0 >= live) {
+    if (in)
+      for (int h = 0; h < g; ++h)
+        out[static_cast<size_t>(h) * smax + s0 + tid] = 0;
+    return;
+  }
+  const int n = min(kSplit, live - s0);
+  const size_t lut_bytes = static_cast<size_t>(g) * m * 16;
+  const uint8_t* lut = smem;
+  uint8_t* kcs = smem + align16(lut_bytes);
+  const int cs = code_stride(mh);
+  copy_async<kThreads>(smem, table + bk * lut_bytes, lut_bytes);
+  const size_t first = ((static_cast<size_t>(b) * smax + s0) * kv + kh) * mh;
+  copy_rows_any(kcs, k_codes + first, n, mh, static_cast<size_t>(kv) * mh,
+                cs, width);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  int a[G];
+#pragma unroll
+  for (int h = 0; h < G; ++h) a[h] = 0;
+  if (tid < n) {
+    const uint8_t* row = kcs + tid * cs;
+    const int words = mh / 4;
+    for (int j = 0; j < words; ++j) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * j);
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        if (h >= g) break;
+        a[h] += sum_word(w, lut + h * m * 16, 4 * j);
+      }
+    }
+    for (int j = 4 * words; j < mh; ++j) {
+      const uint32_t c = row[j];
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        if (h >= g) break;
+        const uint8_t* l = lut + h * m * 16;
+        a[h] += l[(2 * j) * 16 + (c & 15u)] + l[(2 * j + 1) * 16 + (c >> 4)];
+      }
+    }
+  }
+  if (in) {
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      if (h >= g) break;
+      out[static_cast<size_t>(h) * smax + s0 + tid] = a[h];
+    }
+  }
+}
+
 // The widest copy (16, 8, 4 or 1 bytes) that both code arrays' rows of mh
 // bytes take.
 inline int copy_width(const void* kc, const void* vc, int mh) {
@@ -531,16 +636,17 @@ inline int copy_width(const void* kc, const void* vc, int mh) {
   return 1;
 }
 
-template <typename CB, bool Q8, int G>
+template <typename CB, bool Q8, int G, bool Sums = false>
 cudaError_t launch_split(const void* table, const float* scale,
                          const float* bias, const uint8_t* k_codes,
                          const uint8_t* v_codes, const void* v_cb,
                          const int32_t* position, int b, int kv, int g, int m,
                          int dsub, int smax, int pos_offset, float* work,
-                         float* scores, cudaStream_t stream) {
+                         float* scores, cudaStream_t stream,
+                         const int32_t* isums = nullptr) {
   const size_t smem = layout(g, m, m * dsub, Q8).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto* kernel = pq_decode_kernel_split<CB, Q8, G>;
+  auto* kernel = pq_decode_kernel_split<CB, Q8, G, Sums>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -549,7 +655,9 @@ cudaError_t launch_split(const void* table, const float* scale,
   kernel<<<grid, kThreads, smem, stream>>>(
       table, scale, bias, k_codes, v_codes, static_cast<const CB*>(v_cb),
       position, kv, g, m, dsub, smax, pos_offset,
-      copy_width(k_codes, v_codes, m / 2), work, scores);
+      Sums ? copy_width(v_codes, v_codes, m / 2)
+           : copy_width(k_codes, v_codes, m / 2),
+      work, scores, isums);
   return cudaGetLastError();
 }
 
@@ -620,6 +728,42 @@ cudaError_t launch_split_any(const void* table, const void* scale,
               : REPRO_K8_ANY(__nv_bfloat16, false);
   return q8 ? REPRO_K8_ANY(float, true) : REPRO_K8_ANY(float, false);
 #undef REPRO_K8_ANY
+}
+
+// The scoring pass, per-head registers of G = 1 where g = 1, else kMaxG.
+cudaError_t launch_scores(const uint8_t* table, const uint8_t* k_codes,
+                          const int32_t* position, int b, int kv, int g,
+                          int m, int smax, int32_t* sums, cudaStream_t s) {
+  const size_t smem = scores_smem(g, m);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto* kernel = g == 1 ? pq_decode_kernel_scores<1>
+                        : pq_decode_kernel_scores<kMaxG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * kv, n_splits(smax));
+  kernel<<<grid, kThreads, smem, s>>>(table, k_codes, position, kv, g, m, smax,
+                                      copy_width(k_codes, k_codes, m / 2),
+                                      sums);
+  return cudaGetLastError();
+}
+
+// The value pass: the split pass fed the reduced sums, either codebook type.
+cudaError_t launch_values(const int32_t* isums, const float* scale,
+                          const float* bias, const uint8_t* v_codes,
+                          const void* v_cb, const int32_t* position, int b,
+                          int kv, int g, int m, int dsub, int smax,
+                          int cb_bf16, float* work, cudaStream_t s) {
+#define REPRO_K8_VALUES(CB, G)                                              \
+  launch_split<CB, true, G, true>(nullptr, scale, bias, nullptr, v_codes,  \
+                                  v_cb, position, b, kv, g, m, dsub, smax, \
+                                  0, work, nullptr, s, isums)
+  if (cb_bf16)
+    return g == 1 ? REPRO_K8_VALUES(__nv_bfloat16, 1)
+                  : REPRO_K8_VALUES(__nv_bfloat16, kMaxG);
+  return g == 1 ? REPRO_K8_VALUES(float, 1) : REPRO_K8_VALUES(float, kMaxG);
+#undef REPRO_K8_VALUES
 }
 
 inline bool dims_ok(int b, int kv, int g, int m, int dsub, int smax) {
@@ -704,4 +848,47 @@ extern "C" int repro_pq_decode_combine(const void* work, int b, int kv, int g,
   return static_cast<int>(launch_combine_any(
       static_cast<const float*>(work), b, kv, g, hd, nsplit, out_bf16, out,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Shared memory (bytes) one CTA of the sub-space mode's scoring pass needs
+// at (g, M).
+extern "C" long long repro_pq_decode_scores_smem(int g, int m) {
+  return static_cast<long long>(scores_smem(g, m));
+}
+
+// The sub-space mode's scoring pass: table (B, KV, g, M, 16) u8, the LUTs
+// of the rank's M sub-spaces; k_codes (B, Smax, KV, M/2) u8, their codes;
+// position (B,) i32; sums (B, KV, g, Smax) i32 gets each live position's
+// sum over them, 0 past the position.
+extern "C" int repro_pq_decode_scores(const void* table, const void* k_codes,
+                                      const void* position, int b, int kv,
+                                      int g, int m, int smax, void* sums,
+                                      void* stream) {
+  if (!dims_ok(b, kv, g, m, 1, smax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_scores(
+      static_cast<const uint8_t*>(table), static_cast<const uint8_t*>(k_codes),
+      static_cast<const int32_t*>(position), b, kv, g, m, smax,
+      static_cast<int32_t*>(sums), static_cast<cudaStream_t>(stream)));
+}
+
+// The sub-space mode's value pass: sums (B, KV, g, Smax) i32, the whole
+// LUT's sums (the ranks' scoring passes all-reduced); scale and summed bias
+// (B, KV, g) f32 of the whole LUT; v_codes (B, Smax, KV, M/2) u8 and v_cb
+// (KV, M, 16, dsub) bf16 or f32 of the rank's M sub-spaces; position (B,)
+// i32; work (B, KV, g, ceil(Smax / 256), M * dsub + 2) f32 gets the split
+// partials of the rank's head_dim slice (pq_decode_combine takes them).
+extern "C" int repro_pq_decode_values(const void* sums, const void* scale,
+                                      const void* bias, const void* v_codes,
+                                      const void* v_cb, const void* position,
+                                      int b, int kv, int g, int m, int dsub,
+                                      int smax, int cb_bf16, void* work,
+                                      void* stream) {
+  if (!dims_ok(b, kv, g, m, dsub, smax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_values(
+      static_cast<const int32_t*>(sums), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const uint8_t*>(v_codes),
+      v_cb, static_cast<const int32_t*>(position), b, kv, g, m, dsub, smax,
+      cb_bf16, static_cast<float*>(work), static_cast<cudaStream_t>(stream)));
 }

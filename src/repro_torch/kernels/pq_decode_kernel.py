@@ -33,14 +33,32 @@ splits (it reads no position). Where every rank's length is a multiple
 of ``SPLIT``, the ranks' partials in rank order are the one-rank call's
 live ones, and the combine's output is ``pq_decode``'s bit for bit.
 
+K8's sub-space mode is two more entry points, for a cache sharded on
+its sub-spaces ("pq_m") over several ranks, each rank holding the codes
+and codebooks of M / n sub-spaces and its slice of every query's
+head_dim (``models/kvcache.py``). ``pq_decode_scores`` runs the scoring
+alone over the rank's sub-spaces: the i32 sums ``sum_m LUT_q8[m,
+code_m]`` a (row, query head, live position), one CTA a (row, KV head,
+split) as the split pass (0 at a dead position). The ranks' sums are
+all-reduced, exactly, into the one-rank kernel's sums. ``pq_decode_values``
+takes the reduced sums, the scale and the summed bias of the whole LUT,
+and runs the split pass's softmax and value sum over the rank's
+sub-spaces (its head_dim slice): the split partials that
+``pq_decode_combine`` takes. It is the split pass's own code fed sums in
+place of codes, so the scores and the softmax are the one-rank K8's bit
+for bit; the value sums walk fewer dims a thread, in another order.
+
 Beside the kernel: ``pq_decode_plain``, the same function in plain
 PyTorch in the reference's chunked order and casts (the CPU path and the
 on-card reference) or, with ``split=``, in the kernel's split-and-combine
 order (``plain_partials`` then ``plain_combine``, the two passes' plain
 versions); the integer and float ADC stages it is built from
-(``adc_sums``, ``adc_scores``), ``decode_kv``, and ``launches``, the
+(``adc_sums``, ``adc_scores``), ``decode_kv``, the sub-space mode's
+plain passes (``plain_scores``, ``plain_values``), and ``launches``, the
 count of kernel calls (one a ``pq_decode`` call, both passes together;
-one a ``pq_decode_split`` and one a ``pq_decode_combine`` call).
+one a ``pq_decode_split``, ``pq_decode_combine``, ``pq_decode_scores``
+and ``pq_decode_values`` call), with ``launches_by``, the same calls by
+entry point.
 """
 from __future__ import annotations
 
@@ -49,6 +67,14 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+launches_by: dict[str, int] = {}   # entry point -> its launches
+
+
+def _launched(name: str) -> None:
+    """One launch of the entry point ``name``, on both counts."""
+    global launches
+    launches += 1
+    launches_by[name] = launches_by.get(name, 0) + 1
 
 # mirrors of the .cu's constants
 THREADS = 256
@@ -80,6 +106,14 @@ def smem_bytes(g: int, m: int, hd: int, q8: bool) -> int:
             + _align16(16 * ((hd + 31) & ~31) * 4) + _align16(max(rows, sums))
             + _align16(rows) + _align16(SPLIT * g * 4)
             + _align16(2 * _WARPS * g * 4))
+
+
+def scores_smem_bytes(g: int, m: int) -> int:
+    """Shared memory one CTA of the scoring pass needs (mirrors the .cu's
+    ``repro_pq_decode_scores_smem``): the g u8 LUTs of its M sub-spaces
+    and the split's K code rows."""
+    return (_align16(g * m * 16)
+            + _align16(SPLIT * 16 * ((-(-(m // 2) // 16)) | 1)))
 
 
 def combine_splits_smem_bytes(nsplit: int) -> int:
@@ -240,14 +274,22 @@ def plain_partials(table, scale, bias, k_codes, v_codes, v_cb, position, *,
     head), as the kernel writes them; p rounded to the codebook's type at
     m_j, the product in f32. Local position i is global position
     ``pos_offset + i`` (a rank's shard of the cache)."""
-    b, smax, kv, _ = k_codes.shape
-    dev = table.device
+    return _partials(lambda s0, s1: adc_scores(table, scale, bias,
+                                               k_codes[:, s0:s1]),
+                     v_codes, v_cb, position, split, pos_offset)
+
+
+def _partials(scores_of, v_codes, v_cb, position, split: int,
+              pos_offset: int) -> torch.Tensor:
+    """The split pass's partials with the scores of positions [s0, s1)
+    from ``scores_of(s0, s1)`` (B, KV, g, s1 - s0) f32."""
+    smax = v_codes.shape[1]
+    dev = v_codes.device
     parts = []
     for s0 in range(0, smax, split):
-        kc = k_codes[:, s0:s0 + split]
         vc = v_codes[:, s0:s0 + split]
-        s = adc_scores(table, scale, bias, kc)              # (B, KV, g, C)
-        pos = pos_offset + s0 + torch.arange(kc.shape[1], device=dev)
+        s = scores_of(s0, s0 + vc.shape[1])                 # (B, KV, g, C)
+        pos = pos_offset + s0 + torch.arange(vc.shape[1], device=dev)
         valid = pos[None, :] <= position[:, None].long()     # (B, C)
         s = torch.where(valid[:, None, None, :], s, float("-inf"))
         mj = s.amax(-1)                          # -inf for a dead split
@@ -258,6 +300,28 @@ def plain_partials(table, scale, bias, k_codes, v_codes, v_cb, position, *,
         parts.append(torch.cat([mj[..., None], p.sum(-1)[..., None], acc],
                                dim=-1))
     return torch.stack(parts, dim=3)
+
+
+def plain_scores(table_q8: torch.Tensor, k_codes: torch.Tensor,
+                 position: torch.Tensor) -> torch.Tensor:
+    """The scoring pass in plain PyTorch: (B, KV, g, Smax) i32, the sums
+    of the u8 LUT entries of the given sub-spaces that each live
+    position's codes pick (``adc_sums``), 0 at a dead position."""
+    sums = adc_sums(table_q8, k_codes)
+    live = (torch.arange(k_codes.shape[1], device=k_codes.device)[None]
+            <= position[:, None].long())
+    return torch.where(live[:, None, None], sums, 0)
+
+
+def plain_values(sums: torch.Tensor, scale, bias, v_codes: torch.Tensor,
+                 v_cb: torch.Tensor, position: torch.Tensor, *,
+                 split: int = SPLIT) -> torch.Tensor:
+    """The value pass in plain PyTorch: ``plain_partials``'s partials with
+    the scores ``scale * sums + bias`` of the whole LUT's reduced i32
+    ``sums`` (B, KV, g, Smax), the value sums over the given sub-spaces'
+    codebooks (a slice of head_dim)."""
+    return _partials(lambda s0, s1: scale[..., None] * sums[..., s0:s1].float()
+                     + bias[..., None], v_codes, v_cb, position, split, 0)
 
 
 def plain_combine(work: torch.Tensor, *, out_dtype: torch.dtype
@@ -353,7 +417,6 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
     positions, or all Smax), and an empty output of the kernel's shape and
     dtype comes back.
     """
-    global launches
     _check(table, scale, bias, k_codes, v_codes, v_cb, position)
     dev = table.device
     if dev.type == "cpu":
@@ -393,7 +456,7 @@ def pq_decode(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             scores.data_ptr() if scores is not None else None,
             work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pq_decode_attention")
-    launches += 1
+    _launched("pq_decode_attention")
     return out
 
 
@@ -408,7 +471,6 @@ def pq_decode_split(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
     is not written on the card. Arguments as ``pq_decode``'s, the codes
     the shard's. CPU tensors take ``plain_partials``; CUDA tensors launch
     the split pass or raise; meta tensors record the pass's cost."""
-    global launches
     _check(table, scale, bias, k_codes, v_codes, v_cb, position)
     dev = table.device
     if dev.type == "cpu":
@@ -439,7 +501,7 @@ def pq_decode_split(table: torch.Tensor, scale, bias, k_codes: torch.Tensor,
             int(v_cb.dtype == torch.bfloat16), work.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pq_decode_split")
-    launches += 1
+    _launched("pq_decode_split")
     return work
 
 
@@ -451,7 +513,6 @@ def pq_decode_combine(work: torch.Tensor, *, out_dtype: torch.dtype
     dead splits (m_j = -inf) are skipped. CPU tensors take
     ``plain_combine``; CUDA tensors launch the combine pass or raise; meta
     tensors record the pass's cost."""
-    global launches
     _build.check_args({"work": (work, torch.float32, 5)}, work.device)
     b, kv, g, nsplit, hd2 = work.shape
     if hd2 < 3:
@@ -480,5 +541,126 @@ def pq_decode_combine(work: torch.Tensor, *, out_dtype: torch.dtype
             int(out_dtype == torch.bfloat16), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pq_decode_combine")
-    launches += 1
+    _launched("pq_decode_combine")
     return out
+
+
+def _check_sub(table, k_codes, position) -> None:
+    args = {"table": (table, torch.uint8, 5),
+            "k_codes": (k_codes, torch.uint8, 4),
+            "position": (position, torch.int32, 1)}
+    _build.check_args(args, table.device)
+    b, kv, g, m, k = table.shape
+    if k != 16 or m % 2 or m < 2:
+        raise ValueError(f"table {tuple(table.shape)}: want (B, KV, g, M, 16)"
+                         " with M even")
+    if k_codes.shape[0] != b or k_codes.shape[2] != kv or \
+            k_codes.shape[3] != m // 2:
+        raise ValueError(f"k_codes {tuple(k_codes.shape)} do not match the "
+                         f"table {tuple(table.shape)}")
+    if position.shape != (b,):
+        raise ValueError(f"position {tuple(position.shape)}: want ({b},)")
+    if g > MAX_G:
+        raise ValueError(f"g={g}: at most {MAX_G}")
+
+
+def pq_decode_scores(table_q8: torch.Tensor, k_codes: torch.Tensor,
+                     position: torch.Tensor) -> torch.Tensor:
+    """K8's scoring pass over the sub-spaces a rank holds: ``table_q8``
+    (B, KV, g, M_r, 16) u8, the LUTs of those sub-spaces quantized with
+    the whole LUT's scale; ``k_codes`` (B, Smax, KV, M_r / 2) u8, their
+    codes; ``position`` (B,) i32. Returns (B, KV, g, Smax) i32, each live
+    position's sum over the sub-spaces, 0 at a dead one. CPU tensors take
+    ``plain_scores``; CUDA tensors launch the pass or raise; meta tensors
+    record its cost."""
+    _check_sub(table_q8, k_codes, position)
+    dev = table_q8.device
+    b, kv, g, m, _ = table_q8.shape
+    smax = k_codes.shape[1]
+    if dev.type == "cpu":
+        return plain_scores(table_q8, k_codes, position)
+    _check_card(dev, torch.float32)
+    shape = (b, kv, g, smax)
+    if dev.type == "meta":
+        from repro_torch.launch import cost_analysis
+        _meta_smem((f"g={g}, M={m}", scores_smem_bytes(g, m)))
+        cost_analysis.record_kernel(
+            "pq_decode_scores", b=b, kv=kv, g=g, m=m, smax=smax,
+            live=_meta_live(smax))
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    _build.check_smem("repro_pq_decode_scores_smem", g, m,
+                      what=f"g={g}, M={m}")
+    sums = torch.empty(shape, dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_pq_decode_scores(
+            table_q8.data_ptr(), k_codes.data_ptr(), position.data_ptr(), b,
+            kv, g, m, smax, sums.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pq_decode_scores")
+    _launched("pq_decode_scores")
+    return sums
+
+
+def pq_decode_values(sums: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, v_codes: torch.Tensor,
+                     v_cb: torch.Tensor, position: torch.Tensor
+                     ) -> torch.Tensor:
+    """K8's value pass over the sub-spaces a rank holds: ``sums`` (B, KV,
+    g, Smax) i32, the whole LUT's sums (the ranks' ``pq_decode_scores``
+    all-reduced); ``scale`` and summed ``bias`` (B, KV, g) f32 of the
+    whole LUT; ``v_codes`` (B, Smax, KV, M_r / 2) u8 and ``v_cb`` (KV, M_r,
+    16, dsub) bf16 or f32, the rank's sub-spaces; ``position`` (B,) i32.
+    Returns the split partials (B, KV, g, ceil(Smax / 256), M_r * dsub +
+    2) f32 of the rank's head_dim slice, for ``pq_decode_combine``. CPU
+    tensors take ``plain_values``; CUDA tensors launch the pass or raise;
+    meta tensors record its cost."""
+    args = {"sums": (sums, torch.int32, 4), "scale": (scale, torch.float32, 3),
+            "bias": (bias, torch.float32, 3),
+            "v_codes": (v_codes, torch.uint8, 4),
+            "v_cb": (v_cb, v_cb.dtype, 4),
+            "position": (position, torch.int32, 1)}
+    dev = sums.device
+    _build.check_args(args, dev)
+    if v_cb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"v_cb: want f32 or bf16, got {v_cb.dtype}")
+    b, kv, g, smax = sums.shape
+    m, dsub = v_cb.shape[1], v_cb.shape[3]
+    hd = m * dsub
+    if v_codes.shape != (b, smax, kv, m // 2) or v_cb.shape[0] != kv or \
+            v_cb.shape[2] != 16 or m % 2:
+        raise ValueError(f"v_codes {tuple(v_codes.shape)} / v_cb "
+                         f"{tuple(v_cb.shape)} do not match the sums "
+                         f"{tuple(sums.shape)}")
+    if scale.shape != (b, kv, g) or bias.shape != (b, kv, g) or \
+            position.shape != (b,):
+        raise ValueError("scale and bias must be (B, KV, g), position (B,)")
+    if g > MAX_G or hd > THREADS:
+        raise ValueError(f"g={g} (at most {MAX_G}) and head_dim={hd} (at "
+                         f"most {THREADS}) exceed what the kernel takes")
+    if dev.type == "cpu":
+        return plain_values(sums, scale, bias, v_codes, v_cb, position)
+    _check_card(dev, torch.float32)
+    shape = (b, kv, g, n_splits(smax), hd + 2)
+    if dev.type == "meta":
+        from repro_torch.launch import cost_analysis
+        _meta_smem((f"g={g}, M={m}, head_dim={hd}",
+                    smem_bytes(g, m, hd, True)))
+        cost_analysis.record_kernel(
+            "pq_decode_values", b=b, kv=kv, g=g, m=m, head_dim=hd,
+            live=_meta_live(smax), nsplit=shape[3],
+            cb_itemsize=v_cb.element_size())
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    _build.check_smem("repro_pq_decode_attention_smem", g, m, hd, 1,
+                      what=f"g={g}, M={m}, head_dim={hd}")
+    work = torch.empty(shape, dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_pq_decode_values(
+            sums.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            v_codes.data_ptr(), v_cb.data_ptr(), position.data_ptr(), b, kv,
+            g, m, dsub, smax, int(v_cb.dtype == torch.bfloat16),
+            work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pq_decode_values")
+    _launched("pq_decode_values")
+    return work

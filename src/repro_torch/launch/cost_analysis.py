@@ -32,6 +32,27 @@ Per op it records:
 A port kernel on the meta device records its own ``roofline.kernel_cost``
 as one op (``record_kernel``), never its plain twin's ops.
 
+Over DTensors (a step over a mesh, ``dryrun.count_mesh_cell``) the
+counter counts one device's work: it leaves each op on DTensors to
+DTensor's own dispatch (returns ``NotImplemented``) and counts the ops
+that dispatch runs on the local shards. DTensor's sharding propagator
+also runs ops at their global shapes, to learn an output's metadata
+(under a ``FakeTensorMode``) and to trace a composite op's decomposition
+(on meta tensors), once an op signature (it caches the answer): such
+runs are not the device's work. While a counter runs, the propagator's
+two entries (``propagate_op_sharding`` and its uncached twin, on
+``DTensor._op_dispatcher.sharding_propagator``) are wrapped to mute it
+(``_muted_propagator``), and no op run under a fake mode is counted or
+tracked, so a count does not depend on what ran before it. The
+functional collectives (``_c10d_functional``, and DTensor's all-to-all of
+a shard between dims) are counted apart
+(``collective_ops``, ``collective_bytes``: each op's result bytes, and
+``wire_bytes``: those bytes times the reference's ``roofline.WIRE_FACTOR``
+of its kind, as ``hlo_analysis.collectives`` charges them); a collective
+is no HBM op, and one over a group of one rank moves nothing and counts
+nothing. The live storages are the local shards', so
+``peak_live_bytes`` is a device's.
+
 On the meta device an op's result depends on its arguments' shapes,
 strides and dtypes alone, so a functional op's outputs and a composite
 op's record (its ops and its peak) are kept by that metadata and rebuilt
@@ -96,10 +117,10 @@ def read_bytes(t: torch.Tensor) -> int:
 
 def tree_bytes(*trees) -> int:
     """Bytes of the distinct storages under ``trees`` (tensors, modules,
-    dicts, lists, NamedTuples)."""
+    dicts, lists, NamedTuples; a DTensor's local shard's)."""
     storages = {}
     for t in _flat(trees):
-        s = t.untyped_storage()
+        s = _local(t).untyped_storage()
         storages[id(s)] = s.nbytes()
     return sum(storages.values())
 
@@ -116,6 +137,11 @@ class Costs:
     kernels: dict = field(default_factory=dict)   # port kernel -> launches
     flops_by_op: dict = field(default_factory=dict)
     bytes_by_op: dict = field(default_factory=dict)
+    # the collectives by the reference's names: ops, result bytes, and
+    # the wire bytes of them all
+    collective_ops: dict = field(default_factory=dict)
+    collective_bytes: dict = field(default_factory=dict)
+    wire_bytes: float = 0.0
 
     @property
     def matmul_flops(self) -> float:
@@ -140,6 +166,12 @@ class Costs:
                 "launches": self.launches,
                 "ops": dict(sorted(self.ops.items(), key=lambda kv: -kv[1])),
                 "kernels": dict(self.kernels)}
+
+    def collectives(self) -> dict:
+        """The reference's ``collectives`` keys of a cell's JSON."""
+        return {"ops": dict(self.collective_ops),
+                "bytes_by_op": dict(self.collective_bytes),
+                "wire_bytes_per_dev": self.wire_bytes}
 
 
 _ACTIVE: list["CostCounter"] = []
@@ -178,13 +210,14 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         self._live_bytes = 0
         # the composite ops being recorded: (their ops, [high-water bytes])
         self._recording: list[tuple[list, list]] = []
+        self._restore = None    # undoes the outermost entry's mute
         for t in _flat(live):
             self._track(t)
         self.costs.peak_live_bytes = self._live_bytes
 
     # -- live storages
     def _track(self, t: torch.Tensor) -> None:
-        s = t.untyped_storage()
+        s = _local(t).untyped_storage()
         key = id(s)
         if key in self._live:
             return
@@ -217,15 +250,54 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
                 hw[0] = live
 
     def __enter__(self):
+        # a composite op re-enters the counter: the mute is set once
+        if not _ACTIVE:
+            self._restore = _muted_propagator()
         _ACTIVE.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
+        if not _ACTIVE and self._restore is not None:
+            self._restore()
+            self._restore = None
         return super().__exit__(*exc)
+
+    def _collective(self, func, args, kwargs, out) -> None:
+        """Count a functional collective's result bytes and wire bytes
+        under the reference's name of its kind (none over one rank)."""
+        name = func.overloadpacket.__name__
+        if name in FREE_COLLECTIVES:
+            return
+        if _group_size(func, args, kwargs) <= 1:
+            return
+        kind = COLLECTIVES.get(name)
+        if kind is None:
+            raise NotImplementedError(f"the collective {func} has no "
+                                      "counterpart in the reference's count")
+        nbytes = float(sum(read_bytes(t) for t in _flat(out)))
+        c = self.costs
+        c.collective_ops[kind] = c.collective_ops.get(kind, 0) + 1
+        c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) + nbytes
+        c.wire_bytes += nbytes * rl.WIRE_FACTOR[kind]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dtensor, fake = _subclasses()
+        if any(issubclass(t, dtensor) for t in types):
+            # DTensor's dispatch runs the local ops, which come back here
+            return NotImplemented
+        if _PROPAGATING[0] or _fake_mode_active() or any(
+                issubclass(t, fake) for t in types):
+            # DTensor's sharding propagation at the global shape
+            return func(*args, **kwargs)
+        if func.namespace in COLLECTIVE_NAMESPACES:
+            out = func(*args, **kwargs)
+            for t in _flat(out):
+                self._track(t)
+            self._high_water()
+            self._collective(func, args, kwargs, out)
+            return out
         if func not in _ATOMIC:
             # a composite op (einsum, matmul, to, ...: seen whole under
             # inference mode) is counted as the ops it decomposes into, as
@@ -286,6 +358,93 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         for t in _flat(out):
             self._track(t)
         return out
+
+
+# torch's functional collectives (``_c10d_functional``, and DTensor's
+# ``_dtensor`` all-to-all) by the names of
+# the reference's HLO collectives (``hlo_analysis.WIRE_FACTOR``'s keys);
+# waiting on one (or wrapping one for autograd) is free
+COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_reduce": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    # DTensor's own op for a shard moved from one dim to another
+    "shard_dim_alltoall": "all-to-all",
+}
+FREE_COLLECTIVES = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
+
+
+def _subclasses() -> tuple[type, type]:
+    """(DTensor, FakeTensor), imported where a counter first runs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    return DTensor, FakeTensor
+
+
+def _fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is running (DTensor's sharding
+    propagator inferring an output's global metadata)."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+# the depth of DTensor's sharding propagator's entries running (the
+# counter counts nothing there)
+_PROPAGATING = [0]
+_PROPAGATOR_ENTRIES = ("propagate_op_sharding",
+                       "propagate_op_sharding_non_cached")
+
+
+def _muted_propagator():
+    """Wrap DTensor's sharding propagator's two entries, its cached and
+    uncached propagation (every dispatch path of DTensor reaches one), to
+    raise ``_PROPAGATING`` while they run; returns what undoes it."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    own = {name: prop.__dict__[name] for name in _PROPAGATOR_ENTRIES
+           if name in prop.__dict__}
+
+    def muted(fn):
+        def run(*args, **kwargs):
+            _PROPAGATING[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _PROPAGATING[0] -= 1
+        return run
+
+    for name in _PROPAGATOR_ENTRIES:
+        setattr(prop, name, muted(getattr(prop, name)))
+
+    def restore():
+        for name in _PROPAGATOR_ENTRIES:
+            if name in own:
+                setattr(prop, name, own[name])
+            else:
+                delattr(prop, name)
+    return restore
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The ranks of a functional collective's group (its ``group_name``
+    argument resolved)."""
+    import torch.distributed as dist
+    names = [a.name for a in func._schema.arguments]
+    if "group_name" not in names:
+        raise NotImplementedError(f"the collective {func._schema} names no "
+                                  "group")
+    i = names.index("group_name")
+    group = args[i] if i < len(args) else kwargs["group_name"]
+    if isinstance(group, str):
+        group = dist.distributed_c10d._resolve_process_group(group)
+    return group.size()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (``_local_tensor``: no op), else ``t``."""
+    return getattr(t, "_local_tensor", t)
 
 
 # ops known to have no composite decomposition (filled as they are met)

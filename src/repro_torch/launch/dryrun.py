@@ -22,26 +22,35 @@ A cell sized for the reference's 256 chips may not fit one 80 GB card
 ``status: "ok"``, with ``fits: false`` and ``cards_by_memory``, the
 cards its peak of live bytes would fill.
 
-``--mesh pod | multipod | both`` sizes a cell on the reference's (16, 16)
-or (2, 16, 16) mesh (``launch/mesh.py``, a description: the port has no
-pod) under the reference's rules (``cell_rules``): its meta parameters,
+``--mesh pod | multipod | both`` runs a cell on the reference's (16, 16)
+or (2, 16, 16) mesh (``launch/mesh.py``) under the reference's rules
+(``cell_rules``). Every cell gets ``per_device``: its meta parameters,
 optimizer state, caches and batch, each mapped with its logical axes
-through ``sharding.tree_shardings``, give ``per_device``: the bytes of
-one device's shards, the leaves placed whole on every device, the rules
-that depart from ``DEFAULT_RULES``, and whether the static bytes fit one
-card. Such a cell traces no step: counting a step per device (its FLOPs
-and collective bytes) is the next item of ROADMAP's Queue 1, so its
-``roofline`` is null.
+through ``sharding.tree_shardings``, give the bytes of one device's
+shards, the leaves placed whole on every device, the rules that depart
+from ``DEFAULT_RULES``, and whether the static bytes fit one card. A
+prefill or decode cell of the attention family is also counted per
+device (``count_mesh_cell``): a fake process group of the mesh's ranks
+(rank 0's view; nothing is sent) holds a ``DeviceMesh`` of the
+production shape, ``mesh_cell`` places the meta tensors on it as
+DTensors and runs the step, and ``cost_analysis`` counts the local ops
+and the collectives: ``flops``, ``op_bytes``, ``min_bytes``,
+``peak_live_bytes`` and ``launches`` of one device, ``collectives``
+(``ops``, ``bytes_by_op``, ``wire_bytes_per_dev``) and a ``roofline`` of
+``mesh.size`` chips. Training cells and the recurrent families are not
+run over ranks yet: their ``roofline`` is null (``COUNTED_ON_A_MESH``).
 
 ``mesh_cell`` is the counterpart of the reference's ``build_cell`` with
 its ``in_shardings`` for the serving cells of the attention family: it
 places the parameters, the cache and the batch as DTensors over a
 ``DeviceMesh`` of the process group's ranks by ``cell_rules`` and runs
-the prefill or decode step over them (gloo ranks on the CPU, or NCCL).
+the prefill or decode step over them (gloo ranks on the CPU, NCCL, or
+the fake group of ``count_mesh_cell``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -68,9 +77,14 @@ MESH = "h100x1"
 # the reference's production meshes, sized per device
 POD_MESHES = ("pod", "multipod")
 META = torch.device("meta")
-COUNTED_ON_A_MESH = ("bytes per device under the rules; per-device FLOPs "
-                     "and collective bytes wait for the step over a mesh to "
-                     "be counted (ROADMAP, Queue 1)")
+# what a pod cell that runs no step over ranks is counted by
+COUNTED_ON_A_MESH = ("bytes per device under the rules; the step is not run "
+                     "over ranks yet, so per-device FLOPs and collective "
+                     "bytes wait: the recurrent families (ROADMAP, Queue 1, "
+                     "item 5) and training (item 6) over a mesh")
+# what a pod cell that runs its step over ranks is counted by
+COUNTED_PER_DEVICE = ("the step over DTensors on a fake group of the mesh's "
+                      "ranks, counted at rank 0 (count_mesh_cell)")
 
 # (seq_len, global_batch, kind)
 SHAPES = {
@@ -307,15 +321,17 @@ def count_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
 
 
 def roofline(cfg: ModelConfig, arch: str, shape: str, kind: str, batch: int,
-             seq: int, costs: ca.Costs) -> rl.Roofline:
-    """One card's roofline of counted ``costs``: the counted FLOPs, the
-    compulsory bytes, no wire bytes."""
+             seq: int, costs: ca.Costs, mesh: str = MESH, chips: int = 1
+             ) -> rl.Roofline:
+    """A device's roofline of counted ``costs`` over ``chips`` devices:
+    the counted FLOPs, the compulsory bytes and the wire bytes of one
+    device (none on one card)."""
     return rl.Roofline(
-        arch=arch, shape=shape, mesh=MESH, chips=1,
+        arch=arch, shape=shape, mesh=mesh, chips=chips,
         hlo_flops_per_dev=costs.flops, hlo_bytes_per_dev=costs.min_bytes,
-        wire_bytes_per_dev=0.0,
+        wire_bytes_per_dev=costs.wire_bytes,
         model_flops_total=rl.model_flops(cfg, kind, batch, seq),
-        collectives={})
+        collectives=dict(costs.collective_ops))
 
 
 class MeshCell(NamedTuple):
@@ -344,10 +360,13 @@ def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
     (B, S), the exact cache of ``max_seq`` positions made placed (or the
     PQ ``cache``'s codes filled in place); "decode": ``tokens`` and
     ``position`` (B,) against ``cache`` (full tensors, or a prefill cell's
-    placed cache). Decode runs eagerly (no graph over collectives).
+    placed cache). Decode runs eagerly (no graph over collectives). A PQ
+    cache sharded on "kv_seq" runs K8's sharded mode, one sharded on
+    "pq_m" (the rules' branch for heads that do not divide the model
+    axis) its sub-space mode.
 
-    Training, the recurrent families and a PQ cache sharded on "pq_m"
-    over several ranks raise (``sharding.NEXT_SLICE``)."""
+    Training and the recurrent families over several ranks raise
+    (``sharding.NEXT_SLICE``)."""
     if kind == "train" or cfg.block_type != "attn":
         raise NotImplementedError(
             f"mesh_cell: {cfg.name} {kind} over ranks; {shd.NEXT_SLICE}")
@@ -355,10 +374,6 @@ def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
         raise ValueError(f"kind {kind!r}: want prefill or decode")
     if mesh.device_mesh is None:
         raise ValueError(f"mesh_cell: {mesh} has no DeviceMesh")
-    if cfg.kv_pq and shd._axis_size(mesh, shd._resolve_axis(
-            mesh, rules, "pq_m")) > 1:
-        raise NotImplementedError(
-            f"mesh_cell: a PQ cache sharded on pq_m; {shd.NEXT_SLICE}")
     if kind == "decode" and (cache is None or position is None):
         raise ValueError("a decode cell needs a cache and positions")
     if kind == "prefill" and cfg.kv_pq and cache is None:
@@ -403,11 +418,112 @@ def serving_batch_axes(cfg: ModelConfig, kind: str) -> dict:
     return {"tokens": ("batch",), "position": ("batch",)}
 
 
+def runs_over_ranks(cfg: ModelConfig, kind: str) -> bool:
+    """Whether ``mesh_cell`` runs the cell's step over ranks (the serving
+    cells of the attention family)."""
+    return kind in ("prefill", "decode") and cfg.block_type == "attn"
+
+
+@contextlib.contextmanager
+def fake_group(mesh: mesh_lib.Mesh):
+    """``mesh`` with a ``DeviceMesh`` over a fake process group of its
+    ranks, this process rank 0 (torch's ``fake`` backend: collectives
+    return at once and send nothing), typed as a mesh of CUDA cards; the
+    group is destroyed on exit. A process group initialized already is
+    refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialized already: the "
+                           "count over a fake group of the mesh's ranks "
+                           "would replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dm = init_device_mesh("cpu", tuple(mesh.shape.values()),
+                              mesh_dim_names=tuple(mesh.shape))
+        # typed as the card's mesh, so that DTensor moves a shard from one
+        # dim to another with NCCL's all-to-all, not with the all-gather
+        # and chunk it takes over gloo (which has none); the fake backend
+        # serves both types, and the tensors are meta tensors
+        if isinstance(getattr(type(dm), "device_type", None), property):
+            dm._device_type = "cuda"
+        else:
+            dm.device_type = "cuda"
+        yield mesh_lib.Mesh(mesh.shape, dm)
+    finally:
+        dist.destroy_process_group()
+
+
+def count_mesh_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
+                    mesh: mesh_lib.Mesh, rules: dict) -> ca.Costs:
+    """One device's counts of a prefill or decode cell over ``mesh``: the
+    meta trees (``mesh_trees``) placed by ``rules`` through ``mesh_cell``
+    and its step counted under ``CostCounter`` (the local ops, the
+    collectives). ``mesh`` a description: over a fake group of its ranks
+    (``fake_group``, rank 0); a mesh with a ``DeviceMesh``: over that
+    group's. ``min_bytes`` is ``build_cell``'s compulsory rule on each
+    leaf's local shard: the local parameters, the live rows of the local
+    cache read and the new row written (a decode step; every position
+    live), the local inputs and outputs."""
+    if not runs_over_ranks(cfg, kind):
+        raise NotImplementedError(
+            f"count_mesh_cell: {cfg.name} {kind} over ranks; "
+            f"{shd.NEXT_SLICE}")
+    if mesh.device_mesh is None:
+        with fake_group(mesh) as placed:
+            return count_mesh_cell(cfg, kind, batch, seq, placed, rules)
+    trees = mesh_trees(cfg, kind, batch, seq)
+    cache = trees["cache"][0] if "cache" in trees else None
+    inputs = trees["batch"][0]
+    cell = mesh_cell(cfg, kind, mesh, rules, trees["param"][0],
+                     tokens=inputs["tokens"], cache=cache,
+                     position=inputs.get("position"), max_seq=seq)
+    # the batch placed before the count, as the one-card count's inputs
+    # are made before it
+    with torch.inference_mode():
+        axes = serving_batch_axes(cfg, kind)
+        placed = shd.shard_tree(inputs, {k: axes[k] for k in inputs}, mesh,
+                                rules)
+    live = seq if kind == "decode" else None
+    result, costs = ca.count(cell.step, live=(cell.params, cell.cache, placed),
+                             live_positions=live, **placed)
+    pbytes = ca.tree_bytes(cell.params)
+    if kind == "prefill":
+        # the parameters and prompt read, the logits and cache written
+        costs.min_bytes = pbytes + ca.tree_bytes(placed) + ca.tree_bytes(
+            result)
+    else:
+        local = type(cell.cache)(*(ca._local(t) for t in cell.cache))
+        costs.min_bytes = (pbytes + decode_cache_bytes(local, seq)
+                           + ca.tree_bytes(placed) + ca.tree_bytes(result[0]))
+    costs.static_bytes = ca.tree_bytes(cell.params, cell.cache)
+    return costs
+
+
+def size_pod_cell(cfg: ModelConfig, shape_name: str, mesh: str
+                  ) -> tuple[mesh_lib.Mesh, dict, dict]:
+    """A cell on the ``pod`` or ``multipod`` mesh sized per device: the
+    production mesh, the cell's rules on it, and the fields of its result
+    before any count (``status``, ``chips``, ``per_device``; ``counted``
+    and ``roofline`` as a cell that runs no step over ranks has them)."""
+    seq, batch, kind = SHAPES[shape_name]
+    m = mesh_lib.make_production_mesh(multi_pod=mesh == "multipod")
+    rules = cell_rules(cfg, shape_name, m)
+    return m, rules, dict(status="ok", chips=m.size,
+                          per_device=per_device(cfg, kind, batch, seq, m,
+                                                rules),
+                          counted=COUNTED_ON_A_MESH, roofline=None)
+
+
 def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
              kv_override: str = "auto", out_dir: str | None = None,
              verbose: bool = True) -> dict:
     """One cell: on ``h100x1`` counted on the meta device as one card;
-    on ``pod`` or ``multipod`` sized per device (``per_device``)."""
+    on ``pod`` or ``multipod`` sized per device (``size_pod_cell``) and,
+    where ``mesh_cell`` runs it, counted per device (``count_mesh_cell``;
+    a prefill_32k cell takes about a minute of one core)."""
     if mesh != MESH and mesh not in POD_MESHES:
         raise ValueError(f"mesh {mesh!r}: not one of {(MESH,) + POD_MESHES}")
     cfg = configs.get_config(arch)
@@ -429,18 +545,35 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} x {mesh}: {why}")
     elif mesh in POD_MESHES:
-        m = mesh_lib.make_production_mesh(multi_pod=mesh == "multipod")
-        pd = per_device(cfg, kind, batch, seq, m,
-                        cell_rules(cfg, shape_name, m))
-        result.update(status="ok", chips=m.size, per_device=pd,
-                      counted=COUNTED_ON_A_MESH, roofline=None)
+        m, rules, sized = size_pod_cell(cfg, shape_name, mesh)
+        result.update(sized)
+        pd = sized["per_device"]
+        note = ""
+        if runs_over_ranks(cfg, kind):
+            t0 = time.perf_counter()
+            costs = count_mesh_cell(cfg, kind, batch, seq, m, rules)
+            roof = roofline(cfg, arch, shape_name, kind, batch, seq, costs,
+                            mesh, m.size)
+            result.update(
+                counted=COUNTED_PER_DEVICE,
+                trace_s=round(time.perf_counter() - t0, 2),
+                **costs.to_dict(),
+                matmul_flops=costs.matmul_flops,
+                matmul_by_op={k: v for k, v in costs.flops_by_op.items()
+                              if k in ca.MATMUL_OPS},
+                collectives=costs.collectives(), roofline=roof.to_dict())
+            note = (f"; {costs.flops:.3e} FLOPs, "
+                    f"{costs.wire_bytes / 1e9:.2f} GB on the wire a device, "
+                    f"bottleneck={roof.bottleneck}, "
+                    f"t_bound={roof.t_bound * 1e3:.2f}ms, "
+                    f"mfu_bound={roof.mfu_bound:.3f}")
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} x {mesh}: OK (per device"
                   f" of {m.size}: params {pd['param_bytes'] / 1e9:.2f} GB, "
                   f"opt {pd['opt_bytes'] / 1e9:.2f} GB, cache "
                   f"{pd['cache_bytes'] / 1e9:.2f} GB, replicated "
                   f"{pd['replicated_bytes'] / 1e9:.2f} GB, fits="
-                  f"{pd['fits']}; rules {pd['rules']})")
+                  f"{pd['fits']}; rules {pd['rules']}{note})")
     else:
         t0 = time.perf_counter()
         costs = count_cell(cfg, kind, batch, seq)

@@ -8,7 +8,8 @@
 The reference divides XLA's per-device counts of a TPU pod's partitioned
 step by a v5e chip's peaks; here the counts are those of
 ``launch/cost_analysis.py`` over the aten ops of one step on one card,
-and the peaks the card's, named below. ``model_flops`` is the reference's
+or of one device's share of a step over a mesh (its local ops and its
+collectives), and the peaks the card's, named below. ``model_flops`` is the reference's
 formula, copied.
 
 Beside it, each of the port's kernels' own work as code (``kernel_cost``,
@@ -16,6 +17,8 @@ Beside it, each of the port's kernels' own work as code (``kernel_cost``,
 an ADC look-up and add per (query or group, row, sub-space) as int8 work;
 K2's distances and K8's value sums as f32 work outside the tensor cores.
 Never the operations of a kernel's formulation (a one-hot product's 16x).
+``WIRE_FACTOR`` gives the wire bytes of a collective's result bytes, the
+reference's ring factors, for the collective term of a mesh's cell.
 Nothing here touches a card: the numbers are arithmetic on shapes and
 counts (the dry-run's come from the meta device by design, never as a
 fallback from a card).
@@ -32,6 +35,14 @@ PEAK_INT8_OPS = 1979e12      # int8 OP/s on the tensor cores
 PEAK_F32_FLOPS = 67e12       # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s of device memory
 LINK_BW = 450e9              # bytes/s of NVLink, one direction
+# wire bytes a device sends per result byte of a collective, by kind: the
+# reference's ring factors (``repro/launch/hlo_analysis.py``), copied. A
+# reduce-scatter is charged on its result, the shard, as the reference
+# charges it. One link rate for every collective: every rank on NVLink,
+# though a 16-wide model axis of H100s spans two 8-card nodes (ROADMAP,
+# Queue 3)
+WIRE_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
 # the card's memory where no card is asked (the dry-run on the meta
 # device): the data sheet's 80 GB. On the card, ``card_memory_bytes``
 # reads the device's own total.
@@ -49,10 +60,11 @@ def card_memory_bytes(device=None) -> int:
 
 @dataclass
 class Roofline:
-    """The reference's fields, filled with one card's counts:
+    """The reference's fields, filled with one device's counts (one card,
+    or one device of a pod cell counted over a mesh):
     ``hlo_flops_per_dev`` the counted FLOPs, ``hlo_bytes_per_dev`` the
     compulsory bytes (``cost_analysis.Costs.min_bytes``),
-    ``wire_bytes_per_dev`` 0 on one card."""
+    ``wire_bytes_per_dev`` the collectives' wire bytes (0 on one card)."""
     arch: str
     shape: str
     mesh: str
@@ -260,6 +272,42 @@ def _k8_split(*, b, kv, g, m, head_dim, live, nsplit, q8=True,
     return nbytes, ops, (ops / seconds if seconds else PEAK_F32_FLOPS)
 
 
+def _k8_scores(*, b, kv, g, m, smax, live):
+    # K8's scoring pass over a rank's m sub-spaces (its sub-space mode):
+    # the live positions' K codes and the live rows' u8 LUTs read, each
+    # row's position read, the (B, KV, g, Smax) i32 sums written (0 at a
+    # dead position); an int8 look-up and add a (row, head, live
+    # position, sub-space)
+    rows = _rows(live, b)
+    total = sum(rows)
+    live_rows = sum(1 for n in rows if n > 0)
+    heads = kv * g
+    nbytes = (total * kv * (m // 2) + live_rows * heads * m * 16 + 4 * b
+              + b * heads * smax * 4)
+    return nbytes, heads * total * m * 2, PEAK_INT8_OPS
+
+
+def _k8_values(*, b, kv, g, m, head_dim, live, nsplit, cb_itemsize=2):
+    # K8's value pass over a rank's m sub-spaces (its head_dim slice): the
+    # live positions' i32 sums and V codes, the live rows' scale and
+    # summed bias, the codebook slice and the positions read; a head's
+    # (m_j, l_j, acc_j[hd]) f32 written for a live split, (m_j, l_j) for a
+    # dead one; a multiply and an add in f32 a value element
+    rows = _rows(live, b)
+    total = sum(rows)
+    live_rows = sum(1 for n in rows if n > 0)
+    live_splits = sum(-(-n // K8_SPLIT) for n in rows)
+    heads = kv * g
+    dsub = head_dim // m
+    nbytes = (total * heads * 4 + total * kv * (m // 2)
+              + 2 * 4 * live_rows * heads
+              + (kv * m * 16 * dsub * cb_itemsize if live_rows else 0)
+              + 4 * b
+              + heads * (live_splits * (head_dim + 2) * 4
+                         + (b * nsplit - live_splits) * 2 * 4))
+    return nbytes, heads * total * head_dim * 2, PEAK_F32_FLOPS
+
+
 def _k8_combine(*, b, kv, g, head_dim, nsplit, live_splits=None,
                 out_itemsize=2):
     # K8's combine pass over nsplit gathered splits, ``live_splits`` of
@@ -288,6 +336,8 @@ KERNEL_COSTS = {
     "pq_decode_attention": _k8,
     "pq_decode_split": _k8_split,
     "pq_decode_combine": _k8_combine,
+    "pq_decode_scores": _k8_scores,
+    "pq_decode_values": _k8_values,
 }
 
 

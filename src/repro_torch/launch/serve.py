@@ -23,7 +23,8 @@ device and prints its roofline on one H100 (``launch/dryrun.py``; no card
 needed, and none is touched), as the reference's lowers it for its TPU
 mesh. With ``--multi-pod`` it sizes the cell per device on the
 reference's (2, 16, 16) mesh instead, as the reference's launcher lowers
-its multipod cell.
+its multipod cell, and counts its step per device over a fake group of
+the 512 ranks (FLOPs, bytes, collective wire bytes, a roofline).
 """
 from __future__ import annotations
 
@@ -159,8 +160,8 @@ def main(argv=None) -> int:
                     help="count the --shape cell on the meta device and "
                     "print its roofline on one H100 instead of serving")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="with --dry-run: size the cell per device on the "
-                    "(2, 16, 16) mesh")
+                    help="with --dry-run: size and count the cell per device "
+                    "on the (2, 16, 16) mesh")
     ap.add_argument("--shape", default="decode_32k",
                     choices=list(dryrun.SHAPES))
     args = ap.parse_args(argv)

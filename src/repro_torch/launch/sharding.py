@@ -65,8 +65,8 @@ DEFAULT_RULES: dict[str, Any] = {
 }
 
 # what is not placed over several ranks yet, named where it raises
-NEXT_SLICE = ("ROADMAP.md, Queue 1: the recurrent families, training and "
-              "a PQ cache sharded on pq_m over several ranks")
+NEXT_SLICE = ("ROADMAP.md, Queue 1: the recurrent families (item 5) and "
+              "training (item 6) over several ranks")
 
 _ctx = threading.local()
 
@@ -323,11 +323,18 @@ def all_gather(t, dim: int, device_mesh, mesh_dim: int):
     return fc.wait_tensor(gather(t, dim, (device_mesh, mesh_dim)))
 
 
-def all_reduce(t, device_mesh, mesh_dim: int):
-    """The sum of the ranks' ``t`` along mesh dimension ``mesh_dim`` (one
-    all-reduce)."""
+def all_reduce(t, device_mesh, mesh_dim: int, op: str = "sum"):
+    """The sum (or ``op``: "max", ...) of the ranks' ``t`` along mesh
+    dimension ``mesh_dim`` (one all-reduce)."""
     import torch.distributed._functional_collectives as fc
-    return fc.wait_tensor(fc.all_reduce(t, "sum", (device_mesh, mesh_dim)))
+    return fc.wait_tensor(fc.all_reduce(t, op, (device_mesh, mesh_dim)))
+
+
+def shard_on(placements: Sequence, dim: int, mesh_dim: int) -> tuple:
+    """``placements`` with ``Shard(dim)`` on mesh dimension ``mesh_dim``."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(dim) if i == mesh_dim else p
+                 for i, p in enumerate(placements))
 
 
 def local_map(fn, out_placements, in_placements, *args):

@@ -22,6 +22,14 @@ write runs on the local shards (``launch.sharding.local_map``): only the
 rank whose positions hold the row writes it, in place, and nothing is
 gathered but the new rows over the heads. ``pq_decode_attention`` runs
 K8's sharded mode there (``_pq_decode_over_ranks``).
+
+Where the heads do not divide the model axis, the serving rules shard
+the PQ cache on its sub-spaces ("pq_m") instead, and the positions stay
+whole: each rank holds the codes and codebooks of M / n sub-spaces and
+the matching slice of every K/V row's head_dim, encodes and writes its
+own sub-spaces, and scores and decodes over them with K8's sub-space mode
+(``_pq_decode_over_subspaces``: one i32 all-reduce of the partial sums,
+the paper's ADC spread over ranks).
 """
 from __future__ import annotations
 
@@ -195,13 +203,33 @@ def _luts(qg: torch.Tensor, k_cb: torch.Tensor, quantize_q8: bool):
     return lut.contiguous(), None, None
 
 
-def rows_whole(cache: torch.Tensor) -> None:
+def rows_whole(cache: torch.Tensor, subspaces: bool = False) -> None:
     """A placed (B, Smax, KV, ·) cache must be sharded on its batch and
-    positions only (K8 over sub-spaces waits: ``NEXT_SLICE``)."""
-    if any(p.is_shard() and p.dim not in (0, 1) for p in cache.placements):
+    positions only; with ``subspaces`` (PQ codes), on its batch and either
+    its positions or its sub-spaces ("pq_m"), not both."""
+    dims = {p.dim for i, p in enumerate(cache.placements)
+            if p.is_shard() and cache.device_mesh.size(i) > 1}
+    bad = dims - ({0, 1, 3} if subspaces else {0, 1})
+    if bad or {1, 3} <= dims:
         raise NotImplementedError(
-            f"a cache at {cache.placements}: sharded past its batch and "
-            f"positions; {shd.NEXT_SLICE}")
+            f"a cache at {cache.placements}: sharded on its dims "
+            f"{sorted(dims)}; K8 takes its batch with its positions or its "
+            f"sub-spaces")
+
+
+def _subspace_dim(codes: torch.Tensor, cb) -> int | None:
+    """The mesh dimension that shards the placed codes' sub-spaces ("pq_m",
+    their last axis), or None; the codebooks ``cb`` (KV, M, 16, dsub), when
+    given, must hold the same sub-spaces (two a byte of the codes)."""
+    rows_whole(codes, subspaces=True)
+    offset, mdim = shd.shard_offset(codes, 3)
+    if mdim is None or cb is None:
+        return mdim
+    cb_offset, cb_dim = shd.shard_offset(cb, 1)
+    if cb_dim != mdim or cb_offset != 2 * offset:
+        raise ValueError(f"codes at {codes.placements} and codebooks at "
+                         f"{cb.placements} hold other sub-spaces")
+    return mdim
 
 
 def _pq_decode_over_ranks(q, k_codes, v_codes, k_cb, v_cb, position,
@@ -213,8 +241,13 @@ def _pq_decode_over_ranks(q, k_codes, v_codes, k_cb, v_cb, position,
     all-gathered over "model" in rank order (the collective this step
     adds) and each rank runs the combine pass over them. Where the
     positions are not sharded (one rank, or "kv_seq" replicated) it is
-    the one-rank call on the local rows."""
-    rows_whole(k_codes)
+    the one-rank call on the local rows; where the sub-spaces are, K8's
+    sub-space mode (``_pq_decode_over_subspaces``)."""
+    sdim = _subspace_dim(k_codes, k_cb)
+    if sdim is not None:
+        _subspace_dim(v_codes, v_cb)
+        return _pq_decode_over_subspaces(q, k_codes, v_codes, k_cb, v_cb,
+                                         position, sdim, quantize_q8)
     offset, mdim = shd.shard_offset(k_codes, 1)
     rows = shd.keep_shard(k_codes.placements, 0)
     whole = shd.replicate(k_codes)
@@ -239,6 +272,91 @@ def _pq_decode_over_ranks(q, k_codes, v_codes, k_cb, v_cb, position,
                          q, k_codes, v_codes, k_cb, v_cb, position)
 
 
+def _quantize_over_ranks(lut: torch.Tensor):
+    """``_quantize`` of a LUT whose sub-spaces are sharded over ranks, on a
+    rank's (B, KV, g, M_r, 16) slice: the same u8 entries, the scale of
+    the whole LUT (its largest range, an all-reduce MAX, exact) and the
+    summed bias of all M sub-spaces (the ranks' biases gathered and
+    summed as the one-rank sum is). A generator of ``subspace_rank``'s
+    kind: it yields its collectives."""
+    bias = torch.amin(lut, dim=-1)                           # (B, KV, g, M_r)
+    shifted = lut - bias[..., None]
+    maxval = yield "max", torch.amax(shifted, dim=(-2, -1))
+    scale = torch.clamp_min(maxval, 1e-20) / 255.0
+    table = torch.clamp(torch.round(shifted / scale[..., None, None]), 0,
+                        255).to(torch.uint8)
+    bias_sum = (yield "gather", bias.contiguous()).sum(-1)
+    return table.contiguous(), scale.float().contiguous(), \
+        bias_sum.float().contiguous()
+
+
+def subspace_rank(ql, kc, vc, kcb, vcb, pos, hd: int):
+    """One rank's part of K8's sub-space mode: ``ql`` (B, H, hd_r) its
+    head_dim slice of the queries, ``kc``/``vc`` (B, Smax, KV, M_r/2) and
+    ``kcb``/``vcb`` (KV, M_r, 16, dsub) its sub-spaces' codes and
+    codebooks, ``pos`` (B,) the positions, ``hd`` the whole head_dim. It
+    builds its sub-spaces' LUTs (over sqrt(hd)) and quantizes them with
+    the whole LUT's scale (``_quantize_over_ranks``), sums its LUT entries
+    a live position (``pq_decode_scores``), and runs the value pass over
+    the whole sums and its codebooks (``pq_decode_values``,
+    ``pq_decode_combine``): its (B, H, hd_r) slice of the output.
+
+    A generator: each collective it needs it yields as ``(op, tensor)``,
+    ``op`` one of "max" (an all-reduce MAX), "gather" (the ranks' tensors
+    concatenated along the last dim in rank order) and "sum" (an
+    all-reduce sum, of the i32 sums: exact), and is sent the result; it
+    returns the slice. ``_pq_decode_over_subspaces`` runs it with the
+    mesh's collectives (``_with_collectives``); the shards of one device
+    run in lockstep are the same computation."""
+    b, h, hdl = ql.shape
+    kv = kc.shape[2]
+    lut = _build_ip_lut(ql.reshape(b, kv, h // kv, hdl), kcb) / math.sqrt(hd)
+    table, scale, bias = yield from _quantize_over_ranks(lut)
+    pos = pos.to(torch.int32)
+    sums = yield "sum", pqk.pq_decode_scores(table, kc.contiguous(), pos)
+    work = pqk.pq_decode_values(sums, scale, bias, vc.contiguous(),
+                                vcb.contiguous(), pos)
+    return pqk.pq_decode_combine(work, out_dtype=ql.dtype)
+
+
+def _with_collectives(rank, collectives: dict):
+    """Run ``rank``, a generator of ``subspace_rank``'s kind, answering each
+    collective it yields with ``collectives[op](tensor)``; its result."""
+    try:
+        op, x = next(rank)
+        while True:
+            op, x = rank.send(collectives[op](x))
+    except StopIteration as done:
+        return done.value
+
+
+def _pq_decode_over_subspaces(q, k_codes, v_codes, k_cb, v_cb, position,
+                              sdim: int, quantize_q8: bool) -> torch.Tensor:
+    """K8's sub-space mode over a PQ cache sharded on "pq_m" along mesh
+    dimension ``sdim`` (the positions whole): each rank runs
+    ``subspace_rank`` on its head_dim slice of q and its sub-spaces, its
+    collectives over ``sdim``."""
+    if not quantize_q8:
+        raise NotImplementedError("K8's sub-space mode sums u8 LUTs; f32 "
+                                  "LUTs would sum in another order a rank")
+    hd = q.shape[-1]
+    dm = k_codes.device_mesh
+    rows = shd.keep_shard(k_codes.placements, 0)
+    sub = shd.shard_on(rows, 2, sdim)          # (B, H, hd): a head_dim slice
+    collectives = {
+        "max": lambda x: shd.all_reduce(x, dm, sdim, op="max"),
+        "gather": lambda x: shd.all_gather(x, x.dim() - 1, dm, sdim),
+        "sum": lambda x: shd.all_reduce(x, dm, sdim)}
+
+    def body(*local):
+        return _with_collectives(subspace_rank(*local, hd), collectives)
+
+    return shd.local_map(body, sub, (sub, k_codes.placements,
+                                     v_codes.placements, k_cb.placements,
+                                     v_cb.placements, rows),
+                         q, k_codes, v_codes, k_cb, v_cb, position)
+
+
 def _at(pos, like: torch.Tensor) -> torch.Tensor:
     """The scalar position as a 1-element index on the cache's device (a
     device tensor stays there: no host sync)."""
@@ -252,8 +370,12 @@ def _write_row(cache: torch.Tensor, row: torch.Tensor, pos, cb=None):
     the heads (an all-gather over "model" where they are sharded on KV
     heads, the codebooks likewise) and the rank whose positions hold
     ``pos`` writes them; the others rewrite their own row there (no host
-    sync, no branch on a value)."""
-    rows_whole(cache)
+    sync, no branch on a value). Codes sharded on their sub-spaces: each
+    rank encodes its head_dim slice of the rows under its own codebooks,
+    its sub-spaces' codes."""
+    sdim = _subspace_dim(cache, cb) if cb is not None else None
+    if sdim is None:
+        rows_whole(cache)
     offset, mdim = shd.shard_offset(cache, 1)
     rows = shd.keep_shard(cache.placements, 0)
     whole = shd.replicate(cache)
@@ -270,10 +392,13 @@ def _write_row(cache: torch.Tensor, row: torch.Tensor, pos, cb=None):
         return c.index_copy_(1, j, r)
 
     extra = () if cb is None else (cb,)
+    rowp, cbp = rows, whole
+    if sdim is not None:
+        rowp, cbp = shd.shard_on(rows, 2, sdim), cb.placements
     shd.local_map(body, cache.placements,
-                  (cache.placements, rows,
+                  (cache.placements, rowp,
                    whole if shd.is_placed(pos) else None)
-                  + (whole,) * len(extra), cache, row, pos, *extra)
+                  + (cbp,) * len(extra), cache, row, pos, *extra)
     return cache
 
 
@@ -283,12 +408,15 @@ def write_prompt(cache: torch.Tensor, x: torch.Tensor, cb=None):
     codes under the (KV, M, 16, dsub) codebooks ``cb``. Placed: each rank
     takes ``x`` whole over the heads (an all-gather over "model" where
     they are sharded) and writes (encodes) only the positions of its own
-    shard."""
+    shard; codes sharded on their sub-spaces: each rank encodes its
+    head_dim slice of ``x`` under its own codebooks."""
     s = x.shape[1]
     if not shd.is_placed(cache):
         cache[:, :s] = x if cb is None else encode_kv(x, cb)
         return cache
-    rows_whole(cache)
+    sdim = _subspace_dim(cache, cb) if cb is not None else None
+    if sdim is None:
+        rows_whole(cache)
     offset, _ = shd.shard_offset(cache, 1)
     rows = shd.keep_shard(cache.placements, 0)
     whole = shd.replicate(cache)
@@ -301,8 +429,11 @@ def write_prompt(cache: torch.Tensor, x: torch.Tensor, cb=None):
         return c
 
     extra = () if cb is None else (cb,)
+    xp, cbp = rows, whole
+    if sdim is not None:
+        xp, cbp = shd.shard_on(rows, 3, sdim), cb.placements
     shd.local_map(body, cache.placements,
-                  (cache.placements, rows) + (whole,) * len(extra),
+                  (cache.placements, xp) + (cbp,) * len(extra),
                   cache, x, *extra)
     return cache
 

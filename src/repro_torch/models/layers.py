@@ -208,15 +208,69 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., D) times w (D, H, hd) -> (..., H, hd), the reference's
     ``einsum("bsd,dhk->bshk")``, as one matmul over w's trailing dims
     flattened (over a mesh, DTensor takes a matmul's rule from its cache;
-    an einsum it derives anew through its decomposition at every call)."""
+    an einsum it derives anew through its decomposition at every call).
+    A placed w sharded on its head_dim (heads that do not divide the
+    model axis) is multiplied on each rank's slice (``_on_head_dim``):
+    the flattened trailing dims would not keep that sharding, and DTensor
+    would gather the weight."""
+    mdim = _head_dim_shard(w, 2)
+    if mdim is not None:
+        return _on_head_dim(project, x, w, mdim, 2, False)
     out = x @ w.reshape(w.shape[0], -1)
+    if shd.is_placed(out):
+        # DTensor may shard the flattened (H, hd) columns over a mesh dim
+        # whose size does not divide the heads (the KV projection of 8
+        # heads on a 16-wide axis), which the view to (H, hd) cannot
+        # keep: there they are taken whole
+        dm, last = out.device_mesh, out.ndim - 1
+        split = [i for i, p in enumerate(out.placements)
+                 if p.is_shard(last) and w.shape[1] % dm.size(i)]
+        if split:
+            from torch.distributed.tensor import Replicate
+            out = out.redistribute(placements=tuple(
+                Replicate() if i in split else p
+                for i, p in enumerate(out.placements)))
     return out.view(*out.shape[:-1], *w.shape[1:])
 
 
 def unproject(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y (..., H, hd) times w (H, hd, D) -> (..., D), the reference's
-    ``einsum("bshk,hkd->bsd")``, as one matmul (``project``'s reason)."""
+    ``einsum("bshk,hkd->bsd")``, as one matmul (``project``'s reason). A
+    placed w sharded on its head_dim contracts each rank's slice: a
+    partial sum over that mesh dimension, which the caller's
+    ``constrain`` all-reduces."""
+    mdim = _head_dim_shard(w, 1)
+    if mdim is not None:
+        return _on_head_dim(unproject, y, w, mdim, 1, True)
     return y.reshape(*y.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+
+
+def _head_dim_shard(w, dim: int) -> int | None:
+    """The mesh dimension of more than one rank that shards the placed
+    ``w``'s head_dim (its dim ``dim``), or None."""
+    if not shd.is_placed(w):
+        return None
+    return shd.shard_offset(w, dim)[1]
+
+
+def _on_head_dim(fn, x, w, mdim: int, wdim: int, contracts: bool):
+    """``fn(x, w)`` on each rank's head_dim slice along mesh dimension
+    ``mdim``: w whole but for its head_dim (``wdim``); x keeps its batch
+    shards and is whole elsewhere, or, where ``fn`` ``contracts`` x's
+    (..., H, hd), sliced on its head_dim. The output is sharded on its
+    head_dim (the last dim) or, where ``contracts``, a partial sum over
+    ``mdim``."""
+    from torch.distributed.tensor import Partial, Replicate
+    lead = x.ndim - (2 if contracts else 1)   # the dims fn does not read
+    xp = tuple(p if p.is_shard() and p.dim < lead and i != mdim
+               else Replicate() for i, p in enumerate(x.placements))
+    wp = shd.shard_on((Replicate(),) * w.device_mesh.ndim, wdim, mdim)
+    if contracts:
+        xp = shd.shard_on(xp, x.ndim - 1, mdim)
+        out = tuple(Partial() if i == mdim else p for i, p in enumerate(xp))
+    else:
+        out = shd.shard_on(xp, x.ndim, mdim)
+    return shd.local_map(fn, out, (xp, wp), x, w)
 
 
 def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig,

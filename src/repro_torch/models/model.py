@@ -171,12 +171,24 @@ def _embed(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
     non-zero, an all-reduce over "model" sums them), where indexing would
     gather the table. The lookup is constrained at once, so that over a
     mesh what follows (the overwrite, the residual adds) meets placed
-    rows, not partial sums."""
-    h = constrain(F.embedding(tokens.long(), params.embedding),
-                  "batch", "seq", "embed")
+    rows, not partial sums (``_lookup``)."""
+    h = constrain(_lookup(tokens, params.embedding), "batch", "seq", "embed")
     if cfg.frontend != "none" and frontend_embeds is not None:
         h[:, :frontend_embeds.shape[1]] = frontend_embeds.to(h.dtype)
     return h
+
+
+def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding`` of ``tokens`` in ``table``. Over a mesh whose rules
+    shard the table's embed dim too (FSDP serving), the table is first
+    taken whole on that dim (an all-gather of each rank's vocab rows, as
+    an FSDP weight is gathered): DTensor's rule for a lookup in a table
+    sharded on both dims builds its vocab mask for other rows than the
+    ones it looks up."""
+    if shd.is_placed(table) and any(p.is_shard(1) for p in table.placements):
+        table = table.redistribute(
+            placements=shd.keep_shard(table.placements, 0))
+    return F.embedding(tokens.long(), table)
 
 
 def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -229,8 +241,7 @@ def decode_step(params: ll.Params, cache, tokens: torch.Tensor,
 
     Returns (logits (B, Vpad), cache), the cache updated in place.
     """
-    h = F.embedding(tokens.long(), params.embedding)          # (B, D)
-    h = constrain(h, "batch", "embed")
+    h = constrain(_lookup(tokens, params.embedding), "batch", "embed")
     if cfg.block_type == "attn":
         h, cache = tf.attn_stack_decode(params.stack, h, cfg, cache, position)
     elif cfg.block_type == "mamba2":

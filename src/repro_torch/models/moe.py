@@ -63,11 +63,18 @@ def moe_specs(cfg: ModelConfig) -> dict:
 
 def _expert_ffn(p, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """buf: (E, G, C, D) -> (E, G, C, D), one batched product an expert's
-    weights (the reference's (G, E, C, D) einsums, G x C flattened)."""
+    weights (the reference's (G, E, C, D) einsums, G x C flattened).
+
+    The activation is taken out of place: over a mesh whose rules shard
+    the experts' "embed" (FSDP serving), the first product contracts a
+    sharded dimension and is a partial sum, which DTensor reduces before
+    the nonlinearity (as XLA does for the reference) and an in-place
+    activation cannot take. The gate product is freed as the activation
+    is made, so the peak holds two buffers, as the in-place form's."""
     e, g, cap, d = buf.shape
     xb = buf.reshape(e, g * cap, d)
     if cfg.mlp_type == "swiglu":
-        h = F.silu(torch.bmm(xb, p.wi_gate), inplace=True)
+        h = F.silu(torch.bmm(xb, p.wi_gate))
         h.mul_(torch.bmm(xb, p.wi_up))
     elif cfg.mlp_type == "relu2":
         h = torch.square(F.relu(torch.bmm(xb, p.wi)))
@@ -254,7 +261,11 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     tg = t // g
     xg = constrain(x.reshape(g, tg, d), "batch", None, None)
 
-    logits = (xg @ p.router).float()
+    # the router's logits pinned to the groups' placement: over a mesh
+    # whose rules shard the router's embed dim (FSDP serving), DTensor may
+    # otherwise leave the groups sharded over "model" too, where each rank
+    # routes its own batch rows whole
+    logits = constrain((xg @ p.router).float(), "batch", None, None)
     if cfg.router_act == "sigmoid":                          # llama4-style
         gates_all = torch.sigmoid(logits)
     else:

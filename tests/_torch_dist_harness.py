@@ -78,6 +78,11 @@ MESH_ARCHS = ("qwen3-1.7b", "qwen1.5-32b", "nemotron-4-15b", "starcoder2-15b",
 # the archs whose cells run on both meshes; each other arch's on one, in
 # turn (the mesh of its index's parity in MESH_ARCHS)
 BOTH_MESHES = ("qwen3-1.7b", "dbrx-132b")
+# a smoke variant whose 6 heads do not divide the (1, 4) mesh's model axis
+# (the rules' head_dim and pq_m branch; qk-norm, RoPE and g = 3 over a
+# sharded head_dim), and the MoE arch held under FSDP serving rules
+HEAD_DIM_ARCH, HEAD_DIM_VARIANT = "qwen3-1.7b", {"n_heads": 6}
+FSDP_ARCH = "dbrx-132b"
 CELL_B, CELL_PROMPT, CELL_SMAX, CELL_STEPS = 4, 64, 1024, 4
 CALIB_TOKENS = 32
 TOL, LOGIT_TOL = 1e-5, 1e-4     # tests/test_torch_lm.py's
@@ -97,14 +102,22 @@ def _close(got, want, tol, what):
 
 class _Recorder:
     """Records the K/V rows the PQ encoder is given with the codes it
-    returns, and the float and u8 LUTs K8 is given (``kvcache.encode_kv``
-    and ``kvcache._quantize`` wrapped), while ``on``."""
+    returns, and the float and u8 LUTs K8 is given (``kvcache.encode_kv``,
+    ``kvcache._quantize`` and, in K8's sub-space mode, a rank's slice of
+    them, ``kvcache._quantize_over_ranks``, wrapped), while ``on``."""
 
     def __init__(self):
         from repro_torch.models import kvcache as kvc
         self.kvc, self.on = kvc, False
         self.encoded, self.tables = [], []
         real_encode, real_quantize = kvc.encode_kv, kvc._quantize
+        real_over = kvc._quantize_over_ranks
+
+        def over(lut):
+            out = yield from real_over(lut)
+            if self.on:
+                self.tables.append((lut.clone(), out[0].clone()))
+            return out
 
         def encode(x, cb):
             codes = real_encode(x, cb)
@@ -120,6 +133,7 @@ class _Recorder:
 
         encode.__wrapped__ = real_encode
         kvc.encode_kv, kvc._quantize = encode, quantize
+        kvc._quantize_over_ranks = over
 
     def take(self):
         out = (self.encoded, self.tables)
@@ -127,14 +141,15 @@ class _Recorder:
         return out
 
 
-def _meshless(arch: str, pq: bool, rec: _Recorder) -> dict:
+def _meshless(arch: str, pq: bool, rec: _Recorder, **over) -> dict:
     """The meshless port's prefill and CELL_STEPS greedy decode steps (the
     tokens each step feeds); a PQ cell with its calibrated codebooks in
-    bf16, as the served configuration holds them."""
+    bf16, as the served configuration holds them. ``over``: fields of the
+    smoke config replaced (a variant)."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as ml
-    cfg = configs.get_smoke_config(arch).replace(kv_pq=pq)
+    cfg = configs.get_smoke_config(arch).replace(kv_pq=pq, **over)
     params = ml.init_lm(cfg, generator=torch.Generator().manual_seed(0),
                         device="cpu")
     rng = np.random.default_rng(1)
@@ -211,14 +226,15 @@ def pq_reading(got, want) -> float:
     return float(((got - want).abs() / row).max())
 
 
-def _lut_ties(got: list, want: list, rows: slice, what: str) -> None:
-    """The u8 LUTs of this rank's batch rows against the meshless ones:
-    where an entry differs, the float LUTs must agree (a rounding tie of
-    the quantizer fed inputs equal within float tolerance, not a
-    different input)."""
+def _lut_ties(got: list, want: list, rows: slice, what: str,
+              subs: slice = slice(None)) -> None:
+    """The u8 LUTs of this rank's batch rows (and sub-spaces ``subs``, K8's
+    sub-space mode) against the meshless ones: where an entry differs,
+    the float LUTs must agree (a rounding tie of the quantizer fed inputs
+    equal within float tolerance, not a different input)."""
     assert len(got) == len(want), what
     for (lg, tg), (lw, tw) in zip(got, want):
-        lw, tw = lw[rows], tw[rows]
+        lw, tw = lw[rows][..., subs, :], tw[rows][..., subs, :]
         if not torch.equal(tg, tw):
             _close(lg, lw, TOL, f"{what}: the float LUT under a u8 tie")
 
@@ -253,22 +269,32 @@ def _prompt_codes(got, want, encoded, pqc, what: str) -> bool:
     return differ
 
 
-def _near_codes(got: list, want: list, rows: slice, pqc, what: str) -> int:
-    """A decode step's new K/V rows on this rank's batch rows against the
-    meshless step's: the mesh's codes are its own rows' nearest centroids
-    (``encode_kv``), and where a sub-space's code differs from the
-    meshless one, the mesh's centroid lies within 2e of the nearest to
-    the meshless row (e the two rows' distance on that sub-space, the
-    triangle inequality; 1e-4 of slack for the f32 distances). Layer 0's
-    rows, fed the same token, agree within TOL. Returns the sub-spaces
-    whose codes differ."""
+def _sub_slices(subs: slice, dsub: int) -> tuple[slice, slice]:
+    """The head_dim and code-byte slices of the sub-spaces ``subs``."""
+    if subs.start is None:
+        return subs, subs
+    return (slice(subs.start * dsub, subs.stop * dsub),
+            slice(subs.start // 2, subs.stop // 2))
+
+
+def _near_codes(got: list, want: list, rows: slice, pqc, what: str,
+                subs: slice = slice(None)) -> int:
+    """A decode step's new K/V rows on this rank's batch rows (and
+    sub-spaces ``subs``, K8's sub-space mode) against the meshless step's:
+    the mesh's codes are its own rows' nearest centroids (``encode_kv``),
+    and where a sub-space's code differs from the meshless one, the
+    mesh's centroid lies within 2e of the nearest to the meshless row (e
+    the two rows' distance on that sub-space, the triangle inequality;
+    1e-4 of slack for the f32 distances). Layer 0's rows, fed the same
+    token, agree within TOL. Returns the sub-spaces whose codes differ."""
     from repro_torch.kernels import pq_decode_kernel as pqk
     from repro_torch.models import kvcache as kvc
     assert len(got) == len(want), what
     differ = 0
+    dims, nbytes = _sub_slices(subs, pqc.k_cb.shape[-1])
     for j, ((xg, cg), (xw, cw)) in enumerate(zip(got, want)):
-        cb = (pqc.k_cb, pqc.v_cb)[j % 2][j // 2]
-        xw, cw = xw[rows], cw[rows]
+        cb = (pqc.k_cb, pqc.v_cb)[j % 2][j // 2][:, subs]
+        xw, cw = xw[rows][..., dims], cw[rows][..., nbytes]
         assert torch.equal(kvc.encode_kv.__wrapped__(xg, cb), cg), what
         if j < 2:
             _close(xg, xw, TOL, f"{what}: layer 0's new K/V rows")
@@ -288,7 +314,8 @@ def _near_codes(got: list, want: list, rows: slice, pqc, what: str) -> int:
 
 
 def _pq_steps(ref: dict, got, full, recorded: list, rows: slice,
-              rec: _Recorder, what: str) -> tuple[float, int]:
+              rec: _Recorder, what: str, subs: slice = slice(None)
+              ) -> tuple[float, int]:
     """A PQ cell's decode steps, each against the meshless step fed the
     mesh's codes: the meshless ``decode_step`` from the mesh's gathered
     cache ``got`` (its positions past the step are dead, and the step
@@ -320,12 +347,13 @@ def _pq_steps(ref: dict, got, full, recorded: list, rows: slice,
             f"{step}: logits {reading} of the row's largest |logit| from the "
             f"meshless step fed the mesh's codes (limit {PQ_LOGIT_RTOL})")
         worst = max(worst, reading)
-        _lut_ties(tables[:1], w_tables[:1], rows, f"{step}: layer 0")
-        differ += _near_codes(encoded, w_encoded, rows, pqc, step)
+        _lut_ties(tables[:1], w_tables[:1], rows, f"{step}: layer 0", subs)
+        differ += _near_codes(encoded, w_encoded, rows, pqc, step, subs)
         at = CELL_PROMPT + i
+        nbytes = _sub_slices(subs, pqc.k_cb.shape[-1])[1]
         for j, (_, codes) in enumerate(encoded):
             cache = (got.k_codes, got.v_codes)[j % 2][j // 2]
-            assert torch.equal(cache[rows, at], codes), (
+            assert torch.equal(cache[rows, at][..., nbytes], codes), (
                 f"{step}: layer {j // 2}'s codes not at position {at}")
     past = CELL_PROMPT + CELL_STEPS
     assert not got.k_codes[:, :, past:].any(), what
@@ -358,16 +386,31 @@ def _placements_and_bytes(cell, cfg, mesh, rules, kind: str, what: str):
         assert total == want[f"{role}_bytes"], (what, role, total, want)
 
 
-def _cell(ref: dict, mesh, rec: _Recorder, what: str) -> str:
-    """The prefill and decode cells over ``mesh`` against the meshless
-    ``ref``: the prefill's logits within LOGIT_TOL; an exact cell's decode
-    logits within LOGIT_TOL and its cache within TOL; a PQ cell's prompt
+def _subspaces(cfg, mesh, rules) -> slice:
+    """This rank's sub-spaces where ``rules`` shard a PQ cache on them
+    ("pq_m"), else all."""
+    from repro_torch.launch import sharding as shd
+    axis = shd._resolve_axis(mesh, rules, "pq_m")
+    n = shd._axis_size(mesh, axis)
+    if not cfg.kv_pq or n == 1:
+        return slice(None)
+    r = mesh.device_mesh.get_local_rank(axis)
+    m = cfg.resolved_kv_pq_m // n
+    return slice(r * m, (r + 1) * m)
+
+
+def _cell(ref: dict, mesh, rec: _Recorder, what: str, rules=None,
+          logit_tol: float = LOGIT_TOL) -> str:
+    """The prefill and decode cells over ``mesh`` (under ``rules``, default
+    the reference's ``cell_rules``) against the meshless ``ref``: the
+    prefill's logits within ``logit_tol``; an exact cell's decode logits
+    within ``logit_tol`` and its cache within TOL; a PQ cell's prompt
     codes up to encoder ties and its decode steps by ``_pq_steps``;
     placements and bytes. Returns a note of a PQ cell's readings."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import sharding as shd
     cfg, params = ref["cfg"], ref["params"]
-    rules = dryrun.cell_rules(cfg, "prefill_32k", mesh)
+    rules = rules or dryrun.cell_rules(cfg, "prefill_32k", mesh)
     di = mesh.device_mesh.get_coordinate()[0]
     bl = CELL_B // mesh.shape["data"]
     rows = slice(di * bl, (di + 1) * bl)
@@ -381,7 +424,7 @@ def _cell(ref: dict, mesh, rec: _Recorder, what: str) -> str:
         _placements_and_bytes(cell, cfg, mesh, rules, "prefill", what)
         logits, cache = cell.step()
         rec.take()
-        _close(logits.full_tensor(), ref["prefill"], LOGIT_TOL,
+        _close(logits.full_tensor(), ref["prefill"], logit_tol,
                f"{what}: prefill")
         prompt_tie = pq and _prompt_codes(
             shd.gather_tree(cache), ref["prompt"], ref["prompt_encoded"],
@@ -404,14 +447,15 @@ def _cell(ref: dict, mesh, rec: _Recorder, what: str) -> str:
     got = shd.gather_tree(dc.cache)
     if not pq:
         for i in range(CELL_STEPS):
-            _close(full[i], ref["logits"][i], LOGIT_TOL,
+            _close(full[i], ref["logits"][i], logit_tol,
                    f"{what}: decode step {i}")
         _close(got.k, ref["cache"].k, TOL, f"{what}: k cache")
         _close(got.v, ref["cache"].v, TOL, f"{what}: v cache")
         return ""
     assert torch.equal(got.k_cb, ref["pqc"].k_cb) and \
         torch.equal(got.v_cb, ref["pqc"].v_cb), what
-    worst, differ = _pq_steps(ref, got, full, recorded, rows, rec, what)
+    worst, differ = _pq_steps(ref, got, full, recorded, rows, rec, what,
+                              _subspaces(cfg, mesh, rules))
     return (f"{what}: logits {worst:.3e} of the row's largest |logit| from "
             f"the meshless steps fed the mesh's codes; {differ} new codes "
             f"differ on rank {dist.get_rank()}"
@@ -541,7 +585,13 @@ def mesh_cells_body() -> None:
       ``_dispatch`` no collective, ``_combine`` one all-reduce;
     - K8's plain sharded mode equals ``pq_decode_plain(split=256)`` bit
       for bit;
-    - a training cell and a recurrent arch raise.
+    - a training cell and a recurrent arch raise;
+    - a qwen3-smoke variant of 6 heads on (1, 4) (HEAD_DIM_VARIANT: the
+      rules shard head_dim, and a PQ cache's sub-spaces, K8's sub-space
+      mode), exact and PQ, held as above (a PQ cell's LUTs and codes on
+      this rank's sub-spaces);
+    - dbrx-smoke on (2, 2) under rules that keep "embed" on "data" (the
+      pod's FSDP serving), exact and PQ, held as above.
 
     Rank 0 prints each PQ cell's largest logit reading."""
     from repro_torch import configs
@@ -578,17 +628,29 @@ def mesh_cells_body() -> None:
             assert "ROADMAP" in str(e), e
         else:
             raise AssertionError(f"mesh_cell took {c.name} {kind}")
-    # K8 over a PQ cache sharded on its sub-spaces waits too
-    pq_cfg = cfg.replace(kv_pq=True)
-    try:
-        dryrun.mesh_cell(pq_cfg, "decode", meshes[0],
-                         {**dryrun.cell_rules(pq_cfg, "decode_32k", meshes[0]),
-                          "pq_m": "model", "kv_seq": None}, params,
-                         tokens=torch.zeros((1,), dtype=torch.int32))
-    except NotImplementedError as e:
-        assert "pq_m" in str(e), e
-    else:
-        raise AssertionError("mesh_cell took a cache sharded on pq_m")
+    # heads that do not divide the model axis: the rules shard head_dim
+    # and, with a PQ cache, its sub-spaces (K8's sub-space mode)
+    for pq in (False, True):
+        ref = _meshless(HEAD_DIM_ARCH, pq, rec, **HEAD_DIM_VARIANT)
+        rules = dryrun.cell_rules(ref["cfg"], "decode_32k", meshes[1])
+        assert rules["head_dim"] == "model" and (
+            not pq or (rules["pq_m"], rules["kv_seq"]) == ("model", None)), \
+            rules
+        note = _cell(ref, meshes[1], rec, f"{HEAD_DIM_ARCH} "
+                     f"{ref['cfg'].n_heads} heads {'pq' if pq else 'exact'} "
+                     f"{tuple(meshes[1].shape.values())}")
+        if note:
+            notes.append(note)
+    # MoE under rules that keep "embed" on "data" (the pod's FSDP serving)
+    for pq in (False, True):
+        ref = _meshless(FSDP_ARCH, pq, rec)
+        rules = {**dryrun.cell_rules(ref["cfg"], "decode_32k", meshes[0]),
+                 "embed": "data"}
+        note = _cell(ref, meshes[0], rec, f"{FSDP_ARCH} embed on data "
+                     f"{'pq' if pq else 'exact'} "
+                     f"{tuple(meshes[0].shape.values())}", rules=rules)
+        if note:
+            notes.append(note)
     if dist.get_rank() == 0:
         for note in notes:
             print(note)

@@ -644,8 +644,9 @@ def test_k7_wrappers_check_shared_memory_before_launch(dev):
         bk.fastscan_blockmin(table, codes, tile_n=8)
     assert (sfk.launches, mfk.launches, bk.launches, mk.launches) == n0
     lib = _build.load_library()
-    # M; (tile_n, kc, M) or (D, tile_r, k); K8's (g, M, head_dim, q8)
-    shapes = {1: (16,), 3: (1024, 40, 16), 4: (2, 64, 128, 1)}
+    # M; K8's scoring pass's (g, M); (tile_n, kc, M) or (D, tile_r, k);
+    # K8's (g, M, head_dim, q8)
+    shapes = {1: (16,), 2: (2, 64), 3: (1024, 40, 16), 4: (2, 64, 128, 1)}
     for fn, nargs in _build.SMEM_FNS.items():
         assert 0 < getattr(lib, fn)(*shapes[nargs]) <= _build.SMEM_LIMIT
 
@@ -2021,6 +2022,63 @@ def test_k8_sharded_mode_at_ragged_shards_matches_plain(dev):
         _k8_close(got, plain, dtype)
         _k8_close(got, pqk.pq_decode(*args, chunk=1024, out_dtype=dtype),
                   dtype)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(K8_SHARDED_CASES)))
+def test_k8_subspace_mode_equals_one_rank_k8(dev, case, dtype, n):
+    """K8's sub-space mode over n shards of M / n sub-spaces (the u8 table
+    quantized whole, sliced): the shards' scoring passes summed on the
+    card equal the plain i32 sums bit for bit (0 at dead positions), and
+    scale x sums + bias equals the one-rank K8's live scores bit for bit;
+    each shard's value pass and the combine give its head_dim slice, the
+    slices concatenated within K8's tolerance of the one-rank K8 and of
+    the plain passes on the same inputs; one launch a pass a shard."""
+    b, smax, kv, g, m, dsub, positions = K8_SHARDED_CASES[case]
+    args = _k8_inputs(140 + case, dev, b=b, smax=smax, kv=kv, g=g, m=m,
+                      dsub=dsub, positions=positions, q8=True,
+                      cb_dtype=dtype, out_dtype=dtype)
+    table, scale, bias, k_codes, v_codes, v_cb, position = args
+    scores = torch.full((b, kv, g, smax), float("-inf"), device=dev)
+    one = pqk.pq_decode(*args, chunk=smax, out_dtype=dtype, scores=scores)
+    ml = m // n
+    subs = [slice(r * ml, (r + 1) * ml) for r in range(n)]
+
+    def codes(c, sl):
+        return c[..., sl.start // 2:sl.stop // 2].contiguous()
+
+    before = dict(pqk.launches_by)
+    sums = sum(pqk.pq_decode_scores(table[..., sl, :].contiguous(),
+                                    codes(k_codes, sl), position)
+               for sl in subs)
+    works = [pqk.pq_decode_values(sums, scale, bias, codes(v_codes, sl),
+                                  v_cb[:, sl].contiguous(), position)
+             for sl in subs]
+    got = torch.cat([pqk.pq_decode_combine(w, out_dtype=dtype)
+                     for w in works], dim=-1)
+    torch.cuda.synchronize()
+    after = pqk.launches_by
+    for name in ("pq_decode_scores", "pq_decode_values",
+                 "pq_decode_combine"):
+        assert after.get(name, 0) - before.get(name, 0) == n, name
+    assert torch.equal(sums, pqk.plain_scores(table, k_codes, position))
+    live = (torch.arange(smax, device=dev)[None]
+            <= position[:, None].long())[:, None, None].expand_as(scores)
+    got_scores = scale[..., None] * sums.float() + bias[..., None]
+    assert torch.equal(got_scores[live], scores[live])
+    _k8_close(got, one, dtype)
+    plain = torch.cat([pqk.plain_combine(pqk.plain_values(
+        sums, scale, bias, codes(v_codes, sl), v_cb[:, sl].contiguous(),
+        position), out_dtype=dtype) for sl in subs], dim=-1)
+    _k8_close(got, plain, dtype)
+
+
+def test_k8_scores_smem_mirror_equals_the_kernels_export(dev):
+    fn = _build.load_library().repro_pq_decode_scores_smem
+    for g in (1, 2, 7, 12):
+        for m in (2, 4, 8, 16, 32, 40, 64, 128):
+            assert fn(g, m) == pqk.scores_smem_bytes(g, m)
 
 
 def test_k8_combine_splits_smem_mirror_equals_the_kernels_export(dev):
