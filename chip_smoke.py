@@ -2936,12 +2936,16 @@ def k8_check(torch, args, out_dtype, chunk: int, what: str) -> float:
 
 def fresh_pq(torch, pq_cache):
     """``pq_cache`` with code tensors of its own: the attention family's
-    prefill fills a ``PQKVCache``'s codes in place (a hybrid's codebook
-    dict is only read)."""
+    prefill fills a ``PQKVCache``'s codes in place, and the hybrid's a
+    whole cache dict's codes and states (a dict of its codebooks alone is
+    only read)."""
     from repro_torch.models import kvcache as kvc
     if isinstance(pq_cache, kvc.PQKVCache):
         return pq_cache._replace(k_codes=torch.zeros_like(pq_cache.k_codes),
                                  v_codes=torch.zeros_like(pq_cache.v_codes))
+    if isinstance(pq_cache, dict) and "attn_k_codes" in pq_cache:
+        return {k: t if k.endswith("_cb") else torch.zeros_like(t)
+                for k, t in pq_cache.items()}
     return pq_cache
 
 
@@ -3377,7 +3381,7 @@ def zamba2_phase(torch, args) -> int:
     eager on both caches; K8 against its plain version at the hybrid's
     shapes; the SSD scan's device time. Returns K8's launches."""
     from repro_torch.kernels import pq_decode_kernel as pqk
-    from repro_torch.models import kvcache as kvc
+    from repro_torch.launch import serve
     from repro_torch.models import model as model_lib
     from repro_torch.models import ssm
     from repro_torch.models.decode_graph import DecodeGraph
@@ -3398,20 +3402,13 @@ def zamba2_phase(torch, args) -> int:
     # K/V, a group at a time, on 2 x 256 positions (calibrate_pq_cache's
     # sample); prefill(pq_cache=...) and graph replays
     log("zamba2: pq: the phase calibrates the hybrid's codebooks itself "
-        "(exact prefill, then kvcache.calibrate_kv_codebooks a group at a "
-        "time): serve_batch refuses a hybrid with kv_pq, as the reference's "
-        "does (ROADMAP Queue 3)")
+        "(serve.calibrate_hybrid_codebooks: an exact prefill, then k-means "
+        "a group at a time): serve_batch refuses a hybrid with kv_pq, as "
+        "the reference's does (ROADMAP Queue 3)")
     t0 = time.perf_counter()
-    _, exact = model_lib.prefill(params, prompts, exact_cfg,
-                                 max_seq=LM_MAX_SEQ)
-    gen_cpu = torch.Generator().manual_seed(args.seed)
-    cbs = {}
-    for name in ("attn_k", "attn_v"):
-        x = exact[name][:, :2, :256]
-        cbs[name + "_cb"] = torch.stack([kvc.calibrate_kv_codebooks(
-            gen_cpu, x[gi].reshape(2 * 256, kv, hd), m)
-            for gi in range(n_groups)]).to(torch.bfloat16)
-    del exact
+    cbs = serve.calibrate_hybrid_codebooks(
+        torch.Generator().manual_seed(args.seed), params, cfg,
+        prompts[:2, :256])
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
     zero_counts()
@@ -4220,6 +4217,11 @@ MOE_SHARD_RTOL = 2.0 ** -5
 # on the reference's production meshes
 MESH_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
               ("zamba2-2.7b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+# the recurrent archs' cells through mesh_cell, at full width with their
+# depth cut (zamba2 to its first two shared-attention groups) and rwkv6 at
+# the serving phase's rwkv_chunk
+MESH_RECURRENT = (("zamba2-2.7b", {"n_layers": 12}),
+                  ("rwkv6-3b", {"n_layers": 8, "rwkv_chunk": 32}))
 
 
 def free_port() -> int:
@@ -4348,7 +4350,11 @@ def mesh_cells(torch, params, cfg, prompts, pq, mesh, what: str):
                 f"{what}: decode step {i} of the cell differs: max "
                 f"|difference| {float((got.float() - want.float()).abs().max())}")
         tok = torch.argmax(want[:, :cfg.vocab], -1)
-    for name, a, c in zip(wcache._fields, dc.cache, wcache):
+    got = dryrun.cache_entries(dc.cache)
+    if set(got) != set(dryrun.cache_entries(wcache)):
+        raise AssertionError(f"{what}: the cell's cache has other tensors")
+    for name, c in dryrun.cache_entries(wcache).items():
+        a = got[name]
         if not shd.is_placed(a) or not torch.equal(a.full_tensor(), c):
             raise AssertionError(f"{what}: the cell's cache {name} differs")
     if not all(shd.is_placed(p) for p in dc.params.parameters()):
@@ -4356,7 +4362,8 @@ def mesh_cells(torch, params, cfg, prompts, pq, mesh, what: str):
     log(f"{what}: mesh_cell's prefill and {MESH_STEPS} eager decode steps "
         f"(parameters, cache and batch DTensors on the (1, 1) mesh, "
         f"placed in {t_place:.2f} s; cache at "
-        f"{tuple(dc.cache[0].placements)}) == the meshless steps bit for "
+        f"{tuple(next(iter(got.values())).placements)}) == the meshless "
+        f"steps bit for "
         f"bit (logits, every cache tensor); eager step "
         f"{float(np.median(t_plain[1:])):.3f} ms meshless, "
         f"{float(np.median(t_cell[1:])):.3f} ms through the cell (host "
@@ -4618,23 +4625,25 @@ def k8_subspaces(torch, args, cache, cfg) -> tuple[dict, dict]:
 
 
 def mesh_count(torch, mesh) -> None:
-    """qwen3-1.7b's exact and PQ decode cells at B LM_BATCH x LM_MAX_SEQ
-    counted on the meta device over the one-rank NCCL mesh
-    (``dryrun.count_mesh_cell``: DTensors on the card's ``DeviceMesh``)
-    against the one-card count (``count_cell``): matmul FLOPs, compulsory
-    bytes, peak of live bytes and K8 launches equal, no wire bytes, the
-    FLOPs within the placed cache write's index arithmetic (3 a layer)."""
+    """qwen3-1.7b's exact and PQ decode cells and zamba2-2.7b's PQ one
+    (its CONFIG's) at B LM_BATCH x LM_MAX_SEQ counted on the meta device
+    over the one-rank NCCL mesh (``dryrun.count_mesh_cell``: DTensors on
+    the card's ``DeviceMesh``) against the one-card count
+    (``count_cell``): matmul FLOPs, compulsory bytes, peak of live bytes
+    and K8 launches equal, no wire bytes, the FLOPs within the placed
+    cache writes' index arithmetic (3 a layer)."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
-    for pq in (False, True):
-        cfg = configs.get_config(LM_ARCH).replace(kv_pq=pq)
+    for arch, pq in ((LM_ARCH, False), (LM_ARCH, True),
+                     ("zamba2-2.7b", True)):
+        cfg = configs.get_config(arch).replace(kv_pq=pq)
         t0 = time.perf_counter()
         got = dryrun.count_mesh_cell(cfg, "decode", LM_BATCH, LM_MAX_SEQ,
                                      mesh, dryrun.cell_rules(
                                          cfg, "decode_32k", mesh))
         t1 = time.perf_counter()
         want = dryrun.count_cell(cfg, "decode", LM_BATCH, LM_MAX_SEQ)
-        what = f"mesh: count {'pq' if pq else 'exact'}"
+        what = f"mesh: count {arch} {'pq' if pq else 'exact'}"
         log(f"{what}: decode at B {LM_BATCH} x {LM_MAX_SEQ} over the (1, 1) "
             f"NCCL mesh in {t1 - t0:.2f} s: {got.flops:.0f} FLOPs "
             f"({got.matmul_flops:.0f} matmul), {got.min_bytes} compulsory B, "
@@ -4649,6 +4658,45 @@ def mesh_count(torch, mesh) -> None:
                 or not 0 <= got.flops - want.flops <= 3 * cfg.n_layers):
             raise AssertionError(f"{what}: the one-rank mesh count differs "
                                  "from the one-card count")
+
+
+def mesh_recurrent(torch, args, mesh) -> None:
+    """zamba2-2.7b and rwkv6-3b at full width, their depth cut to
+    MESH_RECURRENT's (logged as reductions), through ``mesh_cell`` under
+    the one-rank NCCL mesh (``mesh_cells``): the prefill and MESH_STEPS
+    eager decode steps bit for bit the meshless ones (logits, every state
+    and cache tensor), zamba2 with its exact shared-attention cache and
+    with its PQ one (codebooks from ``serve.calibrate_hybrid_codebooks``
+    on 2 x 256 prompt positions), K8 launched once a shared-attention
+    group a PQ step, printed on a ``mesh:`` line."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    for arch, cut in MESH_RECURRENT:
+        cfg, params, prompts = full_model(torch, args, arch, **cut)
+        runs = [(cfg.replace(kv_pq=False), None)]
+        if cfg.block_type == "mamba2":
+            pq_cfg = cfg.replace(kv_pq=True)
+            cache = model_lib.init_cache(pq_cfg, LM_BATCH, LM_MAX_SEQ)
+            cache.update(serve.calibrate_hybrid_codebooks(
+                torch.Generator().manual_seed(args.seed), params, cfg,
+                prompts[:2, :256]))
+            runs.append((pq_cfg, cache))
+        for c, pq in runs:
+            kind = ("pq " if pq else "exact ") if c.shared_attn_every else ""
+            what = f"mesh: {arch} {kind}cell"
+            k8, _ = mesh_cells(torch, params, c, prompts, pq, mesh, what)
+            if pq is None:
+                continue
+            groups = c.n_layers // c.shared_attn_every
+            log(f"mesh: K8 launches on {arch}'s PQ cell's {MESH_STEPS} "
+                f"decode steps: {sum(k8)} ({k8}; {groups} shared-attention "
+                f"groups a step)")
+            if any(n != groups for n in k8):
+                raise AssertionError(f"{what}: K8 launches a step {k8}, want "
+                                     f"{groups} each")
+        del params, prompts, runs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def moe_shards(torch, args) -> None:
@@ -4819,6 +4867,7 @@ def mesh_phase(torch, args) -> tuple[dict, dict]:
         del params, pqc, prompts, pq_cache
         gc.collect()
         torch.cuda.empty_cache()
+        mesh_recurrent(torch, args, mesh)
 
         # one training step at the training phase's shapes, without and
         # with the mesh, under deterministic algorithms

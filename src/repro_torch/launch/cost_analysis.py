@@ -275,6 +275,9 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         if kind is None:
             raise NotImplementedError(f"the collective {func} has no "
                                       "counterpart in the reference's count")
+        if name == "all_to_all_single" and _one_peer(args[1]):
+            # one source a rank: a collective permute (``permute_tensor``)
+            kind = "collective-permute"
         nbytes = float(sum(read_bytes(t) for t in _flat(out)))
         c = self.costs
         c.collective_ops[kind] = c.collective_ops.get(kind, 0) + 1
@@ -425,6 +428,11 @@ def _muted_propagator():
             else:
                 delattr(prop, name)
     return restore
+
+
+def _one_peer(output_split_sizes) -> bool:
+    """Whether an all-to-all's output comes from one rank alone."""
+    return sum(1 for n in output_split_sizes if n) == 1
 
 
 def _group_size(func, args, kwargs) -> int:

@@ -29,7 +29,7 @@ optimizer state, caches and batch, each mapped with its logical axes
 through ``sharding.tree_shardings``, give the bytes of one device's
 shards, the leaves placed whole on every device, the rules that depart
 from ``DEFAULT_RULES``, and whether the static bytes fit one card. A
-prefill or decode cell of the attention family is also counted per
+prefill or decode cell of any family is also counted per
 device (``count_mesh_cell``): a fake process group of the mesh's ranks
 (rank 0's view; nothing is sent) holds a ``DeviceMesh`` of the
 production shape, ``mesh_cell`` places the meta tensors on it as
@@ -37,11 +37,11 @@ DTensors and runs the step, and ``cost_analysis`` counts the local ops
 and the collectives: ``flops``, ``op_bytes``, ``min_bytes``,
 ``peak_live_bytes`` and ``launches`` of one device, ``collectives``
 (``ops``, ``bytes_by_op``, ``wire_bytes_per_dev``) and a ``roofline`` of
-``mesh.size`` chips. Training cells and the recurrent families are not
-run over ranks yet: their ``roofline`` is null (``COUNTED_ON_A_MESH``).
+``mesh.size`` chips. Training cells are not run over ranks yet: their
+``roofline`` is null (``COUNTED_ON_A_MESH``).
 
 ``mesh_cell`` is the counterpart of the reference's ``build_cell`` with
-its ``in_shardings`` for the serving cells of the attention family: it
+its ``in_shardings`` for the serving cells: it
 places the parameters, the cache and the batch as DTensors over a
 ``DeviceMesh`` of the process group's ranks by ``cell_rules`` and runs
 the prefill or decode step over them (gloo ranks on the CPU, NCCL, or
@@ -80,8 +80,8 @@ META = torch.device("meta")
 # what a pod cell that runs no step over ranks is counted by
 COUNTED_ON_A_MESH = ("bytes per device under the rules; the step is not run "
                      "over ranks yet, so per-device FLOPs and collective "
-                     "bytes wait: the recurrent families (ROADMAP, Queue 1, "
-                     "item 5) and training (item 6) over a mesh")
+                     "bytes wait for training over a mesh (ROADMAP, Queue "
+                     "1, item 6)")
 # what a pod cell that runs its step over ranks is counted by
 COUNTED_PER_DEVICE = ("the step over DTensors on a fake group of the mesh's "
                       "ranks, counted at rank 0 (count_mesh_cell)")
@@ -232,7 +232,9 @@ _SEQ = ("k", "v", "k_codes", "v_codes", "attn_k", "attn_v", "attn_k_codes",
 _READ = ("k_cb", "v_cb", "attn_k_cb", "attn_v_cb")
 
 
-def _entries(cache) -> dict:
+def cache_entries(cache) -> dict:
+    """A cache's tensors by name (a ``NamedTuple``'s fields, a dict's
+    keys)."""
     return cache._asdict() if hasattr(cache, "_asdict") else dict(cache)
 
 
@@ -241,7 +243,7 @@ def decode_cache_bytes(cache, live: int) -> int:
     ``live`` rows read and the new row written, each codebook read, each
     recurrent state read and written."""
     total = 0
-    for name, t in _entries(cache).items():
+    for name, t in cache_entries(cache).items():
         nbytes = t.numel() * t.element_size()
         if name in _SEQ:
             row = nbytes // t.shape[2]
@@ -365,9 +367,11 @@ def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
     "pq_m" (the rules' branch for heads that do not divide the model
     axis) its sub-space mode.
 
-    Training and the recurrent families over several ranks raise
+    The recurrent families run their scans and state updates on each
+    rank's heads (``ssm_heads``); the hybrid's shared attention as the
+    attention family's. Training over several ranks raises
     (``sharding.NEXT_SLICE``)."""
-    if kind == "train" or cfg.block_type != "attn":
+    if kind == "train":
         raise NotImplementedError(
             f"mesh_cell: {cfg.name} {kind} over ranks; {shd.NEXT_SLICE}")
     if kind not in ("prefill", "decode"):
@@ -418,10 +422,10 @@ def serving_batch_axes(cfg: ModelConfig, kind: str) -> dict:
     return {"tokens": ("batch",), "position": ("batch",)}
 
 
-def runs_over_ranks(cfg: ModelConfig, kind: str) -> bool:
-    """Whether ``mesh_cell`` runs the cell's step over ranks (the serving
-    cells of the attention family)."""
-    return kind in ("prefill", "decode") and cfg.block_type == "attn"
+def runs_over_ranks(kind: str) -> bool:
+    """Whether ``mesh_cell`` runs a cell of ``kind`` over ranks (the
+    serving cells, of every family)."""
+    return kind in ("prefill", "decode")
 
 
 @contextlib.contextmanager
@@ -467,7 +471,7 @@ def count_mesh_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
     leaf's local shard: the local parameters, the live rows of the local
     cache read and the new row written (a decode step; every position
     live), the local inputs and outputs."""
-    if not runs_over_ranks(cfg, kind):
+    if not runs_over_ranks(kind):
         raise NotImplementedError(
             f"count_mesh_cell: {cfg.name} {kind} over ranks; "
             f"{shd.NEXT_SLICE}")
@@ -495,7 +499,8 @@ def count_mesh_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
         costs.min_bytes = pbytes + ca.tree_bytes(placed) + ca.tree_bytes(
             result)
     else:
-        local = type(cell.cache)(*(ca._local(t) for t in cell.cache))
+        local = {k: ca._local(t)
+                 for k, t in cache_entries(cell.cache).items()}
         costs.min_bytes = (pbytes + decode_cache_bytes(local, seq)
                            + ca.tree_bytes(placed) + ca.tree_bytes(result[0]))
     costs.static_bytes = ca.tree_bytes(cell.params, cell.cache)
@@ -549,7 +554,7 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
         result.update(sized)
         pd = sized["per_device"]
         note = ""
-        if runs_over_ranks(cfg, kind):
+        if runs_over_ranks(kind):
             t0 = time.perf_counter()
             costs = count_mesh_cell(cfg, kind, batch, seq, m, rules)
             roof = roofline(cfg, arch, shape_name, kind, batch, seq, costs,

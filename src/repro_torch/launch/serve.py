@@ -74,6 +74,26 @@ def calibrate_pq_cache(generator: torch.Generator, params, cfg, batch: int,
                          k_cb.to(torch.bfloat16), v_cb.to(torch.bfloat16))
 
 
+def calibrate_hybrid_codebooks(generator: torch.Generator, params, cfg,
+                               tokens: torch.Tensor) -> dict:
+    """A hybrid's shared-attention PQ codebooks in bf16, ``{"attn_k_cb",
+    "attn_v_cb"}`` of (G, KV, M, 16, dsub): an exact prefill of ``tokens``
+    (B, S), then k-means per (group, KV head, sub-space) on its K/V, a
+    group at a time, seeded by ``generator`` (a CPU one). ``serve_batch``
+    calibrates none for a hybrid, as the reference's does not; the caller
+    hands them to ``prefill(pq_cache=...)``."""
+    _, exact = model_lib.prefill(params, tokens, cfg.replace(kv_pq=False),
+                                 max_seq=tokens.shape[1])
+    out = {}
+    for name in ("attn_k", "attn_v"):
+        x = exact[name]
+        g, b, s, kv, hd = x.shape
+        out[name + "_cb"] = torch.stack([kvc.calibrate_kv_codebooks(
+            generator, x[gi].reshape(b * s, kv, hd), cfg.resolved_kv_pq_m)
+            for gi in range(g)]).to(torch.bfloat16)
+    return out
+
+
 @torch.inference_mode()
 def serve_batch(cfg, params, prompts: torch.Tensor, gen_tokens: int,
                 max_seq: int | None = None,

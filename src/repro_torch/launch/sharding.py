@@ -65,8 +65,7 @@ DEFAULT_RULES: dict[str, Any] = {
 }
 
 # what is not placed over several ranks yet, named where it raises
-NEXT_SLICE = ("ROADMAP.md, Queue 1: the recurrent families (item 5) and "
-              "training (item 6) over several ranks")
+NEXT_SLICE = "ROADMAP.md, Queue 1: training over several ranks (item 6)"
 
 _ctx = threading.local()
 
@@ -330,6 +329,16 @@ def all_reduce(t, device_mesh, mesh_dim: int, op: str = "sum"):
     return fc.wait_tensor(fc.all_reduce(t, op, (device_mesh, mesh_dim)))
 
 
+def permute(t, device_mesh, mesh_dim: int, dst: Sequence[int]):
+    """Each rank's ``t`` sent to rank ``dst[i]`` (rank i along mesh
+    dimension ``mesh_dim``) and the one sent to it returned (one
+    collective permute)."""
+    import torch.distributed._functional_collectives as fc
+    # flat: permute_tensor splits the first dim by the tensor's numel
+    out = fc.permute_tensor(t.reshape(-1), list(dst), (device_mesh, mesh_dim))
+    return fc.wait_tensor(out).view(t.shape)
+
+
 def shard_on(placements: Sequence, dim: int, mesh_dim: int) -> tuple:
     """``placements`` with ``Shard(dim)`` on mesh dimension ``mesh_dim``."""
     from torch.distributed.tensor import Shard
@@ -349,6 +358,37 @@ def local_map(fn, out_placements, in_placements, *args):
         out_placements = list(out_placements)   # one output
     return lm(fn, out_placements=out_placements, in_placements=in_placements,
               redistribute_inputs=True)(*args)
+
+
+def over_heads(fn, out_dims, in_dims, *args, heads: int):
+    """``fn(lo, *local)`` on each rank's heads under the active mesh and
+    rules: ``heads`` heads on the logical axis "ssm_heads" (whole where
+    they do not divide its mesh axes, the rules' fallback), the batch on
+    "batch". Every argument and output of ``fn`` has its batch at dim 0
+    and its heads at the dim that ``in_dims`` / ``out_dims`` give (None:
+    whole over the heads), or, where an entry is a pair, its (batch,
+    heads) dims (None: it has none); one ``out_dims`` entry is one
+    output. ``lo`` is the first of this rank's heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    dm = args[0].device_mesh
+    pl = placements((args[0].shape[0], heads), ("batch", "ssm_heads"))
+    lo = 0
+    for i, p in enumerate(pl):
+        if p.is_shard(1):
+            lo = lo * dm.size(i) + dm.get_coordinate()[i]
+    lo *= heads // math.prod(dm.size(i) for i, p in enumerate(pl)
+                             if p.is_shard(1))
+
+    def at(entry):
+        bdim, hdim = entry if isinstance(entry, tuple) else (0, entry)
+        return tuple(Shard(bdim) if p.is_shard(0) and bdim is not None else
+                     Shard(hdim) if p.is_shard(1) and hdim is not None else
+                     Replicate() for p in pl)
+
+    outs = at(out_dims[0]) if len(out_dims) == 1 else tuple(
+        at(d) for d in out_dims)
+    return local_map(lambda *local: fn(lo, *local), outs,
+                     tuple(at(d) for d in in_dims), *args)
 
 
 def _axes_leaf(x) -> bool:

@@ -168,7 +168,12 @@ def rmsnorm_spec(dim: int, axis: str | None = "embed") -> ParamSpec:
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) int. Rotates the two halves."""
+    """x: (B, S, H, hd); positions: (B, S) int. Rotates the two halves.
+    A placed x sharded on its head_dim over an even number of ranks is
+    rotated on each rank's slice (``_rope_over_head_dim``)."""
+    mdim = _head_dim_shard(x, 3)
+    if mdim is not None and x.device_mesh.size(mdim) % 2 == 0:
+        return _rope_over_head_dim(x, positions, theta, mdim)
     hd = x.shape[-1]
     half = hd // 2
     freq = shd.lift(theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -180,6 +185,42 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _rope_over_head_dim(x, positions, theta: float, mdim: int):
+    """``rope`` of x sharded on its head_dim over the n (even) ranks of
+    mesh dimension ``mdim``: rank r holds dims [r hd/n, (r + 1) hd/n), so
+    the rotation's partner of each of its dims (i and i + hd/2) lies on
+    rank r + n/2 (mod n). The two swap their slices (one collective
+    permute) and each rotates its own: the same products, element for
+    element, as the one-rank rotation."""
+    from torch.distributed.tensor import Replicate
+    dm = x.device_mesh
+    n, r = dm.size(mdim), dm.get_coordinate()[mdim]
+    hd = x.shape[-1]
+    half, hl = hd // 2, hd // n
+    xp = tuple(p if p.is_shard() and p.dim < 3 and i != mdim else
+               Replicate() for i, p in enumerate(x.placements))
+    xp = shd.shard_on(xp, 3, mdim)
+    pp = shd.keep_shard(xp, 0)
+    lo = (r % (n // 2)) * hl
+
+    def body(xl, pos):
+        freq = theta ** (-(lo + torch.arange(0, hl, dtype=torch.float32,
+                                             device=xl.device)) / half)
+        ang = pos.float()[:, :, None] * freq[None, None, :]
+        cos = torch.cos(ang)[:, :, None, :]
+        sin = torch.sin(ang)[:, :, None, :]
+        own = xl.float()
+        other = shd.permute(own.contiguous(), dm, mdim,
+                            [(i + n // 2) % n for i in range(n)])
+        if r < n // 2:      # the first half's dims: x1 here, x2 the other's
+            out = own * cos - other * sin
+        else:
+            out = other * sin + own * cos
+        return out.to(xl.dtype)
+
+    return shd.local_map(body, xp, (xp, pp), x, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -301,14 +342,24 @@ def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
     return s
 
 
-def full_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
-    """Reference O(S^2)-memory path for short or ragged sequences."""
+def _whole(s: torch.Tensor) -> torch.Tensor:
+    return s
+
+
+def full_causal_attention(q, k, v, cfg: ModelConfig, *,
+                          head_dim: int | None = None,
+                          psum=_whole) -> torch.Tensor:
+    """Reference O(S^2)-memory path for short or ragged sequences.
+    ``head_dim`` and ``psum``: a rank's slice of head_dim
+    (``_over_head_dim``), the whole head_dim and the sum of the ranks'
+    partial scores."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
     qg = q.reshape(b, s, kvh, g, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
-    scores = _softcap(scores / math.sqrt(hd), cfg.attn_logit_softcap)
+    scores = psum(torch.einsum("bqkgh,bskh->bkgqs", qg, k)).float()
+    scores = _softcap(scores / math.sqrt(head_dim or hd),
+                      cfg.attn_logit_softcap)
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
     scores = scores.masked_fill_(~mask, float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -317,25 +368,36 @@ def full_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, s, h, hd)
 
 
-def chunked_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+def chunked_causal_attention(q, k, v, cfg: ModelConfig, *,
+                             head_dim: int | None = None,
+                             psum=_whole) -> torch.Tensor:
     """Flash-style online-softmax attention over q and kv chunks.
 
     For each query chunk, the kv chunks up to the causal frontier are
     visited in order and the blocks past it skipped, as the reference's
     ``lax.cond`` does; no O(S^2) buffer. Falls back to the full path under
-    the reference's own condition.
+    the reference's own condition. Placed q, k, v run on each rank's
+    heads (``_over_heads``) or, sharded on head_dim, on each rank's slice
+    of it (``_over_head_dim``: ``head_dim`` the whole, ``psum`` the sum
+    of the ranks' partial scores of a block).
     """
     if shd.is_placed(q):
+        mdim = _head_dim_shard(q, 3)
+        if mdim is not None and not any(p.is_shard(2)
+                                        for p in q.placements):
+            return _over_head_dim(chunked_causal_attention, q, k, v, cfg,
+                                  mdim)
         return _over_heads(chunked_causal_attention, q, k, v, cfg)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
     cq, ckv = cfg.attn_q_chunk, cfg.attn_kv_chunk
     if s % cq or s % ckv or s <= cq:
-        return full_causal_attention(q, k, v, cfg)
+        return full_causal_attention(q, k, v, cfg, head_dim=head_dim,
+                                     psum=psum)
     nq, nkv = s // cq, s // ckv
     qg = q.reshape(b, nq, cq, kvh, g, hd)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(head_dim or hd)
     dev = q.device
     outs = []
     for i in range(nq):
@@ -351,7 +413,7 @@ def chunked_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
                 break
             kj = k[:, j * ckv:(j + 1) * ckv]
             vj = v[:, j * ckv:(j + 1) * ckv]
-            sij = torch.einsum("bqkgh,bskh->bkgqs", qi, kj).float()
+            sij = psum(torch.einsum("bqkgh,bskh->bkgqs", qi, kj)).float()
             sij = _softcap(sij * scale, cfg.attn_logit_softcap)
             kpos = j * ckv + torch.arange(ckv, device=dev)
             causal = qpos[:, None] >= kpos[None, :]
@@ -370,6 +432,33 @@ def chunked_causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
         out = acc / torch.clamp_min(l, 1e-20)[..., None]   # (B, KV, g, cq, hd)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B, cq, KV, g, hd)
     return torch.stack(outs, dim=1).reshape(b, s, h, hd)
+
+
+def _over_head_dim(fn, q, k, v, cfg: ModelConfig, mdim: int
+                   ) -> torch.Tensor:
+    """``fn(q, k, v, cfg)`` (an attention over whole sequences) on each
+    rank's slice of head_dim along mesh dimension ``mdim`` (the rules'
+    branch for heads that do not divide the model axis): q, k and v keep
+    their batch placements and are sharded on head_dim over ``mdim``,
+    whole elsewhere. Each rank contracts its slice of every head, and the
+    partial scores of each block are summed over ``mdim`` before the cast
+    to f32, the softcap, the mask and the softmax: an all-reduce in q's
+    dtype, where the reference's partitioner puts it (on the dot's output,
+    before its ``astype``). The values are weighted on the rank's slice.
+    The output is sharded on head_dim as q is, which ``unproject``
+    contracts."""
+    from torch.distributed.tensor import Replicate
+    dm = q.device_mesh
+    qp = shd.shard_on(tuple(p if p.is_shard(0) and i != mdim else
+                            Replicate() for i, p in enumerate(q.placements)),
+                      3, mdim)
+    hd = q.shape[-1]
+
+    def body(ql, kl, vl):
+        return fn(ql, kl, vl, cfg, head_dim=hd,
+                  psum=lambda s: shd.all_reduce(s, dm, mdim))
+
+    return shd.local_map(body, qp, (qp, qp, qp), q, k, v)
 
 
 def _over_heads(fn, q, k, v, cfg: ModelConfig) -> torch.Tensor:

@@ -272,15 +272,15 @@ def prefill(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
     b, s = tokens.shape
     max_seq = max_seq or s
     if cfg.block_type != "attn":
-        h = F.embedding(tokens.long(), params.embedding)
+        h = constrain(_lookup(tokens, params.embedding), "batch", "seq",
+                      "embed")
         if cfg.block_type == "mamba2":
             positions = _positions(tokens)
             if cfg.kv_pq and cfg.shared_attn_every:
                 assert pq_cache is not None, \
                     "PQ prefill needs calibrated codebooks"
                 h, cache = tf.mamba_stack_prefill_pq(
-                    params.stack, h, cfg, positions, max_seq,
-                    pq_cache["attn_k_cb"], pq_cache["attn_v_cb"])
+                    params.stack, h, cfg, positions, max_seq, pq_cache)
             else:
                 h, cache = tf.mamba_stack_prefill(params.stack, h, cfg,
                                                   positions, max_seq)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, ParamSpec, rmsnorm
@@ -65,9 +66,20 @@ def _ddlerp(p: Params, x: torch.Tensor, sx: torch.Tensor) -> dict:
     r = p.lora_a.shape[1] // 5
     lora = torch.tanh(base @ p.lora_a)                          # (B, S, 5r)
     lora = lora.reshape(*lora.shape[:-1], 5, r)
-    adj = torch.einsum("bsmr,mrd->bsmd", lora, p.lora_b)        # (B, S, 5, D)
+    adj = _lora_out(lora, p.lora_b)                             # (B, S, 5, D)
     return {name: x + sx * (p.mu[i] + adj[:, :, i])
             for i, name in enumerate(MIXES)}
+
+
+def _lora_out(lora: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, 5, r) x (5, r, D) -> (B, S, 5, D). Placed, on each rank's
+    rows with the weight whole: DTensor derives an einsum's rule anew at
+    every call."""
+    if not shd.is_placed(w):
+        return torch.einsum("bsmr,mrd->bsmd", lora, w)
+    rows = shd.keep_shard(lora.placements, 0)
+    return shd.local_map(lambda x, t: torch.einsum("bsmr,mrd->bsmd", x, t),
+                         rows, (rows, shd.replicate(w)), lora, w)
 
 
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,7 +94,22 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k * exp(-a)`` (a the in-chunk cumulative log decay) is formed as the
     reference forms it: at a decay near exp(-1) a step and a chunk of 128
     it overflows f32, and the output is not finite (ROADMAP Queue 3).
+
+    Placed (a mesh), it runs on each rank's heads ("ssm_heads"; whole on
+    every rank where they do not divide the model axis) as plain local
+    tensors: the heads are independent.
     """
+    if shd.is_placed(r):
+        args = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
+        return shd.over_heads(
+            lambda lo, *local: _wkv6(*local, chunk=chunk), (2, 1),
+            (2, 2, 2, 2, (None, 0), 1)[:len(args)], *args,
+            heads=r.shape[2])
+    return _wkv6(r, k, v, log_w, u, s0, chunk=chunk)
+
+
+def _wkv6(r, k, v, log_w, u, s0=None, *, chunk: int):
+    """``wkv6_chunked`` on plain tensors."""
     b, s, nh, hd = r.shape
     pad = (-s) % chunk
     if pad:  # identity steps: decay 1, zero k/v -> state-neutral
@@ -131,8 +158,16 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y[:, :s_orig], h
 
 
-def _decay_dd(p: Params, xw: torch.Tensor) -> torch.Tensor:
-    return p.decay_base + torch.tanh(xw @ p.decay_a) @ p.decay_b
+def _decay_dd(p: Params, xw: torch.Tensor, nh: int) -> torch.Tensor:
+    """The data-dependent decay's log-log (..., D), D = nh heads x hd.
+    Placed, the LoRA's output columns are taken as the heads are sharded
+    ("ssm_heads"), so each rank forms the decay of its own heads alone."""
+    wb = p.decay_b
+    if shd.is_placed(wb):
+        r, d = wb.shape
+        wb = wb.redistribute(placements=shd.placements(
+            (r, nh, d // nh), ("lora", "ssm_heads", None)))
+    return p.decay_base + torch.tanh(xw @ p.decay_a) @ wb
 
 
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -151,7 +186,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     k = constrain(k, "batch", None, "ssm_heads", None)
     v = constrain(v, "batch", None, "ssm_heads", None)
     # data-dependent decay (Finch): w = exp(-exp(dd)) in (0, 1)
-    log_w = -torch.exp(_decay_dd(p, mixes["w"]).float()).reshape(b, s, nh, hd)
+    log_w = -torch.exp(_decay_dd(p, mixes["w"], nh).float()).reshape(b, s, nh, hd)
     y, hs = wkv6_chunked(r, k, v, log_w, p.u, cfg.rwkv_chunk, s0)
     y = rmsnorm(y.reshape(b, s, d), p.ln_x, cfg.norm_eps) * F.silu(g)
     return constrain(y @ p.wo, "batch", "seq", "embed"), hs
@@ -169,7 +204,7 @@ def _channel_mix(p: Params, x: torch.Tensor, sx: torch.Tensor
     # (B, S, F) over a sequence; the decode step's (B, F) is left as it is,
     # as the reference's step constrains nothing
     k = constrain(torch.square(F.relu(xk @ p.cm_wk)), "batch", None, "mlp")
-    return torch.sigmoid(xr @ p.cm_wr) * (k @ p.cm_wv)
+    return torch.sigmoid(xr @ p.cm_wr) * _summed(k @ p.cm_wv)
 
 
 # ---------------------------------------------------------------------------
@@ -202,16 +237,36 @@ def rwkv_decode_step(p: Params, x: torch.Tensor, state: dict,
     k = (mixes["k"] @ p.wk).reshape(b, nh, hd)
     v = (mixes["v"] @ p.wv).reshape(b, nh, hd)
     g = mixes["g"] @ p.wg
-    w = torch.exp(-torch.exp(_decay_dd(p, mixes["w"]).float())).reshape(
+    w = torch.exp(-torch.exp(_decay_dd(p, mixes["w"], nh).float())).reshape(
         b, nh, hd)
 
-    s = state["s"]                                              # (B,nh,hd,hd)
+    args = (state["s"], r, k, v, w, p.u)
+    if shd.is_placed(r):
+        o, s_new = shd.over_heads(lambda lo, *local: _wkv_step(*local),
+                                  (1, 1), (1, 1, 1, 1, 1, (None, 0)), *args,
+                                  heads=nh)
+    else:
+        o, s_new = _wkv_step(*args)
+    y = rmsnorm(o.reshape(b, d).to(x.dtype), p.ln_x, cfg.norm_eps) * F.silu(g)
+    return _summed(y @ p.wo), {"s": s_new, "tm_prev": x,
+                               "cm_prev": state["cm_prev"]}
+
+
+def _wkv_step(s, r, k, v, w, u):
+    """One token's WKV readout and state update on plain tensors: s (B,
+    nh, hd, hd) f32, r/k/v (B, nh, hd), w (B, nh, hd) f32, u (nh, hd) ->
+    (o (B, nh, hd) f32, new s)."""
     kv = torch.einsum("bhi,bhj->bhij", k.float(), v.float())
     o = torch.einsum("bhi,bhij->bhj", r.float(),
-                     s + p.u.float()[None, :, :, None] * kv)
-    s_new = w[..., None] * s + kv
-    y = rmsnorm(o.reshape(b, d).to(x.dtype), p.ln_x, cfg.norm_eps) * F.silu(g)
-    return y @ p.wo, {"s": s_new, "tm_prev": x, "cm_prev": state["cm_prev"]}
+                     s + u.float()[None, :, :, None] * kv)
+    return o, w[..., None] * s + kv
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """A branch's (B, [S,] D) output pinned to the residual stream's axes:
+    over a mesh, the partial sums of a product that contracts a sharded
+    dim are summed here, before the residual add."""
+    return constrain(x, "batch", *("seq",) * (x.ndim - 2), "embed")
 
 
 def rwkv_channel_mix_step(p: Params, x: torch.Tensor, prev: torch.Tensor

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, ParamSpec, rmsnorm
@@ -55,6 +56,19 @@ def _causal_conv(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b
 
 
+def _head_maps(maps: torch.Tensor, nh: int, lo: int, nhl: int
+               ) -> torch.Tensor:
+    """(..., g, ds) group maps -> (..., nhl, ds): each of the heads [lo, lo
+    + nhl) of ``nh`` its group's map (the reference's repeat of each group
+    over its nh / g heads)."""
+    g = maps.shape[-2]
+    if nhl == nh:
+        return torch.repeat_interleave(maps, nh // g, dim=-2)
+    idx = torch.div(lo + torch.arange(nhl, device=maps.device), nh // g,
+                    rounding_mode="floor")
+    return maps.index_select(maps.ndim - 2, idx)
+
+
 def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
                 cmat: torch.Tensor, chunk: int, h0: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -64,8 +78,28 @@ def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
     decay (<= 0); bmat / cmat (B, S, g, ds) input and output maps (groups
     broadcast over heads). Returns (y (B, S, nh, hd), final state (B, nh,
     hd, ds) f32).
+
+    Placed (a mesh), the scan runs on each rank's heads ("ssm_heads") as
+    plain local tensors, the maps whole over the heads: the heads are
+    independent, so its masks, zero state and chunk loop need no
+    collective.
     """
-    b, s, nh, hd = xh.shape
+    if shd.is_placed(xh):
+        nh = xh.shape[2]
+
+        def body(lo, *local):
+            return _ssd(*local, chunk=chunk, nh=nh, lo=lo)
+
+        args = (xh, log_a, bmat, cmat) + (() if h0 is None else (h0,))
+        return shd.over_heads(body, (2, 1), (2, 2, None, None, 1)[:len(args)],
+                              *args, heads=nh)
+    return _ssd(xh, log_a, bmat, cmat, h0, chunk=chunk, nh=xh.shape[2], lo=0)
+
+
+def _ssd(xh, log_a, bmat, cmat, h0=None, *, chunk: int, nh: int, lo: int):
+    """``ssd_chunked`` on plain tensors holding the heads [lo, lo + nhl) of
+    ``nh`` (xh's (B, S, nhl, hd)); bmat / cmat whole over the groups."""
+    b, s, nhl, hd = xh.shape
     g, ds = bmat.shape[2], bmat.shape[3]
     pad = (-s) % chunk
     if pad:  # identity steps (decay 1, zero input): state-neutral
@@ -75,13 +109,12 @@ def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
         cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
     s_orig, s = s, s + pad
     nc, l = s // chunk, chunk
-    hpg = nh // g
     dt = xh.dtype
 
-    xh_c = xh.reshape(b, nc, l, nh, hd)
-    la_c = torch.cumsum(log_a.reshape(b, nc, l, nh).float(), dim=2)
-    bh = torch.repeat_interleave(bmat.reshape(b, nc, l, g, ds), hpg, dim=3)
-    ch = torch.repeat_interleave(cmat.reshape(b, nc, l, g, ds), hpg, dim=3)
+    xh_c = xh.reshape(b, nc, l, nhl, hd)
+    la_c = torch.cumsum(log_a.reshape(b, nc, l, nhl).float(), dim=2)
+    bh = _head_maps(bmat.reshape(b, nc, l, g, ds), nh, lo, nhl)
+    ch = _head_maps(cmat.reshape(b, nc, l, g, ds), nh, lo, nhl)
 
     # intra-chunk: an L x L product per (chunk, head)
     gmat = torch.einsum("bclhn,bcshn->bchls", ch, bh)            # (B,nc,nh,L,L)
@@ -104,7 +137,7 @@ def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
 
     # inter-chunk: the carried state, in f32
     total = torch.exp(la_c[:, :, -1, :])                         # (B,nc,nh)
-    h = (torch.zeros((b, nh, hd, ds), dtype=torch.float32, device=xh.device)
+    h = (torch.zeros((b, nhl, hd, ds), dtype=torch.float32, device=xh.device)
          if h0 is None else h0.float())
     h_prevs = []
     for c in range(nc):
@@ -115,7 +148,7 @@ def ssd_chunked(xh: torch.Tensor, log_a: torch.Tensor, bmat: torch.Tensor,
     # C_t . (decay_t * H_prev)
     cdec = ch * torch.exp(la_c).to(dt)[..., None]
     y_inter = torch.einsum("bclhn,bchpn->bclhp", cdec, h_prevs.to(dt))
-    y = (y_intra + y_inter).reshape(b, s, nh, hd)
+    y = (y_intra + y_inter).reshape(b, s, nhl, hd)
     return y[:, :s_orig], h
 
 
@@ -176,21 +209,56 @@ def mamba_decode_step(p: Params, x: torch.Tensor, state: dict,
     z, xc, bm, cm, dt = _split_in_proj(cfg, (x @ p.in_proj)[:, None, :])
     conv_in = torch.cat([xc, bm, cm], dim=-1)                    # (B, 1, C)
     window = torch.cat([state["conv"], conv_in], dim=1)          # (B, W, C)
-    conv_out = torch.einsum("bwc,wc->bc", window, p.conv_w) + p.conv_b
-    conv_out = F.silu(conv_out)
+    conv_out = F.silu(_conv_step(window, p.conv_w) + p.conv_b)
     xc, bm, cm = torch.split(conv_out, [cfg.d_inner, g * ds, g * ds], dim=-1)
 
     dt = F.softplus(dt[:, 0].float() + p.dt_bias)                # (B, nh)
     a = -torch.exp(p.a_log.float())
     decay = torch.exp(a[None] * dt)                              # (B, nh)
     xh = xc.reshape(b, nh, hd) * dt[..., None].to(x.dtype)
-    bmat = torch.repeat_interleave(bm.reshape(b, g, ds), nh // g, dim=1)
-    cmat = torch.repeat_interleave(cm.reshape(b, g, ds), nh // g, dim=1)
-
-    h = state["h"] * decay[:, :, None, None] + torch.einsum(
-        "bhp,bhn->bhpn", xh, bmat).float()
-    y = torch.einsum("bhpn,bhn->bhp", h.to(x.dtype), cmat)
+    args = (state["h"], xh, bm.reshape(b, g, ds), cm.reshape(b, g, ds),
+            decay)
+    if shd.is_placed(xh):
+        h, y = shd.over_heads(
+            lambda lo, *local: _state_step(*local, nh=nh, lo=lo), (1, 1),
+            (1, 1, None, None, 1), *args, heads=nh)
+    else:
+        h, y = _state_step(*args, nh=nh, lo=0)
     y = y + xc.reshape(b, nh, hd) * p.d_skip[None, :, None]
     y = y.reshape(b, cfg.d_inner)
     y = rmsnorm(y * F.silu(z[:, 0]), p.norm, cfg.norm_eps)
-    return y @ p.out_proj, {"h": h, "conv": window[:, 1:]}
+    # over a mesh the product contracts the sharded inner dim: its partial
+    # sums are summed here, before the residual add
+    out = constrain(y @ p.out_proj, "batch", "embed")
+    return out, {"h": h, "conv": window[:, 1:]}
+
+
+def _conv_step(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv's one output (B, C) of the (B, W, C) window and
+    the (W, C) taps. Placed, on each rank's channels (as the taps are
+    sharded): DTensor derives an einsum's rule anew at every call."""
+    if not shd.is_placed(w):
+        return torch.einsum("bwc,wc->bc", window, w)
+    from torch.distributed.tensor import Replicate, Shard
+    chans = [i for i, p in enumerate(w.placements) if p.is_shard(1)]
+    rows = [i for i, p in enumerate(window.placements)
+            if p.is_shard(0) and i not in chans]
+
+    def at(c_dim):
+        return tuple(Shard(c_dim) if i in chans else Shard(0) if i in rows
+                     else Replicate() for i in range(w.device_mesh.ndim))
+
+    return shd.local_map(lambda x, t: torch.einsum("bwc,wc->bc", x, t),
+                         at(1), (at(2), w.placements), window, w)
+
+
+def _state_step(h, xh, bm, cm, decay, *, nh: int, lo: int):
+    """One token's state update and readout on the heads [lo, lo + nhl)
+    of ``nh``: h (B, nhl, hd, ds) f32, xh (B, nhl, hd), the group maps bm /
+    cm (B, g, ds), decay (B, nhl) -> (new h, y (B, nhl, hd))."""
+    nhl = xh.shape[1]
+    bmat = _head_maps(bm, nh, lo, nhl)
+    cmat = _head_maps(cm, nh, lo, nhl)
+    h = h * decay[:, :, None, None] + torch.einsum(
+        "bhp,bhn->bhpn", xh, bmat).float()
+    return h, torch.einsum("bhpn,bhn->bhp", h.to(xh.dtype), cmat)

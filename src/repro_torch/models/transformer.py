@@ -213,19 +213,19 @@ def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
-                     dtype: torch.dtype, device: torch.device) -> dict:
+                     dtype: torch.dtype, device: torch.device,
+                     placed: bool = False) -> dict:
     """Zero states; with the hybrid's shared attention, an exact
     (``attn_k``/``attn_v``, (G, B, Smax, KV, hd)) or, with ``cfg.kv_pq``, a
     PQ cache (``attn_k_codes``/``attn_v_codes`` u8 and zero bf16 codebooks
     ``attn_k_cb``/``attn_v_cb`` (G, KV, M, 16, dsub), which calibration
-    fills)."""
+    fills). ``placed``: each tensor placed on the active mesh by
+    ``mamba_cache_axes`` (each rank allocating its shard)."""
     nh, hd, ds = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * ds
-    cache = {
-        "h": torch.zeros((cfg.n_layers, batch, nh, hd, ds),
-                         dtype=torch.float32, device=device),
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
-                            dtype=dtype, device=device),
+    shapes = {
+        "h": ((cfg.n_layers, batch, nh, hd, ds), torch.float32),
+        "conv": ((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype),
     }
     if cfg.shared_attn_every:
         n_groups = cfg.n_layers // cfg.shared_attn_every
@@ -233,17 +233,25 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
         if cfg.kv_pq:
             m = cfg.resolved_kv_pq_m
             for name in ("attn_k_codes", "attn_v_codes"):
-                cache[name] = torch.zeros((n_groups, batch, max_seq, kv,
-                                           m // 2), dtype=torch.uint8,
-                                          device=device)
+                shapes[name] = ((n_groups, batch, max_seq, kv, m // 2),
+                                torch.uint8)
             for name in ("attn_k_cb", "attn_v_cb"):
-                cache[name] = torch.zeros((n_groups, kv, m, 16, ahd // m),
-                                          dtype=torch.bfloat16, device=device)
+                shapes[name] = ((n_groups, kv, m, 16, ahd // m),
+                                torch.bfloat16)
         else:
             for name in ("attn_k", "attn_v"):
-                cache[name] = torch.zeros((n_groups, batch, max_seq, kv, ahd),
-                                          dtype=dtype, device=device)
-    return cache
+                shapes[name] = ((n_groups, batch, max_seq, kv, ahd), dtype)
+    return _zeros(shapes, mamba_cache_axes(cfg), device, placed)
+
+
+def _zeros(shapes: dict, axes: dict, device, placed: bool) -> dict:
+    """{name: zeros of its (shape, dtype)}, placed on the active mesh by
+    its ``axes`` where ``placed``."""
+    if placed:
+        return {k: shd.placed_zeros(shape, axes[k], dt, device)
+                for k, (shape, dt) in shapes.items()}
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in shapes.items()}
 
 
 def mamba_cache_axes(cfg: ModelConfig) -> dict:
@@ -307,7 +315,8 @@ def mamba_stack_decode(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                                       cache["attn_v"][gi], k_new[:, 0],
                                       v_new[:, 0], position[0])
             out = ll.decode_attention_scores(q[:, 0], kc, vc, cfg, position)
-        x = x + torch.einsum("bhk,hkd->bd", out, shared.attn.wo)
+        x = x + constrain(ll.unproject(out, shared.attn.wo), "batch",
+                          "embed")
         x = x + ll.ffn(shared.ffn,
                        ll.rmsnorm(x, shared.ln2, cfg.norm_eps)[:, None],
                        cfg)[:, 0]
@@ -319,8 +328,8 @@ def _mamba_prefill_layer(lp: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                          cache: dict, i: int) -> torch.Tensor:
     out, st = ssm_mod.mamba_block(lp.mamba, ll.rmsnorm(h, lp.ln, cfg.norm_eps),
                                   cfg, return_state=True)
-    cache["h"][i] = st["h"]
-    cache["conv"][i] = st["conv"]
+    cache["h"][i].copy_(st["h"])
+    cache["conv"][i].copy_(st["conv"])
     return h + out
 
 
@@ -341,7 +350,8 @@ def _mamba_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
         xn = ll.rmsnorm(x, shared.ln1, cfg.norm_eps)
         q, kk, vv = ll.qkv_project(shared.attn, xn, cfg, positions)
         out = ll.chunked_causal_attention(q, kk, vv, cfg)
-        x = x + torch.einsum("bshk,hkd->bsd", out, shared.attn.wo)
+        x = x + constrain(ll.unproject(out, shared.attn.wo), "batch", "seq",
+                          "embed")
         x = x + ll.ffn(shared.ffn, ll.rmsnorm(x, shared.ln2, cfg.norm_eps),
                        cfg)
         encode(gi, kk, vv)
@@ -353,36 +363,48 @@ def mamba_stack_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                         positions: torch.Tensor, max_seq: int
                         ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also emits the decode cache (states, and
-    the shared attention's exact K/V, zero past the prompt)."""
-    b, s, _ = h.shape
+    the shared attention's exact K/V, zero past the prompt); placed on the
+    mesh where ``h`` is."""
+    b = h.shape[0]
     if cfg.kv_pq and cfg.shared_attn_every:
         raise NotImplementedError(
             "hybrid PQ prefill: encode via examples/serve_lm.py calibration")
-    cache = mamba_cache_init(cfg, b, max_seq, h.dtype, h.device)
+    cache = mamba_cache_init(cfg, b, max_seq, h.dtype, h.device,
+                             placed=shd.is_placed(h))
 
     def encode(gi, kk, vv):
-        cache["attn_k"][gi, :, :s] = kk
-        cache["attn_v"][gi, :, :s] = vv
+        kvc.write_prompt(cache["attn_k"][gi], kk)
+        kvc.write_prompt(cache["attn_v"][gi], vv)
 
     return _mamba_prefill(p, h, cfg, positions, cache, encode), cache
 
 
 def mamba_stack_prefill_pq(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                            positions: torch.Tensor, max_seq: int,
-                           k_cb: torch.Tensor, v_cb: torch.Tensor
-                           ) -> tuple[torch.Tensor, dict]:
+                           pq_cache: dict) -> tuple[torch.Tensor, dict]:
     """Hybrid prefill with 4-bit-PQ encoding of the shared attention's K/V
     (the paper's technique): the (G, B, S, KV, hd) cache becomes (G, B,
-    Smax, KV, M//2) u8 codes (zero past the prompt) under the given (G,
-    KV, M, 16, dsub) codebooks, which the cache holds."""
-    b, s, _ = h.shape
-    cache = mamba_cache_init(cfg.replace(kv_pq=True), b, max_seq, h.dtype,
-                             h.device)
-    cache["attn_k_cb"], cache["attn_v_cb"] = k_cb, v_cb
+    Smax, KV, M//2) u8 codes (zero past the prompt) under the (G, KV, M,
+    16, dsub) codebooks ``pq_cache["attn_k_cb"]`` / ``["attn_v_cb"]``.
+    A ``pq_cache`` that holds the whole cache (codes and states: a mesh
+    cell's placed one) is filled in place, its codes zeroed first; one
+    that holds the codebooks alone gets a new cache around them."""
+    b = h.shape[0]
+    if "attn_k_codes" in pq_cache:
+        cache = pq_cache
+        cache["attn_k_codes"].zero_()
+        cache["attn_v_codes"].zero_()
+    else:
+        cache = mamba_cache_init(cfg.replace(kv_pq=True), b, max_seq,
+                                 h.dtype, h.device)
+        cache["attn_k_cb"] = pq_cache["attn_k_cb"]
+        cache["attn_v_cb"] = pq_cache["attn_v_cb"]
 
     def encode(gi, kk, vv):
-        cache["attn_k_codes"][gi, :, :s] = kvc.encode_kv(kk, k_cb[gi])
-        cache["attn_v_codes"][gi, :, :s] = kvc.encode_kv(vv, v_cb[gi])
+        kvc.write_prompt(cache["attn_k_codes"][gi], kk,
+                         cache["attn_k_cb"][gi])
+        kvc.write_prompt(cache["attn_v_codes"][gi], vv,
+                         cache["attn_v_cb"][gi])
 
     return _mamba_prefill(p, h, cfg, positions, cache, encode), cache
 
@@ -426,14 +448,13 @@ def rwkv_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                    device: torch.device) -> dict:
+                    device: torch.device, placed: bool = False) -> dict:
+    """Zero states (``placed``: on the active mesh by ``rwkv_cache_axes``)."""
     nh, hd, d, n = cfg.rwkv_nheads, cfg.rwkv_head_dim, cfg.d_model, cfg.n_layers
-    return {
-        "s": torch.zeros((n, batch, nh, hd, hd), dtype=torch.float32,
-                         device=device),
-        "tm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
-        "cm_prev": torch.zeros((n, batch, d), dtype=dtype, device=device),
-    }
+    return _zeros({"s": ((n, batch, nh, hd, hd), torch.float32),
+                   "tm_prev": ((n, batch, d), dtype),
+                   "cm_prev": ((n, batch, d), dtype)},
+                  rwkv_cache_axes(), device, placed)
 
 
 def rwkv_cache_axes() -> dict:
@@ -445,12 +466,13 @@ def rwkv_cache_axes() -> dict:
 def rwkv_stack_prefill(p: ll.Params, h: torch.Tensor, cfg: ModelConfig
                        ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward emitting each layer's O(1) decode state."""
-    cache = rwkv_cache_init(cfg, h.shape[0], h.dtype, h.device)
+    cache = rwkv_cache_init(cfg, h.shape[0], h.dtype, h.device,
+                            placed=shd.is_placed(h))
     for i, lp in enumerate(p.blocks):
         h, s_final, x, xn = _rwkv_layer(lp, h, cfg)
-        cache["s"][i] = s_final
-        cache["tm_prev"][i] = x[:, -1]
-        cache["cm_prev"][i] = xn[:, -1]
+        cache["s"][i].copy_(s_final)
+        cache["tm_prev"][i].copy_(x[:, -1])
+        cache["cm_prev"][i].copy_(xn[:, -1])
     return h, cache
 
 

@@ -92,6 +92,10 @@ TOL, LOGIT_TOL = 1e-5, 1e-4     # tests/test_torch_lm.py's
 # difference of a sharded sum can move a p across a rounding boundary
 # (test_torch_mesh_cells.py reads it against planted faults)
 PQ_LOGIT_RTOL = 2.0 ** -8
+# a mesh rank's LUT scale and bias against the meshless step's, in f32
+# units in the last place: the Mamba layers sum in another order over
+# ranks, and zamba2-smoke's read up to 7.8 (scale) and 16.9 (bias)
+LUT_ULPS = 32
 
 
 def _close(got, want, tol, what):
@@ -109,7 +113,7 @@ class _Recorder:
     def __init__(self):
         from repro_torch.models import kvcache as kvc
         self.kvc, self.on = kvc, False
-        self.encoded, self.tables = [], []
+        self.encoded, self.tables, self.quantized = [], [], []
         real_encode, real_quantize = kvc.encode_kv, kvc._quantize
         real_over = kvc._quantize_over_ranks
 
@@ -129,6 +133,7 @@ class _Recorder:
             out = real_quantize(lut)
             if self.on:
                 self.tables.append((lut.clone(), out[0].clone()))
+                self.quantized.append(tuple(t.clone() for t in out))
             return out
 
         encode.__wrapped__ = real_encode
@@ -137,8 +142,35 @@ class _Recorder:
 
     def take(self):
         out = (self.encoded, self.tables)
-        self.encoded, self.tables = [], []
+        self.encoded, self.tables, self.quantized = [], [], []
         return out
+
+    def take_quantized(self) -> list:
+        """The (u8 table, scale, bias) of each ``_quantize`` call since the
+        last ``take``, taken before it."""
+        return list(self.quantized)
+
+
+# the recurrent smoke archs the mesh cells serve (zamba2 exact and with
+# its PQ shared-attention cache, rwkv6 with none), each on both meshes
+RECURRENT_ARCHS = (("zamba2-2.7b", False), ("zamba2-2.7b", True),
+                   ("rwkv6-3b", False))
+
+
+def hybrid_pq_cache(params, cfg, batch: int, smax: int) -> dict:
+    """The hybrid's PQ cache (``init_cache``, zero codes and states) with
+    codebooks calibrated on 2 x CALIB_TOKENS sampled tokens
+    (``serve.calibrate_hybrid_codebooks``; ``serve_batch`` refuses a
+    hybrid with kv_pq, as the reference's does)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as ml
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, CALIB_TOKENS),
+                                        np.int32))
+    cache = ml.init_cache(cfg, batch, smax, device="cpu")
+    cache.update(serve.calibrate_hybrid_codebooks(
+        torch.Generator().manual_seed(0), params, cfg, toks))
+    return cache
 
 
 def _meshless(arch: str, pq: bool, rec: _Recorder, **over) -> dict:
@@ -160,7 +192,9 @@ def _meshless(arch: str, pq: bool, rec: _Recorder, **over) -> dict:
         fe = torch.as_tensor(rng.normal(size=(
             CELL_B, cfg.frontend_len, cfg.d_model)).astype(np.float32))
     pqc = None
-    if pq:
+    if pq and cfg.block_type == "mamba2":
+        pqc = hybrid_pq_cache(params, cfg, CELL_B, CELL_SMAX)
+    elif pq:
         pqc = serve.calibrate_pq_cache(torch.Generator().manual_seed(0),
                                        params, cfg, CELL_B, CELL_SMAX,
                                        sample_tokens=CALIB_TOKENS)
@@ -175,9 +209,12 @@ def _meshless(arch: str, pq: bool, rec: _Recorder, **over) -> dict:
         prompt_encoded = rec.take()[0]
     finally:
         rec.on = False
+    prefill_cache = None
+    if isinstance(cache, dict):     # the recurrent states, before decode
+        prefill_cache = {k: v.clone() for k, v in cache.items()}
     prompt = None if not pq else (
-        cache.k_codes[:, :, :CELL_PROMPT].clone(),
-        cache.v_codes[:, :, :CELL_PROMPT].clone())
+        pq_view(cache).k_codes[:, :, :CELL_PROMPT].clone(),
+        pq_view(cache).v_codes[:, :, :CELL_PROMPT].clone())
     feed, out, tok = [], [], torch.argmax(logits[:, :cfg.vocab], -1)
     for i in range(CELL_STEPS):
         pos = torch.full((CELL_B,), CELL_PROMPT + i, dtype=torch.int32)
@@ -186,13 +223,26 @@ def _meshless(arch: str, pq: bool, rec: _Recorder, **over) -> dict:
         out.append(step)
         tok = torch.argmax(step[:, :cfg.vocab], -1)
     ref.update(prefill=logits, prompt=prompt, prompt_encoded=prompt_encoded,
-               feed=feed, logits=out, cache=cache)
+               feed=feed, logits=out, cache=cache,
+               prefill_cache=prefill_cache)
     return ref
+
+
+def pq_view(cache):
+    """A PQ cache as a ``PQKVCache`` (the hybrid's dict: its shared
+    attention's codes and codebooks)."""
+    from repro_torch.models import kvcache as kvc
+    if not isinstance(cache, dict):
+        return cache
+    return kvc.PQKVCache(*(cache[f"attn_{n}"] for n in kvc.PQKVCache._fields))
 
 
 def _fresh(pqc):
     if pqc is None:
         return None
+    if isinstance(pqc, dict):
+        return {k: v if k.endswith("_cb") else torch.zeros_like(v)
+                for k, v in pqc.items()}
     return type(pqc)(torch.zeros_like(pqc.k_codes),
                      torch.zeros_like(pqc.v_codes), pqc.k_cb, pqc.v_cb)
 
@@ -216,6 +266,41 @@ def kernel_order():
         yield
     finally:
         pqk.pq_decode = chunked
+
+
+@contextlib.contextmanager
+def fed_scales(quantized: list, rows: slice, what: str):
+    """``kvcache._quantize`` returning, call by call, its own u8 table and
+    bias and, on the batch rows ``rows``, the scale of the given (table,
+    scale, bias) (a mesh rank's, recorded by ``_Recorder``): a meshless
+    step whose K8 dequantizes its integer sums as the mesh's did. Each
+    recorded scale and bias is first held to the meshless one within
+    LUT_ULPS units in the last place of the row's scale or of its largest
+    |LUT entry|."""
+    from repro_torch.models import kvcache as kvc
+    real, calls = kvc._quantize, iter(quantized)
+
+    def quantize(lut):
+        table, scale, bias = real(lut)
+        _, fed, fed_bias = next(calls)
+        ulp = torch.finfo(torch.float32).eps
+        top = lut[rows].abs().amax((-2, -1))
+        for name, got, want, unit in (
+                ("scale", fed, scale[rows], scale[rows]),
+                ("bias", fed_bias, bias[rows], top)):
+            off = float(((got - want).abs() / (unit * ulp)).max())
+            assert off <= LUT_ULPS, (
+                f"{what}: the mesh's LUT {name} {off:.1f} ulps from the "
+                f"meshless one (limit {LUT_ULPS})")
+        scale = scale.clone()
+        scale[rows] = fed
+        return table, scale, bias
+
+    kvc._quantize = quantize
+    try:
+        yield
+    finally:
+        kvc._quantize = real
 
 
 def pq_reading(got, want) -> float:
@@ -462,6 +547,103 @@ def _cell(ref: dict, mesh, rec: _Recorder, what: str, rules=None,
             + ("; an encoder tie in the prompt" if prompt_tie else ""))
 
 
+def _recurrent_cell(ref: dict, mesh, rec: _Recorder, what: str) -> str:
+    """A recurrent arch's prefill and decode cells over ``mesh`` against
+    the meshless ``ref``: the prefill's logits and its cache (the states;
+    the hybrid's exact K/V) within LOGIT_TOL (tests/test_torch_recurrent.py
+    holds the recurrent caches there), a PQ hybrid's prompt codes up to
+    encoder ties; each exact decode step's logits and the cache after
+    them within LOGIT_TOL; a PQ hybrid's
+    each decode step against the meshless step from the mesh's cache as
+    it was before the step (gathered: the states change each step) and fed
+    the mesh's LUT scales on this rank's rows (``fed_scales``, which holds
+    each scale and bias within LUT_ULPS first), its logits there within
+    PQ_LOGIT_RTOL, every group's u8 LUTs up to quantizer ties, its new
+    codes near the meshless ones (``_near_codes``); placements and bytes.
+    The scales are fed because the hybrid's later layers amplify what one
+    bf16 unit of K8's p moves: a scale some ulps off (the Mamba layers sum
+    in another order over ranks) flips a p now and then. Unfed, one step
+    on (1, 4) read 4.1e-3 of the row's largest |logit| where the others
+    read ~1e-6; with the scale alone fed, every step reads ~5e-7. Returns
+    a note of a PQ cell's readings."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as ml
+    cfg, params = ref["cfg"], ref["params"]
+    rules = dryrun.cell_rules(cfg, "prefill_32k", mesh)
+    di = mesh.device_mesh.get_coordinate()[0]
+    bl = CELL_B // mesh.shape["data"]
+    rows = slice(di * bl, (di + 1) * bl)
+    pq = cfg.kv_pq
+    cell = dryrun.mesh_cell(cfg, "prefill", mesh, rules, params,
+                            tokens=ref["tokens"], cache=_fresh(ref["pqc"]),
+                            max_seq=CELL_SMAX)
+    if pq:
+        _placements_and_bytes(cell, cfg, mesh, rules, "prefill", what)
+    rec.on = True
+    try:
+        logits, cache = cell.step()
+        rec.take()
+    finally:
+        rec.on = False
+    _close(logits.full_tensor(), ref["prefill"], LOGIT_TOL,
+           f"{what}: prefill")
+    got = shd.gather_tree(cache)
+    for name, want in ref["prefill_cache"].items():
+        if not name.startswith("attn_") or name in ("attn_k", "attn_v"):
+            _close(got[name], want, LOGIT_TOL, f"{what}: prefill {name}")
+    prompt_tie = pq and _prompt_codes(pq_view(got), ref["prompt"],
+                                      ref["prompt_encoded"],
+                                      pq_view(ref["pqc"]), what)
+    dc = dryrun.mesh_cell(cfg, "decode", mesh, rules, params,
+                          tokens=ref["feed"][0][0], cache=cache,
+                          position=ref["feed"][0][1])
+    outs, worst, differ = [], 0.0, 0
+    for i, (tok, pos) in enumerate(ref["feed"]):
+        base = shd.gather_tree(dc.cache) if pq else None
+        rec.on = True
+        try:
+            logits, _ = dc.step(tok, pos)
+            fed = rec.take_quantized()
+            encoded, tables = rec.take()
+        finally:
+            rec.on = False
+        outs.append(logits)
+        if not pq:
+            continue
+        step = f"{what} step {i}"
+        rec.on = True
+        try:
+            with kernel_order(), fed_scales(fed, rows, step):
+                want, _ = ml.decode_step(params, base, tok, pos, cfg)
+            w_encoded, w_tables = rec.take()
+        finally:
+            rec.on = False
+        reading = pq_reading(logits.full_tensor()[rows], want[rows])
+        assert reading <= PQ_LOGIT_RTOL, (
+            f"{step}: logits {reading} of the row's largest |logit| from the "
+            f"meshless step fed the mesh's cache and quantized LUTs (limit "
+            f"{PQ_LOGIT_RTOL})")
+        worst = max(worst, reading)
+        _lut_ties(tables, w_tables, rows, f"{step}: every group")
+        differ += _near_codes(encoded, w_encoded, rows, pq_view(ref["pqc"]),
+                              step)
+    full = torch.stack(outs).full_tensor()
+    assert torch.isfinite(full).all(), what
+    _placements_and_bytes(dc, cfg, mesh, rules, "decode", what)
+    if pq:
+        return (f"{what}: logits {worst:.3e} of the row's largest |logit| "
+                f"from the meshless steps fed the mesh's cache and scales; "
+                f"{differ} new codes differ on rank {dist.get_rank()}"
+                + ("; an encoder tie in the prompt" if prompt_tie else ""))
+    for i in range(CELL_STEPS):
+        _close(full[i], ref["logits"][i], LOGIT_TOL,
+               f"{what}: decode step {i}")
+    for name, t in shd.gather_tree(dc.cache).items():
+        _close(t, ref["cache"][name], LOGIT_TOL, f"{what}: {name} cache")
+    return ""
+
+
 def _moe_check(arch: str, mesh, what: str) -> None:
     """``moe_ffn`` of one layer under ``mesh`` against the meshless call on
     the same (B, S, D) input: the route's maps bit for bit on each rank's
@@ -585,7 +767,10 @@ def mesh_cells_body() -> None:
       ``_dispatch`` no collective, ``_combine`` one all-reduce;
     - K8's plain sharded mode equals ``pq_decode_plain(split=256)`` bit
       for bit;
-    - a training cell and a recurrent arch raise;
+    - zamba2-smoke, exact and PQ (its shared attention's K8 over a cache
+      sharded on "kv_seq"), and rwkv6-smoke on both meshes, held by
+      ``_recurrent_cell``;
+    - a training cell raises;
     - a qwen3-smoke variant of 6 heads on (1, 4) (HEAD_DIM_VARIANT: the
       rules shard head_dim, and a PQ cache's sub-spaces, K8's sub-space
       mode), exact and PQ, held as above (a PQ cell's LUTs and codes on
@@ -616,18 +801,22 @@ def mesh_cells_body() -> None:
                            f"{tuple(mesh.shape.values())}")
     for mesh in meshes:
         _k8_sharded_plain(mesh, f"K8 {tuple(mesh.shape.values())}")
-    cfg = configs.get_smoke_config("qwen3-1.7b")
-    params = None
-    for c, kind in ((cfg, "train"),
-                    (configs.get_smoke_config("zamba2-2.7b"), "decode"),
-                    (configs.get_smoke_config("rwkv6-3b"), "prefill")):
-        try:
-            dryrun.mesh_cell(c, kind, meshes[0], dict(), params,
-                             tokens=torch.zeros((1, 1), dtype=torch.int32))
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e), e
-        else:
-            raise AssertionError(f"mesh_cell took {c.name} {kind}")
+    for arch, pq in RECURRENT_ARCHS:
+        ref = _meshless(arch, pq, rec)
+        for mesh in meshes:
+            note = _recurrent_cell(ref, mesh, rec, (
+                f"{arch} {'pq' if pq else 'exact'} "
+                f"{tuple(mesh.shape.values())}"))
+            if note:
+                notes.append(note)
+    try:
+        dryrun.mesh_cell(configs.get_smoke_config("qwen3-1.7b"), "train",
+                         meshes[0], dict(), None,
+                         tokens=torch.zeros((1, 1), dtype=torch.int32))
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e) and "item 6" in str(e), e
+    else:
+        raise AssertionError("mesh_cell took a training cell")
     # heads that do not divide the model axis: the rules shard head_dim
     # and, with a PQ cache, its sub-spaces (K8's sub-space mode)
     for pq in (False, True):

@@ -1651,25 +1651,6 @@ def test_moe_and_frontend_lm_on_the_card_matches_the_host(dev, arch):
 # the LM decode step as a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _hybrid_codebooks(params, cfg, prompts, max_seq):
-    """zamba2's shared-attention codebooks, calibrated a group at a time on
-    the exact prefill's K/V (the reference's serve_batch has no hybrid
-    calibration)."""
-    from repro_torch.models import kvcache as tkvc
-    from repro_torch.models import model as tmodel
-    _, exact = tmodel.prefill(params, prompts, cfg.replace(kv_pq=False),
-                              max_seq=max_seq)
-    s, m = prompts.shape[1], cfg.resolved_kv_pq_m
-    out = {}
-    for name in ("attn_k", "attn_v"):
-        x = exact[name][:, :, :s]
-        g, b, _, kv, hd = x.shape
-        out[name + "_cb"] = torch.stack([tkvc.calibrate_kv_codebooks(
-            torch.Generator().manual_seed(gi), x[gi].reshape(b * s, kv, hd),
-            m) for gi in range(g)]).to(torch.bfloat16)
-    return out
-
-
 def _lm_caches(dev, arch, kind, dtype, b=2, s=40, max_seq=48):
     """A smoke model on the card in ``dtype``, its prompts, and two caches
     prefilled alike (exact, or PQ with calibrated codebooks)."""
@@ -1686,7 +1667,8 @@ def _lm_caches(dev, arch, kind, dtype, b=2, s=40, max_seq=48):
         pq = (serve.calibrate_pq_cache(torch.Generator().manual_seed(1),
                                        params, cfg, b, max_seq)
               if cfg.block_type == "attn"
-              else _hybrid_codebooks(params, cfg, prompts, max_seq))
+              else serve.calibrate_hybrid_codebooks(
+                  torch.Generator().manual_seed(1), params, cfg, prompts))
     # the attention family's prefill fills a PQ cache's codes in place:
     # each prefill gets codes of its own
     caches = [tmodel.prefill(params, prompts, cfg, max_seq=max_seq,
@@ -2085,3 +2067,46 @@ def test_k8_combine_splits_smem_mirror_equals_the_kernels_export(dev):
     fn = _build.load_library().repro_pq_decode_combine_splits_smem
     for nsplit in (1, 2, 16, 17, 64, 4097):
         assert fn(nsplit) == pqk.combine_splits_smem_bytes(nsplit)
+
+
+@pytest.mark.parametrize("seq", [32, 64])
+def test_head_dim_attention_at_one_nccl_rank_is_the_meshless_one(dev, seq):
+    """The head_dim branch's prefill attention (``layers._over_head_dim``:
+    each rank's slice of head_dim, the partial scores of a block summed by
+    an f32 all-reduce) on the card under a one-rank NCCL group, q, k and v
+    placed on head_dim over the model dim: qwen3-smoke with 6 heads in
+    bf16, the full path (32 positions, one chunk) and the chunked one (64),
+    equal to the meshless ``chunked_causal_attention`` bit for bit (one
+    rank's sum is its own partial)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers as ll
+    cfg = configs.get_smoke_config("qwen3-1.7b").replace(n_heads=6)
+    g = torch.Generator(device=dev).manual_seed(seq)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.randn((2, seq, h, hd), generator=g, device=dev).to(
+        torch.bfloat16) for h in (6, cfg.n_kv_heads, cfg.n_kv_heads))
+    want = ll.chunked_causal_attention(q, k, v, cfg)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        place = [Replicate(), Shard(3)]
+        pq, pk, pv = (distribute_tensor(t, mesh.device_mesh, place)
+                      for t in (q, k, v))
+        got = ll._over_head_dim(ll.chunked_causal_attention, pq, pk, pv, cfg,
+                                1)
+        assert tuple(got.placements) == tuple(place)
+        got = got.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)

@@ -111,27 +111,29 @@ def _inputs(cfg):
 
 
 def _empty_codes(pqc):
-    return None if pqc is None else pqc._replace(
-        k_codes=torch.zeros_like(pqc.k_codes),
-        v_codes=torch.zeros_like(pqc.v_codes))
+    return harness._fresh(pqc)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("zamba2-2.7b", "rwkv6-3b"))
 def test_the_cells_at_one_rank_are_the_meshless_port_bit_for_bit(arch,
                                                                  one_rank):
     """Under the (1, 1) gloo mesh the prefill and 4 decode steps of
     ``mesh_cell``, exact (with the frontend stub's embeddings where the
-    arch has one) and PQ (bf16 codebooks), equal the meshless port bit
-    for bit: logits and every cache tensor; every leaf is a DTensor at
-    its rules' placements."""
+    arch has one) and PQ (bf16 codebooks; none for rwkv6, which has no KV
+    cache), equal the meshless port bit for bit: logits and every cache
+    tensor (the recurrent states too); every leaf is a DTensor at its
+    rules' placements."""
     mesh = one_rank
-    for pq in (False, True):
+    pqs = (False,) if arch == "rwkv6-3b" else (False, True)
+    for pq in pqs:
         cfg = tconfigs.get_smoke_config(arch).replace(kv_pq=pq)
         params = tmodel.init_lm(cfg, generator=torch.Generator().manual_seed(
             0), device="cpu")
         tokens, fe = _inputs(cfg)
         pqc = None
-        if pq:
+        if pq and cfg.block_type == "mamba2":
+            pqc = harness.hybrid_pq_cache(params, cfg, B, SMAX)
+        elif pq:
             pqc = tserve.calibrate_pq_cache(torch.Generator().manual_seed(0),
                                             params, cfg, B, SMAX,
                                             sample_tokens=32)
@@ -154,11 +156,14 @@ def test_the_cells_at_one_rank_are_the_meshless_port_bit_for_bit(arch,
             got, _ = dc.step(tok, pos)
             assert torch.equal(got.full_tensor(), want), (arch, pq, i)
             tok = torch.argmax(want[:, :cfg.vocab], -1)
-        axes = tmodel.cache_axes(cfg)
-        for name, t, w in zip(wcache._fields, dc.cache, wcache):
+        axes = tdry.cache_entries(tmodel.cache_axes(cfg))
+        got = tdry.cache_entries(dc.cache)
+        assert set(got) == set(tdry.cache_entries(wcache))
+        for name, w in tdry.cache_entries(wcache).items():
+            t = got[name]
             assert torch.equal(t.full_tensor(), w), (arch, pq, name)
             assert tuple(t.placements) == tshd.named_sharding(
-                t.shape, getattr(axes, name), mesh, rules).placements()
+                t.shape, axes[name], mesh, rules).placements()
         for name, p in dc.params.named_parameters():
             assert tshd.is_placed(p), name
 
@@ -262,16 +267,31 @@ def test_shard_tree_copies_and_gather_tree_restores(one_rank):
 
 
 def test_mesh_cell_refuses_what_waits_for_later_slices(one_rank):
-    """A training cell and the recurrent archs raise, naming the
-    roadmap; a decode cell without a cache or positions is refused."""
+    """A training cell raises, naming the roadmap's item 6; the recurrent
+    archs' cells, which waited for item 5, run (zamba2's exact prefill,
+    rwkv6's decode from a zero cache: finite logits, DTensors at the
+    rules' placements); a decode cell without a cache or positions is
+    refused."""
     cfg = tconfigs.get_smoke_config("qwen3-1.7b")
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    for c, kind in ((cfg, "train"),
-                    (tconfigs.get_smoke_config("zamba2-2.7b"), "prefill"),
-                    (tconfigs.get_smoke_config("rwkv6-3b"), "decode")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdry.mesh_cell(c, kind, one_rank, tshd.DEFAULT_RULES, None,
-                           tokens=tokens)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        tdry.mesh_cell(cfg, "train", one_rank, tshd.DEFAULT_RULES, None,
+                       tokens=tokens)
+    for arch, kind in (("zamba2-2.7b", "prefill"), ("rwkv6-3b", "decode")):
+        c = tconfigs.get_smoke_config(arch).replace(kv_pq=False)
+        params = tmodel.init_lm(c, generator=torch.Generator().manual_seed(0),
+                                device="cpu")
+        rules = tdry.cell_rules(c, f"{kind}_32k", one_rank)
+        cache = (tmodel.init_cache(c, 1, 8, device="cpu")
+                 if kind == "decode" else None)
+        cell = tdry.mesh_cell(c, kind, one_rank, rules, params,
+                              tokens=tokens if cache is None else tokens[:, 0],
+                              cache=cache, max_seq=8,
+                              position=torch.zeros((1,), dtype=torch.int32))
+        logits, out = cell.step()
+        assert tshd.is_placed(logits) and torch.isfinite(
+            logits.full_tensor()).all(), arch
+        assert all(tshd.is_placed(t) for t in out.values()), arch
     with pytest.raises(ValueError, match="cache"):
         tdry.mesh_cell(cfg, "decode", one_rank, tshd.DEFAULT_RULES, None,
                        tokens=tokens[:, 0])

@@ -10,10 +10,10 @@ on a fake process group of the mesh's ranks) and K8's sub-space mode
   the counter's kinds and counts equal ``CommDebugMode``'s, and the wire
   bytes are the result bytes times the reference's ring factors.
 - Per-device dot FLOPs on a (2, 2) and, in the rules' head_dim branch, a
-  (1, 4) mesh against the reference's compiled per-device HLO's
-  (``_torch_mesh_hlo_harness.py``, one subprocess of four forced host
-  devices): equal where both shard every dot alike; the head_dim
-  branch's prefill above it by the attention the port replicates.
+  (1, 4) mesh, and of the recurrent archs on both, against the
+  reference's compiled per-device HLO's (``_torch_mesh_hlo_harness.py``,
+  one subprocess of four forced host devices): equal; the head_dim
+  branch's score all-reduces in the reference's type (bf16 in bf16).
 - A full-width decode cell counted on the fake pod, its roofline and the
   report's columns; at one gloo rank a cell counts as the one-card count.
 - K8's sub-space mode: the shards' plain scoring passes summed equal the
@@ -24,8 +24,10 @@ on a fake process group of the mesh's ranks) and K8's sub-space mode
 """
 import importlib.util
 import json
+import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -131,56 +133,122 @@ def test_collectives_equal_comm_debug_modes(model, kind):
         b * rl.WIRE_FACTOR[k] for k, b in costs.collective_bytes.items())
 
 
-# arch:kind:batch:seq:mesh[:heads]; 6 heads over a model axis of 4: the
-# rules' head_dim branch
+# arch:kind:batch:seq:mesh[:heads[:dtype]]; 6 heads over a model axis of
+# 4: the rules' head_dim branch, also at two attention chunks in bf16; the
+# recurrent archs (zamba2's exact cache) on both meshes
 CELLS = ("qwen3-1.7b:decode:4:64:2x2", "qwen3-1.7b:prefill:4:32:2x2",
          "dbrx-132b:decode:4:64:2x2", "qwen3-1.7b:decode:4:64:1x4:6",
-         "qwen3-1.7b:prefill:4:32:1x4:6")
+         "qwen3-1.7b:prefill:4:32:1x4:6",
+         "qwen3-1.7b:prefill:4:64:1x4:6:bfloat16",
+         *(f"{arch}:{kind}:4:{seq}:{mesh}"
+           for arch in ("zamba2-2.7b", "rwkv6-3b")
+           for kind, seq in (("decode", 64), ("prefill", 32))
+           for mesh in ("2x2", "1x4")))
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def test_per_device_dot_flops_equal_the_references_compiled_hlo():
+def _skipped_blocks(cfg, seq: int) -> int:
+    """The causal blocks past the frontier that the port's chunked
+    attention skips and the reference's analyzer counts (both branches of
+    its ``lax.cond``), over the layers."""
+    nq, nkv = seq // cfg.attn_q_chunk, seq // cfg.attn_kv_chunk
+    if nq <= 1:
+        return 0
+    live = sum(1 for i in range(nq) for j in range(nkv)
+               if j * cfg.attn_kv_chunk < (i + 1) * cfg.attn_q_chunk)
+    return cfg.n_layers * (nq * nkv - live)
+
+
+def _numel(hlo_type: str) -> int:
+    """The elements of an HLO array type (0 for a tuple)."""
+    m = re.fullmatch(r"\w+\[([\d,]*)\]", hlo_type)
+    return math.prod(int(d) for d in m.group(1).split(",") if d) if m else 0
+
+
+def test_per_device_dot_flops_equal_the_references_compiled_hlo(
+        monkeypatch):
     """The reference's decode and prefill cells of qwen3-smoke and dbrx-
-    smoke on a (2, 2) mesh, and of qwen3-smoke with 6 heads on a (1, 4)
-    mesh (the rules' head_dim branch), compiled on four forced host
-    devices (``_torch_mesh_hlo_harness.py``, one subprocess): each one's
-    per-device dot FLOPs equal the port's per-device matmul FLOPs on a
-    fake group of the same shape at the tolerance of
-    ``test_torch_dryrun.py``'s one-card comparison (0.2%) where both
-    shard every dot alike. In the head_dim branch's prefill they do not:
-    XLA shards the attention's products 4 ways, and the port runs every
-    head on each rank (``layers._over_heads`` shards heads, not
-    head_dim), so its count is the reference's plus 3/4 of the one-card
-    attention products (``bmm``): the port's gap, held exactly. The
-    collectives differ in kind (XLA's own partitioner and fusions) and
-    are printed side by side, not held."""
+    smoke on a (2, 2) mesh, of qwen3-smoke with 6 heads on a (1, 4) mesh
+    (the rules' head_dim branch; its prefill also at two attention
+    chunks in bf16), and of zamba2-smoke and rwkv6-smoke on both,
+    compiled on four forced host devices (``_torch_mesh_hlo_harness.py``,
+    one subprocess): each one's per-device dot FLOPs equal the port's
+    per-device matmul FLOPs on a fake group of the same shape at the
+    tolerance of ``test_torch_dryrun.py``'s one-card comparison (0.2%),
+    less exactly the causal blocks the port skips where there are two
+    chunks. In the head_dim branch's prefill the attention runs on each
+    rank's head_dim slice (``layers._over_head_dim``), so its ``bmm`` is
+    a quarter of the one-card count, as XLA's, and each block's partial
+    scores are all-reduced in the type and shape of the reference's after
+    SPMD partitioning (bf16 in the bf16 cell: the CPU backend widens it to
+    f32 later), once a live block. The other collectives differ in kind
+    (XLA's own partitioner and fusions) and are printed side by side, not
+    held."""
+    from repro_torch.launch import sharding as shd
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                REPRO_XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, str(
+    # the reference compiles in its own process while this one counts
+    proc = subprocess.Popen([sys.executable, str(
         ROOT / "tests" / "_torch_mesh_hlo_harness.py"), *CELLS],
-        capture_output=True, text=True, env=env, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    refs = [json.loads(line) for line in proc.stdout.splitlines()]
-    for spec, ref in zip(CELLS, refs, strict=True):
-        arch, kind, b, s, shape, *heads = spec.split(":")
-        cfg = configs.get_smoke_config(arch).replace(kv_pq=False)
-        if heads:
-            cfg = cfg.replace(n_heads=int(heads[0]))
-        d, m = (int(n) for n in shape.split("x"))
-        desc = mesh_lib.Mesh({"data": d, "model": m})
-        c = dryrun.count_mesh_cell(cfg, kind, int(b), int(s), desc,
-                                   dryrun.serving_rules(cfg, desc))
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    real_all_reduce, psums = shd.all_reduce, []
+
+    def all_reduce(t, *args, **kwargs):
+        psums.append((t.dtype, t.numel()))
+        return real_all_reduce(t, *args, **kwargs)
+
+    monkeypatch.setattr(shd, "all_reduce", all_reduce)
+    try:
+        counted = []
+        for spec in CELLS:
+            arch, kind, b, s, shape, *variant = spec.split(":")
+            cfg = configs.get_smoke_config(arch).replace(kv_pq=False)
+            if variant:
+                cfg = cfg.replace(n_heads=int(variant[0]))
+            if len(variant) > 1:
+                cfg = cfg.replace(dtype=variant[1])
+            d, m = (int(n) for n in shape.split("x"))
+            desc = mesh_lib.Mesh({"data": d, "model": m})
+            psums.clear()
+            c = dryrun.count_mesh_cell(cfg, kind, int(b), int(s), desc,
+                                       dryrun.serving_rules(cfg, desc))
+            one = None
+            if variant and kind == "prefill":
+                one = dryrun.count_cell(cfg, kind, int(b), int(s))
+            counted.append((cfg, c, one, m, list(psums)))
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-3000:]
+    refs = [json.loads(line) for line in out.splitlines()]
+    for spec, ref, (cfg, c, one, m, psum) in zip(CELLS, refs, counted,
+                                                 strict=True):
+        part = ref["partitioned"]
         print(f"{spec}: dot FLOPs a device {c.matmul_flops:.0f} (reference "
               f"{ref['dot_flops']:.0f}); collectives {c.collective_ops} "
               f"{c.wire_bytes:.0f} wire B (reference {ref['ops']} "
-              f"{ref['wire']:.0f})")
-        replicated = 0.0
-        if heads and kind == "prefill":
-            one = dryrun.count_cell(cfg, kind, int(b), int(s))
-            replicated = one.flops_by_op["bmm"] * (m - 1) / m
-            assert c.flops_by_op["bmm"] == one.flops_by_op["bmm"]
-        assert c.matmul_flops == pytest.approx(ref["dot_flops"] + replicated,
-                                               rel=2e-3)
+              f"{ref['wire']:.0f}, {part['wire']:.0f} at the partitioner's "
+              f"types)")
+        b, s = (int(n) for n in spec.split(":")[2:4])
+        skipped = _skipped_blocks(cfg, s) if one is not None else 0
+        if one is not None:
+            assert c.flops_by_op["bmm"] == one.flops_by_op["bmm"] / m
+            block = (b * cfg.n_kv_heads * cfg.n_heads // cfg.n_kv_heads
+                     * cfg.attn_q_chunk * cfg.attn_kv_chunk)
+            scores = {t: n for t, n in part["all_reduces"].items()
+                      if _numel(t) == block}
+            (ref_type, ref_n), = scores.items()
+            got = [dt for dt, n in psum if n == block]
+            assert set(got) == {_DTYPES[ref_type.split("[")[0]]}, (
+                spec, got, ref_type)
+            assert len(got) == ref_n - skipped, (spec, len(got), ref_n)
+            skipped *= (4 * b * cfg.attn_q_chunk * cfg.attn_kv_chunk
+                        * cfg.n_heads * cfg.resolved_head_dim // m)
+        assert c.matmul_flops + skipped == pytest.approx(ref["dot_flops"],
+                                                         rel=2e-3)
 
 
 def test_a_full_width_decode_cell_on_the_fake_pod(tmp_path):
@@ -250,6 +318,36 @@ def test_at_one_gloo_rank_a_cell_counts_as_one_card(pq):
     assert 0 <= got.flops - want.flops <= 3 * cfg.n_layers
 
 
+@pytest.mark.parametrize("arch, pq", [("zamba2-2.7b", True),
+                                      ("rwkv6-3b", False)])
+def test_at_one_gloo_rank_a_recurrent_cell_counts_as_one_card(arch, pq):
+    """zamba2-2.7b's PQ decode (its CONFIG's) and rwkv6-3b's at B 8 x
+    4,096 over a (1, 1) gloo mesh: the matmul FLOPs, the compulsory bytes
+    (each state read and written whole, ``decode_cache_bytes`` on the
+    local shards) and the peak of live bytes equal the one-card count's,
+    K8 launched once a shared-attention group, no wire bytes; the FLOPs
+    differ only by the placed writes' index arithmetic (3 a group)."""
+    cfg = configs.get_config(arch).replace(kv_pq=pq)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(device="cpu")
+        got = dryrun.count_mesh_cell(cfg, "decode", 8, 4096, mesh,
+                                     dryrun.cell_rules(cfg, "decode_32k",
+                                                       mesh))
+    finally:
+        dist.destroy_process_group()
+    want = dryrun.count_cell(cfg, "decode", 8, 4096)
+    groups = cfg.n_layers // cfg.shared_attn_every if pq else 0
+    assert got.matmul_flops == want.matmul_flops
+    assert got.min_bytes == want.min_bytes
+    assert got.peak_live_bytes == want.peak_live_bytes
+    assert got.wire_bytes == 0 and got.collective_ops == {}
+    assert got.kernels == want.kernels == (
+        {"pq_decode_attention": groups} if pq else {})
+    assert got.flops - want.flops == 3 * groups
+
+
 @pytest.mark.parametrize("shape", [(2, 4), (4, 4)])
 def test_a_moe_prefill_under_fsdp_rules_counts_on_a_fake_mesh(shape):
     """dbrx-smoke's prefill on a fake (data, 4) group under rules that keep
@@ -266,14 +364,17 @@ def test_a_moe_prefill_under_fsdp_rules_counts_on_a_fake_mesh(shape):
 
 
 def test_pod_cells_that_run_no_step_over_ranks_say_what_is_left():
-    """Training and the recurrent families keep ``roofline: null`` on the
-    pod, their ``counted`` naming ROADMAP Queue 1's items 5 and 6."""
+    """Training keeps ``roofline: null`` on the pod, its ``counted``
+    naming ROADMAP Queue 1's item 6 alone (the recurrent families', item
+    5, are counted now)."""
     for arch, shape in (("qwen3-1.7b", "train_4k"),
-                        ("rwkv6-3b", "decode_32k")):
+                        ("rwkv6-3b", "train_4k")):
         r = dryrun.run_cell(arch, shape, mesh="pod", verbose=False)
         assert r["roofline"] is None
         assert r["counted"] == dryrun.COUNTED_ON_A_MESH
-        assert "item 5" in r["counted"] and "item 6" in r["counted"]
+        assert "item 6" in r["counted"] and "item 5" not in r["counted"]
+    assert "item 6" in dryrun.shd.NEXT_SLICE
+    assert "item 5" not in dryrun.shd.NEXT_SLICE
 
 
 # ---------------------------------------------------------------------------

@@ -619,7 +619,7 @@ def test_run_cell_per_device_bytes_are_the_references(arch, shape, mesh,
     jd = _jdry()
     ok, why = jd.cell_supported(jconfigs.get_config(arch), shape)
     cfg = tconfigs.get_config(arch)
-    if ok and tdry.runs_over_ranks(cfg, tdry.SHAPES[shape][2]):
+    if ok and tdry.runs_over_ranks(tdry.SHAPES[shape][2]):
         # run_cell counts such a cell over ranks too (a prefill_32k cell
         # about a minute; test_torch_mesh_count.py): its sizing alone here
         r = tdry.size_pod_cell(cfg, shape, mesh)[2]
@@ -655,13 +655,10 @@ POD_TABLE = {
 def test_the_pod_table(tmp_path):
     rules = {}
     for arch, (train, params, whole, cache) in POD_TABLE.items():
-        t = tdry.run_cell(arch, "train_4k", mesh="pod", verbose=False)
+        t = tdry.run_cell(arch, "train_4k", mesh="pod", out_dir=str(tmp_path),
+                          verbose=False)
         cfg = tconfigs.get_config(arch)
-        if tdry.runs_over_ranks(cfg, "decode"):
-            d = tdry.size_pod_cell(cfg, "decode_32k", "pod")[2]
-        else:
-            d = tdry.run_cell(arch, "decode_32k", mesh="pod", out_dir=str(
-                tmp_path), verbose=False)
+        d = tdry.size_pod_cell(cfg, "decode_32k", "pod")[2]
         t, pd = t["per_device"], d["per_device"]
         gb = lambda n: f"{n / 1e9:.2f}"  # noqa: E731
         assert f"{gb(t['param_bytes'])} + {gb(t['opt_bytes'])}" == train
@@ -675,8 +672,9 @@ def test_the_pod_table(tmp_path):
         "embed": None}
     assert rules["qwen1.5-32b"] == {"embed": None, "head_dim": "model",
                                     "pq_m": "model", "kv_seq": None}
+    # a cell that runs no step over ranks (training) in both report tables
     cells = treport.load_cells(str(tmp_path))
-    assert "| rwkv6-3b | decode_32k | pod | 0.90 | 0.00 | 0.17 | 0.55 |" \
+    assert "| rwkv6-3b | train_4k | pod | 0.06 | 0.23 | 0.00 | 0.00 |" \
         in treport.per_device_table(cells)
-    assert "| rwkv6-3b | decode_32k | pod | ok | — | 3.1B | not counted |" \
+    assert "| rwkv6-3b | train_4k | pod | ok | — | 3.1B | not counted |" \
         in treport.dryrun_table(cells)
