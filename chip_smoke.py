@@ -3882,15 +3882,16 @@ def train_steps(torch, step_fn, state, batches, first: int, what: str,
 
 
 def host_bits(torch, state) -> dict:
-    """A training state's tensors (params, mu, nu, step) copied to the
-    host as integers of their width, so that equality is of bits."""
+    """A training state's tensors (params, mu, nu, step; a DTensor taken
+    whole) copied to the host as integers of their width, so that
+    equality is of bits."""
     ints = {2: torch.int16, 4: torch.int32}
     named = [*(("params." + n, p) for n, p in state.params.named_parameters()),
              *(("mu." + n, t) for n, t in state.opt.mu.items()),
              *(("nu." + n, t) for n, t in state.opt.nu.items()),
              ("step", state.opt.step)]
-    return {n: t.detach().view(ints[t.element_size()]).cpu()
-            for n, t in named}
+    return {n: (t.full_tensor() if hasattr(t, "full_tensor") else t)
+            .detach().view(ints[t.element_size()]).cpu() for n, t in named}
 
 
 def codec_check(torch, args, cfg, params, batch) -> None:
@@ -4213,8 +4214,8 @@ MESH_STEPS = 8
 # in bf16: each shard's partial and each sum of two rounded to bf16 (four
 # units in the last place at a row's largest |value|)
 MOE_SHARD_RTOL = 2.0 ** -5
-# the cells of the arch-and-shape pairs the card runs, sized per device
-# on the reference's production meshes
+# the cells of the arch-and-shape pairs the card runs, sized and counted
+# per device on the reference's production meshes
 MESH_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
               ("zamba2-2.7b", "decode_32k"), ("dbrx-132b", "decode_32k"))
 # the recurrent archs' cells through mesh_cell, at full width with their
@@ -4699,6 +4700,115 @@ def mesh_recurrent(torch, args, mesh) -> None:
         torch.cuda.empty_cache()
 
 
+# the train cells through mesh_cell: (arch, cut, batch, microbatches) at
+# TRAIN_SEQ tokens a row; qwen3 whole at the training phase's shapes, the
+# recurrent archs at full width with MESH_RECURRENT's depth
+MESH_TRAIN = (("qwen3-1.7b", {}, TRAIN_BATCH, TRAIN_MICRO),
+              *((arch, cut, TRAIN_REC_BATCH, 1) for arch, cut in MESH_RECURRENT))
+
+
+def mesh_train(torch, args, mesh) -> None:
+    """The train cells of MESH_TRAIN under the one-rank NCCL mesh and the
+    training rules, under deterministic algorithms: each arch's meshless
+    step (``make_train_step``) from its seeded state, then
+    ``mesh_cell(..., "train")`` from the same parameters and batch with
+    every parameter, moment and batch tensor a DTensor (the unplaced
+    parameters dropped before the step): the loss, the grad norm and
+    every parameter and moment after the step equal bit for bit, the
+    mesh step's peak of allocated bytes printed. Then qwen3-1.7b's train
+    cell at TRAIN_BATCH x TRAIN_SEQ counted over the one-rank mesh
+    (``dryrun.count_mesh_cell``) against the one-card count: matmul
+    FLOPs, compulsory and static bytes equal, no wire bytes."""
+    from repro_torch import configs
+    from repro_torch.data import tokens as tok_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ocfg = opt_lib.AdamWConfig(total_steps=1000)
+    for arch, cut, batch_size, micro in MESH_TRAIN:
+        cfg = configs.get_config(arch).replace(**cut)
+        what = f"mesh: {arch} train cell"
+        pipe = tok_lib.TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                           global_batch=batch_size, seed=0)
+        batch = dict(tok_lib.batch_at_step(pipe, 0, dev)._asdict())
+        runs = []
+        torch.use_deterministic_algorithms(True)
+        try:
+            state = train_loop.init_train_state(cfg, args.seed, dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = train_loop.make_train_step(cfg, ocfg, micro)(state,
+                                                                   batch)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t, m["loss"].item(),
+                         m["grad_norm"].item(), host_bits(torch, state)))
+            del state, m
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = model_lib.init_lm(cfg, generator=torch.Generator(
+                device=dev).manual_seed(args.seed), device=dev)
+            cell = dryrun.mesh_cell(cfg, "train", mesh, dryrun.cell_rules(
+                cfg, "train_4k", mesh), params, microbatches=micro, **batch)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = cell.step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            runs.append((time.perf_counter() - t,
+                         m["loss"].full_tensor().item(),
+                         m["grad_norm"].full_tensor().item(),
+                         host_bits(torch, state)))
+            placed = all(shd.is_placed(t) for t in (
+                *state.params.parameters(), *state.opt.mu.values(),
+                *state.opt.nu.values(), state.opt.step))
+            del state, m, cell
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (s0, l0, g0, b0), (s1, l1, g1, b1) = runs
+        differ = sorted(k for k in b0 if not torch.equal(b0[k], b1.get(k)))
+        log(f"{what}: {batch_size} x {TRAIN_SEQ} in {micro} microbatches, "
+            f"{cfg.n_layers} layers (reduced: "
+            + (", ".join(f"{k} {getattr(configs.get_config(arch), k)} -> {v}"
+                         for k, v in cut.items()) or "nothing")
+            + f"): loss {l0:.6f} / {l1:.6f}, grad norm {g0:.6f} / {g1:.6f} "
+            f"meshless / through the cell; {len(b0) - len(differ)} of "
+            f"{len(b0)} tensors (params, mu, nu, step) equal bit for bit; "
+            f"every one a DTensor: {placed}; step {s0 * 1e3:.1f} / "
+            f"{s1 * 1e3:.1f} ms; the cell's peak {peak} B allocated")
+        if differ or set(b0) != set(b1) or l0 != l1 or g0 != g1 \
+                or not placed:
+            raise AssertionError(f"{what}: differs from the meshless step: "
+                                 f"{differ[:5]}")
+        del runs, b0, b1, batch
+    cfg = configs.get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    got = dryrun.count_mesh_cell(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, mesh,
+                                 dryrun.cell_rules(cfg, "train_4k", mesh))
+    t1 = time.perf_counter()
+    want = dryrun.count_cell(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    what = f"mesh: count {TRAIN_ARCH} train"
+    log(f"{what}: at B {TRAIN_BATCH} x {TRAIN_SEQ} over the (1, 1) NCCL mesh "
+        f"in {t1 - t0:.2f} s: {got.flops:.0f} FLOPs ({got.matmul_flops:.0f} "
+        f"matmul), {got.min_bytes} compulsory B, static {got.static_bytes} "
+        f"B, peak {got.peak_live_bytes} B, wire {got.wire_bytes} B; one "
+        f"card: {want.flops:.0f} ({want.matmul_flops:.0f}), {want.min_bytes},"
+        f" static {want.static_bytes}, peak {want.peak_live_bytes}")
+    if (got.matmul_flops != want.matmul_flops
+            or got.min_bytes != want.min_bytes
+            or got.static_bytes != want.static_bytes or got.wire_bytes != 0):
+        raise AssertionError(f"{what}: the one-rank mesh count differs from "
+                             "the one-card count")
+
+
 def moe_shards(torch, args) -> None:
     """dbrx-132b's expert-parallel bodies at full width (one layer's MoE,
     the MoE phase's B 8 x 2,048 prompt tokens), over 2 and 4 expert
@@ -4783,18 +4893,22 @@ def mesh_phase(torch, args) -> tuple[dict, dict]:
     """The LM under a one-rank device mesh (``launch/mesh.py``,
     ``launch/sharding.py``): a one-rank NCCL process group on a free local
     port and ``make_host_mesh()``'s (1, 1) ``DeviceMesh`` on the card;
-    under ``use_mesh`` qwen3-1.7b's exact and PQ decode (``mesh_decode``)
-    and one training step at the training phase's shapes, each equal to
-    the meshless run bit for bit, 28 K8 launches a PQ step; a DTensor
+    under ``use_mesh`` qwen3-1.7b's exact and PQ decode (``mesh_decode``),
+    equal to the meshless run bit for bit, 28 K8 launches a PQ step; the
+    train cells through ``mesh_cell`` with every parameter, moment and
+    batch tensor a DTensor (``mesh_train``: qwen3-1.7b whole at the
+    training phase's shapes, zamba2 and rwkv6 at MESH_RECURRENT's depth),
+    bit for bit the meshless steps, and qwen3's train cell counted over
+    the one-rank mesh against the one-card count; a DTensor
     through ``constrain``; the serving cells through ``mesh_cell`` with
     every tensor a DTensor (``mesh_cells``), bit for bit, 28 K8 launches
     a PQ step; K8's sharded mode over 2 and 4 shards of the PQ cache
     (``k8_sharded``) and its sub-space mode over 2 and 4 shards of the
     sub-spaces (``k8_subspaces``, whose two passes' entries of the kernels
     line it returns); qwen3-1.7b's decode counted over the one-rank NCCL
-    mesh against the one-card count (``mesh_count``); the per-device
-    bytes of MESH_CELLS on the
-    reference's pod and multipod meshes; dbrx-132b's expert-parallel
+    mesh against the one-card count (``mesh_count``); MESH_CELLS sized
+    and counted per device on the reference's pod and multipod meshes;
+    dbrx-132b's expert-parallel
     bodies over 2 and 4 shards (``moe_shards``). The card machine has one
     H100: a mesh of several ranks runs as gloo ranks on the CPU (the
     tests), and here the shards run in turn. The group is destroyed
@@ -4805,14 +4919,11 @@ def mesh_phase(torch, args) -> tuple[dict, dict]:
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch import configs
-    from repro_torch.data import tokens as tok_lib
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve
     from repro_torch.launch import sharding as shd
     from repro_torch.models import model as model_lib
-    from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train import train_loop
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4869,44 +4980,7 @@ def mesh_phase(torch, args) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         mesh_recurrent(torch, args, mesh)
 
-        # one training step at the training phase's shapes, without and
-        # with the mesh, under deterministic algorithms
-        ocfg = opt_lib.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=2)
-        pipe = tok_lib.TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                           global_batch=TRAIN_BATCH, seed=0)
-        batch = dict(tok_lib.batch_at_step(pipe, 0, dev)._asdict())
-        step_fn = train_loop.make_train_step(cfg, ocfg, TRAIN_MICRO)
-        runs = []
-        torch.use_deterministic_algorithms(True)
-        try:
-            for on_mesh in (False, True):
-                state = train_loop.init_train_state(cfg, args.seed, dev)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                if on_mesh:
-                    with shd.use_mesh(mesh):
-                        state, m = step_fn(state, batch)
-                else:
-                    state, m = step_fn(state, batch)
-                torch.cuda.synchronize()
-                runs.append((time.perf_counter() - t, m["loss"].item(),
-                             host_bits(torch, state)))
-                del state, m
-                gc.collect()
-                torch.cuda.empty_cache()
-        finally:
-            torch.use_deterministic_algorithms(False)
-        (s0, l0, b0), (s1, l1, b1) = runs
-        differ = sorted(k for k in b0 if not torch.equal(b0[k], b1.get(k)))
-        log(f"mesh: one training step ({TRAIN_BATCH} x {TRAIN_SEQ} in "
-            f"{TRAIN_MICRO} microbatches): loss {l0:.6f} without the mesh, "
-            f"{l1:.6f} under it; {len(b0) - len(differ)} of {len(b0)} "
-            f"tensors (params, mu, nu, step) equal bit for bit; step "
-            f"{s0 * 1e3:.1f} / {s1 * 1e3:.1f} ms")
-        if differ or set(b0) != set(b1) or l0 != l1:
-            raise AssertionError(f"mesh: the training step differs: "
-                                 f"{differ[:5]}")
-        del runs, b0, b1, batch
+        mesh_train(torch, args, mesh)
     finally:
         dist.destroy_process_group()
     log(f"mesh: the process group destroyed; initialised "
@@ -4922,18 +4996,16 @@ def mesh_phase(torch, args) -> tuple[dict, dict]:
                 f"(fits {pd['fits']}), replicated {pd['replicated_bytes']} B "
                 f"in {pd['replicated_leaves']} leaves; rules {pd['rules']}")
             roof = r["roofline"]
-            if roof is not None:
-                bound = max(roof["t_compute_s"], roof["t_memory_s"],
-                            roof["t_collective_s"])
-                log(f"mesh: {arch} {shape} on {name} counted per device "
-                    f"(a fake group of {r['chips']} ranks on meta): "
-                    f"{r['flops']:.6e} FLOPs, {r['min_bytes']} compulsory "
-                    f"B, collectives {r['collectives']['ops']}, "
-                    f"{r['collectives']['wire_bytes_per_dev']:.0f} wire B; "
-                    f"bound {bound * 1e3:.6f} ms "
-                    f"({roof['bottleneck']}), MFU bound "
-                    f"{roof['mfu_bound']:.4f} at {rl.LINK_BW:.3e} B/s a "
-                    f"link; [{r['trace_s']} s]")
+            bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                        roof["t_collective_s"])
+            log(f"mesh: {arch} {shape} on {name} counted per device (a "
+                f"fake group of {r['chips']} ranks on meta): "
+                f"{r['flops']:.6e} FLOPs, {r['min_bytes']} compulsory B, "
+                f"collectives {r['collectives']['ops']}, "
+                f"{r['collectives']['wire_bytes_per_dev']:.0f} wire B; "
+                f"bound {bound * 1e3:.6f} ms ({roof['bottleneck']}), MFU "
+                f"bound {roof['mfu_bound']:.4f} at {rl.LINK_BW:.3e} B/s a "
+                f"link; [{r['trace_s']} s]")
     moe_shards(torch, args)
     return subspace
 

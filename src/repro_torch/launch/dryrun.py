@@ -28,24 +28,22 @@ or (2, 16, 16) mesh (``launch/mesh.py``) under the reference's rules
 optimizer state, caches and batch, each mapped with its logical axes
 through ``sharding.tree_shardings``, give the bytes of one device's
 shards, the leaves placed whole on every device, the rules that depart
-from ``DEFAULT_RULES``, and whether the static bytes fit one card. A
-prefill or decode cell of any family is also counted per
-device (``count_mesh_cell``): a fake process group of the mesh's ranks
-(rank 0's view; nothing is sent) holds a ``DeviceMesh`` of the
-production shape, ``mesh_cell`` places the meta tensors on it as
-DTensors and runs the step, and ``cost_analysis`` counts the local ops
-and the collectives: ``flops``, ``op_bytes``, ``min_bytes``,
-``peak_live_bytes`` and ``launches`` of one device, ``collectives``
-(``ops``, ``bytes_by_op``, ``wire_bytes_per_dev``) and a ``roofline`` of
-``mesh.size`` chips. Training cells are not run over ranks yet: their
-``roofline`` is null (``COUNTED_ON_A_MESH``).
+from ``DEFAULT_RULES``, and whether the static bytes fit one card. Every
+cell of every family is also counted per device (``count_mesh_cell``):
+a fake process group of the mesh's ranks (rank 0's view; nothing is
+sent) holds a ``DeviceMesh`` of the production shape, ``mesh_cell``
+places the meta tensors on it as DTensors and runs the step, and
+``cost_analysis`` counts the local ops and the collectives: ``flops``,
+``op_bytes``, ``min_bytes``, ``peak_live_bytes`` and ``launches`` of one
+device, ``collectives`` (``ops``, ``bytes_by_op``,
+``wire_bytes_per_dev``) and a ``roofline`` of ``mesh.size`` chips.
 
 ``mesh_cell`` is the counterpart of the reference's ``build_cell`` with
-its ``in_shardings`` for the serving cells: it
-places the parameters, the cache and the batch as DTensors over a
-``DeviceMesh`` of the process group's ranks by ``cell_rules`` and runs
-the prefill or decode step over them (gloo ranks on the CPU, NCCL, or
-the fake group of ``count_mesh_cell``).
+its ``in_shardings``: it places the parameters (and the optimizer state,
+the cache) and the batch as DTensors over a ``DeviceMesh`` of the
+process group's ranks by ``cell_rules`` and runs the train, prefill or
+decode step over them (gloo ranks on the CPU, NCCL, or the fake group of
+``count_mesh_cell``).
 """
 from __future__ import annotations
 
@@ -77,12 +75,7 @@ MESH = "h100x1"
 # the reference's production meshes, sized per device
 POD_MESHES = ("pod", "multipod")
 META = torch.device("meta")
-# what a pod cell that runs no step over ranks is counted by
-COUNTED_ON_A_MESH = ("bytes per device under the rules; the step is not run "
-                     "over ranks yet, so per-device FLOPs and collective "
-                     "bytes wait for training over a mesh (ROADMAP, Queue "
-                     "1, item 6)")
-# what a pod cell that runs its step over ranks is counted by
+# what a pod cell is counted by
 COUNTED_PER_DEVICE = ("the step over DTensors on a fake group of the mesh's "
                       "ranks, counted at rank 0 (count_mesh_cell)")
 
@@ -337,22 +330,32 @@ def roofline(cfg: ModelConfig, arch: str, shape: str, kind: str, batch: int,
 
 
 class MeshCell(NamedTuple):
-    """A prefill or decode cell over a mesh of ranks (``mesh_cell``):
+    """A cell over a mesh of ranks (``mesh_cell``). Serving:
     ``step(tokens=None, position=None)`` places full tokens (and
     positions) and runs the step under the mesh, returning its (logits,
     cache), both placed; the cell's own inputs when called without
     them. ``params`` and ``cache`` are the placed parameters and cache
-    (a decode step writes the cache in place)."""
+    (a decode step writes the cache in place). Training:
+    ``step(batch=None)`` places a full batch (the cell's own without one)
+    and runs one train step, returning (the ``TrainState``, the metrics);
+    ``params`` and ``opt`` are the placed, trainable parameters and the
+    placed AdamW state, which the step updates in place (``opt.step``
+    stays the state's before the first step: the returned state holds
+    the new one)."""
     step: Callable
     params: object
     cache: object
+    opt: object = None
 
 
 def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
               params, *, tokens: torch.Tensor, cache=None,
               position: torch.Tensor | None = None,
               max_seq: int | None = None,
-              frontend_embeds: torch.Tensor | None = None) -> MeshCell:
+              frontend_embeds: torch.Tensor | None = None,
+              targets: torch.Tensor | None = None,
+              mask: torch.Tensor | None = None, opt=None,
+              microbatches: int = 1) -> MeshCell:
     """The counterpart of the reference's ``build_cell`` with its
     ``in_shardings``, run over ``mesh`` (its ``DeviceMesh`` over the
     process group's ranks): the parameters, the cache (exact, or PQ with
@@ -369,15 +372,27 @@ def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
 
     The recurrent families run their scans and state updates on each
     rank's heads (``ssm_heads``); the hybrid's shared attention as the
-    attention family's. Training over several ranks raises
-    (``sharding.NEXT_SLICE``)."""
-    if kind == "train":
-        raise NotImplementedError(
-            f"mesh_cell: {cfg.name} {kind} over ranks; {shd.NEXT_SLICE}")
-    if kind not in ("prefill", "decode"):
-        raise ValueError(f"kind {kind!r}: want prefill or decode")
+    attention family's.
+
+    "train": the batch (``tokens``, ``targets``, ``mask`` (B, S), and
+    ``frontend_embeds`` for the frontend archs), the parameters (made
+    trainable) and the AdamW state (``opt``, full tensors; zero moments
+    at step 0 when None, each rank allocating its shards) placed by
+    ``rules`` (``DEFAULT_RULES`` for training: FSDP on "embed" over
+    "data", tensor parallel on the heads, the FFN and the vocab, the
+    experts over "model"), and one step of ``make_train_step(cfg,
+    AdamWConfig(total_steps=1000), microbatches)`` over them: DTensor
+    autograd, the gradients at the parameters' placements (an FSDP
+    weight's a reduce-scatter over "data"), the update on each rank's
+    shards."""
+    if kind not in ("prefill", "decode", "train"):
+        raise ValueError(f"kind {kind!r}: want prefill, decode or train")
     if mesh.device_mesh is None:
         raise ValueError(f"mesh_cell: {mesh} has no DeviceMesh")
+    if kind == "train":
+        return _train_cell(cfg, mesh, rules, params, opt, microbatches,
+                           {"tokens": tokens, "targets": targets,
+                            "mask": mask, "frontend_embeds": frontend_embeds})
     if kind == "decode" and (cache is None or position is None):
         raise ValueError("a decode cell needs a cache and positions")
     if kind == "prefill" and cfg.kv_pq and cache is None:
@@ -410,6 +425,33 @@ def mesh_cell(cfg: ModelConfig, kind: str, mesh: mesh_lib.Mesh, rules: dict,
     return MeshCell(step, pp, pc)
 
 
+def _train_cell(cfg: ModelConfig, mesh: mesh_lib.Mesh, rules: dict, params,
+                opt, microbatches: int, batch: dict) -> MeshCell:
+    """``mesh_cell``'s training cell."""
+    batch = {k: v for k, v in batch.items() if v is not None}
+    missing = {"tokens", "targets", "mask"} - set(batch)
+    if missing:
+        raise ValueError(f"a train cell needs {sorted(missing)}")
+    paxes = model_lib.lm_axes(cfg)
+    pp = ll.set_trainable(shd.shard_tree(params, paxes, mesh, rules))
+    oaxes = opt_lib.state_axes(paxes)
+    po = shd.shard_tree(opt_lib.init_state(pp) if opt is None else opt,
+                        oaxes, mesh, rules)
+    baxes = batch_axes(cfg)
+    train_step = train_loop.make_train_step(
+        cfg, opt_lib.AdamWConfig(total_steps=1000), microbatches)
+    state = [train_loop.TrainState(pp, po, None)]
+
+    def step(full=batch):
+        placed = shd.shard_tree(full, {k: baxes[k] for k in full}, mesh,
+                                rules)
+        with shd.use_mesh(mesh, rules):
+            state[0], metrics = train_step(state[0], placed)
+        return state[0], metrics
+
+    return MeshCell(step, pp, None, po)
+
+
 def serving_batch_axes(cfg: ModelConfig, kind: str) -> dict:
     """The logical axes of a serving cell's batch tensors: the prompt (and
     the frontend stub's embeddings), or a decode step's tokens and
@@ -420,12 +462,6 @@ def serving_batch_axes(cfg: ModelConfig, kind: str) -> dict:
             axes["frontend_embeds"] = ("batch", None, "embed")
         return axes
     return {"tokens": ("batch",), "position": ("batch",)}
-
-
-def runs_over_ranks(kind: str) -> bool:
-    """Whether ``mesh_cell`` runs a cell of ``kind`` over ranks (the
-    serving cells, of every family)."""
-    return kind in ("prefill", "decode")
 
 
 @contextlib.contextmanager
@@ -462,30 +498,37 @@ def fake_group(mesh: mesh_lib.Mesh):
 
 def count_mesh_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
                     mesh: mesh_lib.Mesh, rules: dict) -> ca.Costs:
-    """One device's counts of a prefill or decode cell over ``mesh``: the
-    meta trees (``mesh_trees``) placed by ``rules`` through ``mesh_cell``
-    and its step counted under ``CostCounter`` (the local ops, the
-    collectives). ``mesh`` a description: over a fake group of its ranks
-    (``fake_group``, rank 0); a mesh with a ``DeviceMesh``: over that
-    group's. ``min_bytes`` is ``build_cell``'s compulsory rule on each
-    leaf's local shard: the local parameters, the live rows of the local
-    cache read and the new row written (a decode step; every position
-    live), the local inputs and outputs."""
-    if not runs_over_ranks(kind):
-        raise NotImplementedError(
-            f"count_mesh_cell: {cfg.name} {kind} over ranks; "
-            f"{shd.NEXT_SLICE}")
+    """One device's counts of a cell over ``mesh``: the meta trees
+    (``mesh_trees``) placed by ``rules`` through ``mesh_cell`` and its
+    step counted under ``CostCounter`` (the local ops, the collectives).
+    ``mesh`` a description: over a fake group of its ranks (``fake_group``,
+    rank 0); a mesh with a ``DeviceMesh``: over that group's.
+    ``min_bytes`` is ``build_cell``'s compulsory rule on each leaf's local
+    shard: a train step's local parameters and moments read and written
+    once and its local batch read; a serving step's local parameters,
+    the live rows of the local cache read and the new row written (a
+    decode step; every position live), the local inputs and outputs."""
     if mesh.device_mesh is None:
         with fake_group(mesh) as placed:
             return count_mesh_cell(cfg, kind, batch, seq, placed, rules)
     trees = mesh_trees(cfg, kind, batch, seq)
-    cache = trees["cache"][0] if "cache" in trees else None
     inputs = trees["batch"][0]
+    if kind == "train":
+        cell = mesh_cell(cfg, kind, mesh, rules, trees["param"][0],
+                         opt=trees["opt"][0], **inputs)
+        # the batch placed before the count, as the one-card count's
+        # inputs are made before it
+        placed = shd.shard_tree(inputs, batch_axes(cfg), mesh, rules)
+        _, costs = ca.count(cell.step, placed,
+                            live=(cell.params, cell.opt, placed))
+        pbytes, obytes = ca.tree_bytes(cell.params), ca.tree_bytes(cell.opt)
+        costs.min_bytes = 2 * pbytes + 2 * obytes + ca.tree_bytes(placed)
+        costs.static_bytes = pbytes + obytes
+        return costs
+    cache = trees["cache"][0] if "cache" in trees else None
     cell = mesh_cell(cfg, kind, mesh, rules, trees["param"][0],
                      tokens=inputs["tokens"], cache=cache,
                      position=inputs.get("position"), max_seq=seq)
-    # the batch placed before the count, as the one-card count's inputs
-    # are made before it
     with torch.inference_mode():
         axes = serving_batch_axes(cfg, kind)
         placed = shd.shard_tree(inputs, {k: axes[k] for k in inputs}, mesh,
@@ -511,24 +554,22 @@ def size_pod_cell(cfg: ModelConfig, shape_name: str, mesh: str
                   ) -> tuple[mesh_lib.Mesh, dict, dict]:
     """A cell on the ``pod`` or ``multipod`` mesh sized per device: the
     production mesh, the cell's rules on it, and the fields of its result
-    before any count (``status``, ``chips``, ``per_device``; ``counted``
-    and ``roofline`` as a cell that runs no step over ranks has them)."""
+    before the count (``status``, ``chips``, ``per_device``)."""
     seq, batch, kind = SHAPES[shape_name]
     m = mesh_lib.make_production_mesh(multi_pod=mesh == "multipod")
     rules = cell_rules(cfg, shape_name, m)
     return m, rules, dict(status="ok", chips=m.size,
                           per_device=per_device(cfg, kind, batch, seq, m,
-                                                rules),
-                          counted=COUNTED_ON_A_MESH, roofline=None)
+                                                rules))
 
 
 def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
              kv_override: str = "auto", out_dir: str | None = None,
              verbose: bool = True) -> dict:
     """One cell: on ``h100x1`` counted on the meta device as one card;
-    on ``pod`` or ``multipod`` sized per device (``size_pod_cell``) and,
-    where ``mesh_cell`` runs it, counted per device (``count_mesh_cell``;
-    a prefill_32k cell takes about a minute of one core)."""
+    on ``pod`` or ``multipod`` sized per device (``size_pod_cell``) and
+    counted per device (``count_mesh_cell``; a prefill_32k cell takes
+    about a minute of one core)."""
     if mesh != MESH and mesh not in POD_MESHES:
         raise ValueError(f"mesh {mesh!r}: not one of {(MESH,) + POD_MESHES}")
     cfg = configs.get_config(arch)
@@ -553,25 +594,23 @@ def run_cell(arch: str, shape_name: str, *, mesh: str = MESH,
         m, rules, sized = size_pod_cell(cfg, shape_name, mesh)
         result.update(sized)
         pd = sized["per_device"]
-        note = ""
-        if runs_over_ranks(kind):
-            t0 = time.perf_counter()
-            costs = count_mesh_cell(cfg, kind, batch, seq, m, rules)
-            roof = roofline(cfg, arch, shape_name, kind, batch, seq, costs,
-                            mesh, m.size)
-            result.update(
-                counted=COUNTED_PER_DEVICE,
-                trace_s=round(time.perf_counter() - t0, 2),
-                **costs.to_dict(),
-                matmul_flops=costs.matmul_flops,
-                matmul_by_op={k: v for k, v in costs.flops_by_op.items()
-                              if k in ca.MATMUL_OPS},
-                collectives=costs.collectives(), roofline=roof.to_dict())
-            note = (f"; {costs.flops:.3e} FLOPs, "
-                    f"{costs.wire_bytes / 1e9:.2f} GB on the wire a device, "
-                    f"bottleneck={roof.bottleneck}, "
-                    f"t_bound={roof.t_bound * 1e3:.2f}ms, "
-                    f"mfu_bound={roof.mfu_bound:.3f}")
+        t0 = time.perf_counter()
+        costs = count_mesh_cell(cfg, kind, batch, seq, m, rules)
+        roof = roofline(cfg, arch, shape_name, kind, batch, seq, costs,
+                        mesh, m.size)
+        result.update(
+            counted=COUNTED_PER_DEVICE,
+            trace_s=round(time.perf_counter() - t0, 2),
+            **costs.to_dict(),
+            matmul_flops=costs.matmul_flops,
+            matmul_by_op={k: v for k, v in costs.flops_by_op.items()
+                          if k in ca.MATMUL_OPS},
+            collectives=costs.collectives(), roofline=roof.to_dict())
+        note = (f"; {costs.flops:.3e} FLOPs, "
+                f"{costs.wire_bytes / 1e9:.2f} GB on the wire a device, "
+                f"bottleneck={roof.bottleneck}, "
+                f"t_bound={roof.t_bound * 1e3:.2f}ms, "
+                f"mfu_bound={roof.mfu_bound:.3f}")
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} x {mesh}: OK (per device"
                   f" of {m.size}: params {pd['param_bytes'] / 1e9:.2f} GB, "

@@ -10,11 +10,10 @@ gives each cell's peak of live bytes and whether it fits the card's
 memory (else the cards that peak would fill). The cells sized on the
 reference's pod and multipod meshes have a table of their own: one
 device's parameter, optimizer-state and cache bytes, the bytes placed
-whole on every device, whether the static bytes fit one card and, for a
-cell counted per device (``dryrun.count_mesh_cell``), its FLOPs and wire
-bytes a device, its collectives by kind, and its roofline's bound,
-bottleneck and MFU bound ("—" where the step is not counted). The
-collective term assumes every rank on NVLink's one-direction rate.
+whole on every device, whether the static bytes fit one card, its FLOPs
+and wire bytes a device (``dryrun.count_mesh_cell``), its collectives by
+kind, and its roofline's bound, bottleneck and MFU bound. The collective
+term assumes every rank on NVLink's one-direction rate.
 """
 from __future__ import annotations
 
@@ -98,19 +97,16 @@ def per_device_table(cells: list[dict]) -> str:
             rows.append(f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | "
                         "SKIP |" + " — |" * 10)
             continue
-        pd = c["per_device"]
-        fits = _fit(pd["fits"])
-        r = c.get("roofline")
-        counted = " — |" * 6 if r is None else (
-            f" {r['hlo_flops_per_dev']:.3e} "
-            f"| {_gb(r['wire_bytes_per_dev'])} | {_collectives(c)} "
-            f"| {_fmt_t(_t_bound(r))} "
-            f"| {r['bottleneck']} | {r['mfu_bound']:.3f} |")
+        pd, r = c["per_device"], c["roofline"]
         rows.append(
             f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} "
             f"| {_gb(pd['param_bytes'])} | {_gb(pd['opt_bytes'])} "
             f"| {_gb(pd['cache_bytes'])} | {_gb(pd['replicated_bytes'])} "
-            f"| {_gb(pd['static_bytes'])} ({fits}) |" + counted)
+            f"| {_gb(pd['static_bytes'])} ({_fit(pd['fits'])}) "
+            f"| {r['hlo_flops_per_dev']:.3e} "
+            f"| {_gb(r['wire_bytes_per_dev'])} | {_collectives(c)} "
+            f"| {_fmt_t(_t_bound(r))} "
+            f"| {r['bottleneck']} | {r['mfu_bound']:.3f} |")
     return "\n".join(rows)
 
 
@@ -125,16 +121,9 @@ def dryrun_table(cells: list[dict]) -> str:
                         "SKIP | — | — | — | — | — |")
             continue
         if c["mesh"] in POD_MESHES:
-            pd = c["per_device"]
             head = (f"| {c['arch']} | {c['shape']}{kv} | {c['mesh']} | "
                     f"{c['status']} |")
             params = f"{c.get('params', 0) / 1e9:.1f}B"
-            if c.get("roofline") is None:
-                rows.append(
-                    f"{head} — | {params} | not counted | — | "
-                    f"{_gb(pd['static_bytes'])} GB a device "
-                    f"({_fit(pd['fits'])}) |")
-                continue
             peak = c["peak_live_bytes"]
             rows.append(
                 f"{head} {c.get('trace_s', 0):.1f}s | {params} | "

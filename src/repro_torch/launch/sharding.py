@@ -22,10 +22,13 @@ are. ``NamedSharding.placements()`` gives a spec as DTensor placements.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
+
+import torch
 
 from repro_torch.launch.mesh import Mesh
 
@@ -64,9 +67,6 @@ DEFAULT_RULES: dict[str, Any] = {
     None: None,
 }
 
-# what is not placed over several ranks yet, named where it raises
-NEXT_SLICE = "ROADMAP.md, Queue 1: training over several ranks (item 6)"
-
 _ctx = threading.local()
 
 
@@ -84,6 +84,17 @@ def use_mesh(mesh: Mesh, rules: Mapping[str, Any] | None = None):
         yield
     finally:
         _ctx.mesh, _ctx.rules = old
+
+
+def recompute_context():
+    """(the forward's, the recompute's) context managers for a
+    checkpoint (``torch.utils.checkpoint``'s ``context_fn``): the
+    recompute, which the autograd engine may run on another thread, under
+    the mesh and rules active now."""
+    mesh, rules = _get_ctx()
+    again = (contextlib.nullcontext() if mesh is None
+             else use_mesh(mesh, rules))
+    return contextlib.nullcontext(), again
 
 
 def _axis_size(mesh: Mesh, mesh_axes) -> int:
@@ -201,14 +212,35 @@ def constrain(x, *logical_axes: str | None):
         if mesh.device_mesh is None:
             raise ValueError(f"a DTensor under {mesh}: the mesh has no "
                              "DeviceMesh")
-        sharding = named_sharding(x.shape, logical_axes, mesh, rules)
-        return x.redistribute(mesh.device_mesh, sharding.placements())
+        pl = named_sharding(x.shape, logical_axes, mesh, rules).placements()
+        # the gradient pinned alike, as the reference's sharding
+        # constraint pins its cotangent: a partial sum (a product's
+        # backward over a sharded dim) is reduced here, where DTensor
+        # would carry it on and gather the next weight to keep it
+        return pin_grad(x.redistribute(mesh.device_mesh, pl))
     if mesh.size == 1:
         return x
     raise NotImplementedError(
         f"constrain: a plain tensor of shape {tuple(x.shape)} under {mesh}: "
-        f"nothing placed it (shard_tree places the model's tensors; "
-        f"{NEXT_SLICE})")
+        f"nothing placed it (shard_tree places the model's tensors, "
+        f"launch.dryrun.mesh_cell a cell's)")
+
+
+def pin_grad(x):
+    """``x``, its gradient redistributed in backward to ``x``'s own
+    placements where ``x`` is a DTensor and autograd records (a hook, not
+    an autograd function: ``x`` stays no view, so that the frontend stub
+    may overwrite its rows in place)."""
+    if is_placed(x) and torch.is_grad_enabled() and x.requires_grad:
+        x.register_hook(functools.partial(_pin_grad, tuple(x.placements)))
+    return x
+
+
+def _pin_grad(placements, g):
+    """``pin_grad``'s hook: ``g`` at ``placements``."""
+    if tuple(g.placements) != placements:
+        return g.redistribute(placements=placements)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +294,6 @@ def placements(shape: Sequence[int], logical_axes: Sequence[str | None]
 def placed_zeros(shape: Sequence[int], logical_axes, dtype, device):
     """Zeros of ``shape`` placed on the active mesh at its axes'
     placements, each rank allocating only its shard."""
-    import torch
     from torch.distributed.tensor import DTensor
     mesh, rules = _active_device_mesh()
     sharding = named_sharding(shape, logical_axes, mesh, rules)
@@ -279,6 +310,71 @@ def _contiguous_strides(shape: Sequence[int]) -> tuple[int, ...]:
         out.append(acc)
         acc *= dim
     return tuple(reversed(out))
+
+
+def gathered(w, like):
+    """``w`` taken whole over the mesh dims that shard ``like``'s batch
+    (its dim 0): FSDP's all-gather of a weight before its product, as the
+    reference's partitioner gathers a weight sharded on "embed" over
+    "data" (its gradient reduce-scattered back into ``w``'s shards in
+    backward), so that each rank multiplies its batch shard by the whole
+    weight; DTensor's own choice may reshard the activations or repeat a
+    product on every rank. ``w`` itself where either is no DTensor or the
+    batch is not sharded."""
+    if not (is_placed(w) and is_placed(like)):
+        return w
+    dims = [i for i, p in enumerate(like.placements) if p.is_shard(0)]
+    if not any(w.placements[i].is_shard() for i in dims):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(placements=tuple(
+        Replicate() if i in dims else p for i, p in enumerate(w.placements)))
+
+
+def split_contraction(x, w):
+    """``x @ w`` with the contracted dim (x's last, w's first) split over
+    every mesh dim of more than one rank on which both are whole and
+    which divides it: each rank multiplies its slices (taken locally, no
+    collective), the product a partial sum over those dims."""
+    dm, k = x.device_mesh, x.shape[-1]
+    xp, wp = x.placements, w.placements
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        if a.is_replicate() and b.is_replicate() and dm.size(i) > 1 \
+                and k % dm.size(i) == 0:
+            xp, wp = shard_on(xp, x.ndim - 1, i), shard_on(wp, 0, i)
+    return x.redistribute(placements=xp) @ w.redistribute(placements=wp)
+
+
+def gather_weights(module, like):
+    """``module`` (a ``Params`` tree: a layer, a block) as a read-only view
+    whose parameters are ``gathered`` over ``like``'s batch shards as
+    they are read (each once a view); ``module`` itself where ``like`` is
+    no DTensor."""
+    if not is_placed(like):
+        return module
+    return _Gathered(module, like)
+
+
+class _Gathered:
+    """``gather_weights``'s view: a parameter read is its gathered tensor,
+    a sub-module a view of its own, a module list a list of views."""
+
+    def __init__(self, module, like):
+        self.__dict__.update(_module=module, _like=like, _seen={})
+
+    def __getattr__(self, name):
+        seen = self.__dict__["_seen"]
+        if name not in seen:
+            v = getattr(self.__dict__["_module"], name)
+            like = self.__dict__["_like"]
+            if isinstance(v, torch.Tensor):
+                v = gathered(v, like)
+            elif isinstance(v, torch.nn.ModuleList):
+                v = [_Gathered(m, like) for m in v]
+            elif isinstance(v, torch.nn.Module):
+                v = _Gathered(v, like)
+            seen[name] = v
+        return seen[name]
 
 
 def shard_offset(x, dim: int) -> tuple[int, int | None]:
@@ -314,7 +410,17 @@ def replicate(x) -> tuple:
 
 def all_gather(t, dim: int, device_mesh, mesh_dim: int):
     """The ranks' ``t`` along mesh dimension ``mesh_dim`` concatenated on
-    ``dim`` in rank order (one all-gather)."""
+    ``dim`` in rank order (one all-gather). Under autograd the gathered
+    tensor is taken to be used whole alike on every rank (its caller's
+    output whole over ``mesh_dim``), so its gradient reaches every rank
+    whole and each rank keeps its own slice of it: no collective in
+    backward."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherWhole.apply(t, dim, device_mesh, mesh_dim)
+    return _gather(t, dim, device_mesh, mesh_dim)
+
+
+def _gather(t, dim: int, device_mesh, mesh_dim: int):
     import torch.distributed._functional_collectives as fc
     # all_gather_single where this torch has it (all_gather_tensor's name
     # from 2.12 on; the two are one function)
@@ -322,11 +428,55 @@ def all_gather(t, dim: int, device_mesh, mesh_dim: int):
     return fc.wait_tensor(gather(t, dim, (device_mesh, mesh_dim)))
 
 
-def all_reduce(t, device_mesh, mesh_dim: int, op: str = "sum"):
+def all_reduce(t, device_mesh, mesh_dim: int, op: str = "sum", *,
+               whole: bool = True):
     """The sum (or ``op``: "max", ...) of the ranks' ``t`` along mesh
-    dimension ``mesh_dim`` (one all-reduce)."""
+    dimension ``mesh_dim`` (one all-reduce). Under autograd (a sum): where
+    the caller's output stays whole over ``mesh_dim`` (``whole``: its
+    gradient reaches every rank whole) the gradient passes through as it
+    is; where each rank uses the sum on its own slice of the output
+    (``whole=False``), each rank's gradient of the sum is its share, and
+    the shares are summed over the ranks (an all-reduce in backward)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        if op != "sum":
+            raise NotImplementedError(f"the gradient of an all-reduce {op}")
+        return _SumOverRanks.apply(t, device_mesh, mesh_dim, whole)
+    return _reduce(t, device_mesh, mesh_dim, op)
+
+
+def _reduce(t, device_mesh, mesh_dim: int, op: str = "sum"):
     import torch.distributed._functional_collectives as fc
     return fc.wait_tensor(fc.all_reduce(t, op, (device_mesh, mesh_dim)))
+
+
+class _GatherWhole(torch.autograd.Function):
+    """``all_gather``'s gradient: each rank's own slice of the whole."""
+
+    @staticmethod
+    def forward(ctx, t, dim, device_mesh, mesh_dim):
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.r = device_mesh.get_coordinate()[mesh_dim]
+        return _gather(t, dim, device_mesh, mesh_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``all_reduce``'s gradient: as it is (``whole``) or summed over the
+    ranks."""
+
+    @staticmethod
+    def forward(ctx, t, device_mesh, mesh_dim, whole):
+        ctx.mesh, ctx.whole = (device_mesh, mesh_dim), whole
+        return _reduce(t, device_mesh, mesh_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.whole:
+            g = _reduce(g.contiguous(), *ctx.mesh)
+        return g, None, None, None
 
 
 def permute(t, device_mesh, mesh_dim: int, dst: Sequence[int]):
@@ -346,18 +496,59 @@ def shard_on(placements: Sequence, dim: int, mesh_dim: int) -> tuple:
                  for i, p in enumerate(placements))
 
 
-def local_map(fn, out_placements, in_placements, *args):
+def local_map(fn, out_placements, in_placements, *args, grads=None):
     """``fn`` on the local shards of ``args`` (DTensors redistributed to
     ``in_placements`` first, one entry a flattened argument, None for a
     plain one), its output wrapped at ``out_placements`` (one output's
     placements, or a tuple of them for several outputs)
-    (``torch.distributed.tensor.experimental.local_map``)."""
+    (``torch.distributed.tensor.experimental.local_map``).
+
+    ``grads``: the placements of each argument's gradient as ``fn``'s
+    backward leaves it on the local shard (None: the argument's own). An
+    argument whole over a mesh dimension whose ranks each use their own
+    part of it (their experts' slots, their heads' keys, their batch
+    rows' share of a weight) gets a partial gradient there:
+    ``Partial()`` on that mesh dimension, which DTensor sums."""
     from torch.distributed.tensor import Placement
     from torch.distributed.tensor.experimental import local_map as lm
     if all(isinstance(p, Placement) for p in out_placements):
         out_placements = list(out_placements)   # one output
-    return lm(fn, out_placements=out_placements, in_placements=in_placements,
+    if grads is not None:
+        grads = tuple(g if g is not None else p
+                      for g, p in zip(grads, in_placements))
+
+    def body(*local):
+        return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
+                    and t.requires_grad else t for t in local))
+
+    dm = next(a.device_mesh for a in args if is_placed(a))
+    # over one rank each local shard is its whole tensor, whose gradient's
+    # layout the one-rank backward keeps as the meshless one does
+    return lm(body if dm.size() > 1 else fn, out_placements=out_placements,
+              in_placements=in_placements, in_grad_placements=grads,
               redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: a local shard's gradient
+    from ``fn``'s backward may be laid out otherwise (a permuted einsum
+    operand), where the DTensor it becomes claims the contiguous strides
+    of its global shape, so that a later view of it would fail."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def partial_on(placements: Sequence, mesh_dims) -> tuple:
+    """``placements`` with ``Partial()`` on each of ``mesh_dims``."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if i in mesh_dims else p
+                 for i, p in enumerate(placements))
 
 
 def over_heads(fn, out_dims, in_dims, *args, heads: int):
@@ -385,10 +576,21 @@ def over_heads(fn, out_dims, in_dims, *args, heads: int):
                      Shard(hdim) if p.is_shard(1) and hdim is not None else
                      Replicate() for p in pl)
 
+    def grad_at(entry):
+        # the batch rows' share of an argument with no batch dim, and each
+        # rank's heads' share of one whole over the heads where the heads
+        # are sharded: partial sums over those mesh dims
+        bdim, hdim = entry if isinstance(entry, tuple) else (0, entry)
+        return partial_on(at(entry), [
+            i for i, p in enumerate(pl)
+            if (p.is_shard(0) and bdim is None)
+            or (p.is_shard(1) and hdim is None)])
+
     outs = at(out_dims[0]) if len(out_dims) == 1 else tuple(
         at(d) for d in out_dims)
     return local_map(lambda *local: fn(lo, *local), outs,
-                     tuple(at(d) for d in in_dims), *args)
+                     tuple(at(d) for d in in_dims), *args,
+                     grads=tuple(grad_at(d) for d in in_dims))
 
 
 def _axes_leaf(x) -> bool:

@@ -17,7 +17,9 @@ start random from seed 0, as the reference's do.
 prints its roofline on one H100 (``launch/dryrun.py``; no card needed, and
 none is touched), as the reference's lowers it for its TPU mesh. With
 ``--multi-pod`` it sizes the cell per device on the reference's (2, 16,
-16) mesh instead, as the reference's launcher lowers its multipod cell.
+16) mesh instead, as the reference's launcher lowers its multipod cell,
+and counts its step per device over a fake group of the mesh's ranks
+(``dryrun.count_mesh_cell``): the per-device roofline.
 """
 from __future__ import annotations
 
@@ -45,8 +47,8 @@ def main(argv=None) -> int:
                     help="count the train_4k cell on the meta device and "
                     "print its roofline on one H100 instead of training")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="with --dry-run: size the cell per device on the "
-                    "(2, 16, 16) mesh")
+                    help="with --dry-run: size and count the cell per "
+                    "device on the (2, 16, 16) mesh")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)

@@ -98,9 +98,13 @@ def tree_key(name: str) -> tuple[str, int | None]:
 def checkpointed(fn, *args):
     """``fn(*args)`` with its activations recomputed in backward
     (``torch.utils.checkpoint``, non-reentrant) while autograd records;
-    a plain call otherwise (serving, inference mode)."""
+    a plain call otherwise (serving, inference mode). The recompute runs
+    under the mesh and rules active at the call (``sharding.use_mesh``
+    is a thread's, and the card's autograd engine recomputes on a thread
+    of its own)."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=shd.recompute_context)
     return fn(*args)
 
 
@@ -456,7 +460,7 @@ def _over_head_dim(fn, q, k, v, cfg: ModelConfig, mdim: int
 
     def body(ql, kl, vl):
         return fn(ql, kl, vl, cfg, head_dim=hd,
-                  psum=lambda s: shd.all_reduce(s, dm, mdim))
+                  psum=lambda s: shd.all_reduce(s, dm, mdim, whole=False))
 
     return shd.local_map(body, qp, (qp, qp, qp), q, k, v)
 
@@ -491,7 +495,11 @@ def _over_heads(fn, q, k, v, cfg: ModelConfig) -> torch.Tensor:
             kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
         return fn(ql, kl, vl, cfg)
 
-    return shd.local_map(body, qp, (qp, kp, kp), q, k, v)
+    # keys and values whole over the heads' mesh dim, each rank reading
+    # its heads' groups: their gradients partial sums there
+    kg = kp if kv_split else shd.partial_on(kp, heads)
+    return shd.local_map(body, qp, (qp, kp, kp), q, k, v,
+                         grads=(qp, kg, kg))
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -118,19 +118,69 @@ def forward(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
 def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
                     mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Masked summed NLL for one (B, s, Vpad) logits block, in f32, the
-    padded vocab columns masked to -1e30."""
+    padded vocab columns masked to -1e30. Placed logits run on each
+    rank's vocab shard (``_ce_over_vocab``)."""
+    if shd.is_placed(logits):
+        return _ce_over_vocab(logits, targets, mask, cfg)
+    return _nll(logits, targets, mask, cfg.vocab)
+
+
+def _nll(logits, targets, mask, vocab: int, lo: int = 0, combine=None
+         ) -> torch.Tensor:
+    """``_ce_from_logits`` of the vocab columns [lo, lo + V) that
+    ``logits`` (..., V) holds: the columns past ``vocab`` masked, and
+    ``combine(lse, gold)`` (the whole vocab's log-sum-exp and gold logit
+    from each rank's; None: these columns are the whole vocab)."""
     logits = logits.float()
-    if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+    v = logits.shape[-1]
+    if lo + v > vocab:
+        pad = lo + torch.arange(v, device=logits.device) >= vocab
         logits = logits.masked_fill(pad, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    t = targets[..., None].long()
+    if combine is None:
+        gold = torch.gather(logits, -1, t)[..., 0]
+    else:
+        own = (t >= lo) & (t < lo + v)
+        gold = torch.where(own, torch.gather(
+            logits, -1, (t - lo).clamp(0, v - 1)), 0.0)[..., 0]
+        lse, gold = combine(lse, gold)
     return torch.sum((lse - gold) * mask)
+
+
+def _ce_over_vocab(logits, targets, mask, cfg: ModelConfig) -> torch.Tensor:
+    """``_ce_from_logits`` of placed logits on each rank's vocab shard,
+    the (B, s) rows on the targets' batch shards; no rank gathers the
+    logits. Each rank masks its own padded columns (at its column offset)
+    and takes its shard's log-sum-exp and the gold logit where it owns
+    the target (zero elsewhere); one all-gather of the (B, s) log-sum-exps
+    over the vocab's mesh dimension, then a log-sum-exp over the ranks,
+    and one all-reduce of the gold logits. The rank's (B, s) sum is a
+    partial sum over the batch's mesh dimensions. Where no mesh dimension
+    of more than one rank shards the vocab, the one-rank function runs on
+    the local rows."""
+    lo, mdim = shd.shard_offset(logits, 2)
+    rows = shd.keep_shard(targets.placements, 0)
+    lp = rows if mdim is None else shd.shard_on(rows, 2, mdim)
+    out = shd.partial_on(shd.replicate(logits),
+                         [i for i, p in enumerate(rows) if p.is_shard(0)])
+    dm = logits.device_mesh
+
+    def combine(lse, gold):
+        every = shd.all_gather(lse[None], 0, dm, mdim)
+        return (torch.logsumexp(every, dim=0),
+                shd.all_reduce(gold, dm, mdim))
+
+    def body(ll_, tl, ml):
+        return _nll(ll_, tl, ml, cfg.vocab, lo,
+                    None if mdim is None else combine)
+
+    return shd.local_map(body, out, (lp, rows, rows), logits, targets, mask)
 
 
 def _head_ce(h: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
              lm_head: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _ce_from_logits(h @ lm_head, targets, mask, cfg)
+    return _ce_from_logits(h @ shd.gathered(lm_head, h), targets, mask, cfg)
 
 
 def loss_fn(params: ll.Params, batch: dict, cfg: ModelConfig
@@ -151,13 +201,16 @@ def loss_fn(params: ll.Params, batch: dict, cfg: ModelConfig
     if chunk <= 0 or s % chunk or s <= chunk:
         nll = _head_ce(h, targets, mask, params.lm_head, cfg)
     else:
-        nll = torch.zeros((), dtype=torch.float32, device=h.device)
+        nll = shd.lift(torch.zeros((), dtype=torch.float32, device=h.device),
+                       h)
         for c in range(0, s, chunk):
             sl = slice(c, c + chunk)
             nll = nll + ll.checkpointed(_head_ce, h[:, sl], targets[:, sl],
                                         mask[:, sl], params.lm_head, cfg)
     denom = torch.clamp_min(torch.sum(mask), 1.0)
-    ce = nll / denom
+    # the loss whole on every rank (over a mesh each rank's sum is a
+    # partial one over the batch's shards)
+    ce = constrain(nll / denom)
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux, "tokens": denom}
 
 
@@ -200,7 +253,7 @@ def _hidden_states(params: ll.Params, tokens: torch.Tensor, cfg: ModelConfig,
     stack = {"attn": tf.attn_stack, "mamba2": tf.mamba_stack,
              "rwkv6": tf.rwkv_stack}[cfg.block_type]
     h, aux = stack(params.stack, h, cfg, _positions(tokens))
-    return ll.rmsnorm(h, params.ln_f, cfg.norm_eps), aux
+    return ll.rmsnorm(h, shd.gathered(params.ln_f, h), cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ colliding writes are sliced away, as the reference's are.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -167,11 +168,19 @@ def route(gates_all: torch.Tensor, cfg: ModelConfig) -> Route:
 def _route_placed(gates_all: torch.Tensor, cfg: ModelConfig) -> Route:
     """``route`` on each rank's groups of a placed (G, Tg, E) gates tensor
     (taken whole over "model"): the maps placed as the gates' groups, the
-    aux loss the mean of the ranks' over the groups' mesh axes."""
-    from torch.distributed.tensor import Partial
+    aux loss the mean of the ranks' over the groups' mesh axes (each
+    rank's share divided by their count and summed: a partial sum, whose
+    gradient reaches each rank's share whole, where a partial mean's
+    would reach it undivided)."""
     rows = shd.keep_shard(gates_all.placements, 0)
-    aux = tuple(Partial("avg") if p.is_shard(0) else p for p in rows)
-    return shd.local_map(lambda gl: route(gl, cfg), (rows,) * 7 + (aux,),
+    groups = [i for i, p in enumerate(rows) if p.is_shard(0)]
+    n = math.prod(gates_all.device_mesh.size(i) for i in groups)
+
+    def body(gl):
+        r = route(gl, cfg)
+        return r if n == 1 else r._replace(aux=r.aux / n)
+
+    return shd.local_map(body, (rows,) * 7 + (shd.partial_on(rows, groups),),
                          (rows,), gates_all)
 
 
@@ -189,8 +198,12 @@ def _dispatch(xg: torch.Tensor, r: Route) -> torch.Tensor:
     rows = shd.keep_shard(xg.placements, 0)
     slots = tuple(Shard(1) if p.is_shard(0) else rows[i]
                   for i, p in enumerate(bp))
+    # each rank fills its experts' slots: the rows' gradient a partial
+    # sum over the experts' mesh dims
+    experts = [i for i, p in enumerate(bp) if p.is_shard(0)]
     return shd.local_map(dispatch_shard, bp, (rows, slots, slots), xg,
-                         r.tok_for_slot, r.slot_valid)
+                         r.tok_for_slot, r.slot_valid,
+                         grads=(shd.partial_on(rows, experts), None, None))
 
 
 def dispatch_shard(xg, tok_for_slot, slot_valid) -> torch.Tensor:
@@ -224,8 +237,11 @@ def _combine(yb: torch.Tensor, r: Route, dtype: torch.dtype
         return shd.all_reduce(combine_shard(yl, es, ps, keep, gate, lo,
                                             dtype), dm, mdim)
 
+    # each rank weighs the pairs routed to its experts: the gates'
+    # gradient a partial sum over the experts' mesh dim
+    gate = rows if mdim is None else shd.partial_on(rows, [mdim])
     return shd.local_map(body, rows, (yb.placements,) + (rows,) * 4, yb,
-                         *args)
+                         *args, grads=(None,) * 4 + (gate,))
 
 
 def combine_shard(yb, es_tok, ps_tok, keep_tok, gate_k, lo: int, dtype
@@ -252,6 +268,41 @@ def _combine_local(yb, es_tok, ps_tok, keep_tok, gate_k, dtype
     return ysel.sum(dim=2)                                   # (G, Tg, D)
 
 
+def _router_logits(xg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(G, Tg, D) x (D, E) -> (G, Tg, E) f32 logits. Placed where
+    autograd records and other mesh dims than the groups' have several
+    ranks, each rank forms its groups' logits whole (the route runs alike
+    on every such rank) but the weight's gradient only from its share of
+    their tokens (the others' products against the weight detached), as
+    the reference's partitioner splits that product's rows: the
+    gradient's partial sums, which DTensor reduces."""
+    if not (shd.is_placed(w) and torch.is_grad_enabled()
+            and w.requires_grad):
+        return (xg @ w).float()
+    dm = w.device_mesh
+    rows = shd.keep_shard(xg.placements, 0)
+    share = [i for i, p in enumerate(rows)
+             if not p.is_shard(0) and dm.size(i) > 1]
+    if not share:
+        return (xg @ w).float()
+    n = math.prod(dm.size(i) for i in share)
+    r = 0
+    for i in share:
+        r = r * dm.size(i) + dm.get_coordinate()[i]
+
+    def body(xl, wl):
+        flat = xl.reshape(-1, xl.shape[-1])
+        parts = torch.tensor_split(flat, n)
+        out = torch.cat([part @ (wl if k == r else wl.detach())
+                         for k, part in enumerate(parts)])
+        return out.reshape(*xl.shape[:-1], -1).float()
+
+    whole = shd.replicate(w)
+    batch = [i for i, p in enumerate(rows) if p.is_shard(0)]
+    return shd.local_map(body, rows, (rows, whole), xg, w,
+                         grads=(rows, shd.partial_on(whole, batch + share)))
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
@@ -265,7 +316,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig
     # whose rules shard the router's embed dim (FSDP serving), DTensor may
     # otherwise leave the groups sharded over "model" too, where each rank
     # routes its own batch rows whole
-    logits = constrain((xg @ p.router).float(), "batch", None, None)
+    logits = constrain(_router_logits(xg, p.router), "batch", None, None)
     if cfg.router_act == "sigmoid":                          # llama4-style
         gates_all = torch.sigmoid(logits)
     else:

@@ -64,11 +64,22 @@ def _ddlerp(p: Params, x: torch.Tensor, sx: torch.Tensor) -> dict:
     """The data-dependent token-shift mixes for w/k/v/r/g: (B, S, D) each."""
     base = x + sx * p.mu_base
     r = p.lora_a.shape[1] // 5
-    lora = torch.tanh(base @ p.lora_a)                          # (B, S, 5r)
+    lora = torch.tanh(_lora_in(base, p.lora_a))                 # (B, S, 5r)
     lora = lora.reshape(*lora.shape[:-1], 5, r)
     adj = _lora_out(lora, p.lora_b)                             # (B, S, 5, D)
     return {name: x + sx * (p.mu[i] + adj[:, :, i])
             for i, name in enumerate(MIXES)}
+
+
+def _lora_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) x (D, 5r) -> (B, S, 5r). Placed, on each rank's rows with
+    the weight whole (gathered over "data" where the training rules shard
+    its embed dim): DTensor would otherwise shard the 5r columns over
+    "model", which the split into the 5 mixes cannot keep where the ranks
+    do not divide 5."""
+    if not shd.is_placed(w):
+        return x @ w
+    return _on_rows(lambda a, t: a @ t, x, w)
 
 
 def _lora_out(lora: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -77,9 +88,20 @@ def _lora_out(lora: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     every call."""
     if not shd.is_placed(w):
         return torch.einsum("bsmr,mrd->bsmd", lora, w)
-    rows = shd.keep_shard(lora.placements, 0)
-    return shd.local_map(lambda x, t: torch.einsum("bsmr,mrd->bsmd", x, t),
-                         rows, (rows, shd.replicate(w)), lora, w)
+    return _on_rows(lambda x, t: torch.einsum("bsmr,mrd->bsmd", x, t), lora,
+                    w)
+
+
+def _on_rows(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``fn(x, w)`` on each rank's rows of x (its batch shards, whole
+    elsewhere) with w whole; the output on x's rows. Each rank's rows give
+    their share of w's gradient: a partial sum over the batch's mesh
+    dims."""
+    rows = shd.keep_shard(x.placements, 0)
+    whole = shd.replicate(w)
+    batch = [i for i, p in enumerate(rows) if p.is_shard(0)]
+    return shd.local_map(fn, rows, (rows, whole), x, w,
+                         grads=(rows, shd.partial_on(whole, batch)))
 
 
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,6 +192,29 @@ def _decay_dd(p: Params, xw: torch.Tensor, nh: int) -> torch.Tensor:
     return p.decay_base + torch.tanh(xw @ p.decay_a) @ wb
 
 
+def _split_heads(t: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
+    """(B, S, nh hd) -> (B, S, nh, hd). Placed with its columns sharded
+    over a mesh dim whose ranks do not divide the nh heads (where the
+    rules keep such heads whole), those columns are taken whole first: a
+    view cannot split a head, and DTensor gathers them so only for a
+    reshape that autograd does not decompose (inference mode)."""
+    if shd.is_placed(t):
+        from torch.distributed.tensor import Replicate
+        last = t.ndim - 1
+        t = t.redistribute(placements=tuple(
+            Replicate() if p.is_shard(last) and nh % t.device_mesh.size(i)
+            else p for i, p in enumerate(t.placements)))
+    return t.reshape(*t.shape[:-1], nh, hd)
+
+
+def _merge_heads(y: torch.Tensor) -> torch.Tensor:
+    """(B, S, nh, hd) -> (B, S, nh hd). Placed, its gradient is pinned to
+    the merged tensor's placements, so that the backward's split into
+    heads meets them (whole where the heads are; ``wo``'s backward would
+    leave it sharded on its columns)."""
+    return shd.pin_grad(y.reshape(*y.shape[:-2], -1))
+
+
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   prev_tok: torch.Tensor | None = None,
                   s0: torch.Tensor | None = None):
@@ -178,9 +223,9 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     nh, hd = cfg.rwkv_nheads, cfg.rwkv_head_dim
     sx = _shift(x, prev_tok) - x
     mixes = _ddlerp(p, x, sx)
-    r = (mixes["r"] @ p.wr).reshape(b, s, nh, hd)
-    k = (mixes["k"] @ p.wk).reshape(b, s, nh, hd)
-    v = (mixes["v"] @ p.wv).reshape(b, s, nh, hd)
+    r = _split_heads(mixes["r"] @ p.wr, nh, hd)
+    k = _split_heads(mixes["k"] @ p.wk, nh, hd)
+    v = _split_heads(mixes["v"] @ p.wv, nh, hd)
     g = mixes["g"] @ p.wg
     r = constrain(r, "batch", None, "ssm_heads", None)
     k = constrain(k, "batch", None, "ssm_heads", None)
@@ -188,7 +233,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
     # data-dependent decay (Finch): w = exp(-exp(dd)) in (0, 1)
     log_w = -torch.exp(_decay_dd(p, mixes["w"], nh).float()).reshape(b, s, nh, hd)
     y, hs = wkv6_chunked(r, k, v, log_w, p.u, cfg.rwkv_chunk, s0)
-    y = rmsnorm(y.reshape(b, s, d), p.ln_x, cfg.norm_eps) * F.silu(g)
+    y = rmsnorm(_merge_heads(y), p.ln_x, cfg.norm_eps) * F.silu(g)
     return constrain(y @ p.wo, "batch", "seq", "embed"), hs
 
 

@@ -159,7 +159,11 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     nh, hd = cfg.ssm_nheads, cfg.ssm_head_dim
     g, ds = cfg.ssm_groups, cfg.ssm_state
 
-    z, xc, bm, cm, dt = _split_in_proj(cfg, x @ p.in_proj)
+    # the product's gradient pinned to its forward placement (its columns
+    # on each rank's shard), as the split's backward would leave it
+    # otherwise: over a 3-D mesh DTensor then formed the weight's
+    # gradient whole on every model rank
+    z, xc, bm, cm, dt = _split_in_proj(cfg, shd.pin_grad(x @ p.in_proj))
     conv_in = torch.cat([xc, bm, cm], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p.conv_w, p.conv_b))
     xc, bm, cm = torch.split(conv_out, [cfg.d_inner, g * ds, g * ds], dim=-1)

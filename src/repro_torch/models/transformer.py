@@ -101,7 +101,7 @@ def attn_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     def unit(h, aux, layers):
         for lp in layers:
-            h, a = attn_block(lp, h, cfg, positions)
+            h, a = attn_block(shd.gather_weights(lp, h), h, cfg, positions)
             aux = aux + a
         return h, aux
 
@@ -180,22 +180,36 @@ def _groups(cfg: ModelConfig) -> range:
 
 
 def _shared_in(p: ll.Params, gi: int, h, h0) -> torch.Tensor:
-    return torch.cat([h, h0], dim=-1) @ p.group_in[gi].w
+    """The shared block's input, concat(h, h0) (B, [S,] 2D) times group
+    ``gi``'s (2D, D) projection. Where the rules shard the weight over
+    the batch's mesh dims (FSDP, training), it is gathered there and, as
+    the reference's partitioner does, each rank of the other mesh dims
+    contracts its slice of the 2D features: a partial sum, reduced into
+    the residual stream's placement at once."""
+    x = torch.cat([h, h0], dim=-1)
+    w = p.group_in[gi].w
+    whole = shd.gathered(w, h)
+    if whole is w:
+        return x @ w
+    return constrain(shd.split_contraction(x, whole), "batch",
+                     *("seq",) * (h.ndim - 2), "embed")
 
 
 def mamba_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), device=h.device)
     if not cfg.shared_attn_every:
-        layer = _remat(cfg, lambda h, lp: _mamba_layer(lp, h, cfg))
+        layer = _remat(cfg, lambda h, lp: _mamba_layer(
+            shd.gather_weights(lp, h), h, cfg))
         for lp in p.blocks:
             h = layer(h, lp)
         return h, aux
-    k, shared = cfg.shared_attn_every, p.shared
+    k = cfg.shared_attn_every
 
     def group(h, h0, gi):
         for lp in p.blocks[gi * k:(gi + 1) * k]:
-            h = _mamba_layer(lp, h, cfg)
+            h = _mamba_layer(shd.gather_weights(lp, h), h, cfg)
+        shared = shd.gather_weights(p.shared, h)
         # the shared attention block on concat(h, h0), weight-tied
         x = _shared_in(p, gi, h, h0)
         x = x + ll.attention(shared.attn,
@@ -438,7 +452,7 @@ def rwkv_stack(p: ll.Params, h: torch.Tensor, cfg: ModelConfig,
 
     def unit(h, layers):
         for lp in layers:
-            h = _rwkv_layer(lp, h, cfg)[0]
+            h = _rwkv_layer(shd.gather_weights(lp, h), h, cfg)[0]
         return h
 
     body = _remat(cfg, unit)

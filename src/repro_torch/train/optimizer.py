@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models import layers as ll
 
 
@@ -49,11 +50,14 @@ class AdamWState(NamedTuple):
 
 
 def init_state(params: ll.Params) -> AdamWState:
-    """Zero moments on the parameters' device, step 0."""
+    """Zero moments on the parameters' device (placed as the parameters
+    are where those are DTensors, each rank allocating its shards), step
+    0."""
     named = list(params.named_parameters())
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32,
+                                    requires_grad=False)
                 for n, p in named}
 
     dev = named[0][1].device
@@ -89,9 +93,30 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares. Over
+    a mesh (DTensor gradients at their parameters' placements, the mesh
+    over every rank of the process group) each rank sums the squares of
+    its shards, each leaf's over the ranks that hold a copy of it, and
+    one all-reduce over the group adds the ranks' sums: the result a
+    replicated DTensor."""
+    leaves = list(grads.values())
+    if not shd.is_placed(leaves[0]):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    dm = leaves[0].device_mesh
+    if dm.size() != dist.get_world_size():
+        raise NotImplementedError("a mesh over part of the process group")
+
+    def copies(g):
+        return math.prod(dm.size(i) for i, p in enumerate(g.placements)
+                         if not p.is_shard())
+
+    local = sum(torch.sum(torch.square(g.to_local().float())) / copies(g)
+                for g in leaves)
+    total = fc.wait_tensor(fc.all_reduce(local, "sum", dist.group.WORLD))
+    return shd.lift(torch.sqrt(total), leaves[0])
 
 
 @torch.no_grad()

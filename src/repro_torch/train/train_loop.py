@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.data import tokens as tok
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shd
 from repro_torch.models import layers as ll
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -49,7 +50,15 @@ def accumulate_grads(params: ll.Params, batch: dict, cfg: ModelConfig,
     """(grads keyed like the parameters, the loss, the metrics) of one
     global batch. With one microbatch the gradients are in the
     parameters' dtype; with more, the mean of the microbatches' in f32
-    and the metrics are the last microbatch's, as in the reference."""
+    and the metrics are the last microbatch's, as in the reference.
+
+    Over a mesh (DTensor parameters and batch) each gradient comes back
+    at its parameter's placements: the partial sums that the backward
+    leaves over the batch's mesh dimensions are reduced into the
+    parameter's shards (a reduce-scatter for a weight sharded over
+    "data", FSDP's; an all-reduce for one whole there), and the f32
+    accumulators and the loss are placed as the parameters and the loss
+    are."""
     named = list(params.named_parameters())
     leaves = [p for _, p in named]
 
@@ -57,7 +66,7 @@ def accumulate_grads(params: ll.Params, batch: dict, cfg: ModelConfig,
         loss, metrics = model_lib.loss_fn(params, mbatch, cfg)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            [torch.zeros_like(p) if g is None else g
+            [torch.zeros_like(p) if g is None else _placed_as(g, p)
              for p, g in zip(leaves, gs)]
 
     if microbatches == 1:
@@ -66,17 +75,33 @@ def accumulate_grads(params: ll.Params, batch: dict, cfg: ModelConfig,
     b = batch["tokens"].shape[0]
     assert b % microbatches == 0
     per = b // microbatches
-    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # a placed batch is taken whole once (an all-gather of its rows over
+    # the batch's mesh dims), so that microbatch i holds the global rows
+    # [i per, (i + 1) per) placed as the batch is, as on one device
+    whole = {k: v.full_tensor() if shd.is_placed(v) else v
+             for k, v in batch.items()}
+    acc = {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
            for n, p in named}
-    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    loss = None
     for i in range(microbatches):
-        mbatch = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        mbatch = {k: shd.placed_like(v[i * per:(i + 1) * per], batch[k])
+                  for k, v in whole.items()}
         l, metrics, gs = grads_of(mbatch)
         for (n, _), g in zip(named, gs):
             acc[n] += g.float() / microbatches
         del gs
+        if loss is None:
+            loss = torch.zeros_like(l, dtype=torch.float32)
         loss = loss + l / microbatches
     return acc, loss, metrics
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` at the placements of its parameter ``p`` where
+    both are DTensors; else ``g``."""
+    if shd.is_placed(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(placements=p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, ocfg: opt_lib.AdamWConfig,

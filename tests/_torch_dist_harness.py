@@ -12,8 +12,8 @@ stats all-reduced) equals the in-turn path bit for bit (dists, ids, all
 seven ``QueryStats``), unfiltered, filtered and namespaced, then again
 after a delete, an upsert and a compaction.
 
-With ``cells``, the four ranks hold the LM's prefill and decode cells
-over two ``DeviceMesh``es of the same group, (2, 2) and (1, 4)
+With ``cells``, the four ranks hold the LM's train, prefill and decode
+cells over two ``DeviceMesh``es of the same group, (2, 2) and (1, 4)
 (``mesh_cells_body``; what is held is in its docstring).
 
 With ``constrain``, the four ranks form a (2, 2) ``("data", "model")``
@@ -149,6 +149,18 @@ class _Recorder:
         """The (u8 table, scale, bias) of each ``_quantize`` call since the
         last ``take``, taken before it."""
         return list(self.quantized)
+
+
+# the train cells over the four ranks: (arch, model axis, microbatches),
+# at B 4 x 32 tokens; each held against the meshless step (``_train_cell``)
+TRAIN_CELLS = (("qwen3-1.7b", 2, 2), ("qwen3-1.7b", 4, 1),
+               ("dbrx-132b", 2, 1), ("zamba2-2.7b", 2, 1),
+               ("rwkv6-3b", 4, 1))
+TRAIN_B, TRAIN_S = 4, 32
+# tests/test_torch_train_grads.py's: each gradient leaf within
+# GRAD_TOL[arch] (else SHARP) of its largest |value|, the moments within
+# SHARP of theirs; a parameter after the step within STEP_TOL x lr
+GRAD_TOL, SHARP, STEP_TOL = {"qwen3-1.7b": 1e-5, "rwkv6-3b": 1e-5}, 2e-4, 1e-3
 
 
 # the recurrent smoke archs the mesh cells serve (zamba2 exact and with
@@ -644,6 +656,167 @@ def _recurrent_cell(ref: dict, mesh, rec: _Recorder, what: str) -> str:
     return ""
 
 
+def train_batch(cfg, batch: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
+    """A seeded training batch: tokens, next-token targets, a mask that
+    drops a tenth of the positions, and the frontend stub's embeddings
+    for the frontend archs."""
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (batch, seq + 1), np.int32)
+    out = {"tokens": torch.as_tensor(toks[:, :-1]),
+           "targets": torch.as_tensor(toks[:, 1:]),
+           "mask": torch.as_tensor(
+               (rng.random((batch, seq)) < 0.9).astype(np.float32))}
+    if cfg.frontend != "none":
+        out["frontend_embeds"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    return out
+
+
+@contextlib.contextmanager
+def captured_grads(seen: list):
+    """``train_loop.accumulate_grads`` recording the gradients it returns
+    (the step's, before the update) in ``seen``."""
+    from repro_torch.train import train_loop
+    real = train_loop.accumulate_grads
+
+    def accumulate(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[0])
+        return out
+
+    train_loop.accumulate_grads = accumulate
+    try:
+        yield
+    finally:
+        train_loop.accumulate_grads = real
+
+
+def meshless_step(cfg, params, batch: dict, microbatches: int):
+    """The meshless port's train step from ``params`` (copied, made
+    trainable) and zero moments: (its gradients, the new state, the
+    metrics)."""
+    import copy
+
+    from repro_torch.models import layers as ll
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    p = ll.set_trainable(copy.deepcopy(params))
+    seen = []
+    with captured_grads(seen):
+        state, metrics = train_loop.make_train_step(
+            cfg, opt_lib.AdamWConfig(total_steps=1000), microbatches)(
+            train_loop.TrainState(p, opt_lib.init_state(p), None), batch)
+    return seen[0], state, metrics
+
+
+def _step_close(got, want, grad, lr: float, tol: float, scale: float,
+                what: str) -> int:
+    """A parameter after the step against the meshless one: within
+    STEP_TOL x lr and one unit in the last place of the parameter (the
+    update rounds to the parameter's dtype) wherever a gradient within
+    the gradient tolerance (``tol`` x the leaf's largest |value|) cannot
+    move the update by more.
+    AdamW's first update is lr x (g / (|g| + eps) + decay x p), g the
+    clipped gradient (x ``scale``), whose derivative in g is eps / (|g| +
+    eps)^2: so an error d of g moves it by about lr x eps x d / g^2, past
+    STEP_TOL x lr where g^2 < eps x d / STEP_TOL. Such elements (a
+    gradient a rounding away from zero, its sign or its size against eps
+    a last-bit matter) are held within 2.5 lr, as one update moves an
+    element by up to 2 lr either way. Returns their count."""
+    eps = 1e-8
+    g = grad.abs() * scale
+    d = tol * float(g.max())
+    small = g * g <= eps * d / STEP_TOL
+    # the updated value is rounded to the parameter's dtype: an ulp more
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"))) - want.abs()
+    far = (got - want).abs() > STEP_TOL * lr + ulp
+    assert not (far & ~small).any(), (
+        f"{what}: {int((far & ~small).sum())} elements beyond STEP_TOL x lr "
+        "and an ulp")
+    assert float((got - want).abs().max()) <= 2.5 * lr, what
+    return int((far & small).sum())
+
+
+def _train_cell(arch: str, mesh, microbatches: int, what: str) -> str:
+    """A train cell (``mesh_cell(..., "train")``) over ``mesh`` under the
+    reference's training rules against the meshless port's step on the
+    same batch: the loss within LOGIT_TOL relative; every gradient leaf,
+    gathered, before the update, at its parameter's placements and within
+    GRAD_TOL[arch] of its largest |value|; the moments after the step
+    within SHARP of theirs; the parameters by ``_step_close``; every
+    parameter and moment at its axes' placements, each rank's bytes
+    ``dryrun.per_device``'s. Returns a note of the flipped elements."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as ml
+    from repro_torch.train import optimizer as opt_lib
+    cfg = configs.get_smoke_config(arch)
+    params = ml.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    batch = train_batch(cfg)
+    want_g, want, want_m = meshless_step(cfg, params, batch, microbatches)
+    rules = dryrun.cell_rules(cfg, "train_4k", mesh)
+    cell = dryrun.mesh_cell(cfg, "train", mesh, rules, params,
+                            microbatches=microbatches, **batch)
+    seen = []
+    with captured_grads(seen):
+        state, metrics = cell.step()
+    tol = GRAD_TOL.get(arch, SHARP)
+    loss = float(metrics["loss"].full_tensor())
+    assert abs(loss - float(want_m["loss"])) <= LOGIT_TOL * abs(loss), (
+        what, loss, float(want_m["loss"]))
+    named = dict(cell.params.named_parameters())
+    for name, g in seen[0].items():
+        assert tuple(g.placements) == tuple(named[name].placements), (
+            f"{what}: the gradient of {name} at {g.placements}")
+        w = want_g[name]
+        np.testing.assert_allclose(
+            g.full_tensor().numpy(), w.numpy(), rtol=0,
+            atol=tol * float(w.abs().max().clamp_min(1e-30)),
+            err_msg=f"{what}: gradient {name}")
+    for moment in ("mu", "nu"):
+        for name, m in getattr(state.opt, moment).items():
+            w = getattr(want.opt, moment)[name]
+            np.testing.assert_allclose(
+                m.full_tensor().numpy(), w.numpy(), rtol=0,
+                atol=SHARP * float(w.abs().max().clamp_min(1e-30)),
+                err_msg=f"{what}: {moment} {name}")
+    lr = float(want_m["lr"])
+    scale = min(1.0, 1.0 / float(want_m["grad_norm"]))
+    flipped = 0
+    wp = dict(want.params.named_parameters())
+    for name, p in state.params.named_parameters():
+        flipped += _step_close(p.detach().full_tensor(), wp[name].detach(),
+                               want_g[name], lr, tol, scale,
+                               f"{what}: parameter {name}")
+    _train_placements(cell, cfg, mesh, rules, what)
+    return f"{what}: {flipped} parameter elements of near-zero gradient " \
+        "moved otherwise than the meshless step's"
+
+
+def _train_placements(cell, cfg, mesh, rules, what: str) -> None:
+    """A train cell's parameters and AdamW state at their axes'
+    placements, this rank's local bytes ``dryrun.per_device``'s."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as ml
+    from repro_torch.train import optimizer as opt_lib
+    paxes = ml.lm_axes(cfg)
+    desc = mesh_lib.Mesh(mesh.shape)
+    want = dryrun.per_device(cfg, "train", TRAIN_B, TRAIN_S, desc, rules)
+    for role, tree, axes in (("param", cell.params, paxes),
+                             ("opt", cell.opt, opt_lib.state_axes(paxes))):
+        total = 0
+        shardings = shd.tree_shardings(tree, axes, desc, rules)
+        for path, t, sh in shd.sharded_leaves(tree, shardings):
+            assert tuple(t.placements) == sh.placements(), (what, role, path)
+            local = t.to_local()
+            total += local.numel() * local.element_size()
+        assert total == want[f"{role}_bytes"], (what, role, total, want)
+
+
 def _moe_check(arch: str, mesh, what: str) -> None:
     """``moe_ffn`` of one layer under ``mesh`` against the meshless call on
     the same (B, S, D) input: the route's maps bit for bit on each rank's
@@ -770,7 +943,12 @@ def mesh_cells_body() -> None:
     - zamba2-smoke, exact and PQ (its shared attention's K8 over a cache
       sharded on "kv_seq"), and rwkv6-smoke on both meshes, held by
       ``_recurrent_cell``;
-    - a training cell raises;
+    - the train cells of TRAIN_CELLS (``_train_cell``: qwen3-smoke on
+      (2, 2) in two microbatches and on (1, 4), dbrx-smoke (its experts
+      over "model"), zamba2-smoke and rwkv6-smoke) under the training
+      rules against the meshless step on the same batch: the loss, every
+      gradient before the update, the moments and the parameters after
+      it (``_step_close``), placements and per-device bytes;
     - a qwen3-smoke variant of 6 heads on (1, 4) (HEAD_DIM_VARIANT: the
       rules shard head_dim, and a PQ cache's sub-spaces, K8's sub-space
       mode), exact and PQ, held as above (a PQ cell's LUTs and codes on
@@ -809,14 +987,11 @@ def mesh_cells_body() -> None:
                 f"{tuple(mesh.shape.values())}"))
             if note:
                 notes.append(note)
-    try:
-        dryrun.mesh_cell(configs.get_smoke_config("qwen3-1.7b"), "train",
-                         meshes[0], dict(), None,
-                         tokens=torch.zeros((1, 1), dtype=torch.int32))
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e) and "item 6" in str(e), e
-    else:
-        raise AssertionError("mesh_cell took a training cell")
+    for arch, model, microbatches in TRAIN_CELLS:
+        mesh = meshes[model // 4]
+        notes.append(_train_cell(arch, mesh, microbatches, (
+            f"{arch} train {tuple(mesh.shape.values())} "
+            f"x{microbatches}")))
     # heads that do not divide the model axis: the rules shard head_dim
     # and, with a PQ cache, its sub-spaces (K8's sub-space mode)
     for pq in (False, True):

@@ -2110,3 +2110,61 @@ def test_head_dim_attention_at_one_nccl_rank_is_the_meshless_one(dev, seq):
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, want)
+
+
+def test_a_train_cell_at_one_nccl_rank_is_the_meshless_step(dev,
+                                                           monkeypatch):
+    """qwen3-smoke's train cell (``dryrun.mesh_cell(..., "train")``: the
+    parameters, AdamW state and batch placed by the training rules, DTensor
+    autograd, the gradients at the parameters' placements) on the card
+    under a one-rank NCCL group, two microbatches, under deterministic
+    algorithms: the loss, the grad norm, every gradient before the update
+    and every parameter and moment after it equal the meshless step's on
+    the same parameters and batch bit for bit."""
+    import pathlib
+    import socket
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    sys.path.insert(0, str(pathlib.Path(__file__).parent))
+    import _torch_dist_harness as harness
+    cfg = configs.get_smoke_config("qwen3-1.7b")
+    params = model_lib.init_lm(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    batch = {k: v.to(dev) for k, v in harness.train_batch(cfg).items()}
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        want_g, want, want_m = harness.meshless_step(cfg, params, batch, 2)
+        mesh = mesh_lib.make_host_mesh()
+        cell = dryrun.mesh_cell(cfg, "train", mesh,
+                                dryrun.cell_rules(cfg, "train_4k", mesh),
+                                params, microbatches=2, **batch)
+        seen = []
+        with harness.captured_grads(seen):
+            state, m = cell.step()
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(m[k].full_tensor(), want_m[k]), k
+        for name, g in seen[0].items():
+            assert torch.equal(g.full_tensor(), want_g[name]), name
+        wp = dict(want.params.named_parameters())
+        for name, p in state.params.named_parameters():
+            assert torch.equal(p.detach().full_tensor(), wp[name]), name
+        for name, t in state.opt.nu.items():
+            assert torch.equal(t.full_tensor(), want.opt.nu[name]), name
+            assert torch.equal(state.opt.mu[name].full_tensor(),
+                               want.opt.mu[name]), name
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)

@@ -8,6 +8,7 @@ training example and launcher on the smoke config, and both launchers'
 import os
 import subprocess
 import sys
+import tempfile
 
 import pytest
 
@@ -130,15 +131,54 @@ def test_launch_serve_dry_run_counts_its_cell(shape):
     assert "[serve] generated" not in out.stdout
 
 
+_MULTI_POD = "test_launchers_refuse_multi_pod"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _multi_pod(request):
+    """Both launchers' ``--dry-run --multi-pod`` for qwen3-1.7b (the train
+    launcher's counts a full-width train_4k cell per device, ~30 s of one
+    core), started when this module's first test starts if their test
+    was collected, so that they run while the other tests do; each one's
+    output goes to files of its own, and any still running when the
+    module ends is killed."""
+    if not any(item.originalname == _MULTI_POD
+               and item.module is request.module
+               for item in request.session.items):
+        yield {}
+        return
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+    for launcher in ("train", "serve"):
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        runs[launcher] = (subprocess.Popen(
+            [sys.executable, "-c", LAUNCH, launcher, "--arch", "qwen3-1.7b",
+             "--dry-run", "--multi-pod"], stdout=out, stderr=err, text=True,
+            env=env, cwd=ROOT), out, err)
+    try:
+        yield runs
+    finally:
+        for proc, out, err in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
 @pytest.mark.parametrize("launcher", ["train", "serve"])
-def test_launchers_refuse_multi_pod(launcher):
+def test_launchers_refuse_multi_pod(launcher, _multi_pod):
     """``--dry-run --multi-pod`` no longer refuses: it sizes the cell per
-    device on the (2, 16, 16) mesh, as the reference's launchers lower
-    their multipod cell, loading no jax."""
-    out = _launch("--arch", "qwen3-1.7b", "--dry-run", "--multi-pod",
-                  launcher=launcher)
-    assert out.returncode == 0, out.stderr[-3000:]
+    device on the (2, 16, 16) mesh and counts its step per device, as the
+    reference's launchers lower their multipod cell, loading no jax (the
+    runs started by ``_multi_pod``)."""
+    proc, out, err = _multi_pod[launcher]
+    proc.wait(timeout=300)
+    out.seek(0)
+    err.seek(0)
+    stdout = out.read()
+    assert proc.returncode == 0, err.read()[-3000:]
     shape = "train_4k" if launcher == "train" else "decode_32k"
-    assert f"[dryrun] qwen3-1.7b x {shape} x multipod: OK" in out.stdout
-    assert f"| qwen3-1.7b | {shape} | multipod |" in out.stdout
-    assert f"[{launcher}] " not in out.stdout
+    assert f"[dryrun] qwen3-1.7b x {shape} x multipod: OK" in stdout
+    assert f"| qwen3-1.7b | {shape} | multipod |" in stdout
+    assert f"[{launcher}] " not in stdout

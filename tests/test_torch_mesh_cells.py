@@ -1,7 +1,7 @@
-"""The LM's prefill and decode cells over a mesh of ranks
-(``launch.dryrun.mesh_cell``: parameters, caches and batch as DTensors
-placed by the reference's ``cell_rules``, expert-parallel MoE, K8 over a
-cache sharded on ``kv_seq``).
+"""The LM's train, prefill and decode cells over a mesh of ranks
+(``launch.dryrun.mesh_cell``: parameters, the optimizer state, caches
+and batch as DTensors placed by the reference's ``cell_rules``,
+expert-parallel MoE, K8 over a cache sharded on ``kv_seq``).
 
 - Four gloo ranks (``tests/_torch_dist_harness.py ... cells``), started
   once when this module starts and run while the tests in this process
@@ -10,7 +10,9 @@ cache sharded on ``kv_seq``).
   exact and the PQ cache, against the meshless port (what is held is in
   ``mesh_cells_body``'s docstring).
 - One gloo rank in this process: every cell bit for bit the meshless
-  port (bf16 codebooks), its prefill also against the reference's.
+  port (bf16 codebooks; a train cell's step), its prefill also against
+  the reference's; a checkpoint's recompute on another thread keeps the
+  mesh.
 - No ranks: K8's sharded mode in its plain versions (the split pass over
   shards at their offsets, the partials concatenated, the combine)
   against ``pq_decode_plain(split=256)``; its meta branch; the placement
@@ -168,6 +170,69 @@ def test_the_cells_at_one_rank_are_the_meshless_port_bit_for_bit(arch,
             assert tshd.is_placed(p), name
 
 
+@pytest.mark.parametrize("arch, microbatches", [
+    ("qwen3-1.7b", 2), ("dbrx-132b", 1), ("zamba2-2.7b", 1),
+    ("rwkv6-3b", 1), ("internvl2-1b", 1)])
+def test_a_train_cell_at_one_rank_is_the_meshless_step_bit_for_bit(
+        arch, microbatches, one_rank):
+    """Under the (1, 1) gloo mesh and the training rules, one step of
+    ``mesh_cell(..., "train")`` (DTensor autograd, the gradients at the
+    parameters' placements, the placed AdamW) from the same parameters
+    and batch equals the meshless port's step bit for bit: the loss, the
+    grad norm, every gradient before the update, every parameter and
+    moment after it. Dense (two microbatches), MoE, the hybrid, RWKV6
+    and a frontend arch (its embeddings overwritten in place)."""
+    cfg = tconfigs.get_smoke_config(arch)
+    params = tmodel.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    batch = harness.train_batch(cfg)
+    want_g, want, want_m = harness.meshless_step(cfg, params, batch,
+                                                 microbatches)
+    cell = tdry.mesh_cell(cfg, "train", one_rank,
+                          tdry.cell_rules(cfg, "train_4k", one_rank), params,
+                          microbatches=microbatches, **batch)
+    seen = []
+    with harness.captured_grads(seen):
+        state, metrics = cell.step()
+    for k in ("loss", "grad_norm", "ce"):
+        assert torch.equal(metrics[k].full_tensor(), want_m[k]), k
+    for name, g in seen[0].items():
+        assert torch.equal(g.full_tensor(), want_g[name]), name
+    wp = dict(want.params.named_parameters())
+    for name, p in state.params.named_parameters():
+        assert torch.equal(p.detach().full_tensor(), wp[name]), name
+    for moment in ("mu", "nu"):
+        for name, m in getattr(state.opt, moment).items():
+            assert torch.equal(m.full_tensor(),
+                               getattr(want.opt, moment)[name]), name
+
+
+def test_a_checkpoints_recompute_on_another_thread_keeps_the_mesh(one_rank):
+    """``layers.checkpointed`` under ``use_mesh``, its backward run on a
+    thread of its own (as the card's autograd engine runs it): the
+    recompute sees the mesh and rules of the forward, which
+    ``use_mesh`` holds a thread's."""
+    import threading
+
+    from repro_torch.models import layers as tll
+    seen = []
+
+    def fn(x):
+        seen.append(tshd._get_ctx())
+        return torch.sin(x)
+
+    x = torch.ones(3, requires_grad=True)
+    rules = {"batch": None}
+    with tshd.use_mesh(one_rank, rules):
+        y = tll.checkpointed(fn, x).sum()
+    worker = threading.Thread(target=y.backward)
+    worker.start()
+    worker.join()
+    assert torch.equal(x.grad, torch.cos(x.detach()))
+    assert len(seen) == 2 and all(m is one_rank and r == rules
+                                  for m, r in seen)
+
+
 def test_a_one_rank_cell_is_the_references_prefill(one_rank):
     """qwen3-smoke's prefill cell under the (1, 1) mesh, from the
     reference's parameters, against the reference's prefill at
@@ -267,16 +332,29 @@ def test_shard_tree_copies_and_gather_tree_restores(one_rank):
 
 
 def test_mesh_cell_refuses_what_waits_for_later_slices(one_rank):
-    """A training cell raises, naming the roadmap's item 6; the recurrent
-    archs' cells, which waited for item 5, run (zamba2's exact prefill,
-    rwkv6's decode from a zero cache: finite logits, DTensors at the
-    rules' placements); a decode cell without a cache or positions is
-    refused."""
+    """Nothing waits for a later slice: a training cell, which waited for
+    training over several ranks, runs (a step of qwen3-smoke: a finite loss, the parameters
+    and moments DTensors at the rules' placements, the step counted);
+    the recurrent archs' cells, which waited for item 5, run (zamba2's
+    exact prefill, rwkv6's decode from a zero cache: finite logits,
+    DTensors at the rules' placements); a train cell without targets, a
+    decode cell without a cache or positions and a mesh without a
+    ``DeviceMesh`` are refused."""
     cfg = tconfigs.get_smoke_config("qwen3-1.7b")
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        tdry.mesh_cell(cfg, "train", one_rank, tshd.DEFAULT_RULES, None,
-                       tokens=tokens)
+    params = tmodel.init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    rules = tdry.cell_rules(cfg, "train_4k", one_rank)
+    cell = tdry.mesh_cell(cfg, "train", one_rank, rules, params,
+                          **harness.train_batch(cfg))
+    state, metrics = cell.step()
+    assert torch.isfinite(metrics["loss"].full_tensor())
+    assert int(state.opt.step.full_tensor()) == 1
+    assert all(tshd.is_placed(p) and p.requires_grad
+               for p in state.params.parameters())
+    assert all(tshd.is_placed(m) for m in state.opt.mu.values())
+    with pytest.raises(ValueError, match="targets"):
+        tdry.mesh_cell(cfg, "train", one_rank, rules, params, tokens=tokens)
     for arch, kind in (("zamba2-2.7b", "prefill"), ("rwkv6-3b", "decode")):
         c = tconfigs.get_smoke_config(arch).replace(kv_pq=False)
         params = tmodel.init_lm(c, generator=torch.Generator().manual_seed(0),
@@ -511,7 +589,10 @@ def test_the_cells_over_four_gloo_ranks_equal_the_meshless_port(_four_ranks):
     the meshless port (a PQ cell's decode steps within PQ_LOGIT_RTOL of
     the meshless step fed the mesh's codes), placements and per-device
     bytes, the MoE bodies' maps and collectives, K8's plain sharded mode,
-    the refusals. Rank 0 prints each PQ cell's largest logit reading."""
+    the recurrent cells, the train cells (gradients, moments and
+    parameters against the meshless step). Rank 0 prints each PQ cell's
+    largest logit reading and each train cell's count of parameter
+    elements that a near-zero gradient moved otherwise."""
     procs, logs = _four_ranks
     outs = []
     for p, (out, err) in zip(procs, logs):

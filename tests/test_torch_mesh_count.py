@@ -135,7 +135,9 @@ def test_collectives_equal_comm_debug_modes(model, kind):
 
 # arch:kind:batch:seq:mesh[:heads[:dtype]]; 6 heads over a model axis of
 # 4: the rules' head_dim branch, also at two attention chunks in bf16; the
-# recurrent archs (zamba2's exact cache) on both meshes
+# recurrent archs (zamba2's exact cache) on both meshes; the train cells
+# under the training rules (dense and MoE on (2, 2), the hybrid on (2, 2),
+# RWKV6 on (1, 4))
 CELLS = ("qwen3-1.7b:decode:4:64:2x2", "qwen3-1.7b:prefill:4:32:2x2",
          "dbrx-132b:decode:4:64:2x2", "qwen3-1.7b:decode:4:64:1x4:6",
          "qwen3-1.7b:prefill:4:32:1x4:6",
@@ -143,7 +145,9 @@ CELLS = ("qwen3-1.7b:decode:4:64:2x2", "qwen3-1.7b:prefill:4:32:2x2",
          *(f"{arch}:{kind}:4:{seq}:{mesh}"
            for arch in ("zamba2-2.7b", "rwkv6-3b")
            for kind, seq in (("decode", 64), ("prefill", 32))
-           for mesh in ("2x2", "1x4")))
+           for mesh in ("2x2", "1x4")),
+         "qwen3-1.7b:train:4:32:2x2", "dbrx-132b:train:4:32:2x2",
+         "zamba2-2.7b:train:4:32:2x2", "rwkv6-3b:train:4:32:1x4")
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -159,96 +163,36 @@ def _skipped_blocks(cfg, seq: int) -> int:
     return cfg.n_layers * (nq * nkv - live)
 
 
+def _xla_repeats(cfg, kind: str, b: int, s: int, d: int, m: int) -> int:
+    """The dot FLOPs a device that the reference's partitioner runs whole
+    on each of the m model ranks of a train cell where the port runs a
+    1 / m share (the products' shapes are the compiled module's):
+
+    - the hybrid's shared-block input projection: the gradient of its (B,
+      S, 2D) input, g (B/d S, D) times the (D, 2D) weight, whole on every
+      model rank (XLA contracts the forward's 2D features split over
+      "model", as the port does, but not the backward's);
+    - RWKV6's decay LoRA, (D, r) then (r, D): its first matrix's gradient
+      and the input gradient through it, whole on every model rank (its
+      (B/d S, r) cotangent all-reduced), where the port splits their rows
+      over "model".
+    """
+    if kind != "train":
+        return 0
+    rows, share = b // d * s, 1 - 1 / m
+    if cfg.block_type == "mamba2" and cfg.shared_attn_every:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        return int(groups * 2 * rows * 2 * cfg.d_model * cfg.d_model * share)
+    if cfg.block_type == "rwkv6":
+        return int(cfg.n_layers * 2 * 2 * rows * cfg.d_model * cfg.rwkv_lora
+                   * share)
+    return 0
+
+
 def _numel(hlo_type: str) -> int:
     """The elements of an HLO array type (0 for a tuple)."""
     m = re.fullmatch(r"\w+\[([\d,]*)\]", hlo_type)
     return math.prod(int(d) for d in m.group(1).split(",") if d) if m else 0
-
-
-def test_per_device_dot_flops_equal_the_references_compiled_hlo(
-        monkeypatch):
-    """The reference's decode and prefill cells of qwen3-smoke and dbrx-
-    smoke on a (2, 2) mesh, of qwen3-smoke with 6 heads on a (1, 4) mesh
-    (the rules' head_dim branch; its prefill also at two attention
-    chunks in bf16), and of zamba2-smoke and rwkv6-smoke on both,
-    compiled on four forced host devices (``_torch_mesh_hlo_harness.py``,
-    one subprocess): each one's per-device dot FLOPs equal the port's
-    per-device matmul FLOPs on a fake group of the same shape at the
-    tolerance of ``test_torch_dryrun.py``'s one-card comparison (0.2%),
-    less exactly the causal blocks the port skips where there are two
-    chunks. In the head_dim branch's prefill the attention runs on each
-    rank's head_dim slice (``layers._over_head_dim``), so its ``bmm`` is
-    a quarter of the one-card count, as XLA's, and each block's partial
-    scores are all-reduced in the type and shape of the reference's after
-    SPMD partitioning (bf16 in the bf16 cell: the CPU backend widens it to
-    f32 later), once a live block. The other collectives differ in kind
-    (XLA's own partitioner and fusions) and are printed side by side, not
-    held."""
-    from repro_torch.launch import sharding as shd
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               REPRO_XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
-    # the reference compiles in its own process while this one counts
-    proc = subprocess.Popen([sys.executable, str(
-        ROOT / "tests" / "_torch_mesh_hlo_harness.py"), *CELLS],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    real_all_reduce, psums = shd.all_reduce, []
-
-    def all_reduce(t, *args, **kwargs):
-        psums.append((t.dtype, t.numel()))
-        return real_all_reduce(t, *args, **kwargs)
-
-    monkeypatch.setattr(shd, "all_reduce", all_reduce)
-    try:
-        counted = []
-        for spec in CELLS:
-            arch, kind, b, s, shape, *variant = spec.split(":")
-            cfg = configs.get_smoke_config(arch).replace(kv_pq=False)
-            if variant:
-                cfg = cfg.replace(n_heads=int(variant[0]))
-            if len(variant) > 1:
-                cfg = cfg.replace(dtype=variant[1])
-            d, m = (int(n) for n in shape.split("x"))
-            desc = mesh_lib.Mesh({"data": d, "model": m})
-            psums.clear()
-            c = dryrun.count_mesh_cell(cfg, kind, int(b), int(s), desc,
-                                       dryrun.serving_rules(cfg, desc))
-            one = None
-            if variant and kind == "prefill":
-                one = dryrun.count_cell(cfg, kind, int(b), int(s))
-            counted.append((cfg, c, one, m, list(psums)))
-        out, err = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    assert proc.returncode == 0, err[-3000:]
-    refs = [json.loads(line) for line in out.splitlines()]
-    for spec, ref, (cfg, c, one, m, psum) in zip(CELLS, refs, counted,
-                                                 strict=True):
-        part = ref["partitioned"]
-        print(f"{spec}: dot FLOPs a device {c.matmul_flops:.0f} (reference "
-              f"{ref['dot_flops']:.0f}); collectives {c.collective_ops} "
-              f"{c.wire_bytes:.0f} wire B (reference {ref['ops']} "
-              f"{ref['wire']:.0f}, {part['wire']:.0f} at the partitioner's "
-              f"types)")
-        b, s = (int(n) for n in spec.split(":")[2:4])
-        skipped = _skipped_blocks(cfg, s) if one is not None else 0
-        if one is not None:
-            assert c.flops_by_op["bmm"] == one.flops_by_op["bmm"] / m
-            block = (b * cfg.n_kv_heads * cfg.n_heads // cfg.n_kv_heads
-                     * cfg.attn_q_chunk * cfg.attn_kv_chunk)
-            scores = {t: n for t, n in part["all_reduces"].items()
-                      if _numel(t) == block}
-            (ref_type, ref_n), = scores.items()
-            got = [dt for dt, n in psum if n == block]
-            assert set(got) == {_DTYPES[ref_type.split("[")[0]]}, (
-                spec, got, ref_type)
-            assert len(got) == ref_n - skipped, (spec, len(got), ref_n)
-            skipped *= (4 * b * cfg.attn_q_chunk * cfg.attn_kv_chunk
-                        * cfg.n_heads * cfg.resolved_head_dim // m)
-        assert c.matmul_flops + skipped == pytest.approx(ref["dot_flops"],
-                                                         rel=2e-3)
 
 
 def test_a_full_width_decode_cell_on_the_fake_pod(tmp_path):
@@ -363,18 +307,113 @@ def test_a_moe_prefill_under_fsdp_rules_counts_on_a_fake_mesh(shape):
     assert c.matmul_flops > 0 and c.collective_ops["all-reduce"] == 5
 
 
-def test_pod_cells_that_run_no_step_over_ranks_say_what_is_left():
-    """Training keeps ``roofline: null`` on the pod, its ``counted``
-    naming ROADMAP Queue 1's item 6 alone (the recurrent families', item
-    5, are counted now)."""
-    for arch, shape in (("qwen3-1.7b", "train_4k"),
-                        ("rwkv6-3b", "train_4k")):
-        r = dryrun.run_cell(arch, shape, mesh="pod", verbose=False)
-        assert r["roofline"] is None
-        assert r["counted"] == dryrun.COUNTED_ON_A_MESH
-        assert "item 6" in r["counted"] and "item 5" not in r["counted"]
-    assert "item 6" in dryrun.shd.NEXT_SLICE
-    assert "item 5" not in dryrun.shd.NEXT_SLICE
+def test_pod_cells_that_run_no_step_over_ranks_say_what_is_left(
+        monkeypatch):
+    """Nothing is left: no note names work for a later slice
+    (``COUNTED_ON_A_MESH``, ``runs_over_ranks`` and
+    ``sharding.NEXT_SLICE`` are gone), and ``run_cell`` counts a train_4k
+    pod cell per device:
+    qwen3-1.7b's on ``pod`` goes to ``count_mesh_cell`` with the full
+    config, the pod's description and the training rules, and comes back ``counted`` COUNTED_PER_DEVICE with a roofline of 256
+    chips from those counts. (A full-width training cell is the CLI's to
+    count: here the count stands in at the smoke config's B 4 x 32 on a
+    (2, 2) mesh.)"""
+    assert not hasattr(dryrun, "COUNTED_ON_A_MESH")
+    assert not hasattr(dryrun, "runs_over_ranks")
+    assert not hasattr(dryrun.shd, "NEXT_SLICE")
+    real, seen, arch = dryrun.count_mesh_cell, [], None
+
+    def stand_in(cfg, kind, batch, seq, mesh, rules):
+        if mesh.device_mesh is not None:    # the count's own call, placed
+            return real(cfg, kind, batch, seq, mesh, rules)
+        seen.append((cfg, kind, batch, seq, dict(mesh.shape), rules))
+        return real(configs.get_smoke_config(arch), kind, 4, 32,
+                    mesh_lib.Mesh({"data": 2, "model": 2}), rules)
+
+    monkeypatch.setattr(dryrun, "count_mesh_cell", stand_in)
+    for arch in ("qwen3-1.7b",):
+        r = dryrun.run_cell(arch, "train_4k", mesh="pod", verbose=False)
+        cfg, kind, batch, seq, shape, rules = seen.pop()
+        assert (cfg, kind, batch, seq) == (configs.get_config(arch), "train",
+                                           256, 4096)
+        assert shape == {"data": 16, "model": 16}
+        assert rules == dryrun.shd.DEFAULT_RULES
+        assert r["counted"] == dryrun.COUNTED_PER_DEVICE
+        roof = r["roofline"]
+        assert roof["chips"] == 256 and roof["hlo_flops_per_dev"] == r[
+            "flops"] > 0 and roof["model_flops_total"] == rl.model_flops(
+            cfg, "train", 256, 4096)
+        assert set(r["collectives"]["ops"]) >= {"all-gather", "all-reduce",
+                                                "reduce-scatter"}
+
+
+def test_the_cross_entropy_moves_rows_not_logits(monkeypatch):
+    """qwen3-smoke's train cell on a fake (2, 2) group at two loss chunks:
+    each chunk's cross-entropy over the rank's vocab shard makes one
+    all-gather of its (B/2, chunk) log-sum-exps and one all-reduce of its
+    (B/2, chunk) gold logits (in the forward and in the checkpoint's
+    recompute), and no other collective; no collective of the step
+    carries a logits block whole over the vocab. AdamW's update makes one
+    collective, the global norm's all-reduce."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as ml
+    cfg = configs.get_smoke_config("qwen3-1.7b").replace(loss_chunk=16)
+    b, s, chunk = 4, 32, 16
+    moved, counts, shapes = [], [], []
+    real_ce, real_gather, real_reduce = (ml._ce_over_vocab, shd._gather,
+                                         shd._reduce)
+
+    def ce(*args):
+        moved.append([])
+        with CommDebugMode() as cm:
+            out = real_ce(*args)
+        counts.append(sum(cm.get_comm_counts().values()))
+        return out
+
+    def gather(t, *args):
+        moved[-1].append(("all-gather", tuple(t.shape)))
+        return real_gather(t, *args)
+
+    def reduce(t, *args):
+        moved[-1].append(("all-reduce", tuple(t.shape)))
+        return real_reduce(t, *args)
+
+    real_collective = ca.CostCounter._collective
+
+    def collective(self, func, args, kwargs, out):
+        shapes.extend(tuple(t.shape) for t in ca._flat(out))
+        return real_collective(self, func, args, kwargs, out)
+
+    from repro_torch.train import optimizer as opt_lib
+    real_apply, updates = opt_lib.apply_updates, []
+
+    def apply_updates(*args):
+        with CommDebugMode() as cm:
+            out = real_apply(*args)
+        updates.append({str(k): n for k, n in cm.get_comm_counts().items()
+                        if n})
+        return out
+
+    monkeypatch.setattr(opt_lib, "apply_updates", apply_updates)
+    monkeypatch.setattr(ml, "_ce_over_vocab", ce)
+    monkeypatch.setattr(shd, "_gather", gather)
+    monkeypatch.setattr(shd, "_reduce", reduce)
+    monkeypatch.setattr(ca.CostCounter, "_collective", collective)
+    desc = mesh_lib.Mesh({"data": 2, "model": 2})
+    dryrun.count_mesh_cell(cfg, "train", b, s, desc,
+                           dict(dryrun.shd.DEFAULT_RULES))
+    rows = (b // 2, chunk)
+    assert len(moved) == 2 * (s // chunk)       # forward and recompute
+    assert all(m == [("all-gather", (1, *rows)), ("all-reduce", rows)]
+               for m in moved), moved
+    # the recompute stops once it has what the backward saved, so only
+    # the forward's calls return to count their collectives
+    assert counts == [2] * (s // chunk)
+    assert not any(len(sh) >= 3 and sh[-1] == cfg.padded_vocab
+                   for sh in shapes), shapes
+    assert updates == [{"c10d_functional.all_reduce": 1}], updates
 
 
 # ---------------------------------------------------------------------------
@@ -516,3 +555,123 @@ def test_k8_subspace_mode_meta_records_one_launch_a_pass():
                              codes[..., :2].contiguous(), cb, pos)
     with pytest.raises(ValueError):
         pqk.pq_decode_values(sums.float(), scale, scale, codes, cb, pos)
+
+
+# ---------------------------------------------------------------------------
+# the reference's compiled HLO, per device (last: its subprocess runs while
+# this module's other tests do)
+# ---------------------------------------------------------------------------
+
+_HLO_TEST = "test_per_device_dot_flops_equal_the_references_compiled_hlo"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _hlo_cells(request):
+    """The reference's CELLS compiled in a subprocess of four forced host
+    devices (``_torch_mesh_hlo_harness.py``), started when this module's
+    first test starts (if the HLO test was collected), so that it runs
+    while the tests in this process do; killed if still running when the
+    module ends."""
+    if not any(item.name == _HLO_TEST and item.module is request.module
+               for item in request.session.items):
+        yield None
+        return
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               REPRO_XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, str(
+        ROOT / "tests" / "_torch_mesh_hlo_harness.py"), *CELLS],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_per_device_dot_flops_equal_the_references_compiled_hlo(
+        _hlo_cells, monkeypatch):
+    """The reference's decode and prefill cells of qwen3-smoke and dbrx-
+    smoke on a (2, 2) mesh, of qwen3-smoke with 6 heads on a (1, 4) mesh
+    (the rules' head_dim branch; its prefill also at two attention
+    chunks in bf16), of zamba2-smoke and rwkv6-smoke on both, and the
+    train cells of qwen3-smoke, dbrx-smoke and zamba2-smoke on (2, 2) and
+    rwkv6-smoke on (1, 4) under the training rules, compiled on four
+    forced host devices (``_torch_mesh_hlo_harness.py``, one subprocess):
+    each one's per-device dot FLOPs equal the port's per-device matmul
+    FLOPs on a fake group of the same shape at the tolerance of
+    ``test_torch_dryrun.py``'s one-card comparison (0.2%), less exactly
+    the causal blocks the port skips where there are two chunks, and
+    plus exactly the products XLA repeats on every model rank of the
+    hybrid's and RWKV6's train cells (``_xla_repeats``). qwen3-smoke's
+    train cell is 23,068,672 a device, a quarter of one card's. In the
+    head_dim branch's prefill the attention runs on each rank's head_dim
+    slice (``layers._over_head_dim``), so its ``bmm`` is
+    a quarter of the one-card count, as XLA's, and each block's partial
+    scores are all-reduced in the type and shape of the reference's after
+    SPMD partitioning (bf16 in the bf16 cell: the CPU backend widens it to
+    f32 later), once a live block. The other collectives differ in kind
+    (XLA's own partitioner and fusions) and are printed side by side, not
+    held."""
+    from repro_torch.launch import sharding as shd
+    real_all_reduce, psums = shd.all_reduce, []
+
+    def all_reduce(t, *args, **kwargs):
+        psums.append((t.dtype, t.numel()))
+        return real_all_reduce(t, *args, **kwargs)
+
+    monkeypatch.setattr(shd, "all_reduce", all_reduce)
+    counted = []
+    for spec in CELLS:
+        arch, kind, b, s, shape, *variant = spec.split(":")
+        cfg = configs.get_smoke_config(arch).replace(kv_pq=False)
+        if variant:
+            cfg = cfg.replace(n_heads=int(variant[0]))
+        if len(variant) > 1:
+            cfg = cfg.replace(dtype=variant[1])
+        d, m = (int(n) for n in shape.split("x"))
+        desc = mesh_lib.Mesh({"data": d, "model": m})
+        psums.clear()
+        rules = (dict(shd.DEFAULT_RULES) if kind == "train"
+                 else dryrun.serving_rules(cfg, desc))
+        c = dryrun.count_mesh_cell(cfg, kind, int(b), int(s), desc,
+                                   rules)
+        one = None
+        if variant and kind == "prefill":
+            one = dryrun.count_cell(cfg, kind, int(b), int(s))
+        counted.append((cfg, c, one, m,
+                        _xla_repeats(cfg, kind, int(b), int(s), d, m),
+                        list(psums)))
+    out, err = _hlo_cells.communicate(timeout=600)
+    assert _hlo_cells.returncode == 0, err[-3000:]
+    refs = [json.loads(line) for line in out.splitlines()]
+    for spec, ref, (cfg, c, one, m, repeats, psum) in zip(
+            CELLS, refs, counted, strict=True):
+        part = ref["partitioned"]
+        print(f"{spec}: dot FLOPs a device {c.matmul_flops:.0f} (reference "
+              f"{ref['dot_flops']:.0f}); collectives {c.collective_ops} "
+              f"{c.wire_bytes:.0f} wire B (reference {ref['ops']} "
+              f"{ref['wire']:.0f}, {part['wire']:.0f} at the partitioner's "
+              f"types)")
+        b, s = (int(n) for n in spec.split(":")[2:4])
+        skipped = _skipped_blocks(cfg, s) if one is not None else 0
+        if one is not None:
+            assert c.flops_by_op["bmm"] == one.flops_by_op["bmm"] / m
+            block = (b * cfg.n_kv_heads * cfg.n_heads // cfg.n_kv_heads
+                     * cfg.attn_q_chunk * cfg.attn_kv_chunk)
+            scores = {t: n for t, n in part["all_reduces"].items()
+                      if _numel(t) == block}
+            (ref_type, ref_n), = scores.items()
+            got = [dt for dt, n in psum if n == block]
+            assert set(got) == {_DTYPES[ref_type.split("[")[0]]}, (
+                spec, got, ref_type)
+            assert len(got) == ref_n - skipped, (spec, len(got), ref_n)
+            skipped *= (4 * b * cfg.attn_q_chunk * cfg.attn_kv_chunk
+                        * cfg.n_heads * cfg.resolved_head_dim // m)
+        if repeats:
+            # what is left is XLA's rewrite of a few small dots of the
+            # scans' backward (test_torch_dryrun.py's one-card tolerance)
+            assert c.matmul_flops < ref["dot_flops"]
+        assert c.matmul_flops + skipped + repeats == pytest.approx(
+            ref["dot_flops"], rel=2e-3)

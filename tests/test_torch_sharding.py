@@ -38,7 +38,6 @@ from repro.train import optimizer as jopt
 from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun as tdry
 from repro_torch.launch import mesh as tmesh
-from repro_torch.launch import report as treport
 from repro_torch.launch import sharding as tshd
 from repro_torch.models import layers as tll
 from repro_torch.models import model as tmodel
@@ -345,7 +344,7 @@ def test_a_plain_tensor_under_several_ranks_raises():
     with tshd.use_mesh(tmesh.Mesh({"data": 1, "model": 1})):
         assert tshd.constrain(x, "batch", "embed") is x
     with tshd.use_mesh(tmesh.Mesh({"data": 2, "model": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="nothing placed it"):
             tshd.constrain(x, "batch", "embed")
 
 
@@ -619,8 +618,8 @@ def test_run_cell_per_device_bytes_are_the_references(arch, shape, mesh,
     jd = _jdry()
     ok, why = jd.cell_supported(jconfigs.get_config(arch), shape)
     cfg = tconfigs.get_config(arch)
-    if ok and tdry.runs_over_ranks(tdry.SHAPES[shape][2]):
-        # run_cell counts such a cell over ranks too (a prefill_32k cell
+    if ok:
+        # run_cell counts the cell over ranks too (a prefill_32k cell
         # about a minute; test_torch_mesh_count.py): its sizing alone here
         r = tdry.size_pod_cell(cfg, shape, mesh)[2]
     else:
@@ -631,8 +630,7 @@ def test_run_cell_per_device_bytes_are_the_references(arch, shape, mesh,
         assert r["status"] == "skipped" and r["reason"] == why
         return
     prod = tmesh.make_production_mesh(multi_pod=mesh == "multipod")
-    assert r["status"] == "ok" and r["roofline"] is None
-    assert r["chips"] == prod.size and "wait" in r["counted"]
+    assert r["status"] == "ok" and r["chips"] == prod.size
     pd, want = r["per_device"], _ref_per_device(arch, shape, prod.shape)
     for key, value in want.items():
         assert pd[key] == value, key
@@ -652,12 +650,11 @@ POD_TABLE = {
 }
 
 
-def test_the_pod_table(tmp_path):
+def test_the_pod_table():
     rules = {}
     for arch, (train, params, whole, cache) in POD_TABLE.items():
-        t = tdry.run_cell(arch, "train_4k", mesh="pod", out_dir=str(tmp_path),
-                          verbose=False)
         cfg = tconfigs.get_config(arch)
+        t = tdry.size_pod_cell(cfg, "train_4k", "pod")[2]
         d = tdry.size_pod_cell(cfg, "decode_32k", "pod")[2]
         t, pd = t["per_device"], d["per_device"]
         gb = lambda n: f"{n / 1e9:.2f}"  # noqa: E731
@@ -672,9 +669,3 @@ def test_the_pod_table(tmp_path):
         "embed": None}
     assert rules["qwen1.5-32b"] == {"embed": None, "head_dim": "model",
                                     "pq_m": "model", "kv_seq": None}
-    # a cell that runs no step over ranks (training) in both report tables
-    cells = treport.load_cells(str(tmp_path))
-    assert "| rwkv6-3b | train_4k | pod | 0.06 | 0.23 | 0.00 | 0.00 |" \
-        in treport.per_device_table(cells)
-    assert "| rwkv6-3b | train_4k | pod | ok | — | 3.1B | not counted |" \
-        in treport.dryrun_table(cells)
